@@ -1,0 +1,12 @@
+"""PyTorch / CUDA port of the FedCM federated trainer.
+
+The package mirrors ``repro`` module for module (``repro_torch/core/engine.py``
+is the counterpart of ``repro/core/engine.py``, and so on) and imports
+nothing of it: the JAX package is the reference this one is tested against.
+
+This slice covers one synchronous FedCM round (paper Algorithm 2) on the flat
+parameter plane, with the local step and the server fold as hand-written
+CUDA kernels (``repro_torch/csrc``).  Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``; on the CPU every kernel wrapper uses its
+plain PyTorch version.
+"""

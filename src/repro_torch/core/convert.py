@@ -1,0 +1,80 @@
+"""Carry weights and state between numpy arrays and the port.
+
+The tests build inputs with numpy and hand the same arrays to both
+packages; the reference's outputs come back as numpy with ``np.asarray``
+on its pytrees.  This module turns such arrays into the port's params tree
+and flat ``FedState``, and the port's state back into numpy planes for
+comparison.  bf16 arrays (ml_dtypes on the numpy side) pass through f32,
+which is exact.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import FedConfig
+from repro_torch.core.engine import FedState
+from repro_torch.core.flat import FlatSpec
+from repro_torch.core.registry import ServerState, get_algorithm
+from repro_torch.utils.trees import tree_map
+
+
+def to_tensor(a, device="cpu", dtype=None) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.as_tensor(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.as_tensor(np.ascontiguousarray(a))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """f32 numpy copy (bf16 widened exactly); integer tensors keep their type."""
+    t = t.detach().cpu()
+    if t.dtype.is_floating_point:
+        t = t.to(torch.float32)
+    return t.numpy()
+
+
+def params_from_numpy(tree, device="cpu"):
+    """numpy params tree (list of {"w", "b"} dicts) → tensor tree."""
+    return tree_map(lambda a: to_tensor(a, device), tree)
+
+
+def params_to_numpy(tree):
+    return tree_map(to_numpy, tree)
+
+
+def state_from_numpy(params, cfg: FedConfig, *, momentum=None, round: int = 0,
+                     device="cpu", generator: Optional[torch.Generator] = None):
+    """Build the flat ``FedState`` from numpy arrays.
+
+    ``params`` is a numpy params tree; ``momentum`` a numpy tree of the same
+    structure, a flat ``(P,)`` array, or None (zeros).  The momentum plane
+    is stored in the spec's momentum dtype.  Returns ``(state, spec)``."""
+    tree = params_from_numpy(params)
+    spec = FlatSpec.from_tree(tree)
+    m_dt = get_algorithm(cfg.algo).momentum_dtype(cfg)
+    if momentum is None:
+        m = torch.zeros(spec.size, dtype=m_dt)
+    elif isinstance(momentum, np.ndarray) and momentum.ndim == 1:
+        m = to_tensor(momentum, dtype=torch.float32).to(m_dt)
+    else:
+        m = spec.ravel(params_from_numpy(momentum)).to(m_dt)
+    state = FedState(
+        params=spec.ravel(tree).to(device),
+        server=ServerState(momentum=m.to(device),
+                           round=torch.tensor(round, dtype=torch.int32, device=device)),
+        rng=generator,
+    )
+    return state, spec
+
+
+def state_to_numpy(state: FedState) -> Dict[str, np.ndarray]:
+    """Flat planes of a port state: params ``(P,)``, momentum ``(P,)`` (f32),
+    round counter."""
+    return {"params": to_numpy(state.params),
+            "momentum": to_numpy(state.server.momentum),
+            "round": int(state.server.round)}

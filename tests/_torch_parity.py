@@ -1,0 +1,96 @@
+"""Shared set-up of the port-vs-reference parity tests (tests/test_torch_*.py).
+
+Everything is small: an MLP (8, 16, 16, 4), N = 6 clients, cohort 3, K = 2
+local steps, batch 4.  Inputs are made with numpy from a seed and handed to
+both packages; the reference runs on the CPU as its own tests run it (its
+Pallas kernels in interpret mode, or its jnp route).
+
+Tolerances (one table, stated once):
+
+* ``RTOL`` 2e-5 / ``ATOL`` 1e-6 — the reference's own kernel sweeps use
+  rtol 2e-5.  Elementwise kernels against their plain versions meet it
+  with room; the round and the gradient need it because the MLP's matrix
+  products sum in another order in PyTorch's CPU GEMM than in XLA's.
+* ``ROUND_ATOL`` 1e-5 — three chained rounds compound that last-digit
+  difference through K local steps and the momentum (values are O(1)).
+* bf16 outputs are compared to within one bf16 ulp (``BF16_RTOL`` 2^-7):
+  the two frameworks may round a value that sits on a tie boundary of an
+  f32 difference apart to neighbouring bf16 values.
+"""
+from __future__ import annotations
+
+from dataclasses import fields
+
+import numpy as np
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs.base import FedConfig as RefFedConfig
+from repro.core.engine import FederatedEngine as RefEngine
+from repro.models.small import classification_loss as ref_classification_loss
+from repro.models.small import mlp_classifier as ref_mlp_classifier
+from repro_torch.configs.base import FedConfig
+
+RTOL, ATOL = 2e-5, 1e-6
+ROUND_ATOL = 1e-5
+BF16_RTOL = 2.0 ** -7
+
+DIMS = (8, 16, 16, 4)
+N_CLIENTS, COHORT, K, B = 6, 3, 2, 4
+
+
+def ref_cfg(participation="fixed", **kw) -> RefFedConfig:
+    return RefFedConfig(num_clients=N_CLIENTS, cohort_size=COHORT, local_steps=K,
+                        participation=participation, **kw)
+
+
+def port_cfg(cfg: RefFedConfig) -> FedConfig:
+    """The port's FedConfig with the reference config's values."""
+    names = {f.name for f in fields(FedConfig)}
+    return FedConfig(**{f.name: getattr(cfg, f.name) for f in fields(cfg) if f.name in names})
+
+
+def np_params(seed: int = 0, dims=DIMS):
+    """A numpy params tree in the reference's layout (list of {"w", "b"})."""
+    rng = np.random.default_rng(seed)
+    return [{"w": (rng.normal(size=(dims[i], dims[i + 1])) / np.sqrt(dims[i])).astype(np.float32),
+             "b": (0.1 * rng.normal(size=(dims[i + 1],))).astype(np.float32)}
+            for i in range(len(dims) - 1)]
+
+
+def jax_tree(tree):
+    return jax.tree_util.tree_map(jnp.asarray, tree)
+
+
+def ref_engine(cfg: RefFedConfig):
+    model = ref_mlp_classifier(DIMS)
+    return RefEngine(cfg, ref_classification_loss(model.apply), batch_size=B), model
+
+
+def client_data(seed: int = 1, n_per: int = 10):
+    """Stacked per-client data ``(N, n_per, in)`` / ``(N, n_per)``."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(N_CLIENTS, n_per, DIMS[0])).astype(np.float32)
+    y = rng.integers(0, DIMS[-1], size=(N_CLIENTS, n_per)).astype(np.int32)
+    return x, y
+
+
+def ref_draws(eng, client_x, client_y, key, t=0):
+    """The reference's own cohort + minibatch draws for one round, as numpy."""
+    _, batches, ids, mask, _, _ = eng._sample_round(
+        key, jnp.asarray(client_x), jnp.asarray(client_y), jnp.int32(t))
+    return ({k: np.asarray(v) for k, v in batches.items()},
+            np.asarray(ids), np.asarray(mask))
+
+
+def torch_batches(batches, device="cpu"):
+    return {"x": torch.tensor(np.array(batches["x"]), device=device),
+            "y": torch.tensor(np.array(batches["y"]), device=device).long()}
+
+
+def assert_close(actual, expected, rtol=RTOL, atol=ATOL, what=""):
+    np.testing.assert_allclose(np.asarray(actual, np.float32),
+                               np.asarray(expected, np.float32),
+                               rtol=rtol, atol=atol, err_msg=what)

@@ -1,0 +1,70 @@
+"""The port's CLI: ``python -m repro_torch.launch.fed_train``.
+
+It runs on ``cuda`` unless ``--device cpu`` asks for the CPU, and raises on
+a machine with no GPU instead of carrying on on the CPU.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs.base import FedConfig
+from repro_torch.launch import fed_train
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+SMALL = ["--clients", "8", "--cohort", "3", "--rounds", "4", "--eval-every", "2",
+         "--local-steps", "2", "--seed", "1"]
+
+
+def test_cli_on_cpu_prints_round_log_lines(capsys):
+    assert fed_train.main(SMALL + ["--device", "cpu"]) == 0
+    err = capsys.readouterr()
+    lines = [l for l in err.err.splitlines() if "round=" in l]
+    assert len(lines) == 2
+    for key in ("round=", "algo=fedcm", "loss=", "test_acc=", "n_active=", "mb_down=", "mb_up="):
+        assert all(key in l for l in lines), key
+    assert "final test accuracy" in err.out
+
+
+def test_cli_without_device_raises_when_there_is_no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fed_train.main(SMALL)
+
+
+def test_cli_module_entry_point_runs_on_cpu():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.fed_train", *SMALL,
+         "--algo", "fedavg", "--participation", "fixed", "--device", "cpu"],
+        capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "algo=fedavg" in out.stderr and "round=4" in out.stderr
+
+
+def test_resolve_config_wires_every_flag():
+    args = fed_train.build_parser().parse_args(
+        ["--algo", "fedavg", "--clients", "50", "--cohort", "5", "--rounds", "7",
+         "--local-steps", "3", "--alpha", "0.2", "--eta-l", "0.05", "--eta-g", "0.9",
+         "--participation", "fixed", "--seed", "4"])
+    assert fed_train.resolve_config(args) == FedConfig(
+        algo="fedavg", num_clients=50, cohort_size=5, rounds=7, local_steps=3,
+        alpha=0.2, eta_l=0.05, eta_g=0.9, participation="fixed", seed=4)
+
+
+def test_cli_defaults_are_the_scaled_paper_setting():
+    args = fed_train.build_parser().parse_args([])
+    cfg = fed_train.resolve_config(args)
+    assert (cfg.num_clients, cfg.cohort_size, cfg.local_steps, cfg.alpha, cfg.eta_l,
+            cfg.participation) == (100, 10, 10, 0.1, 0.1, "bernoulli")
+    assert args.device == "cuda" and args.dirichlet == 0.6
+
+
+def test_cli_refuses_unported_algorithm():
+    with pytest.raises(SystemExit):
+        fed_train.build_parser().parse_args(["--algo", "scaffold"])
