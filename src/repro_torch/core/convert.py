@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FedConfig
+from repro_torch.core.compress import resolve_compression
 from repro_torch.core.engine import FedState
 from repro_torch.core.flat import FlatSpec
 from repro_torch.core.registry import ServerState, get_algorithm
@@ -26,7 +27,7 @@ def to_tensor(a, device="cpu", dtype=None) -> torch.Tensor:
     if a.dtype.name == "bfloat16":
         t = torch.as_tensor(a.astype(np.float32)).to(torch.bfloat16)
     else:
-        t = torch.as_tensor(np.ascontiguousarray(a))
+        t = torch.tensor(np.ascontiguousarray(a))
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
@@ -48,33 +49,46 @@ def params_to_numpy(tree):
 
 
 def state_from_numpy(params, cfg: FedConfig, *, momentum=None, round: int = 0,
-                     device="cpu", generator: Optional[torch.Generator] = None):
+                     residuals=None, device="cpu",
+                     generator: Optional[torch.Generator] = None):
     """Build the flat ``FedState`` from numpy arrays.
 
     ``params`` is a numpy params tree; ``momentum`` a numpy tree of the same
     structure, a flat ``(P,)`` array, or None (zeros).  The momentum plane
-    is stored in the spec's momentum dtype.  Returns ``(state, spec)``."""
+    is stored in the spec's momentum dtype.  ``residuals`` is the ``(N, P)``
+    top-k error-feedback plane; when it is None and the run's uplink is
+    top-k, the rows start at zero (as ``FederatedEngine.init`` does).
+    Returns ``(state, spec)``."""
     tree = params_from_numpy(params)
     spec = FlatSpec.from_tree(tree)
-    m_dt = get_algorithm(cfg.algo).momentum_dtype(cfg)
+    algo = get_algorithm(cfg.algo)
+    m_dt = algo.momentum_dtype(cfg)
     if momentum is None:
         m = torch.zeros(spec.size, dtype=m_dt)
     elif isinstance(momentum, np.ndarray) and momentum.ndim == 1:
         m = to_tensor(momentum, dtype=torch.float32).to(m_dt)
     else:
         m = spec.ravel(params_from_numpy(momentum)).to(m_dt)
+    comp = resolve_compression(cfg, algo)
+    res = None
+    if residuals is not None:
+        res = to_tensor(residuals, device, torch.float32)
+    elif comp is not None and comp.kind == "topk":
+        res = torch.zeros((cfg.num_clients, spec.size), dtype=torch.float32, device=device)
     state = FedState(
         params=spec.ravel(tree).to(device),
         server=ServerState(momentum=m.to(device),
                            round=torch.tensor(round, dtype=torch.int32, device=device)),
         rng=generator,
+        residuals=res,
     )
     return state, spec
 
 
 def state_to_numpy(state: FedState) -> Dict[str, np.ndarray]:
     """Flat planes of a port state: params ``(P,)``, momentum ``(P,)`` (f32),
-    round counter."""
+    round counter, and the ``(N, P)`` residual rows (None without top-k)."""
     return {"params": to_numpy(state.params),
             "momentum": to_numpy(state.server.momentum),
-            "round": int(state.server.round)}
+            "round": int(state.server.round),
+            "residuals": None if state.residuals is None else to_numpy(state.residuals)}

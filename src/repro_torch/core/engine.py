@@ -5,24 +5,35 @@ Counterpart of ``repro.core.engine`` cut to the route this slice ports —
 ``use_fused_kernel=True``):
 
     sample cohort → broadcast (x_t, Δ_t) → K local steps over the cohort
-    plane → masked-mean fold + momentum + server step
+    plane → faults + quarantine → wire encoding → masked-mean fold +
+    momentum + server step
 
 The cohort runs as ONE ``(C, P)`` plane, where the reference vmaps a
 per-client scan: each local step is one batched forward/backward (the
 model's products, left to PyTorch as the reference leaves them to XLA) and
 ONE ``fed_direction`` launch for the whole cohort, with Δ_t broadcast as
 ``(P,)``.  The round closes with one ``server_update`` launch per fold
-row.  All C = capacity rows compute; inactive rows carry weight 0 in the
-fold and in the loss metric.
+row, or, when the uplink is compressed to int8 or bf16, one
+``dequant_update`` launch that folds the compressed plane.  All C =
+capacity rows compute; inactive rows carry weight 0 in the fold and in the
+loss metric.
+
+Between the local steps and the fold sit the reference's two splices, each
+absent when its config is None: fault injection and quarantine
+(``cfg.fault``, ``repro_torch.core.faults``) and wire encoding
+(``cfg.compression`` or the spec's default, ``repro_torch.core.compress``).
+Their draws are counter-based hashes keyed by the device round counter
+(``repro_torch.utils.draws``); ``round_step`` takes them injected instead
+(``RoundDraws``), which is the seam the parity tests use.
 
 Every per-round value — the round counter, η_l, the fold coefficients, the
 cohort mask and |S| — lives in device memory, and nothing in a round reads
 one back to the host, so a round can later be captured in a CUDA graph.
 ``run_rounds`` is a plain Python loop over rounds.
 
-Only the uniform-availability sync path exists here; a config that asks for
-anything else raises ``NotImplementedError`` naming the ROADMAP item that
-brings it (``check_supported``).
+Only the uniform-availability sync path with resident state exists here; a
+config that asks for anything else raises ``NotImplementedError`` naming the
+ROADMAP item that brings it (``check_supported``).
 """
 from __future__ import annotations
 
@@ -35,23 +46,57 @@ import torch
 from repro_torch.configs.base import FedConfig
 from repro_torch.core import algorithms  # noqa: F401  (registers the builtin specs)
 from repro_torch.core.algorithms import sparse_client_finalize
+from repro_torch.core.compress import (
+    COMPRESS_STREAM,
+    PLANE_STREAMS,
+    as_qplane,
+    compress_plane,
+    error_feedback_topk,
+    resolve_compression,
+    uplink_bytes_per_client,
+)
+from repro_torch.core.faults import (
+    CORRUPT_MODES,
+    corrupt_uplink,
+    fault_masks,
+    nanmedian_midpoint,
+    rows_finite,
+    rows_sqnorm,
+    zero_rows,
+)
 from repro_torch.core.flat import FlatSpec
 from repro_torch.core.registry import ServerState, get_algorithm, list_algorithms, server_init
 from repro_torch.data.pipeline import gather_round_batches
 from repro_torch.kernels.fed_direction.ops import direction_operands, fed_direction
 from repro_torch.kernels.server_update.ops import fused_fold
+from repro_torch.utils.draws import uniform as hash_uniform
 
 
 class FedState(NamedTuple):
     """Flat engine state.  ``params`` is the ``(P,)`` f32 plane, ``server``
     holds the ``(P,)`` momentum plane and the int32 round counter, ``rng``
-    the ``torch.Generator`` the round draws come from (advanced in place).
-    Per-client state planes come with the specs that keep them (ROADMAP
-    A.7)."""
+    the ``torch.Generator`` the cohort and minibatch draws come from
+    (advanced in place), ``residuals`` the ``(N, P)`` f32 top-k
+    error-feedback rows (None unless the uplink is top-k).  Per-client
+    state planes come with the specs that keep them (ROADMAP A.7)."""
 
     params: torch.Tensor
     server: ServerState
     rng: Optional[torch.Generator] = None
+    residuals: Optional[torch.Tensor] = None
+
+
+class RoundDraws(NamedTuple):
+    """Draws a caller hands ``round_step`` in place of the hash's (any may
+    be None): the fault draws of ``faults.fault_masks`` and the int8
+    rounding draw ``u`` ``(C, P)``.  The parity tests inject the
+    reference's threefry draws through it."""
+
+    u_drop: Optional[torch.Tensor] = None
+    z_deadline: Optional[torch.Tensor] = None
+    u_corrupt: Optional[torch.Tensor] = None
+    z_noise: Optional[torch.Tensor] = None
+    u: Optional[torch.Tensor] = None
 
 
 class RoundMetrics(NamedTuple):
@@ -63,7 +108,8 @@ class RoundMetrics(NamedTuple):
     bytes_down: torch.Tensor  # server→clients this round
     bytes_up: torch.Tensor  # clients→server this round
     n_clipped: torch.Tensor = None  # bernoulli draws beyond the cohort capacity
-    # fault counters: always 0 here (fault injection is ROADMAP A.9)
+    # fault counters (0 when cfg.fault is None); retries need the host
+    # store (ROADMAP A.11) and stay 0
     n_dropped: torch.Tensor = None
     n_quarantined: torch.Tensor = None
     n_retries: torch.Tensor = None
@@ -100,8 +146,8 @@ _UNPORTED = (
     (lambda c: c.availability != "uniform",
      "availability other than 'uniform'", "A.11"),
     (lambda c: c.dropout_rate > 0.0, "dropout_rate > 0 (straggler dropout)", "A.11"),
-    (lambda c: c.fault is not None, "fault injection", "A.9"),
-    (lambda c: c.compression is not None, "uplink compression", "A.10"),
+    (lambda c: c.fault is not None and c.fault.store_failure_rate > 0.0,
+     "fault.store_failure_rate > 0 (host-store failures and retries)", "A.11"),
 )
 
 
@@ -121,6 +167,9 @@ def check_supported(cfg: FedConfig) -> None:
     for name in ("momentum_dtype", "aggregate_dtype"):
         if getattr(cfg, name) not in ("float32", "bfloat16"):
             raise ValueError(f"{name} must be 'float32' or 'bfloat16'")
+    if cfg.fault is not None and cfg.fault.corrupt_mode not in CORRUPT_MODES:
+        raise ValueError(f"unknown corrupt_mode {cfg.fault.corrupt_mode!r}; "
+                         f"known: nan | inf | noise")
 
 
 def cohort_capacity(cfg: FedConfig) -> int:
@@ -193,23 +242,39 @@ class FederatedEngine:
         self.spec = spec
         self.batch_size = batch_size
         self.device = resolve_device(device)
+        # cfg.compression wins; otherwise the spec's declared wire format
+        self.compression = resolve_compression(cfg, self.algo)
+
+    @property
+    def ef_residuals(self) -> bool:
+        """True when top-k compression carries an error-feedback stream."""
+        return self.compression is not None and self.compression.kind == "topk"
 
     # -------------------------------------------------- init
     def init(self, params, generator: Optional[torch.Generator] = None) -> FedState:
         """Ravel ``params`` (any device) onto this engine's device and
-        allocate the server planes the spec requires."""
+        allocate the server planes the spec requires, and the ``(N, P)``
+        zero residual rows under top-k compression."""
+        residuals = None
+        if self.ef_residuals:
+            residuals = torch.zeros((self.cfg.num_clients, self.spec.size),
+                                    dtype=torch.float32, device=self.device)
         return FedState(
             params=self.spec.ravel(params).to(self.device),
             server=server_init(self.spec.size, self.algo.momentum_dtype(self.cfg),
                                device=self.device),
             rng=generator,
+            residuals=residuals,
         )
 
     def payload_bytes(self) -> Dict[str, int]:
-        """Per-client per-round communication in bytes (§4.2)."""
+        """Per-client per-round communication in bytes (§4.2); under
+        compression the uplink is charged its bytes on the wire."""
         nbytes = self.spec.nbytes
         down = nbytes * (2 if self.algo.needs_momentum_broadcast else 1)
-        return {"down_per_client": down, "up_per_client": nbytes}  # one delta up
+        up = uplink_bytes_per_client(self.compression, self.algo.wire_uplink_planes,
+                                     self.spec.size, nbytes)
+        return {"down_per_client": down, "up_per_client": up}
 
     # -------------------------------------------------- client phase
     def _value_and_grad(self, x: torch.Tensor, batch) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -241,29 +306,110 @@ class FederatedEngine:
             losses.append(loss)
         return sparse_client_finalize(x_t, x), torch.stack(losses, dim=1).mean(dim=1)
 
+    # -------------------------------------------------- faults
+    def _inject_faults(self, t, ids, mask, planes, d: RoundDraws):
+        """Apply the fault model to one cohort's uplink, between the local
+        steps and the fold.  Returns ``(mask, planes, n_dropped,
+        n_quarantined)``.
+
+        Drops and the deadline thin the mask; corruption rewrites the delta
+        rows of surviving clients; quarantine both masks out and zeroes any
+        non-finite or norm-outlier row (exact zeros: a 0-weight NaN row
+        would still poison the fold).  With ``cfg.fault`` None nothing runs."""
+        fault = self.cfg.fault
+        zero = torch.zeros((), dtype=torch.float32, device=mask.device)
+        if fault is None:
+            return mask, planes, zero, zero
+        delta = planes["delta"]
+        plan = fault_masks(fault, t, ids, delta.shape[-1], u_drop=d.u_drop,
+                           z_deadline=d.z_deadline, u_corrupt=d.u_corrupt,
+                           z_noise=d.z_noise)
+        n_dropped = zero
+        if fault.drop_rate > 0.0 or fault.deadline > 0.0:
+            n_dropped = (mask & plan.drop).to(torch.float32).sum()
+            mask = mask & ~plan.drop
+        if fault.corrupt_rate > 0.0:
+            delta = corrupt_uplink(fault, plan.corrupt & mask, plan.noise, delta)
+        n_quar = zero
+        if fault.quarantine:
+            fin = rows_finite(delta)
+            bad = ~fin
+            if fault.quarantine_norm_mult > 0.0:
+                norm = torch.sqrt(rows_sqnorm(delta))
+                act = mask & fin
+                med = nanmedian_midpoint(torch.where(act, norm, float("nan")))
+                bad = bad | (act & (norm > fault.quarantine_norm_mult * med))
+            n_quar = (mask & bad).to(torch.float32).sum()
+            delta = zero_rows(delta, bad)
+            mask = mask & ~bad
+        return mask, {**planes, "delta": delta}, n_dropped, n_quar
+
+    # -------------------------------------------------- uplink compression
+    def _residual_rows_for(self, state: FedState, ids):
+        """The cohort's error-feedback residual rows (top-k only)."""
+        if not self.ef_residuals:
+            return None
+        if state.residuals is None:
+            raise ValueError("topk compression carries an error-feedback residual "
+                             "stream — call eng.init(params, generator) so "
+                             "FedState.residuals is allocated before stepping")
+        return state.residuals.index_select(0, ids.long())
+
+    def _compress_uplink(self, t, ids, planes, w, residual_rows, u=None):
+        """Wire-encode the cohort's delta plane, between fault injection and
+        fold.  Returns ``(planes, new_residual_rows)`` (rows None except
+        under top-k).  int8 and bf16 planes reach the fold compressed, as a
+        ``QPlane`` for the dequant kernel; top-k folds the dense plane that
+        arrived on the wire, and ``w`` (the post-fault weights) keeps the
+        residual of a client that did not transmit."""
+        comp = self.compression
+        delta = planes["delta"]
+        if comp.kind == "topk":
+            _, recon, new_rows = error_feedback_topk(comp, delta, residual_rows, w,
+                                                     delta.shape[-1])
+            return {**planes, "delta": recon}, new_rows
+        if comp.kind == "int8" and u is None:
+            u = hash_uniform(comp.seed, t, COMPRESS_STREAM + PLANE_STREAMS["delta"], ids,
+                             delta.shape[-1])
+        return {**planes, "delta": as_qplane(compress_plane(comp, delta, u))}, None
+
     # -------------------------------------------------- round
-    def round_step(self, state: FedState, batches, ids, mask, n_clipped=None):
+    def round_step(self, state: FedState, batches, ids, mask, n_clipped=None,
+                   draws: Optional[RoundDraws] = None):
         """One round on given draws: ``batches`` = {"x": (C, K, B, ...),
         "y": (C, K, B)}, ``ids`` (C,), ``mask`` (C,) bool — the seam where a
-        test injects the reference's draws.  ``ids`` selects no per-client
-        state in the ported specs; ``n_clipped`` is the sampler's overflow
-        count, reported in the metrics."""
+        test injects the reference's draws, with ``draws`` in place of the
+        fault and rounding hashes.  ``ids`` keys the fault and rounding
+        draws and selects the residual rows; ``n_clipped`` is the sampler's
+        overflow count, reported in the metrics."""
         cfg, algo = self.cfg, self.algo
+        d = draws or RoundDraws()
         fsrv = state.server
-        eta_l = local_learning_rate(cfg, fsrv.round)
+        t = fsrv.round
+        eta_l = local_learning_rate(cfg, t)
         x_t = state.params
         m_t = fsrv.momentum
         planes, losses = self._flat_cohort_pass(x_t, m_t, batches, eta_l)
+        mask, planes, n_dropped, n_quar = self._inject_faults(t, ids, mask, planes, d)
 
         w = mask.to(torch.float32)
         n_active = w.sum()
         denom = n_active.clamp(min=1.0)
+        new_res_rows = None
+        if self.compression is not None:
+            planes, new_res_rows = self._compress_uplink(
+                t, ids, planes, w, self._residual_rows_for(state, ids), d.u)
         new_x, new_m, mean_delta = fused_fold(algo, cfg, planes, w / denom, n_active,
                                               x_t, m_t, eta_l)
         # a below-quorum (or empty) cohort carries params/momentum through
         ok = n_active >= float(max(1, cfg.min_quorum))
         new_x = torch.where(ok, new_x, x_t)
         new_m = torch.where(ok, new_m, m_t)
+        # the residual is client-side state: it tracks what the client did
+        # not send, whatever the quorum decides
+        new_res = state.residuals
+        if new_res_rows is not None:
+            new_res = new_res.index_copy(0, ids.long(), new_res_rows)
 
         pay = self.payload_bytes()
         zero = torch.zeros((), dtype=torch.float32, device=x_t.device)
@@ -276,13 +422,13 @@ class FederatedEngine:
             bytes_down=n_active * float(pay["down_per_client"]),
             bytes_up=n_active * float(pay["up_per_client"]),
             n_clipped=zero if n_clipped is None else n_clipped.to(torch.float32),
-            n_dropped=zero,
-            n_quarantined=zero,
+            n_dropped=n_dropped,
+            n_quarantined=n_quar,
             n_retries=zero,
             quorum_skipped=1.0 - ok.to(torch.float32),
         )
         new_server = fsrv._replace(momentum=new_m, round=fsrv.round + 1)
-        return FedState(new_x, new_server, state.rng), metrics
+        return FedState(new_x, new_server, state.rng, new_res), metrics
 
     # -------------------------------------------------- data-driven round
     def _sample_round(self, state: FedState, data):

@@ -9,7 +9,8 @@ one is reused.  Nothing is built when a module is imported: the first
 launch of a kernel builds it, and ``build_all`` builds several at once
 (one ``nvcc`` process per source, all started together).
 
-``NativeKernel`` is the binding of one source: its ``load()`` builds and
+``NativeKernel`` is the binding of one C entry point of a source (a source
+may hold several, each with its own binding): its ``load()`` builds and
 loads the library, ``launch()`` calls the C function, raises on a non-zero
 ``cudaGetLastError()``, and adds one to ``launches`` — the plain integer
 count that shows a run went through the kernel.
@@ -88,10 +89,13 @@ def build_all(names: Iterable[str]) -> Dict[str, dict]:
 
 
 class NativeKernel:
-    """The ctypes binding of ``csrc/<name>.cu`` and its launch count."""
+    """The ctypes binding of entry point ``symbol`` of ``csrc/<source>.cu``
+    (``source`` defaults to ``name``) and its launch count."""
 
-    def __init__(self, name: str, symbol: str, argtypes: Sequence) -> None:
+    def __init__(self, name: str, symbol: str, argtypes: Sequence,
+                 source: str = "") -> None:
         self.name = name
+        self.source = source or name
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
@@ -104,12 +108,12 @@ class NativeKernel:
         function."""
         with self._lock:
             if self._fn is None:
-                path = build_all([self.name])[self.name]["path"]
+                path = build_all([self.source])[self.source]["path"]
                 lib = ctypes.CDLL(str(path))
                 fn = getattr(lib, self.symbol)
                 fn.argtypes = self.argtypes
                 fn.restype = ctypes.c_int
-                err = getattr(lib, f"{self.name}_error_string")
+                err = getattr(lib, f"{self.source}_error_string")
                 err.argtypes = [ctypes.c_int]
                 err.restype = ctypes.c_char_p
                 self._lib, self._fn, self._err = lib, fn, err

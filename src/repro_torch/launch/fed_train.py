@@ -3,11 +3,16 @@
 Counterpart of ``repro.launch.fed_train`` run with ``--fused-kernel``:
 Dirichlet-partitioned synthetic classification, an MLP 32-128-128-10, the
 paper's scaled Setting I defaults, every local step and server fold through
-the hand-written CUDA kernels.  Runs on ``cuda`` and raises when there is no
-GPU, unless ``--device cpu`` asks for the CPU (the kernels' plain versions).
+the hand-written CUDA kernels.  ``--uplink-compress`` sends the uplink as
+int8, bf16 or top-k, and the ``--fault-*`` flags inject drops, stragglers
+and corrupted uplinks (quarantined before the fold).  Runs on ``cuda`` and
+raises when there is no GPU, unless ``--device cpu`` asks for the CPU (the
+kernels' plain versions).
 
     PYTHONPATH=src python -m repro_torch.launch.fed_train --algo fedcm \
         --clients 100 --cohort 10 --rounds 100 --dirichlet 0.6
+    PYTHONPATH=src python -m repro_torch.launch.fed_train --uplink-compress int8 \
+        --fault-drop-rate 0.1 --fault-corrupt-rate 0.1
 """
 from __future__ import annotations
 
@@ -15,7 +20,8 @@ import argparse
 
 import torch
 
-from repro_torch.configs.base import FedConfig
+from repro_torch.configs.base import CompressionConfig, FaultConfig, FedConfig
+from repro_torch.core.compress import validate_compression
 from repro_torch.core.engine import (
     FederatedEngine,
     make_eval_fn,
@@ -104,16 +110,67 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device; the run raises if it is cuda and there "
                          "is no GPU (pass --device cpu for the CPU)")
+    ap.add_argument("--uplink-compress", default="none",
+                    choices=["none", "int8", "bf16", "topk"],
+                    help="wire-compress client uplinks (repro_torch.core.compress): "
+                         "stochastic-rounded int8 (+per-row f32 scale), bf16, or "
+                         "top-k sparsification with error-feedback residuals")
+    ap.add_argument("--topk-frac", type=float, default=0.01,
+                    help="fraction of plane coordinates top-k keeps "
+                         "(only with --uplink-compress topk)")
+    fault = ap.add_argument_group(
+        "fault injection / degradation",
+        "any nonzero rate builds a FaultConfig (seeded, reproducible); "
+        "quarantine of non-finite uplinks is on whenever a FaultConfig is")
+    fault.add_argument("--fault-drop-rate", type=float, default=0.0,
+                       help="per-client per-round uplink drop probability")
+    fault.add_argument("--fault-corrupt-rate", type=float, default=0.0,
+                       help="per-client per-round payload corruption probability")
+    fault.add_argument("--fault-corrupt-mode", default="nan",
+                       choices=["nan", "inf", "noise"],
+                       help="corruption model: NaN/Inf row fill, or scaled noise "
+                            "added to the delta plane")
+    fault.add_argument("--fault-noise-scale", type=float, default=1.0,
+                       help="noise corruption magnitude (x |value| stddev)")
+    fault.add_argument("--fault-deadline", type=float, default=0.0,
+                       help="straggler deadline (log-normal compute-time model; "
+                            ">0 drops clients exceeding it)")
+    fault.add_argument("--fault-seed", type=int, default=0,
+                       help="seed of the fault draws (independent of --seed)")
+    fault.add_argument("--quarantine-norm-mult", type=float, default=0.0,
+                       help=">0 also quarantines uplinks whose delta norm exceeds "
+                            "mult x the cohort median")
+    ap.add_argument("--min-quorum", type=int, default=0,
+                    help="skip the server fold (params carried unchanged) when "
+                         "surviving clients fall below this count")
     return ap
 
 
 def resolve_config(args: argparse.Namespace) -> FedConfig:
-    """argv → FedConfig."""
+    """argv → FedConfig.  Any nonzero fault rate (or the norm fence) builds
+    a FaultConfig; all defaults keep ``fault=None``.  ``--uplink-compress
+    none`` keeps ``compression=None``; the rounding stream is seeded with
+    ``--seed``."""
+    fault = None
+    if (args.fault_drop_rate > 0.0 or args.fault_corrupt_rate > 0.0
+            or args.fault_deadline > 0.0 or args.quarantine_norm_mult > 0.0):
+        fault = FaultConfig(
+            drop_rate=args.fault_drop_rate, deadline=args.fault_deadline,
+            corrupt_rate=args.fault_corrupt_rate, corrupt_mode=args.fault_corrupt_mode,
+            noise_scale=args.fault_noise_scale,
+            quarantine_norm_mult=args.quarantine_norm_mult, seed=args.fault_seed,
+        )
+    compression = None
+    if args.uplink_compress != "none":
+        compression = CompressionConfig(kind=args.uplink_compress,
+                                        topk_frac=args.topk_frac, seed=args.seed)
+        validate_compression(compression)
     return FedConfig(
         algo=args.algo, num_clients=args.clients, cohort_size=args.cohort,
         local_steps=args.local_steps, alpha=args.alpha, eta_l=args.eta_l,
         eta_g=args.eta_g, participation=args.participation, rounds=args.rounds,
-        seed=args.seed,
+        seed=args.seed, fault=fault, min_quorum=args.min_quorum,
+        compression=compression,
     )
 
 

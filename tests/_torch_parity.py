@@ -16,10 +16,18 @@ Tolerances (one table, stated once):
 * bf16 outputs are compared to within one bf16 ulp (``BF16_RTOL`` 2^-7):
   the two frameworks may round a value that sits on a tie boundary of an
   f32 difference apart to neighbouring bf16 values.
+* Lossy uplink, round level (``FLIP_MAX`` 4): the port's delta plane and
+  the reference's differ in the last digits, so a stochastic-rounding
+  ``floor`` (int8), a round-to-nearest tie (bf16) or a k-th-place choice
+  (top-k) can flip and move one element of one client by one quantum.  A
+  round then passes when at most ``FLIP_MAX`` elements of a plane lie
+  beyond ``RTOL``/``ATOL`` and each of them moved by less than the
+  reference's largest step that round.  Each round starts from the
+  reference's state, so a flip cannot compound into the next round.
 """
 from __future__ import annotations
 
-from dataclasses import fields
+from dataclasses import fields, replace
 
 import numpy as np
 import torch
@@ -31,11 +39,12 @@ from repro.configs.base import FedConfig as RefFedConfig
 from repro.core.engine import FederatedEngine as RefEngine
 from repro.models.small import classification_loss as ref_classification_loss
 from repro.models.small import mlp_classifier as ref_mlp_classifier
-from repro_torch.configs.base import FedConfig
+from repro_torch.configs.base import CompressionConfig, FaultConfig, FedConfig
 
 RTOL, ATOL = 2e-5, 1e-6
 ROUND_ATOL = 1e-5
 BF16_RTOL = 2.0 ** -7
+FLIP_MAX = 4
 
 DIMS = (8, 16, 16, 4)
 N_CLIENTS, COHORT, K, B = 6, 3, 2, 4
@@ -46,10 +55,21 @@ def ref_cfg(participation="fixed", **kw) -> RefFedConfig:
                         participation=participation, **kw)
 
 
+def _copy(obj, cls):
+    """``cls`` built from the same-named fields of the reference dataclass
+    ``obj`` (None stays None)."""
+    if obj is None:
+        return None
+    names = {f.name for f in fields(cls)}
+    return cls(**{f.name: getattr(obj, f.name) for f in fields(obj) if f.name in names})
+
+
 def port_cfg(cfg: RefFedConfig) -> FedConfig:
-    """The port's FedConfig with the reference config's values."""
-    names = {f.name for f in fields(FedConfig)}
-    return FedConfig(**{f.name: getattr(cfg, f.name) for f in fields(cfg) if f.name in names})
+    """The port's FedConfig with the reference config's values (its fault
+    and compression configs copied into the port's dataclasses)."""
+    out = _copy(cfg, FedConfig)
+    return replace(out, fault=_copy(cfg.fault, FaultConfig),
+                   compression=_copy(cfg.compression, CompressionConfig))
 
 
 def np_params(seed: int = 0, dims=DIMS):

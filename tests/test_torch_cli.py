@@ -11,7 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.configs.base import FedConfig
+from repro_torch.configs.base import CompressionConfig, FaultConfig, FedConfig
 from repro_torch.launch import fed_train
 
 torch.set_num_threads(1)
@@ -68,3 +68,42 @@ def test_cli_defaults_are_the_scaled_paper_setting():
 def test_cli_refuses_unported_algorithm():
     with pytest.raises(SystemExit):
         fed_train.build_parser().parse_args(["--algo", "scaffold"])
+
+
+def test_cli_int8_uplink_on_cpu_logs_int8_wire_bytes(capsys):
+    """``--uplink-compress int8`` runs and charges P + 4 bytes per active
+    client (the MLP 32-128-128-10 plane has P = 22,026)."""
+    assert fed_train.main(SMALL + ["--uplink-compress", "int8", "--fault-drop-rate", "0.2",
+                                   "--fault-corrupt-rate", "0.2", "--device", "cpu"]) == 0
+    lines = [l for l in capsys.readouterr().err.splitlines() if "round=" in l]
+    assert len(lines) == 2
+    for line in lines:
+        kv = dict(tok.split("=") for tok in line.split() if "=" in tok)
+        n_active = int(kv["n_active"])
+        assert float(kv["mb_up"]) == round(n_active * (22026 + 4) / 2 ** 20, 2)
+        assert float(kv["loss"]) == float(kv["loss"])  # finite, not NaN
+
+
+@pytest.mark.parametrize("frac", ["0", "1.5"])
+def test_cli_refuses_a_bad_topk_frac(frac):
+    args = fed_train.build_parser().parse_args(["--uplink-compress", "topk", "--topk-frac", frac])
+    with pytest.raises(ValueError, match="topk_frac"):
+        fed_train.resolve_config(args)
+
+
+def test_resolve_config_wires_fault_and_compression_flags():
+    args = fed_train.build_parser().parse_args(
+        ["--uplink-compress", "topk", "--topk-frac", "0.05", "--seed", "3",
+         "--fault-drop-rate", "0.1", "--fault-corrupt-rate", "0.2",
+         "--fault-corrupt-mode", "noise", "--fault-noise-scale", "4", "--fault-deadline", "2",
+         "--fault-seed", "7", "--quarantine-norm-mult", "3", "--min-quorum", "2"])
+    cfg = fed_train.resolve_config(args)
+    assert cfg.compression == CompressionConfig(kind="topk", topk_frac=0.05, seed=3)
+    assert cfg.fault == FaultConfig(drop_rate=0.1, corrupt_rate=0.2, corrupt_mode="noise",
+                                    noise_scale=4.0, deadline=2.0, seed=7,
+                                    quarantine_norm_mult=3.0)
+    assert cfg.min_quorum == 2
+    plain = fed_train.resolve_config(fed_train.build_parser().parse_args([]))
+    assert plain.fault is None and plain.compression is None
+    with pytest.raises(SystemExit):  # the host store's failure model is not a flag here
+        fed_train.build_parser().parse_args(["--fault-store-failure-rate", "0.1"])

@@ -1,4 +1,5 @@
-"""Port vs reference: the two kernels of the main path, and their dispatch.
+"""Port vs reference: the kernels of the round (local step, dense fold,
+dequant fold), and their dispatch.
 
 On the CPU each wrapper runs its plain PyTorch version (``ref.py``); these
 tests hold that version to the reference's Pallas kernels run in interpret
@@ -15,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from _torch_parity import ATOL, BF16_RTOL, RTOL, assert_close, ref_cfg, port_cfg
@@ -22,13 +24,17 @@ from repro.kernels.fed_direction.kernel import fed_direction_flat as ref_fed_dir
 from repro.kernels.fed_direction.ops import flat_direction_step as ref_flat_direction_step
 from repro.kernels.server_update.kernel import server_update_flat as ref_server_update
 from repro.kernels.server_update.ops import fused_fold as ref_fused_fold
+from repro.core.compress import QPlane as RefQPlane
 from repro.core.registry import get_algorithm as ref_get_algorithm
+from repro_torch.core.compress import quantize_int8, sparsify_topk
 from repro_torch.core.registry import get_algorithm
 from repro_torch.kernels import build, coef_vector
 from repro_torch.kernels.fed_direction import kernel as fd_kernel
 from repro_torch.kernels.fed_direction.ops import fed_direction, flat_direction_step
 from repro_torch.kernels.server_update import kernel as su_kernel
-from repro_torch.kernels.server_update.ops import fused_fold, fused_server_step
+from repro_torch.kernels.server_update.ops import (
+    dequant_server_step, fused_fold, fused_server_step,
+)
 from repro_torch.kernels.server_update.ref import server_update_ref
 from repro_torch.core.convert import to_numpy
 
@@ -166,11 +172,34 @@ def test_fused_fold_matches_reference(algo, aggregate_dtype):
 
 
 def test_fused_fold_refuses_compressed_plane():
-    cfg = port_cfg(ref_cfg())
+    """The fold takes the compressed uplink it can stream — a QPlane (int8,
+    or bf16 with unit scales) goes through the dequant fold and matches the
+    reference's ``fused_fold`` on the same representation — and refuses
+    the sparse top-k representation, which must be densified first."""
+    cfg = ref_cfg()
+    rng = np.random.default_rng(5)
+    C, P = 4, 333
+    plane = _np(rng, (C, P), 1e-2)
+    u = np.asarray(jax.random.uniform(jax.random.PRNGKey(1), (C, P), jnp.float32))
+    rep = quantize_int8(torch.tensor(plane), torch.tensor(u))
+    mask = np.array([1, 1, 0, 1], np.float32)
+    n = mask.sum()
+    x, m = _np(rng, P), _np(rng, P)
+    ex = ref_fused_fold(ref_get_algorithm("fedcm"), cfg,
+                        {"delta": RefQPlane(q=jnp.asarray(rep.q.numpy()),
+                                            scale=jnp.asarray(rep.scale.numpy()))},
+                        jnp.asarray(mask / n), jnp.float32(n), jnp.asarray(x),
+                        jnp.asarray(m), jnp.float32(0.07))
+    got = fused_fold(get_algorithm("fedcm"), port_cfg(cfg), {"delta": rep},
+                     torch.tensor(mask / n), torch.tensor(n), torch.tensor(x),
+                     torch.tensor(m), torch.tensor(0.07, dtype=torch.float32))
+    for name, e, a in zip(("x", "m", "mean"), ex, got):
+        assert_close(to_numpy(a), np.asarray(e, np.float32), what=name)
     z = torch.zeros(8)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        fused_fold(get_algorithm("fedcm"), cfg, {"delta": object()}, torch.ones(2) / 2,
-                   torch.tensor(2.0), z, z, torch.tensor(0.1))
+    sparse = sparsify_topk(torch.ones(2, 8), 2)
+    with pytest.raises(TypeError, match="TopKPlane"):
+        fused_fold(get_algorithm("fedcm"), port_cfg(cfg), {"delta": sparse},
+                   torch.ones(2) / 2, torch.tensor(2.0), z, z, torch.tensor(0.1))
 
 
 def test_coef_vector_keeps_device_tensors():
@@ -191,9 +220,12 @@ def test_cpu_tensors_never_reach_the_loader(monkeypatch):
 
     monkeypatch.setattr(fd_kernel.KERNEL, "load", boom)
     monkeypatch.setattr(su_kernel.KERNEL, "load", boom)
+    monkeypatch.setattr(su_kernel.DEQUANT_KERNEL, "load", boom)
     x = torch.ones(4, 10)
     fed_direction(x, x, [torch.ones(10)], torch.tensor([0.1, 1.0, 0.0, 0.5]))
     fused_server_step(x, torch.ones(4) / 4, torch.ones(10), torch.ones(10), 0.0, -1.0, 1.0)
+    dequant_server_step(torch.ones(4, 10, dtype=torch.int8), torch.ones(4), torch.ones(4) / 4,
+                        torch.ones(10), torch.ones(10), 0.0, -1.0, 1.0)
 
 
 def test_non_cpu_request_raises_when_the_loader_fails(monkeypatch):
@@ -204,11 +236,15 @@ def test_non_cpu_request_raises_when_the_loader_fails(monkeypatch):
 
     monkeypatch.setattr(fd_kernel.KERNEL, "load", fail_load)
     monkeypatch.setattr(su_kernel.KERNEL, "load", fail_load)
+    monkeypatch.setattr(su_kernel.DEQUANT_KERNEL, "load", fail_load)
     x = _meta(4, 10)
     with pytest.raises(RuntimeError, match="simulated"):
         fed_direction(x, x, [_meta(10)], _meta(4))
     with pytest.raises(RuntimeError, match="simulated"):
         fused_server_step(x, _meta(4), _meta(10), _meta(10), 0.0, -1.0, 1.0)
+    with pytest.raises(RuntimeError, match="simulated"):
+        dequant_server_step(_meta(4, 10, dtype=torch.int8), _meta(4, 1), _meta(4), _meta(10),
+                            _meta(10), 0.0, -1.0, 1.0)
 
 
 def test_non_cuda_device_is_refused_after_loading(monkeypatch):
@@ -217,11 +253,16 @@ def test_non_cuda_device_is_refused_after_loading(monkeypatch):
     calls = []
     monkeypatch.setattr(fd_kernel.KERNEL, "load", lambda: (lambda *a: calls.append(a) or 0))
     monkeypatch.setattr(su_kernel.KERNEL, "load", lambda: (lambda *a: calls.append(a) or 0))
+    monkeypatch.setattr(su_kernel.DEQUANT_KERNEL, "load",
+                        lambda: (lambda *a: calls.append(a) or 0))
     x = _meta(4, 10)
     with pytest.raises(ValueError, match="CUDA"):
         fd_kernel.fed_direction_flat(x, x, [_meta(10)], _meta(4))
     with pytest.raises(ValueError, match="CUDA"):
         su_kernel.server_update_flat(x, _meta(4), _meta(10), _meta(10), _meta(4))
+    with pytest.raises(ValueError, match="CUDA"):
+        su_kernel.dequant_update_flat(_meta(4, 10, dtype=torch.int8), _meta(4), _meta(4),
+                                      _meta(10), _meta(10), _meta(4))
     assert calls == []
 
 
@@ -267,6 +308,43 @@ def test_server_update_wrapper_validates_before_loading(monkeypatch, case):
         x = _meta(10, dtype=torch.float64)
     with pytest.raises(ValueError):
         su_kernel.server_update_flat(d, wn, x, m, _meta(4), **kw)
+
+
+@pytest.mark.parametrize("case", ["q_dtype", "q_dim", "scale_shape", "scale_dtype",
+                                  "noncontiguous", "m_dtype_mismatch"])
+def test_dequant_update_wrapper_validates_before_loading(monkeypatch, case):
+    def boom():
+        raise AssertionError("validation must come before loading")
+
+    monkeypatch.setattr(su_kernel.DEQUANT_KERNEL, "load", boom)
+    q, sc, wn, x, m, kw = _meta(4, 10, dtype=torch.int8), _meta(4, 1), _meta(4), _meta(10), \
+        _meta(10), {}
+    if case == "q_dtype":
+        q = _meta(4, 10)
+    elif case == "q_dim":
+        q = _meta(40, dtype=torch.int8)
+    elif case == "scale_shape":
+        sc = _meta(5)
+    elif case == "scale_dtype":
+        sc = _meta(4, dtype=torch.bfloat16)
+    elif case == "noncontiguous":
+        q = _meta(10, 4, dtype=torch.int8).t()
+    else:
+        kw = {"m_dtype": torch.bfloat16}
+    with pytest.raises(ValueError):
+        su_kernel.dequant_update_flat(q, sc, wn, x, m, _meta(4), **kw)
+
+
+def test_dequant_update_binds_its_own_entry_point_and_counter():
+    """The dequant fold is a second entry point of the server_update source
+    (one build), counted apart from the dense fold."""
+    dq, su = su_kernel.DEQUANT_KERNEL, su_kernel.KERNEL
+    assert dq is not su and dq.source == su.source == "server_update"
+    assert (dq.name, dq.symbol) == ("dequant_update", "dequant_update_launch")
+    assert len(dq.argtypes) == len(su.argtypes) + 1  # the scale pointer
+    src = (build.CSRC / "server_update.cu").read_text()
+    assert 'extern "C" int dequant_update_launch(' in src
+    assert 'extern "C" int server_update_launch(' in src
 
 
 def test_launch_raises_on_cuda_error_and_counts_only_successes():
