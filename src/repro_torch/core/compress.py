@@ -33,8 +33,6 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.configs.base import CompressionConfig
-
 # plane name → stream index of its rounding draw
 PLANE_STREAMS = {"delta": 0, "state_delta": 1, "extra": 2}
 # the rounding streams sit above the fault streams (1–4), so a compression
@@ -69,15 +67,17 @@ def validate_compression(comp) -> None:
         raise ValueError(f"topk_frac must be in (0, 1], got {comp.topk_frac}")
 
 
-def resolve_compression(cfg, spec) -> Optional[CompressionConfig]:
-    """The compression a run uses: ``cfg.compression``, else the spec's
-    declared ``uplink_compression``, else None; validated."""
-    comp = cfg.compression
-    if comp is None and spec.uplink_compression is not None:
-        comp = CompressionConfig(kind=spec.uplink_compression)
-    if comp is not None:
-        validate_compression(comp)
-    return comp
+def carries_residuals(comp) -> bool:
+    """True when the wire format keeps error-feedback residual rows (top-k)."""
+    return comp is not None and comp.kind == "topk"
+
+
+def init_residuals(comp, num_clients: int, size: int, device=None) -> Optional[torch.Tensor]:
+    """The residual rows a run starts with: ``(N, P)`` f32 zeros under
+    top-k, None otherwise."""
+    if not carries_residuals(comp):
+        return None
+    return torch.zeros((num_clients, size), dtype=torch.float32, device=device)
 
 
 def topk_k(comp, n: int) -> int:

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FedConfig
-from repro_torch.core.compress import resolve_compression
+from repro_torch.core.compress import init_residuals
 from repro_torch.core.engine import FedState
 from repro_torch.core.flat import FlatSpec
 from repro_torch.core.registry import ServerState, get_algorithm
@@ -69,12 +69,10 @@ def state_from_numpy(params, cfg: FedConfig, *, momentum=None, round: int = 0,
         m = to_tensor(momentum, dtype=torch.float32).to(m_dt)
     else:
         m = spec.ravel(params_from_numpy(momentum)).to(m_dt)
-    comp = resolve_compression(cfg, algo)
-    res = None
     if residuals is not None:
         res = to_tensor(residuals, device, torch.float32)
-    elif comp is not None and comp.kind == "topk":
-        res = torch.zeros((cfg.num_clients, spec.size), dtype=torch.float32, device=device)
+    else:
+        res = init_residuals(cfg.compression, cfg.num_clients, spec.size, device)
     state = FedState(
         params=spec.ravel(tree).to(device),
         server=ServerState(momentum=m.to(device),

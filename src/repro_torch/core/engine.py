@@ -50,10 +50,12 @@ from repro_torch.core.compress import (
     COMPRESS_STREAM,
     PLANE_STREAMS,
     as_qplane,
+    carries_residuals,
     compress_plane,
     error_feedback_topk,
-    resolve_compression,
+    init_residuals,
     uplink_bytes_per_client,
+    validate_compression,
 )
 from repro_torch.core.faults import (
     CORRUPT_MODES,
@@ -242,29 +244,22 @@ class FederatedEngine:
         self.spec = spec
         self.batch_size = batch_size
         self.device = resolve_device(device)
-        # cfg.compression wins; otherwise the spec's declared wire format
-        self.compression = resolve_compression(cfg, self.algo)
-
-    @property
-    def ef_residuals(self) -> bool:
-        """True when top-k compression carries an error-feedback stream."""
-        return self.compression is not None and self.compression.kind == "topk"
+        self.compression = cfg.compression
+        if self.compression is not None:
+            validate_compression(self.compression)
 
     # -------------------------------------------------- init
     def init(self, params, generator: Optional[torch.Generator] = None) -> FedState:
         """Ravel ``params`` (any device) onto this engine's device and
         allocate the server planes the spec requires, and the ``(N, P)``
         zero residual rows under top-k compression."""
-        residuals = None
-        if self.ef_residuals:
-            residuals = torch.zeros((self.cfg.num_clients, self.spec.size),
-                                    dtype=torch.float32, device=self.device)
         return FedState(
             params=self.spec.ravel(params).to(self.device),
             server=server_init(self.spec.size, self.algo.momentum_dtype(self.cfg),
                                device=self.device),
             rng=generator,
-            residuals=residuals,
+            residuals=init_residuals(self.compression, self.cfg.num_clients,
+                                     self.spec.size, self.device),
         )
 
     def payload_bytes(self) -> Dict[str, int]:
@@ -347,7 +342,7 @@ class FederatedEngine:
     # -------------------------------------------------- uplink compression
     def _residual_rows_for(self, state: FedState, ids):
         """The cohort's error-feedback residual rows (top-k only)."""
-        if not self.ef_residuals:
+        if not carries_residuals(self.compression):
             return None
         if state.residuals is None:
             raise ValueError("topk compression carries an error-feedback residual "

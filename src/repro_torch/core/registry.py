@@ -17,11 +17,10 @@ An algorithm is data:
         x'   = x + c_xd·(γ·mean)
 
 (c) state flags: whether Δ_t is broadcast (payload accounting) and the
-    dtype the momentum plane is stored in;
+    dtype the momentum plane is stored in.
 
-(d) the spec's own uplink wire format (``uplink_compression``), which
-    ``cfg.compression`` overrides, and whether it carries top-k
-    error-feedback residuals (``needs_residual``).
+The uplink's wire format is not part of a spec: ``cfg.compression`` alone
+selects it (``repro_torch.core.compress``).
 
 Coefficients are floats or callables: ``cfg -> float`` for direction rows,
 ``(cfg, eta_l, n_active) -> scalar`` for fold rows, where ``eta_l`` and
@@ -31,7 +30,7 @@ structural: they drop a kernel operand or skip an output write.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
+from typing import Any, Callable, Dict, NamedTuple, Tuple, Union
 
 import torch
 
@@ -99,25 +98,13 @@ class AlgorithmSpec(NamedTuple):
     # stored-momentum dtype policy: "float32", or "momentum_dtype" to honor
     # cfg.momentum_dtype (FedCM's broadcastable Δ_t)
     momentum_store: str = "float32"
-    # spec-declared default uplink compression kind ("int8" / "bf16" /
-    # "topk", None = uncompressed); cfg.compression overrides it
-    uplink_compression: Optional[str] = None
-    # top-k carries error-feedback residuals as a per-client state stream;
-    # a spec declaring "topk" must declare the stream too
-    needs_residual: bool = False
-
-    @property
-    def uplink_planes(self) -> Tuple[str, ...]:
-        """The cohort's ``(C, P)`` uplink planes.  The ported specs keep no
-        per-client state and send no full-batch gradient, so this is the
-        delta plane alone (state and extra planes come with ROADMAP A.7)."""
-        return ("delta",)
 
     @property
     def wire_uplink_planes(self) -> Tuple[str, ...]:
         """The uplink planes that cross the client→server wire, which the
-        payload accounting charges (``uplink_planes`` minus client-local
-        state planes; the same set here)."""
+        payload accounting charges.  The ported specs keep no per-client
+        state and send no full-batch gradient, so this is the delta plane
+        alone (state and extra planes come with ROADMAP A.7)."""
         return ("delta",)
 
     def momentum_dtype(self, cfg) -> torch.dtype:
@@ -146,16 +133,6 @@ def _validate(spec: AlgorithmSpec) -> None:
     for p in spec.fold:
         if p.plane not in FOLD_PLANES:
             raise ValueError(f"{spec.name}: unknown fold plane {p.plane!r}")
-    if spec.uplink_compression not in (None, "int8", "bf16", "topk"):
-        raise ValueError(f"{spec.name}: unknown uplink_compression "
-                         f"{spec.uplink_compression!r}; known: int8 | bf16 | topk")
-    if spec.uplink_compression == "topk" and not spec.needs_residual:
-        raise ValueError(f"{spec.name}: uplink_compression='topk' without needs_residual "
-                         f"— lossy sparsification needs the error-feedback residual "
-                         f"stream or every uplink is biased")
-    if spec.needs_residual and spec.uplink_compression != "topk":
-        raise ValueError(f"{spec.name}: needs_residual declared but uplink_compression "
-                         f"is {spec.uplink_compression!r} — only 'topk' carries residuals")
 
 
 def register_algorithm(spec: AlgorithmSpec) -> AlgorithmSpec:

@@ -20,7 +20,7 @@ the keying and replaces the generator: a pure integer hash of
   devices, as ``log`` and ``cos`` are rounded by different libraries.
 
 Parity tests inject the reference's own draws in place of these; the hash
-itself is checked statistically (tests/test_torch_faults_compress.py).
+itself is checked statistically (tests/test_torch_compress.py).
 """
 from __future__ import annotations
 

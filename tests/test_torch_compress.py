@@ -31,9 +31,9 @@ from repro.kernels.server_update.ops import dequant_server_step as ref_dequant_s
 from repro_torch.configs.base import CompressionConfig, FaultConfig, FedConfig
 from repro_torch.core import compress as pc
 from repro_torch.core import faults as pf
-from repro_torch.core.convert import to_numpy
+from repro_torch.core.convert import state_from_numpy, to_numpy
 from repro_torch.core.engine import check_supported
-from repro_torch.core.registry import AlgorithmSpec, get_algorithm, register_algorithm
+from repro_torch.core.registry import get_algorithm
 from repro_torch.kernels.server_update.ops import dequant_server_step
 from repro_torch.kernels.server_update.ref import (
     dequant_server_update_ref,
@@ -217,22 +217,22 @@ def test_validate_compression_rejects_malformed(kind, frac, match):
         rc.validate_compression(RefCompressionConfig(kind=kind, topk_frac=frac))
 
 
-@pytest.mark.parametrize("fields, match", [
-    ({"uplink_compression": "topk"}, "needs_residual"),
-    ({"needs_residual": True}, "only 'topk'"),
-    ({"uplink_compression": "int4"}, "unknown uplink_compression"),
-])
-def test_registry_refuses_malformed_wire_format(fields, match):
-    with pytest.raises(ValueError, match=match):
-        register_algorithm(AlgorithmSpec(name="bad_wire", **fields))
-
-
-def test_spec_default_compression_is_resolved_and_config_wins():
-    spec = get_algorithm("fedcm")._replace(uplink_compression="bf16")
-    assert pc.resolve_compression(FedConfig(), spec) == CompressionConfig(kind="bf16")
-    own = CompressionConfig(kind="int8", seed=4)
-    assert pc.resolve_compression(FedConfig(compression=own), spec) is own
-    assert pc.resolve_compression(FedConfig(), get_algorithm("fedcm")) is None
+@pytest.mark.parametrize("kind", [None, "int8", "bf16", "topk"])
+def test_residual_rows_exist_only_under_topk(kind):
+    """One rule decides the residual rows: the engine's ``init`` and the
+    converter's ``state_from_numpy`` both start from ``init_residuals``."""
+    comp = None if kind is None else CompressionConfig(kind=kind)
+    assert pc.carries_residuals(comp) == (kind == "topk")
+    rows = pc.init_residuals(comp, 6, 484)
+    cfg = FedConfig(num_clients=6, compression=comp)
+    params = [{"w": np.ones((20, 22), np.float32), "b": np.ones((22,), np.float32)}]
+    st, _ = state_from_numpy(params, cfg)
+    if kind != "topk":
+        assert rows is None and st.residuals is None
+        return
+    assert rows.shape == (6, 484) and rows.dtype == torch.float32
+    assert torch.count_nonzero(rows) == 0
+    assert st.residuals.shape == (6, 462) and torch.count_nonzero(st.residuals) == 0
 
 
 def test_config_copies_have_reference_defaults():

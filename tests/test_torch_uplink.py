@@ -33,7 +33,6 @@ from repro.configs.base import FaultConfig as RefFaultConfig
 from repro.core.compress import plane_key, round_key
 from repro.core.faults import _per_client_keys
 from repro_torch.configs.base import CompressionConfig, FaultConfig, FedConfig
-from repro_torch.core import engine as engine_mod
 from repro_torch.core.convert import state_from_numpy, state_to_numpy
 from repro_torch.core.engine import (
     FederatedEngine, RoundDraws, check_supported, local_learning_rate, metrics_to_host,
@@ -319,15 +318,12 @@ def test_init_allocates_residuals_only_under_topk():
         eng.round_step(st._replace(residuals=None), batches, ids, mask)
 
 
-def test_spec_default_compression_reaches_the_round(monkeypatch):
-    """A spec that declares its own wire format compresses without a
-    ``cfg.compression``; the fold then takes the dequant route."""
-    spec = engine_mod.get_algorithm("fedcm")._replace(uplink_compression="int8")
-    monkeypatch.setattr(engine_mod, "get_algorithm", lambda name: spec)
-    eng, st, data = _data_setup(_small())
-    assert eng.compression == CompressionConfig(kind="int8")
-    _, m = eng.run_round(st, data)
-    assert float(m.bytes_up) == float(m.n_active) * (484 + 4)
+@pytest.mark.parametrize("kind, frac", [("int4", 0.01), ("topk", 0.0), ("topk", 1.5)])
+def test_engine_refuses_malformed_compression(kind, frac):
+    """``cfg.compression`` alone selects the wire format, and the engine
+    validates it before any round runs."""
+    with pytest.raises(ValueError, match="compression kind|topk_frac"):
+        _data_setup(_small(compression=CompressionConfig(kind=kind, topk_frac=frac)))
 
 
 @pytest.mark.parametrize("knob", [
