@@ -8,8 +8,8 @@ JAX or of the JAX package.  Phases, each of which exits non-zero on failure:
 
 1. device check — CUDA present, the card's name and power limit from
    ``nvidia-smi``, TF32 off for matmuls and convolutions;
-2. build — the two sources of ``src/repro_torch/csrc`` compiled for
-   sm_90a, one ``nvcc`` per source, in parallel; the three kernels bound
+2. build — the four sources of ``src/repro_torch/csrc`` compiled for
+   sm_90a, one ``nvcc`` per source, in parallel; the five kernels bound
    (``server_update.cu`` holds the dense fold and the dequant fold);
 3. kernels vs plain — each kernel against its plain PyTorch version on the
    card, at the main path's plane (C, P) = (25, 22026) and at a ResNet-18
@@ -22,7 +22,15 @@ JAX or of the JAX package.  Phases, each of which exits non-zero on failure:
    plain version too.  Times are CUDA-event medians of 21 samples of a
    CUDA-graph replay, so they are device time without the host's launch
    cost; ``eager_ms`` is the time per call when Python launches each
-   call, which is what the main path pays;
+   call, which is what the main path pays.  ``flash_attention`` at the
+   serving shape (B=4, S=1024, H=32, Hkv=8, hd=64, bf16, causal; timed
+   beside ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
+   as the library yardstick), at a ragged shape with a window and
+   q_offset that leaves rows no key, and in f32 with hd=128 without the
+   causal mask;
+   ``ssd_scan`` at the serving shape (B=4, S=1024, H=64, P=64, N=128,
+   L=64, bf16 x), at a ragged S and at S < L — each within the tolerance
+   stated at ``LM_KERNEL_TOL``;
 4. main path — ``repro_torch.launch.fed_train.run_federated`` with FedCM at
    the CLI defaults (N=100, cohort 10 Bernoulli → capacity 25, K=10, B=50,
    MLP 32-128-128-10) for 20 rounds, eval every 5, uncompressed, then with
@@ -39,7 +47,18 @@ JAX or of the JAX package.  Phases, each of which exits non-zero on failure:
    then three rounds under int8 + faults, each started on both devices
    from the card's state, with the hash draws (the same bits on both) and
    the floor flips of the int8 rounding counted;
-6. summary — the ``nvidia-smi`` line, one JSON line ``{"kernels": [...]}``
+6. serving — ``repro_torch.launch.serve`` (the CLI's ``run``) at full width
+   for llama3.2-1b and mamba2-1.3b, ``--full --batch 4 --prompt-len 1024
+   --gen 32 --sessions 2``, with the launch counts set to 0 just before
+   each and read just after: 16 ``flash_attention`` launches per prefill
+   (llama) and 48 ``ssd_scan`` (mamba2), none of the federated kernels;
+   prefill and decode ms and tok/s of each session; then one decode step
+   of each arch at that shape: its ms, and the device operations it runs
+   with their summed device time (torch.profiler);
+7. card vs CPU, serving — each arch at full width cut to 2 layers, B=2,
+   prompt 128, the same f32 weights on both devices: prefill logits and
+   cache, then 4 teacher-forced decode steps, each within ``LM_REL_L2``;
+8. summary — the ``nvidia-smi`` line, one JSON line ``{"kernels": [...]}``
    and, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -60,6 +79,20 @@ MAIN_C, MAIN_P = 25, 22026
 BIG_C, BIG_P = 25, 11_173_962
 ROUNDS, EVAL_EVERY, K = 20, 5, 10
 PARITY_RTOL, PARITY_ATOL = 2e-5, 1e-5  # tests/_torch_parity.py (three rounds)
+BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+# flash_attention and ssd_scan vs their plain versions, |Δ| ≤ rtol·|plain| +
+# atol_rel·max|plain|, by output dtype.  Both sum in f32 in different orders (the kernel's online softmax /
+# register tiles vs the plain version's full-matrix products and
+# torch.cumsum), so f32 outputs differ by ~1e-7 of the largest value; a bf16
+# output may land one ulp (≤ 2^-7 relative) apart when the f32 values
+# straddle a rounding boundary.
+LM_KERNEL_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -7, 1e-5)}
+# Card vs CPU serving (bf16 activations): each bf16 rounding is ≤ 2^-9
+# relative and a 2-layer forward chains a few dozen of them, with the card's
+# GEMMs summing in another order than the CPU's: relative L2 error ≤ 2e-2
+# (~10 half-ulps) for the logits and every cache leaf.
+LM_REL_L2 = 2e-2
+SERVE_ARGS = ["--full", "--batch", "4", "--prompt-len", "1024", "--gen", "32", "--sessions", "2"]
 
 
 def fail(msg: str) -> None:
@@ -254,6 +287,234 @@ def check_dequant_update(torch, su_kernel, su_ref, C, P, q_kind, write_x, write_
             "eager_ms": eager, "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
 
 
+def close_to(torch, actual, expected, rtol: float, atol_rel: float) -> bool:
+    """|actual − expected| ≤ rtol·|expected| + atol_rel·max|expected|."""
+    a, e = actual.float(), expected.float()
+    atol = atol_rel * float(e.abs().max()) if e.numel() else 0.0
+    return bool(((a - e).abs() <= rtol * e.abs() + atol).all())
+
+
+def peak_flops(torch, dtype) -> float:
+    """The card's peak for products of ``dtype`` inputs: the bf16 tensor
+    cores for bf16, f32 outside the tensor cores for f32 (TF32 would not
+    keep the plain version's f32)."""
+    return BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+
+
+def check_flash_attention(torch, fa_kernel, fa_ref, B, Sq, Skv, H, Hkv, hd, dtype, causal,
+                          window, q_offset, gen, library: bool):
+    """The kernel against its plain version on one case; the bound counts
+    the (q, k) pairs the masks keep on these shapes."""
+    dev = "cuda"
+    q = torch.randn((B, Sq, H, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, Skv, Hkv, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, Skv, Hkv, hd), generator=gen, device=dev).to(dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out = fa_kernel.flash_attention_bshd(q, k, v, **kw)
+    ref = fa_ref.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    rtol, atol_rel = LM_KERNEL_TOL[name]
+    qpos = torch.arange(Sq, device=dev)[:, None] + q_offset
+    kpos = torch.arange(Skv, device=dev)[None, :]
+    keep = qpos >= kpos if causal else torch.ones((Sq, Skv), dtype=torch.bool, device=dev)
+    if window is not None:
+        keep &= qpos - kpos < window
+    pairs = int(keep.sum())
+    empty_rows = int((keep.sum(dim=1) == 0).sum())
+    nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size()
+    b_ms, b_by = bound(nbytes, 0)
+    f_ms = 4 * hd * B * H * pairs / peak_flops(torch, dtype) * 1e3
+    if f_ms > b_ms:
+        b_ms, b_by = f_ms, "operations"
+    reps = 5 if Sq >= 1024 else 20
+    res = {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "Hkv": Hkv, "hd": hd, "dtype": name,
+           "causal": causal, "window": window, "q_offset": q_offset, "rows_without_keys": empty_rows,
+           "max_abs_err": max_err(torch, out, ref), "max_abs_plain": float(ref.float().abs().max()),
+           "ok": close_to(torch, out, ref, rtol, atol_rel) and bool(torch.isfinite(out).all()),
+           "ms": graph_ms(torch, lambda: fa_kernel.flash_attention_bshd(q, k, v, **kw), reps),
+           "plain_ms": graph_ms(torch, lambda: fa_ref.flash_attention_ref(q, k, v, **kw), reps),
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+           "flops": 4 * hd * B * H * pairs, "library_ms": None}
+    if library:  # the yardstick: one PyTorch call, (B, H, S, hd) layout, never on the path
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+        res["library_max_abs_diff"] = max_err(torch, lib, ref)
+        res["library_ms"] = graph_ms(
+            torch, lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), reps)
+    return res
+
+
+def check_ssd_scan(torch, ssd_kernel, ssd_ref, B, S, H, P, N, L, dtype, gen):
+    """The kernel against its plain version; x, B and C in ``dtype``, dt =
+    softplus(normal − 4) as the model's dt_bias init gives, A = −(1..H)."""
+    dev = "cuda"
+    x = torch.randn((B, S, H, P), generator=gen, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen, device=dev) - 4.0)
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=dev)
+    Bm = torch.randn((B, S, N), generator=gen, device=dev).to(dtype)
+    Cm = torch.randn((B, S, N), generator=gen, device=dev).to(dtype)
+    y, st = ssd_kernel.ssd_scan(x, dt, A, Bm, Cm, chunk=L)
+    y_ref, st_ref = ssd_ref.ssd_chunked_ref(x, dt, A, Bm, Cm, L)
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    ok = (close_to(torch, y, y_ref, *LM_KERNEL_TOL[name])
+          and close_to(torch, st, st_ref, *LM_KERNEL_TOL["float32"])
+          and bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all()))
+    nbytes = (x.numel() * x.element_size() + dt.numel() * 4 + A.numel() * 4
+              + (Bm.numel() + Cm.numel()) * Bm.element_size() + y.numel() * y.element_size()
+              + st.numel() * 4)
+    # per chunk of l steps: C·Bᵀ on the causal triangle once per (b, chunk)
+    # (the heads share B and C), then per (b, h, chunk) y_diag on the
+    # triangle, y_off and the state update
+    flops = 0
+    for c0 in range(0, S, L):
+        l = min(L, S - c0)
+        tri = l * (l + 1) // 2
+        flops += B * 2 * N * tri + B * H * (2 * P * tri + 4 * l * P * N)
+    b_ms, b_by = bound(nbytes, 0)
+    f_ms = flops / peak_flops(torch, dtype) * 1e3
+    if f_ms > b_ms:
+        b_ms, b_by = f_ms, "operations"
+    reps = 5 if S >= 1024 else 20
+    return {"B": B, "S": S, "H": H, "P": P, "N": N, "L": L, "dtype": name,
+            "max_abs_err": max(max_err(torch, y, y_ref), max_err(torch, st, st_ref)),
+            "max_abs_plain": float(y_ref.float().abs().max()), "ok": ok,
+            "ms": graph_ms(torch, lambda: ssd_kernel.ssd_scan(x, dt, A, Bm, Cm, chunk=L), reps),
+            "plain_ms": graph_ms(torch, lambda: ssd_ref.ssd_chunked_ref(x, dt, A, Bm, Cm, L),
+                                 reps),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
+            "library_ms": None}
+
+
+# ---------------------------------------------------------------------- phase 6
+def serve_full_width(torch, np, bindings):
+    """``repro_torch.launch.serve`` at full width for both ported archs,
+    each with the launch counts set to 0 just before and read just after."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+
+    per_prefill = {"llama3.2-1b": {"flash_attention": 16}, "mamba2-1.3b": {"ssd_scan": 48}}
+    out = {}
+    for arch, want in per_prefill.items():
+        args = serve.build_parser().parse_args(["--arch", arch, *SERVE_ARGS])
+        for b in bindings.values():
+            b.launches = 0
+        t0 = time.perf_counter()
+        res = serve.run(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: b.launches for k, b in bindings.items()}
+        expected = {k: want.get(k, 0) * args.sessions for k in bindings}
+        if launches != expected:
+            fail(f"serving {arch}: launch counts {launches}, expected {expected}")
+        vocab = get_config(arch).padded_vocab
+        if res.tokens.shape != (args.batch, args.gen) or not (
+                (res.tokens >= 0).all() and (res.tokens < vocab).all()):
+            fail(f"serving {arch}: tokens of shape {res.tokens.shape} outside [0, {vocab})")
+        rows = []
+        for s, (tp, td) in enumerate(zip(res.prefill_s, res.decode_s)):
+            rows.append({"session": s, "prefill_ms": tp * 1e3,
+                         "prefill_tok_s": args.batch * args.prompt_len / tp,
+                         "decode_ms": td * 1e3,
+                         "decode_tok_s": args.batch * (args.gen - 1) / td})
+            say(f"serving {arch}: {json.dumps(rows[-1])}")
+        say(f"serving {arch}: launches {launches} in {args.sessions} sessions "
+            f"({wall:.1f} s with init); first tokens {res.tokens[0, :8].tolist()}")
+        out[arch] = {"launches": launches, "sessions": args.sessions, "rows": rows}
+        del res
+        torch.cuda.empty_cache()
+    return out
+
+
+def decode_step_breakdown(torch, arch: str):
+    """One full-width decode step of ``arch`` at the serving shape (B=4,
+    after a 1024-token prefill): ms per step (10 steps synchronized at both
+    ends), and the device operations of one step with their summed device
+    time (torch.profiler).  A step launches more operations than the
+    launch queue holds, so the sleep probe of ``device_ms_per_round``
+    cannot time it."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import make_synthetic_lm
+    from repro_torch.launch.serve import merge
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.trees import tree_map
+
+    model = build_model(get_config(arch))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = model.init(gen)
+    prompts = torch.as_tensor(make_synthetic_lm(512, 1024, 4, seed=0), device="cuda")
+    logits, pre, _ = model.apply(params, prompts, return_cache=True)
+    st = {"tok": torch.argmax(logits[:, -1].float(), dim=-1)[:, None], "pos": 1024,
+          "cache": tree_map(merge, model.init_cache(params, 4, 1024 + 32), pre)}
+    del logits, pre
+
+    def step():  # greedy, as the serving loop's decode step
+        lg, st["cache"] = model.decode_step(params, st["tok"], st["cache"], st["pos"])
+        st["tok"] = torch.argmax(lg[:, -1].float(), dim=-1)[:, None]
+        st["pos"] += 1
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        step()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / 10 * 1e3
+    ops, dev_ms = device_profile(torch, step)
+    del st, params
+    torch.cuda.empty_cache()
+    return {"arch": arch, "ms_per_step": host_ms, "device_ops_per_step": ops,
+            "device_op_ms_per_step": dev_ms, "device_busy_share": dev_ms / host_ms}
+
+
+# ---------------------------------------------------------------------- phase 7
+def serve_card_vs_cpu(torch, np, arch: str):
+    """Full width cut to 2 layers, B=2, prompt 128: prefill logits and cache,
+    then 4 teacher-forced decode steps on the card and on the CPU from the
+    same f32 weights (drawn on the CPU), each within ``LM_REL_L2``."""
+    from dataclasses import replace as dc_replace
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import merge
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.trees import tree_leaves, tree_map
+
+    cfg = dc_replace(get_config(arch), n_layers=2)
+    model = build_model(cfg)
+    params_cpu = model.init(torch.Generator().manual_seed(5))
+    params = {"cpu": params_cpu, "cuda": tree_map(lambda t: t.cuda(), params_cpu)}
+    B, S, steps = 2, 128, 4
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, size=(B, S + steps))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        p = params[dev]
+        t = torch.as_tensor(toks, device=dev)
+        logits, pre, _ = model.apply(p, t[:, :S], return_cache=True)
+        seq = [("prefill logits", logits)]
+        seq += [(f"prefill cache {i}", x) for i, x in enumerate(tree_leaves(pre))]
+        cache = tree_map(merge, model.init_cache(p, B, S + steps), pre)
+        for i in range(steps):
+            lg, cache = model.decode_step(p, t[:, S + i:S + i + 1], cache, S + i)
+            seq.append((f"decode {i} logits", lg))
+        seq += [(f"decode cache {i}", x) for i, x in enumerate(tree_leaves(cache))]
+        outs[dev] = [(name, x.detach().float().cpu()) for name, x in seq]
+    worst = {}
+    for (name, a), (_, b) in zip(outs["cuda"], outs["cpu"]):
+        rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        worst[name] = rel
+        if not (rel <= LM_REL_L2 and bool(torch.isfinite(a).all())):
+            fail(f"card vs CPU serving {arch}: {name} relative L2 error {rel:.3e} "
+                 f"> {LM_REL_L2} (max abs diff {float((a - b).abs().max()):.3e})")
+    logits_rel = max(v for k, v in worst.items() if "logits" in k)
+    cache_rel = max(v for k, v in worst.items() if "cache" in k)
+    return {"arch": arch, "n_layers": 2, "B": B, "prompt": S, "decode_steps": steps,
+            "max_rel_l2_logits": logits_rel, "max_rel_l2_cache": cache_rel}
+
+
 # ---------------------------------------------------------------------- phase 5
 def card_vs_cpu(torch, np):
     from repro_torch.configs.base import FedConfig
@@ -423,11 +684,16 @@ def main() -> int:
     from repro_torch.kernels.build import build_all
     from repro_torch.kernels.fed_direction import kernel as fd_kernel
     from repro_torch.kernels.fed_direction import ref as fd_ref
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.server_update import kernel as su_kernel
     from repro_torch.kernels.server_update import ref as su_ref
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
     bindings = {"fed_direction": fd_kernel.KERNEL, "server_update": su_kernel.KERNEL,
-                "dequant_update": su_kernel.DEQUANT_KERNEL}
+                "dequant_update": su_kernel.DEQUANT_KERNEL,
+                "flash_attention": fa_kernel.KERNEL, "ssd_scan": ssd_kernel.KERNEL}
 
     # ---- 2. build (one nvcc per source, started together)
     t0 = time.perf_counter()
@@ -477,22 +743,52 @@ def main() -> int:
     say("kernels vs plain: all cases within tolerance, dequant_update bitwise equal to its "
         "plain version; server_update and dequant_update bitwise deterministic")
 
+    fa_cases, ssd_cases = [], []
+    # (B, Sq, Skv, H, Hkv, hd, dtype, causal, window, q_offset): the serving
+    # shape, a ragged one whose window and q_offset leave rows 29-76 no key,
+    # and f32 with hd=128 without the causal mask
+    for B, Sq, Skv, H, Hkv, hd, dtype, causal, window, q_offset in (
+            (4, 1024, 1024, 32, 8, 64, torch.bfloat16, True, None, 0),
+            (2, 77, 50, 8, 2, 64, torch.bfloat16, True, 20, 40),
+            (2, 333, 301, 16, 4, 128, torch.float32, False, None, 0)):
+        r = check_flash_attention(torch, fa_kernel, fa_ref, B, Sq, Skv, H, Hkv, hd, dtype,
+                                  causal, window, q_offset, gen, library=not fa_cases)
+        fa_cases.append(r)
+        say(f"flash_attention {json.dumps(r)}")
+    for B, S, H, P, N, L, dtype in ((4, 1024, 64, 64, 128, 64, torch.bfloat16),
+                                    (2, 1000, 64, 64, 128, 64, torch.bfloat16),
+                                    (2, 40, 16, 64, 128, 64, torch.float32)):
+        r = check_ssd_scan(torch, ssd_kernel, ssd_ref, B, S, H, P, N, L, dtype, gen)
+        ssd_cases.append(r)
+        say(f"ssd_scan {json.dumps(r)}")
+    torch.cuda.empty_cache()
+    bad = [r for r in fa_cases + ssd_cases if not r["ok"]]
+    if bad:
+        fail(f"kernel disagrees with its plain version: {bad}")
+    if fa_cases[1]["rows_without_keys"] == 0:
+        fail("the ragged flash_attention case was meant to have rows without keys")
+    say(f"kernels vs plain: flash_attention and ssd_scan within {LM_KERNEL_TOL} "
+        f"(rtol, atol relative to the largest plain value)")
+
     # ---- 4. main path and the lossy-uplink paths, launch counts from each run only
     from repro_torch.configs.base import CompressionConfig, FaultConfig, FedConfig
     from repro_torch.launch.fed_train import run_federated
 
     base = FedConfig(participation="bernoulli", rounds=ROUNDS)
+    lm = {"flash_attention": 0, "ssd_scan": 0}  # the LM kernels stay off the federated paths
     paths = {
         "uncompressed": (base, {"fed_direction": ROUNDS * K, "server_update": ROUNDS,
-                                "dequant_update": 0}),
+                                "dequant_update": 0, **lm}),
         "int8": (replace(base, compression=CompressionConfig(kind="int8")),
-                 {"fed_direction": ROUNDS * K, "server_update": 0, "dequant_update": ROUNDS}),
+                 {"fed_direction": ROUNDS * K, "server_update": 0, "dequant_update": ROUNDS,
+                  **lm}),
         "topk": (replace(base, compression=CompressionConfig(kind="topk")),
-                 {"fed_direction": ROUNDS * K, "server_update": ROUNDS, "dequant_update": 0}),
+                 {"fed_direction": ROUNDS * K, "server_update": ROUNDS, "dequant_update": 0,
+                  **lm}),
         "faults": (replace(base, fault=FaultConfig(drop_rate=0.1, corrupt_rate=0.1,
                                                    corrupt_mode="nan")),
                    {"fed_direction": ROUNDS * K, "server_update": ROUNDS,
-                    "dequant_update": 0}),
+                    "dequant_update": 0, **lm}),
     }
     path_launches, path_acc = {}, {}
     for name, (cfg, expected) in paths.items():
@@ -549,6 +845,7 @@ def main() -> int:
         f"{steady['faults'] * 1e3:.3f})")
     s_per_round = steady["uncompressed"]
     eng, state, data = main_eng
+
     dev_ms = device_ms_per_round(torch, eng, state, data)
     if dev_ms is None:
         say("main path: device time per round not measured")
@@ -568,7 +865,19 @@ def main() -> int:
     say("card vs CPU, int8 + faults: draws bitwise equal on both devices; params and "
         "momentum within the tolerance plus one quantum per floor flip")
 
-    # ---- 6. summary
+    # ---- 6. serving at full width, launch counts from each run only
+    serving = serve_full_width(torch, np, bindings)
+    for arch in ("llama3.2-1b", "mamba2-1.3b"):
+        say(f"decode step: {json.dumps(decode_step_breakdown(torch, arch))}")
+    launches["flash_attention"] = serving["llama3.2-1b"]["launches"]["flash_attention"]
+    launches["ssd_scan"] = serving["mamba2-1.3b"]["launches"]["ssd_scan"]
+
+    # ---- 7. card vs CPU, serving
+    for arch in ("llama3.2-1b", "mamba2-1.3b"):
+        say(f"card vs CPU serving: {json.dumps(serve_card_vs_cpu(torch, np, arch))} "
+            f"(relative L2 ≤ {LM_REL_L2})")
+
+    # ---- 8. summary
     def main_case(cases, **sel):
         return next(r for r in cases if r["C"] == MAIN_C and r["P"] == MAIN_P
                     and all(r[k] == v for k, v in sel.items()))
@@ -584,6 +893,10 @@ def main() -> int:
          "src/repro/kernels/server_update/kernel.py:91", su_main, su_cases),
         ("dequant_update", "src/repro_torch/csrc/server_update.cu",
          "src/repro/kernels/server_update/kernel.py:211", dq_main, dq_cases),
+        ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention/kernel.py:109", fa_cases[0], fa_cases),
+        ("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+         "src/repro/kernels/ssd_scan/kernel.py:92", ssd_cases[0], ssd_cases),
     ):
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -591,7 +904,7 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in cases),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": None,
+            "library_ms": main.get("library_ms"),
         })
     say(f"steady ms/round {s_per_round * 1e3:.3f}; eager ms/call fed_direction "
         f"{fd_main['eager_ms']:.4f}, server_update {su_main['eager_ms']:.4f}, "
@@ -656,6 +969,21 @@ def device_ms_per_round(torch, eng, state, data, samples: int = 11) -> float:
             return None
         times.append(mid.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_profile(torch, enqueue):
+    """``(device operations, their summed device ms)`` of the work
+    ``enqueue()`` runs, from torch.profiler's device-side rows (kernels,
+    copies, fills; the gaps between them are not counted)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        enqueue()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sum(e.count for e in rows), sum(e.self_device_time_total for e in rows) / 1e3
 
 
 def profile_rounds(torch, eng, state, data, n: int = 5) -> None:

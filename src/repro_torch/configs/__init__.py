@@ -1,1 +1,7 @@
-from repro_torch.configs.base import FedConfig  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    ARCH_IDS,
+    FedConfig,
+    ModelConfig,
+    get_config,
+    reduced,
+)

@@ -1,6 +1,7 @@
-"""The federated round configuration: copies of ``repro.configs.base``'s
-``FedConfig`` (cut to the fields this package reads), ``FaultConfig`` and
-``CompressionConfig``, with the same names and defaults.
+"""Configurations: copies of ``repro.configs.base``'s ``FedConfig`` (cut to
+the fields this package reads), ``FaultConfig``, ``CompressionConfig`` and
+``ModelConfig`` (cut to the fields the LM serving slice reads), with the same
+names and defaults, and the architecture registry of the ported archs.
 
 Fields for features the port does not run yet stay in the copy so that a
 config asking for them fails loudly (``repro_torch.core.engine`` raises
@@ -11,8 +12,9 @@ the flat plane through the hand-written kernels, so the reference's
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+import importlib
+from dataclasses import dataclass, replace
+from typing import Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -122,3 +124,158 @@ class FedConfig:
     allow_empty_cohort: bool = False
     # uplink compression; None sends the f32 delta plane
     compression: Optional[CompressionConfig] = None
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """An LM architecture (counterpart of ``repro.configs.base.ModelConfig``).
+
+    The copy keeps every field the reference's ``reduced`` and the two
+    ported families (dense, ssm) read, under the same names and defaults.
+    Fields of families the port does not run yet (MoE, hybrid,
+    encoder-decoder) stay so that such a config is refused by name
+    (``repro_torch.models.transformer.period_layout``, ROADMAP A.15)."""
+
+    name: str
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None  # default: d_model // n_heads
+
+    # --- attention variants ---
+    use_rope: bool = True
+    rope_theta: float = 10000.0
+    qk_norm: bool = False
+    sliding_window: Optional[int] = None  # window for "local" attention layers
+    # (n_local, n_global) per repeating period; None = all-global.
+    local_global_pattern: Optional[Tuple[int, int]] = None
+
+    # --- mlp ---
+    mlp_type: str = "gated_silu"  # gated_silu | gelu
+    tie_embeddings: bool = False
+
+    # --- MoE (not ported: ROADMAP A.15) ---
+    n_experts: int = 0
+    top_k: int = 0
+    moe_every: int = 1
+
+    # --- SSM (mamba2 / SSD) ---
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_chunk: int = 64
+
+    # --- hybrid and encoder-decoder (not ported: ROADMAP A.15) ---
+    attn_every: int = 0
+    is_encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+
+    # --- numerics ---
+    dtype: str = "float32"  # activation dtype
+    param_dtype: str = "float32"
+
+    # --- provenance ---
+    source: str = ""
+
+    @property
+    def padded_vocab(self) -> int:
+        """Embedding table rows: the vocab rounded up to 256, as in the
+        reference (token ids stay < vocab_size; the pad rows are dead)."""
+        return -(-self.vocab_size // 256) * 256
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
+
+    @property
+    def ssm_heads(self) -> int:
+        return (self.ssm_expand * self.d_model) // self.ssm_head_dim
+
+
+# The reference's architecture pool; the port serves the archs of
+# _MODULE_FOR and refuses the others by name.
+REFERENCE_ARCH_IDS = [
+    "starcoder2-7b",
+    "llama4-maverick-400b-a17b",
+    "seamless-m4t-large-v2",
+    "dbrx-132b",
+    "zamba2-7b",
+    "llama3.2-1b",
+    "qwen3-14b",
+    "gemma3-12b",
+    "chameleon-34b",
+    "mamba2-1.3b",
+]
+
+_MODULE_FOR: Dict[str, str] = {
+    "llama3.2-1b": "llama3_2_1b",
+    "mamba2-1.3b": "mamba2_1_3b",
+}
+ARCH_IDS = list(_MODULE_FOR)
+
+
+def get_config(name: str) -> ModelConfig:
+    """The published config of a ported arch (``llama3.2-1b`` or
+    ``mamba2_1_3b`` spelling).  An arch of the reference's pool that is
+    not ported raises ``NotImplementedError``; an unknown name ``KeyError``."""
+    key = name.replace("_", "-") if name not in _MODULE_FOR else name
+    for k, mod in _MODULE_FOR.items():
+        if mod == name:
+            key = k
+    if key in _MODULE_FOR:
+        return importlib.import_module(f"repro_torch.configs.{_MODULE_FOR[key]}").CONFIG
+    if key in REFERENCE_ARCH_IDS:
+        raise NotImplementedError(
+            f"architecture {name!r} is not ported yet (ROADMAP A.15); the port "
+            f"serves {ARCH_IDS}")
+    raise KeyError(f"unknown architecture {name!r}; known: {REFERENCE_ARCH_IDS}")
+
+
+def reduced(cfg: ModelConfig) -> ModelConfig:
+    """Reduced same-family variant for CPU tests (the reference's, verbatim):
+    ≤ 2 layers, d_model ≤ 256, vocab ≤ 512, f32."""
+    d_model = min(cfg.d_model, 256)
+    n_heads = min(cfg.n_heads, 4)
+    if n_heads > 0:
+        head_dim = max(d_model // n_heads, 32)
+        n_kv = min(cfg.n_kv_heads, n_heads)
+        if n_heads % n_kv != 0:
+            n_kv = 1
+    else:  # attention-free (ssm)
+        head_dim = None
+        n_kv = 0
+    updates = dict(
+        name=cfg.name + "-reduced",
+        n_layers=2,
+        d_model=d_model,
+        n_heads=n_heads,
+        n_kv_heads=n_kv,
+        head_dim=head_dim,
+        d_ff=min(cfg.d_ff, 512) if cfg.d_ff else 0,
+        vocab_size=min(cfg.vocab_size, 512),
+        dtype="float32",
+        param_dtype="float32",
+    )
+    if cfg.n_experts:
+        updates["n_experts"] = min(cfg.n_experts, 4)
+        updates["top_k"] = min(cfg.top_k, 2)
+        updates["moe_every"] = min(cfg.moe_every, 2)
+    if cfg.family in ("ssm", "hybrid"):
+        updates["ssm_state"] = min(cfg.ssm_state, 16)
+        updates["ssm_head_dim"] = 32
+        updates["ssm_chunk"] = 16
+        if cfg.family == "hybrid":
+            updates["n_layers"] = 2
+            updates["attn_every"] = 2  # layer 1 is the shared attention block
+    if cfg.is_encoder_decoder:
+        updates["n_encoder_layers"] = 2
+    if cfg.sliding_window is not None:
+        updates["sliding_window"] = min(cfg.sliding_window, 8)
+    if cfg.local_global_pattern is not None:
+        updates["local_global_pattern"] = (1, 1)
+    return replace(cfg, **updates)

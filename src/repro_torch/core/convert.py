@@ -2,9 +2,9 @@
 
 The tests build inputs with numpy and hand the same arrays to both
 packages; the reference's outputs come back as numpy with ``np.asarray``
-on its pytrees.  This module turns such arrays into the port's params tree
-and flat ``FedState``, and the port's state back into numpy planes for
-comparison.  bf16 arrays (ml_dtypes on the numpy side) pass through f32,
+on its pytrees.  This module turns such arrays into the port's params and
+cache trees and flat ``FedState``, and the port's state back into numpy
+planes for comparison.  bf16 arrays (ml_dtypes on the numpy side) pass through f32,
 which is exact.
 """
 from __future__ import annotations
@@ -40,7 +40,10 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def params_from_numpy(tree, device="cpu"):
-    """numpy params tree (list of {"w", "b"} dicts) → tensor tree."""
+    """numpy tree → tensor tree on ``device``, leaf for leaf in the tree's
+    dtypes: the MLP's params (list of {"w", "b"} dicts), an LM params tree
+    from the reference's ``model.init`` or an LM cache tree (nested dicts,
+    stacked on the periods axis; bf16 leaves stay bf16)."""
     return tree_map(lambda a: to_tensor(a, device), tree)
 
 

@@ -114,3 +114,15 @@ def assert_close(actual, expected, rtol=RTOL, atol=ATOL, what=""):
     np.testing.assert_allclose(np.asarray(actual, np.float32),
                                np.asarray(expected, np.float32),
                                rtol=rtol, atol=atol, err_msg=what)
+
+# SSD scan (tests/test_torch_ssd.py): y sums up to 64 decayed terms of
+# magnitude ~10 (x·dt·C·B), and the chunked and sequential forms reach them
+# through different exp(cumsum) differences, so an absolute floor is needed
+# beside RTOL; the reference's own tests compare its three forms at 2e-4.
+SSD_RTOL, SSD_ATOL = 2e-5, 2e-5
+
+# LM models (tests/test_torch_lm.py, reduced configs, f32): logits and caches
+# pass through two layers of matrix products of width 256–512 (plus the
+# 512-wide unembedding), each summed in another order by PyTorch's CPU GEMM
+# than by XLA's; values are O(1).
+LM_RTOL, LM_ATOL = 2e-5, 1e-5
