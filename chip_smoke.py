@@ -10,7 +10,10 @@ JAX or of the JAX package.  Phases, each of which exits non-zero on failure:
    ``nvidia-smi``, TF32 off for matmuls and convolutions;
 2. build — the four sources of ``src/repro_torch/csrc`` compiled for
    sm_90a, one ``nvcc`` per source, in parallel; the five kernels bound
-   (``server_update.cu`` holds the dense fold and the dequant fold);
+   (``server_update.cu`` holds the dense fold and the dequant fold); then
+   the tensor-core instructions (``HMMA``) of every compiled kernel, counted
+   in ``cuobjdump -sass``: each tensor-core kernel of ``flash_attention``
+   and ``ssd_scan`` (the bf16 routes, ``*_mma_kernel``) must have some;
 3. kernels vs plain — each kernel against its plain PyTorch version on the
    card, at the main path's plane (C, P) = (25, 22026) and at a ResNet-18
    sized plane (25, 11173962, ragged on purpose): ``fed_direction`` at
@@ -26,11 +29,12 @@ JAX or of the JAX package.  Phases, each of which exits non-zero on failure:
    serving shape (B=4, S=1024, H=32, Hkv=8, hd=64, bf16, causal; timed
    beside ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
    as the library yardstick), at a ragged shape with a window and
-   q_offset that leaves rows no key, and in f32 with hd=128 without the
-   causal mask;
+   q_offset that leaves rows no key, in f32 with hd=128 without the
+   causal mask, in bf16 with hd=128 at a ragged causal shape, and in bf16
+   without the causal mask (GQA, Sq ≠ Skv);
    ``ssd_scan`` at the serving shape (B=4, S=1024, H=64, P=64, N=128,
-   L=64, bf16 x), at a ragged S and at S < L — each within the tolerance
-   stated at ``LM_KERNEL_TOL``;
+   L=64, bf16 x), at a ragged S, and at S < L in f32 and in bf16 — each
+   within the tolerance stated at ``LM_KERNEL_TOL``;
 4. main path — ``repro_torch.launch.fed_train.run_federated`` with FedCM at
    the CLI defaults (N=100, cohort 10 Bernoulli → capacity 25, K=10, B=50,
    MLP 32-128-128-10) for 20 rounds, eval every 5, uncompressed, then with
@@ -82,10 +86,12 @@ PARITY_RTOL, PARITY_ATOL = 2e-5, 1e-5  # tests/_torch_parity.py (three rounds)
 BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 # flash_attention and ssd_scan vs their plain versions, |Δ| ≤ rtol·|plain| +
 # atol_rel·max|plain|, by output dtype.  Both sum in f32 in different orders (the kernel's online softmax /
-# register tiles vs the plain version's full-matrix products and
-# torch.cumsum), so f32 outputs differ by ~1e-7 of the largest value; a bf16
-# output may land one ulp (≤ 2^-7 relative) apart when the f32 values
-# straddle a rounding boundary.
+# register or tensor-core tiles vs the plain version's full-matrix products
+# and torch.cumsum), so f32 outputs differ by ~1e-7 of the largest value; a
+# bf16 output may land one ulp (≤ 2^-7 relative) apart when the f32 values
+# straddle a rounding boundary.  The bf16 routes' f32 operands enter the
+# tensor cores as two bf16 pieces to stay within these numbers
+# (tests/test_torch_kernel_precision.py, which reads this table).
 LM_KERNEL_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -7, 1e-5)}
 # Card vs CPU serving (bf16 activations): each bf16 rounding is ≤ 2^-9
 # relative and a 2-layer forward chains a few dozen of them, with the card's
@@ -160,6 +166,43 @@ def max_err(torch, a, b) -> float:
 def within(torch, actual, expected) -> bool:
     rtol = 2.0 ** -7 if expected.dtype == torch.bfloat16 else 1e-6
     return bool(torch.allclose(actual.float(), expected.float(), rtol=rtol, atol=1e-6))
+
+
+# ---------------------------------------------------------------------- phase 2
+def _kernel_name(mangled: str) -> str:
+    """``attn_mma_kernel<64>`` from its Itanium-mangled name: walks the
+    length-prefixed names of ``_ZN...`` to the one that ends in ``_kernel``,
+    and adds an int template argument if one follows."""
+    pos = 3 if mangled.startswith("_ZN") else 2 if mangled.startswith("_Z") else 0
+    while (d := re.match(r"\d+", mangled[pos:])):
+        ident = mangled[pos + d.end():pos + d.end() + int(d.group())]
+        pos += d.end() + len(ident)
+        if ident.endswith("_kernel"):
+            arg = re.match(r"ILi(\d+)E", mangled[pos:])
+            return f"{ident}<{arg.group(1)}>" if arg else ident
+    return mangled
+
+
+def tensor_core_counts(lib: Path) -> dict:
+    """``{kernel: HMMA instructions}`` of every kernel compiled into ``lib``,
+    from ``cuobjdump -sass`` (names demangled down to the kernel's own name
+    and template arguments)."""
+    from repro_torch.kernels.build import nvcc_path
+
+    tool = Path(nvcc_path()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass {lib.name} failed: {out.stderr.strip()[:500]}")
+    counts, name = {}, None
+    for line in out.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = _kernel_name(m.group(1))
+            counts[name] = 0
+        elif name is not None and re.search(r"\bHMMA\b", line):
+            counts[name] += 1
+    return counts
 
 
 # ---------------------------------------------------------------------- phase 3
@@ -708,6 +751,12 @@ def main() -> int:
     for name, b in bindings.items():
         b.load()
         say(f"  bound {name}: {b.symbol} in {b.source}.cu")
+    for name, info in built.items():
+        counts = tensor_core_counts(info["path"])
+        say(f"  HMMA per kernel in {name}: {json.dumps(counts)}")
+        mma = {k: v for k, v in counts.items() if "_mma_kernel" in k}
+        if name in ("flash_attention", "ssd_scan") and (not mma or min(mma.values()) == 0):
+            fail(f"{name}: a bf16 tensor-core kernel has no HMMA instruction: {counts}")
 
     # ---- 3. kernels vs plain
     gen = torch.Generator(device="cuda")
@@ -746,18 +795,22 @@ def main() -> int:
     fa_cases, ssd_cases = [], []
     # (B, Sq, Skv, H, Hkv, hd, dtype, causal, window, q_offset): the serving
     # shape, a ragged one whose window and q_offset leave rows 29-76 no key,
-    # and f32 with hd=128 without the causal mask
+    # f32 with hd=128 without the causal mask, bf16 with hd=128 ragged and
+    # causal, and bf16 without the causal mask (GQA, Sq ≠ Skv)
     for B, Sq, Skv, H, Hkv, hd, dtype, causal, window, q_offset in (
             (4, 1024, 1024, 32, 8, 64, torch.bfloat16, True, None, 0),
             (2, 77, 50, 8, 2, 64, torch.bfloat16, True, 20, 40),
-            (2, 333, 301, 16, 4, 128, torch.float32, False, None, 0)):
+            (2, 333, 301, 16, 4, 128, torch.float32, False, None, 0),
+            (2, 333, 333, 16, 4, 128, torch.bfloat16, True, None, 0),
+            (2, 200, 300, 8, 2, 64, torch.bfloat16, False, None, 0)):
         r = check_flash_attention(torch, fa_kernel, fa_ref, B, Sq, Skv, H, Hkv, hd, dtype,
                                   causal, window, q_offset, gen, library=not fa_cases)
         fa_cases.append(r)
         say(f"flash_attention {json.dumps(r)}")
     for B, S, H, P, N, L, dtype in ((4, 1024, 64, 64, 128, 64, torch.bfloat16),
                                     (2, 1000, 64, 64, 128, 64, torch.bfloat16),
-                                    (2, 40, 16, 64, 128, 64, torch.float32)):
+                                    (2, 40, 16, 64, 128, 64, torch.float32),
+                                    (2, 40, 16, 64, 128, 64, torch.bfloat16)):
         r = check_ssd_scan(torch, ssd_kernel, ssd_ref, B, S, H, P, N, L, dtype, gen)
         ssd_cases.append(r)
         say(f"ssd_scan {json.dumps(r)}")

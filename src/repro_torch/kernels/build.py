@@ -4,10 +4,11 @@ with ``ctypes``.
 Each ``csrc/<name>.cu`` exposes a plain C launch function, so it compiles
 in seconds without PyTorch's headers.  A build goes into ``build/kernels/``
 at the root of the checkout (listed in ``.gitignore``), named by a hash of
-the source and the flags, so an edited source is rebuilt and an unchanged
-one is reused.  Nothing is built when a module is imported: the first
-launch of a kernel builds it, and ``build_all`` builds several at once
-(one ``nvcc`` process per source, all started together).
+the source, every shared header ``csrc/*.cuh`` and the flags, so an edited
+source or header is rebuilt and an unchanged one is reused.  Nothing is
+built when a module is imported: the first launch of a kernel builds it,
+and ``build_all`` builds several at once (one ``nvcc`` process per source,
+all started together).
 
 ``NativeKernel`` is the binding of one C entry point of a source (a source
 may hold several, each with its own binding): its ``load()`` builds and
@@ -47,9 +48,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """The library built from ``csrc/<name>.cu``: a source may include any
+    ``csrc/*.cuh``, so every header is part of the key."""
+    h = hashlib.sha256()
+    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _nvcc_command(name: str, out: Path) -> list:

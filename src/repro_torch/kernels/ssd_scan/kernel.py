@@ -1,6 +1,10 @@
 """ctypes binding of ``csrc/ssd_scan.cu``: the Mamba-2 SSD chunked scan, one
 block per (batch, head) carrying the (P, N) state across the chunks on chip.
-Replaces ``repro/kernels/ssd_scan/kernel.py :: ssd_chunked_pallas``."""
+Replaces ``repro/kernels/ssd_scan/kernel.py :: ssd_chunked_pallas``.
+
+For bf16 inputs one call is two launches on the stream (C·Bᵀ once per
+(batch, chunk) into a scratch this wrapper allocates, then the scan) and
+counts as one launch of the binding."""
 from __future__ import annotations
 
 import ctypes
@@ -12,12 +16,13 @@ from repro_torch.kernels.build import NativeKernel
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNEL = NativeKernel(
     "ssd_scan", "ssd_scan_launch",
-    # y, state, x, dt, A, B, C | Bsz, S, H, P, N, L | x_sb, x_ss, b_sb, b_ss, c_sb,
-    # c_ss | is_bf16, device | stream
-    [_P] * 7 + [_I] * 6 + [_L] * 6 + [_I] * 2 + [_P],
+    # y, state, cb, x, dt, A, B, C | Bsz, S, H, P, N, L | x_sb, x_ss, b_sb, b_ss,
+    # c_sb, c_ss | is_bf16, device | stream
+    [_P] * 8 + [_I] * 6 + [_L] * 6 + [_I] * 2 + [_P],
 )
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM, MAX_STATE, MAX_CHUNK = 64, 128, 64
+CB_TILE = 64  # the C·Bᵀ scratch holds one (64, 64) f32 tile per (batch, chunk)
 
 
 def _check(x, dt, A, Bm, Cm, chunk):
@@ -65,10 +70,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
         raise ValueError(f"ssd_scan kernel needs CUDA tensors, got {x.device}")
     y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
     state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    is_bf16 = x.dtype == torch.bfloat16
+    cb = torch.empty((Bsz, -(-S // chunk), CB_TILE, CB_TILE) if is_bf16 else (0,),
+                     dtype=torch.float32, device=x.device)
     device = x.device.index if x.device.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    KERNEL.launch(fn, y.data_ptr(), state.data_ptr(), x.data_ptr(), dt.data_ptr(),
+    KERNEL.launch(fn, y.data_ptr(), state.data_ptr(), cb.data_ptr(), x.data_ptr(), dt.data_ptr(),
                   A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), Bsz, S, H, P, N, chunk,
                   x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1), Cm.stride(0),
-                  Cm.stride(1), int(x.dtype == torch.bfloat16), device, stream)
+                  Cm.stride(1), int(is_bf16), device, stream)
     return y, state
