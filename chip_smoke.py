@@ -13,19 +13,24 @@ JAX or of the JAX package.  Phases, each of which exits non-zero on failure:
    (``server_update.cu`` holds the dense fold and the dequant fold); then
    the tensor-core instructions (``HMMA``) of every compiled kernel, counted
    in ``cuobjdump -sass``: each tensor-core kernel of ``flash_attention``
-   and ``ssd_scan`` (the bf16 routes, ``*_mma_kernel``) must have some;
+   and ``ssd_scan`` (the bf16 routes, ``*_mma_kernel``) must have some; and
+   the bulk copies (``UBLKCP``, ``cp.async.bulk`` global -> shared) of each
+   of the 32 ``fold_kernel`` instantiations, which must have some;
 3. kernels vs plain — each kernel against its plain PyTorch version on the
    card, at the main path's plane (C, P) = (25, 22026) and at a ResNet-18
    sized plane (25, 11173962, ragged on purpose): ``fed_direction`` at
    n_aux 0–3 for f32 and bf16 x, ``server_update`` at all four
    write_x/write_m combinations for f32 and bf16 momentum, and
    ``dequant_update`` for int8 and bf16 q × f32 and bf16 momentum × the
-   four write combinations; the folds are launched twice and required
-   bitwise equal (determinism), the dequant fold bitwise equal to its
-   plain version too.  Times are CUDA-event medians of 21 samples of a
-   CUDA-graph replay, so they are device time without the host's launch
-   cost; ``eager_ms`` is the time per call when Python launches each
-   call, which is what the main path pays.  ``flash_attention`` at the
+   four write combinations; then both folds at ``FOLD_EDGES`` (a
+   misaligned plane view, C of 1 and 100, ragged narrow planes, C = 1000
+   streaming through the ring); every fold case is launched twice and
+   required bitwise equal to the first launch (determinism) and to its
+   plain version.  The launch floor, a one-element ``fill_`` timed the
+   same way, is printed beside the main-plane folds.  Times are CUDA-event
+   medians of 21 samples of a CUDA-graph replay, so they are device time
+   without the host's launch cost; ``eager_ms`` is the time per call when
+   Python launches each call, which is what the main path pays.  ``flash_attention`` at the
    serving shape (B=4, S=1024, H=32, Hkv=8, hd=64, bf16, causal; timed
    beside ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
    as the library yardstick), at a ragged shape with a window and
@@ -183,10 +188,12 @@ def _kernel_name(mangled: str) -> str:
     return mangled
 
 
-def tensor_core_counts(lib: Path) -> dict:
-    """``{kernel: HMMA instructions}`` of every kernel compiled into ``lib``,
-    from ``cuobjdump -sass`` (names demangled down to the kernel's own name
-    and template arguments)."""
+def sass_counts(lib: Path, mnemonics: dict) -> list:
+    """``[(kernel, {key: instructions})]`` for every kernel compiled into
+    ``lib``, one entry per compiled function (template instantiations of one
+    kernel share its name), counting the SASS lines that match each regex of
+    ``mnemonics`` in ``cuobjdump -sass`` (names demangled down to the
+    kernel's own name and int template arguments)."""
     from repro_torch.kernels.build import nvcc_path
 
     tool = Path(nvcc_path()).parent / "cuobjdump"
@@ -194,15 +201,16 @@ def tensor_core_counts(lib: Path) -> dict:
                          timeout=300)
     if out.returncode != 0:
         fail(f"cuobjdump -sass {lib.name} failed: {out.stderr.strip()[:500]}")
-    counts, name = {}, None
+    funcs = []
     for line in out.stdout.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            name = _kernel_name(m.group(1))
-            counts[name] = 0
-        elif name is not None and re.search(r"\bHMMA\b", line):
-            counts[name] += 1
-    return counts
+            funcs.append((_kernel_name(m.group(1)), dict.fromkeys(mnemonics, 0)))
+        elif funcs:
+            for key, pattern in mnemonics.items():
+                if re.search(pattern, line):
+                    funcs[-1][1][key] += 1
+    return funcs
 
 
 # ---------------------------------------------------------------------- phase 3
@@ -237,14 +245,38 @@ def check_fed_direction(torch, fd_kernel, fd_ref, C, P, n_aux, dtype, gen):
             "eager_ms": eager, "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
 
 
-def check_server_update(torch, su_kernel, su_ref, C, P, write_x, write_m, m_dtype, gen):
+def shifted(torch, t, offset: int):
+    """``t`` as a contiguous view ``offset`` elements into a larger buffer:
+    the same values at a data_ptr that is no longer 16-byte aligned."""
+    if offset == 0:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def fold_inputs(torch, C, P, m_dtype, gen, offset: int = 0):
+    """wn (the first 2C/5 rows active, at least one), x and m of a fold
+    case; with ``offset``, x and m are views 1 element into their buffers."""
     dev = "cuda"
-    deltas = torch.randn((C, P), generator=gen, device=dev) * 1e-2
-    mask = torch.arange(C, device=dev) < (C * 2) // 5
+    mask = torch.arange(C, device=dev) < max(1, (C * 2) // 5)
     wn = mask.float() / mask.float().sum()
-    x = torch.randn((P,), generator=gen, device=dev)
-    m = torch.randn((P,), generator=gen, device=dev).to(m_dtype)
+    x = shifted(torch, torch.randn((P,), generator=gen, device=dev), min(offset, 1))
+    m = shifted(torch, torch.randn((P,), generator=gen, device=dev).to(m_dtype), min(offset, 1))
     coefs = torch.tensor([0.0, -1.0, 1.0, 1.0], dtype=torch.float32, device=dev)
+    return wn, x, m, coefs
+
+
+def check_server_update(torch, su_kernel, su_ref, C, P, write_x, write_m, m_dtype, gen,
+                        d_dtype=None, offset: int = 0):
+    """``offset``: the plane (and x, m) as views ``offset`` elements into
+    their buffers, so their data_ptr is misaligned."""
+    dev = "cuda"
+    d_dtype = d_dtype or torch.float32
+    deltas = shifted(torch, (torch.randn((C, P), generator=gen, device=dev) * 1e-2).to(d_dtype),
+                     offset)
+    wn, x, m, coefs = fold_inputs(torch, C, P, m_dtype, gen, offset)
 
     def run():
         return su_kernel.server_update_flat(deltas, wn, x, m, coefs,
@@ -262,8 +294,8 @@ def check_server_update(torch, su_kernel, su_ref, C, P, write_x, write_m, m_dtyp
             ok = False
         elif a is not None:
             err = max(err, max_err(torch, a, b))
-            ok = ok and within(torch, a, b)
-    nbytes = (deltas.numel() * 4 + C * 4 + 16 + P * 4  # deltas, wn, coefs, mean
+            ok = ok and torch.equal(a, b)  # bitwise: the same f32 operations
+    nbytes = (deltas.numel() * deltas.element_size() + C * 4 + 16 + P * 4  # deltas, wn, coefs, mean
               + (2 * P * 4 if write_x else 0)
               + (2 * P * m.element_size() if write_m else 0))
     flops = 2 * C * P + P + (2 * P if write_x else 0) + (3 * P if write_m else 0)
@@ -273,14 +305,18 @@ def check_server_update(torch, su_kernel, su_ref, C, P, write_x, write_m, m_dtyp
     plain = graph_ms(torch, lambda: su_ref.server_update_ref(
         deltas, wn, x, m, coefs, write_x=write_x, write_m=write_m), reps)
     eager = eager_ms(torch, run, 50 if C * P < 10_000_000 else 5)
-    return {"C": C, "P": P, "write_x": write_x, "write_m": write_m,
+    return {"C": C, "P": P, "d": str(d_dtype).split(".")[-1], "offset": offset,
+            "write_x": write_x, "write_m": write_m,
             "m": str(m_dtype).split(".")[-1], "max_abs_err": err, "ok": ok,
             "deterministic": deterministic, "ms": ms, "plain_ms": plain,
             "eager_ms": eager, "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
 
 
 def check_dequant_update(torch, su_kernel, su_ref, C, P, q_kind, write_x, write_m, m_dtype,
-                         gen):
+                         gen, offset: int = 0):
+    """``offset``: the plane as a view ``offset`` elements into its buffer
+    (3 for int8, so its data_ptr is 3 bytes past an aligned one), x and m
+    1 element."""
     dev = "cuda"
     if q_kind == "int8":
         q = torch.randint(-127, 128, (C, P), generator=gen, device=dev, dtype=torch.int8)
@@ -288,11 +324,8 @@ def check_dequant_update(torch, su_kernel, su_ref, C, P, q_kind, write_x, write_
     else:
         q = (torch.randn((C, P), generator=gen, device=dev) * 1e-2).to(torch.bfloat16)
         scale = torch.ones((C, 1), device=dev)
-    mask = torch.arange(C, device=dev) < (C * 2) // 5
-    wn = mask.float() / mask.float().sum()
-    x = torch.randn((P,), generator=gen, device=dev)
-    m = torch.randn((P,), generator=gen, device=dev).to(m_dtype)
-    coefs = torch.tensor([0.0, -1.0, 1.0, 1.0], dtype=torch.float32, device=dev)
+    q = shifted(torch, q, offset)
+    wn, x, m, coefs = fold_inputs(torch, C, P, m_dtype, gen, offset)
 
     def run():
         return su_kernel.dequant_update_flat(q, scale, wn, x, m, coefs,
@@ -324,10 +357,47 @@ def check_dequant_update(torch, su_kernel, su_ref, C, P, q_kind, write_x, write_
     ms = graph_ms(torch, run, reps)
     plain_ms = graph_ms(torch, plain, reps)
     eager = eager_ms(torch, run, 50 if C * P < 10_000_000 else 5)
-    return {"C": C, "P": P, "q": q_kind, "write_x": write_x, "write_m": write_m,
+    return {"C": C, "P": P, "q": q_kind, "offset": offset, "write_x": write_x,
+            "write_m": write_m,
             "m": str(m_dtype).split(".")[-1], "max_abs_err": err, "ok": ok,
             "deterministic": deterministic, "ms": ms, "plain_ms": plain_ms,
             "eager_ms": eager, "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+
+
+# (C, P, offset) of the fold's edge cases: a misaligned contiguous plane
+# view (1 element for f32 / bf16, 3 bytes for int8; x and m 1 element), a
+# cohort of 1 and of 100 at the main P, ragged narrow planes, and a cohort
+# of 1000 whose rows stream through the ring in several groups.
+FOLD_EDGES = ((MAIN_C, MAIN_P, 1), (1, MAIN_P, 0), (100, MAIN_P, 0), (MAIN_C, 1, 0),
+              (MAIN_C, 17, 0), (MAIN_C, 4099, 0), (1000, 4099, 0))
+
+
+def fold_edge_cases(torch, su_kernel, su_ref, gen):
+    """Both folds at ``FOLD_EDGES``, x and m written, f32 momentum: f32 and
+    bf16 deltas, int8 and bf16 q; each bitwise against its plain version and
+    launched twice for determinism."""
+    su, dq = [], []
+    for C, P, offset in FOLD_EDGES:
+        for d_dtype in (torch.float32, torch.bfloat16):
+            r = check_server_update(torch, su_kernel, su_ref, C, P, True, True, torch.float32,
+                                    gen, d_dtype=d_dtype, offset=offset)
+            su.append(r)
+            say(f"server_update edge {json.dumps(r)}")
+        for q_kind in ("int8", "bf16"):
+            r = check_dequant_update(torch, su_kernel, su_ref, C, P, q_kind, True, True,
+                                     torch.float32, gen,
+                                     offset=3 if offset and q_kind == "int8" else offset)
+            dq.append(r)
+            say(f"dequant_update edge {json.dumps(r)}")
+    torch.cuda.empty_cache()
+    return su, dq
+
+
+def launch_floor_ms(torch) -> float:
+    """Device ms of the least launch: a one-element ``fill_``, timed as the
+    fold cases are (CUDA-graph replay)."""
+    one = torch.empty(1, device="cuda")
+    return graph_ms(torch, lambda: one.fill_(1.0), 20)
 
 
 def close_to(torch, actual, expected, rtol: float, atol_rel: float) -> bool:
@@ -752,11 +822,18 @@ def main() -> int:
         b.load()
         say(f"  bound {name}: {b.symbol} in {b.source}.cu")
     for name, info in built.items():
-        counts = tensor_core_counts(info["path"])
+        funcs = sass_counts(info["path"], {"HMMA": r"\bHMMA\b", "UBLKCP": r"\bUBLKCP"})
+        counts = {k: c["HMMA"] for k, c in funcs}
         say(f"  HMMA per kernel in {name}: {json.dumps(counts)}")
         mma = {k: v for k, v in counts.items() if "_mma_kernel" in k}
         if name in ("flash_attention", "ssd_scan") and (not mma or min(mma.values()) == 0):
             fail(f"{name}: a bf16 tensor-core kernel has no HMMA instruction: {counts}")
+        if name == "server_update":  # every fold instantiation stages its plane by bulk copies
+            bulk = [c["UBLKCP"] for k, c in funcs if k == "fold_kernel"]
+            say(f"  UBLKCP (bulk copy global -> shared) per fold_kernel instantiation in {name}: "
+                f"{len(bulk)} instantiations, {min(bulk, default=0)}-{max(bulk, default=0)} each")
+            if not bulk or min(bulk) == 0:
+                fail(f"{name}: a fold kernel has no bulk-copy (UBLKCP) instruction: {bulk}")
 
     # ---- 3. kernels vs plain
     gen = torch.Generator(device="cuda")
@@ -784,13 +861,24 @@ def main() -> int:
                         dq_cases.append(r)
                         say(f"dequant_update {json.dumps(r)}")
         torch.cuda.empty_cache()
+    su_edge, dq_edge = fold_edge_cases(torch, su_kernel, su_ref, gen)
+    su_cases += su_edge
+    dq_cases += dq_edge
     bad = [r for r in fd_cases + su_cases + dq_cases if not r["ok"]]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
     if not all(r["deterministic"] for r in su_cases + dq_cases):
         fail("a fold kernel is not run-to-run deterministic")
-    say("kernels vs plain: all cases within tolerance, dequant_update bitwise equal to its "
-        "plain version; server_update and dequant_update bitwise deterministic")
+    floor_ms = launch_floor_ms(torch)
+    say(f"kernels vs plain: fed_direction within tolerance; server_update and dequant_update "
+        f"bitwise equal to their plain versions and bitwise deterministic in all "
+        f"{len(su_cases) + len(dq_cases)} cases ({len(su_edge) + len(dq_edge)} edge cases)")
+    main_xm = [r for r in su_cases + dq_cases if (r["C"], r["P"], r["offset"]) == (MAIN_C, MAIN_P, 0)
+               and r["write_x"] and r["write_m"] and r["m"] == "float32"]
+    say(f"launch floor {floor_ms:.6f} ms (graph replay of a one-element fill_) beside the "
+        f"main-plane folds, x and m written, m f32: " + ", ".join(
+            f"{'server_update ' + r['d'] if 'd' in r else 'dequant_update ' + r['q']} "
+            f"{r['ms']:.6f} ms" for r in main_xm))
 
     fa_cases, ssd_cases = [], []
     # (B, Sq, Skv, H, Hkv, hd, dtype, causal, window, q_offset): the serving
@@ -936,8 +1024,8 @@ def main() -> int:
                     and all(r[k] == v for k, v in sel.items()))
 
     fd_main = main_case(fd_cases, n_aux=1, x="float32")
-    su_main = main_case(su_cases, write_x=True, write_m=True, m="float32")
-    dq_main = main_case(dq_cases, q="int8", write_x=True, write_m=True, m="float32")
+    su_main = main_case(su_cases, write_x=True, write_m=True, m="float32", offset=0, d="float32")
+    dq_main = main_case(dq_cases, q="int8", write_x=True, write_m=True, m="float32", offset=0)
     kernels = []
     for name, src, replaces, main, cases in (
         ("fed_direction", "src/repro_torch/csrc/fed_direction.cu",

@@ -126,19 +126,23 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* tile, const __nv_bfloat
 }
 
 // cudaFuncSetAttribute applies to the current device, so a kernel that
-// needs more than the 48 KB default of dynamic shared memory opts in once
-// per device.  Returns a cudaError_t (0 = success).
+// needs more than the 48 KB default of dynamic shared memory opts in per
+// device.  The attribute tracks the largest amount asked for so far: a
+// kernel whose shared memory grows with its shapes (the server fold's
+// stages) is raised when a launch needs more, and a request beyond the
+// card's limit comes back as the error.  Returns a cudaError_t (0 =
+// success).
 constexpr int kMaxDevices = 64;
 
 template <auto Kernel>
 int opt_in_smem(int device, size_t bytes) {
-  static bool done[kMaxDevices] = {};
+  static size_t granted[kMaxDevices] = {};
   if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!done[device]) {
+  if (bytes > granted[device]) {
     const cudaError_t e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(bytes));
     if (e != cudaSuccess) return static_cast<int>(e);
-    done[device] = true;
+    granted[device] = bytes;
   }
   return 0;
 }

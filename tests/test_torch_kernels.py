@@ -12,6 +12,8 @@ falls back to the plain version.
 Tolerance: ``RTOL`` 2e-5 (the reference's own kernel sweeps) for f32; one
 bf16 ulp for bf16 outputs (tests/_torch_parity.py).
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -345,6 +347,35 @@ def test_dequant_update_binds_its_own_entry_point_and_counter():
     src = (build.CSRC / "server_update.cu").read_text()
     assert 'extern "C" int dequant_update_launch(' in src
     assert 'extern "C" int server_update_launch(' in src
+
+
+def test_fold_bindings_take_the_launch_plan():
+    """Both fold entry points take the plan (tile, rows, stages, grid,
+    shared bytes) as five C ints between the write flags and the device."""
+    for binding, n_ptr in ((su_kernel.KERNEL, 8), (su_kernel.DEQUANT_KERNEL, 9)):
+        types = binding.argtypes
+        assert types[:n_ptr] == [ctypes.c_void_p] * n_ptr
+        assert types[n_ptr:n_ptr + 2] == [ctypes.c_int, ctypes.c_longlong]  # C, P
+        assert types[n_ptr + 2:] == [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    plan = su_kernel.fold_plan(25, 22026, 4, 132, 232448)
+    assert len(plan.args()) == 5 and all(isinstance(v, int) for v in plan.args())
+
+
+@pytest.mark.parametrize("case", ["C", "P", "itemsize", "sm_count", "smem_limit"])
+def test_fold_plan_refuses_a_request_it_cannot_plan(case):
+    kw = dict(C=25, P=22026, itemsize=4, sm_count=132, smem_limit=232448)
+    if case == "C":
+        kw["C"] = 0
+    elif case == "P":
+        kw["P"] = -1
+    elif case == "itemsize":
+        kw["itemsize"] = 3
+    elif case == "sm_count":
+        kw["sm_count"] = 0
+    else:
+        kw["smem_limit"] = 1024  # no room for one row's slot
+    with pytest.raises(ValueError):
+        su_kernel.fold_plan(**kw)
 
 
 def test_launch_raises_on_cuda_error_and_counts_only_successes():
