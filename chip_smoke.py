@@ -19,7 +19,9 @@ JAX or of the JAX package.  Phases, each of which exits non-zero on failure:
 3. kernels vs plain — each kernel against its plain PyTorch version on the
    card, at the main path's plane (C, P) = (25, 22026) and at a ResNet-18
    sized plane (25, 11173962, ragged on purpose): ``fed_direction`` at
-   n_aux 0–3 for f32 and bf16 x, ``server_update`` at all four
+   n_aux 0–3 for f32 and bf16 x and in the aux orders of the other
+   specs (``FD_LAYOUTS``: SCAFFOLD's and FedDyn's per-client aux before a
+   broadcast one, FedProx's broadcast x_t), ``server_update`` at all four
    write_x/write_m combinations for f32 and bf16 momentum, and
    ``dequant_update`` for int8 and bf16 q × f32 and bf16 momentum × the
    four write combinations; then both folds at ``FOLD_EDGES`` (a
@@ -51,11 +53,24 @@ JAX or of the JAX package.  Phases, each of which exits non-zero on failure:
    of one uncompressed round with the host's launch gaps removed (the
    device's busy share).  ``--profile`` (not part of the default run)
    adds device time by kernel over 5 rounds;
+4b. the other nine algorithms — ``run_federated`` for fedprox, fedavgm,
+   fedacg, fedadam, fedadagrad, fedyogi, mimelite, scaffold and feddyn at
+   the CLI defaults (``ALGO_SETTINGS`` for the adaptive three) for 20
+   rounds, then scaffold and mimelite under ``--uplink-compress int8``;
+   each run with the launch counts set to 0 just before and read just
+   after (``fed_direction`` K a round; one fold launch a round per fold
+   row: ``FOLDS_PER_ROUND``), a finite loss, its final test accuracy and
+   the steady seconds per round of 20 further rounds;
 5. card vs CPU — three rounds from one converted state with the same
    injected ids, masks and minibatch indices on ``cuda`` and on ``cpu``;
    then three rounds under int8 + faults, each started on both devices
    from the card's state, with the hash draws (the same bits on both) and
    the floor flips of the int8 rounding counted;
+5b. card vs CPU, the other nine algorithms — three rounds of each from one
+   converted state, with the same ids, masks, minibatch indices and (for
+   mimelite) full batches on both devices: params, momentum, and where the
+   spec has them the (N, P) client states and the second moment, within
+   ``PARITY_RTOL`` / ``PARITY_ATOL``;
 6. serving — ``repro_torch.launch.serve`` (the CLI's ``run``) at full width
    for llama3.2-1b and mamba2-1.3b, ``--full --batch 4 --prompt-len 1024
    --gen 32 --sessions 2``, with the launch counts set to 0 just before
@@ -104,6 +119,19 @@ LM_KERNEL_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -7, 1e-5)}
 # (~10 half-ulps) for the logits and every cache leaf.
 LM_REL_L2 = 2e-2
 SERVE_ARGS = ["--full", "--batch", "4", "--prompt-len", "1024", "--gen", "32", "--sessions", "2"]
+# the algorithms beyond FedCM and FedAvg (phases 4b and 5b)
+OTHER_ALGOS = ("fedprox", "fedavgm", "fedacg", "fedadam", "fedadagrad", "fedyogi", "mimelite",
+               "scaffold", "feddyn")
+# the reference benchmark's per-algorithm settings (benchmarks/common.py: η_g
+# 0.03 and α 0.1 for fedadam), also for fedadagrad and fedyogi, which take the
+# same absolute-lr preconditioned step; a copy, so nothing of the benchmarks
+# is imported
+ALGO_SETTINGS = {a: {"eta_g": 0.03, "alpha": 0.1} for a in ("fedadam", "fedadagrad", "fedyogi")}
+# (server_update, dequant_update) launches a round by uplink: one per fold
+# row; under int8 a row over a plane that arrives compressed is a dequant
+# launch (scaffold's state delta is decoded for the scatter and folds dense)
+FOLDS_PER_ROUND = {"scaffold": {None: (2, 0), "int8": (1, 1)},
+                   "mimelite": {None: (2, 0), "int8": (0, 2)}}
 
 
 def fail(msg: str) -> None:
@@ -214,15 +242,24 @@ def sass_counts(lib: Path, mnemonics: dict) -> list:
 
 
 # ---------------------------------------------------------------------- phase 3
-def check_fed_direction(torch, fd_kernel, fd_ref, C, P, n_aux, dtype, gen):
+# fed_direction's aux layouts: the first n_aux of (broadcast f32, per-client
+# f32, broadcast bf16), and the orders the other specs produce — SCAFFOLD's
+# [c_i (C, P), c (P,)] and FedDyn's [λ_i (C, P), x_t (P,)], FedProx's
+# [x_t (P,)]; every case has c_x = 0.01 ≠ 0 (FedDyn, FedProx).
+FD_LAYOUTS = {"scaffold/feddyn": ("client", "bcast"), "fedprox": ("bcast",)}
+
+
+def check_fed_direction(torch, fd_kernel, fd_ref, C, P, n_aux, dtype, gen, layout=None):
     dev = "cuda"
     x = torch.randn((C, P), generator=gen, device=dev).to(dtype)
     g = torch.randn((C, P), generator=gen, device=dev).to(dtype)
-    # Δ_t-like broadcast f32, per-client f32, broadcast bf16
-    pool = [torch.randn((P,), generator=gen, device=dev),
-            torch.randn((C, P), generator=gen, device=dev),
-            torch.randn((P,), generator=gen, device=dev).to(torch.bfloat16)]
-    auxes = pool[:n_aux]
+    make = {"bcast": lambda: torch.randn((P,), generator=gen, device=dev),
+            "client": lambda: torch.randn((C, P), generator=gen, device=dev),
+            "bcast_bf16": lambda: torch.randn((P,), generator=gen,
+                                              device=dev).to(torch.bfloat16)}
+    kinds = FD_LAYOUTS[layout] if layout else ("bcast", "client", "bcast_bf16")[:n_aux]
+    auxes = [make[k]() for k in kinds]
+    n_aux = len(auxes)
     coefs = torch.tensor([0.1, 0.3, 0.01, 0.7, -0.2, 0.05][:3 + n_aux],
                          dtype=torch.float32, device=dev)
     out = fd_kernel.fed_direction_flat(x, g, auxes, coefs)
@@ -240,8 +277,9 @@ def check_fed_direction(torch, fd_kernel, fd_ref, C, P, n_aux, dtype, gen):
     plain = graph_ms(torch, lambda: fd_ref.fed_direction_ref(x, g, auxes, coefs), reps)
     eager = eager_ms(torch, lambda: fd_kernel.fed_direction_flat(x, g, auxes, coefs),
                      50 if n < 10_000_000 else 5)
-    return {"C": C, "P": P, "n_aux": n_aux, "x": str(dtype).split(".")[-1],
-            "max_abs_err": err, "ok": ok, "ms": ms, "plain_ms": plain,
+    return {"C": C, "P": P, "n_aux": n_aux, "layout": layout or "pool", "aux": list(kinds),
+            "x": str(dtype).split(".")[-1], "max_abs_err": err, "ok": ok, "ms": ms,
+            "plain_ms": plain,
             "eager_ms": eager, "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
 
 
@@ -628,15 +666,68 @@ def serve_card_vs_cpu(torch, np, arch: str):
             "max_rel_l2_logits": logits_rel, "max_rel_l2_cache": cache_rel}
 
 
+# ---------------------------------------------------------------------- phase 4b
+def other_algorithms(torch, np, bindings):
+    """``run_federated`` for each of ``OTHER_ALGOS`` at the CLI defaults,
+    then scaffold and mimelite under int8, each with the launch counts set
+    to 0 just before and read just after; then the steady seconds per round
+    of an engine on the same config."""
+    from repro_torch.configs.base import CompressionConfig, FedConfig
+    from repro_torch.launch.fed_train import run_federated
+
+    rows = []
+    for algo, comp in [(a, None) for a in OTHER_ALGOS] + [("scaffold", "int8"),
+                                                          ("mimelite", "int8")]:
+        cfg = FedConfig(algo=algo, participation="bernoulli", rounds=ROUNDS,
+                        compression=None if comp is None else CompressionConfig(kind=comp),
+                        **ALGO_SETTINGS.get(algo, {}))
+        su, dq = FOLDS_PER_ROUND.get(algo, {None: (1, 0)})[comp]
+        expected = {"fed_direction": ROUNDS * K, "server_update": ROUNDS * su,
+                    "dequant_update": ROUNDS * dq, "flash_attention": 0, "ssd_scan": 0}
+        name = algo if comp is None else f"{algo} {comp}"
+        for b in bindings.values():
+            b.launches = 0
+        t0 = time.perf_counter()
+        acc, log = run_federated(cfg, 0.6, eval_every=EVAL_EVERY, seed=0, echo=False,
+                                 device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: b.launches for k, b in bindings.items()}
+        losses = log.column("loss")
+        if not all(np.isfinite(losses)):
+            fail(f"{name}: non-finite loss {losses}")
+        if launches != expected:
+            fail(f"{name}: launch counts {launches}, expected {expected}")
+        s_round, eng, state, _, host = steady_seconds_per_round(torch, cfg)
+        if not np.isfinite(host["loss"]).all() or not torch.isfinite(state.params).all():
+            fail(f"{name}: non-finite loss or params in the steady-state rounds")
+        wire = eng.payload_bytes()["up_per_client"]
+        if not np.array_equal(host["bytes_up"], host["n_active"] * np.float32(wire)):
+            fail(f"{name}: bytes_up is not n_active x {wire}")
+        row = {"algo": algo, "uplink": comp or "f32", "rounds": ROUNDS, "launches": launches,
+               "losses": losses, "final_test_acc": acc, "wall_s": wall,
+               "steady_ms_per_round": s_round * 1e3, "uplink_bytes_per_client": wire}
+        say(f"{name}: {json.dumps(row)}")
+        rows.append(row)
+        del eng, state
+    return rows
+
+
 # ---------------------------------------------------------------------- phase 5
-def card_vs_cpu(torch, np):
+def card_vs_cpu(torch, np, algo="fedcm"):
+    """Three rounds of ``algo`` from one converted state on the card and on
+    the CPU, with the same ids, masks, minibatch indices and full batches;
+    every state plane the spec has within the parity tolerance."""
     from repro_torch.configs.base import FedConfig
     from repro_torch.core.convert import params_to_numpy, state_from_numpy, state_to_numpy
     from repro_torch.core.engine import FederatedEngine, cohort_capacity
-    from repro_torch.data import FederatedData, gather_round_batches, make_synthetic_classification
+    from repro_torch.data import (
+        FederatedData, gather_full_client_batch, gather_round_batches,
+        make_synthetic_classification,
+    )
     from repro_torch.models.small import classification_loss, mlp_classifier
 
-    cfg = FedConfig(participation="bernoulli")
+    cfg = FedConfig(algo=algo, participation="bernoulli", **ALGO_SETTINGS.get(algo, {}))
     cap = cohort_capacity(cfg)
     x_tr, y_tr, _, _ = make_synthetic_classification(n_train=20_000, n_test=10, seed=3)
     model = mlp_classifier((32, 128, 128, 10))
@@ -658,14 +749,22 @@ def card_vs_cpu(torch, np):
             ids_t = torch.as_tensor(ids, device=dev)
             batches = gather_round_batches(data.client_x, data.client_y, None, ids_t,
                                            cfg.local_steps, 50, idx=torch.as_tensor(idx))
-            state, _ = eng.round_step(state, batches, ids_t, torch.as_tensor(mask, device=dev))
+            full = None
+            if eng.algo.needs_full_grad:
+                full = gather_full_client_batch(data.client_x, data.client_y, ids_t)
+            state, _ = eng.round_step(state, batches, ids_t, torch.as_tensor(mask, device=dev),
+                                      full_batches=full)
         out[dev] = state_to_numpy(state)
     res = {}
-    for key in ("params", "momentum"):
+    for key in ("params", "momentum", "second_moment", "client_states"):
         a, b = out["cuda"][key], out["cpu"][key]
+        if (a is None) != (b is None):
+            fail(f"card vs CPU {algo}: {key} exists on one device only")
+        if a is None:
+            continue
         res[key] = float(np.max(np.abs(a - b)))
         if not np.allclose(a, b, rtol=PARITY_RTOL, atol=PARITY_ATOL):
-            fail(f"card vs CPU: {key} differ beyond rtol {PARITY_RTOL} atol "
+            fail(f"card vs CPU {algo}: {key} differ beyond rtol {PARITY_RTOL} atol "
                  f"{PARITY_ATOL} (max abs diff {res[key]:.3e})")
     return res
 
@@ -845,6 +944,11 @@ def main() -> int:
                 r = check_fed_direction(torch, fd_kernel, fd_ref, C, P, n_aux, dtype, gen)
                 fd_cases.append(r)
                 say(f"fed_direction {json.dumps(r)}")
+        for layout in FD_LAYOUTS:
+            r = check_fed_direction(torch, fd_kernel, fd_ref, C, P, None, torch.float32, gen,
+                                    layout=layout)
+            fd_cases.append(r)
+            say(f"fed_direction {json.dumps(r)}")
         for m_dtype in (torch.float32, torch.bfloat16):
             for wx in (True, False):
                 for wm in (True, False):
@@ -997,6 +1101,12 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         profile_rounds(torch, eng, state, data)
 
+    # ---- 4b. the other nine algorithms, launch counts from each run only
+    algo_rows = other_algorithms(torch, np, bindings)
+    say("other algorithms, steady ms/round: " + ", ".join(
+        f"{r['algo']}{'' if r['uplink'] == 'f32' else ' ' + r['uplink']} "
+        f"{r['steady_ms_per_round']:.3f}" for r in algo_rows))
+
     # ---- 5. card vs CPU
     diffs = card_vs_cpu(torch, np)
     say(f"card vs CPU over 3 injected rounds: max |diff| params {diffs['params']:.3e}, "
@@ -1005,6 +1115,12 @@ def main() -> int:
         say(f"card vs CPU, int8 + faults, hash draws: {json.dumps(row)}")
     say("card vs CPU, int8 + faults: draws bitwise equal on both devices; params and "
         "momentum within the tolerance plus one quantum per floor flip")
+
+    # ---- 5b. card vs CPU, the other nine algorithms
+    for algo in OTHER_ALGOS:
+        say(f"card vs CPU, {algo}, 3 injected rounds: max |diff| "
+            f"{json.dumps(card_vs_cpu(torch, np, algo))} (rtol {PARITY_RTOL}, "
+            f"atol {PARITY_ATOL})")
 
     # ---- 6. serving at full width, launch counts from each run only
     serving = serve_full_width(torch, np, bindings)
@@ -1023,7 +1139,7 @@ def main() -> int:
         return next(r for r in cases if r["C"] == MAIN_C and r["P"] == MAIN_P
                     and all(r[k] == v for k, v in sel.items()))
 
-    fd_main = main_case(fd_cases, n_aux=1, x="float32")
+    fd_main = main_case(fd_cases, n_aux=1, x="float32", layout="pool")
     su_main = main_case(su_cases, write_x=True, write_m=True, m="float32", offset=0, d="float32")
     dq_main = main_case(dq_cases, q="int8", write_x=True, write_m=True, m="float32", offset=0)
     kernels = []

@@ -92,6 +92,16 @@ class FedConfig:
     eta_g: float = 1.0
     eta_l_decay: float = 0.998  # exponential decay per round (appendix C.2)
     weight_decay: float = 1e-3
+    # FedAdam / FedAdagrad / FedYogi: second-moment decay and the
+    # preconditioner's floor τ in x ← x − η_g·m / (√v + τ)
+    adam_beta2: float = 0.99
+    adam_tau: float = 1e-2
+    # FedDyn: regularizer strength α_dyn
+    feddyn_alpha: float = 0.01
+    # FedProx: proximal strength μ (v = g + μ·(x − x_t))
+    fedprox_mu: float = 0.01
+    # FedACG: server lookahead λ (m' = λ·m + Δ_{t+1}; step along Δ_{t+1} + λ·m')
+    acg_lambda: float = 0.85
     # "fixed" = exactly cohort_size w/o replacement, "bernoulli" = each
     # client independently with prob cohort_size/num_clients
     participation: str = "fixed"

@@ -18,7 +18,7 @@ from repro_torch.configs.base import FedConfig
 from repro_torch.core.compress import init_residuals
 from repro_torch.core.engine import FedState
 from repro_torch.core.flat import FlatSpec
-from repro_torch.core.registry import ServerState, get_algorithm
+from repro_torch.core.registry import ServerState, client_state_init, get_algorithm
 from repro_torch.utils.trees import tree_map
 
 
@@ -51,27 +51,45 @@ def params_to_numpy(tree):
     return tree_map(to_numpy, tree)
 
 
-def state_from_numpy(params, cfg: FedConfig, *, momentum=None, round: int = 0,
-                     residuals=None, device="cpu",
-                     generator: Optional[torch.Generator] = None):
-    """Build the flat ``FedState`` from numpy arrays.
+def _plane(spec: FlatSpec, a, batch_dims: int = 0) -> torch.Tensor:
+    """An f32 plane from a flat numpy array (``(P,)``, or ``(N, P)`` with
+    ``batch_dims=1``) or from a numpy tree of the params' structure (leaves
+    stacked ``(N, …)`` with ``batch_dims=1``, as the reference stacks its
+    client states)."""
+    if isinstance(a, np.ndarray) and a.ndim == 1 + batch_dims:
+        return to_tensor(a, dtype=torch.float32)
+    return spec.ravel(params_from_numpy(a), batch_dims=batch_dims)
 
-    ``params`` is a numpy params tree; ``momentum`` a numpy tree of the same
-    structure, a flat ``(P,)`` array, or None (zeros).  The momentum plane
-    is stored in the spec's momentum dtype.  ``residuals`` is the ``(N, P)``
-    top-k error-feedback plane; when it is None and the run's uplink is
-    top-k, the rows start at zero (as ``FederatedEngine.init`` does).
-    Returns ``(state, spec)``."""
+
+def state_from_numpy(params, cfg: FedConfig, *, momentum=None, round: int = 0,
+                     residuals=None, client_states=None, second_moment=None,
+                     device="cpu", generator: Optional[torch.Generator] = None):
+    """Build the flat ``FedState`` from numpy arrays — how a reference
+    state is carried into the port.
+
+    ``params`` is a numpy params tree; ``momentum`` and ``second_moment`` a
+    numpy tree of the same structure, a flat ``(P,)`` array, or None
+    (zeros).  The momentum plane is stored in the spec's momentum dtype;
+    the second moment (f32) exists iff the spec needs it.
+    ``client_states`` is the reference's stacked ``(N, …)`` tree or an
+    ``(N, P)`` array, or None (zeros); the plane exists iff the spec keeps
+    per-client state.
+    ``residuals`` is the ``(N, P)`` top-k error-feedback plane; when it is
+    None and the run's uplink is top-k, the rows start at zero (as
+    ``FederatedEngine.init`` does).  Returns ``(state, spec)``."""
     tree = params_from_numpy(params)
     spec = FlatSpec.from_tree(tree)
     algo = get_algorithm(cfg.algo)
     m_dt = algo.momentum_dtype(cfg)
-    if momentum is None:
-        m = torch.zeros(spec.size, dtype=m_dt)
-    elif isinstance(momentum, np.ndarray) and momentum.ndim == 1:
-        m = to_tensor(momentum, dtype=torch.float32).to(m_dt)
-    else:
-        m = spec.ravel(params_from_numpy(momentum)).to(m_dt)
+    m = (torch.zeros(spec.size, dtype=m_dt) if momentum is None
+         else _plane(spec, momentum).to(m_dt))
+    sm = None
+    if algo.needs_second_moment:
+        sm = (torch.zeros(spec.size, dtype=torch.float32) if second_moment is None
+              else _plane(spec, second_moment)).to(device)
+    cst = client_state_init(algo, cfg.num_clients, spec.size, device)
+    if cst is not None and client_states is not None:
+        cst = _plane(spec, client_states, batch_dims=1).to(device)
     if residuals is not None:
         res = to_tensor(residuals, device, torch.float32)
     else:
@@ -79,17 +97,25 @@ def state_from_numpy(params, cfg: FedConfig, *, momentum=None, round: int = 0,
     state = FedState(
         params=spec.ravel(tree).to(device),
         server=ServerState(momentum=m.to(device),
-                           round=torch.tensor(round, dtype=torch.int32, device=device)),
+                           round=torch.tensor(round, dtype=torch.int32, device=device),
+                           second_moment=sm),
         rng=generator,
         residuals=res,
+        client_states=cst,
     )
     return state, spec
 
 
 def state_to_numpy(state: FedState) -> Dict[str, np.ndarray]:
     """Flat planes of a port state: params ``(P,)``, momentum ``(P,)`` (f32),
-    round counter, and the ``(N, P)`` residual rows (None without top-k)."""
+    round counter, the ``(P,)`` second moment, and the ``(N, P)`` residual
+    and client-state rows (each None where the run has none)."""
+    def opt(t):
+        return None if t is None else to_numpy(t)
+
     return {"params": to_numpy(state.params),
             "momentum": to_numpy(state.server.momentum),
             "round": int(state.server.round),
-            "residuals": None if state.residuals is None else to_numpy(state.residuals)}
+            "second_moment": opt(state.server.second_moment),
+            "residuals": opt(state.residuals),
+            "client_states": opt(state.client_states)}

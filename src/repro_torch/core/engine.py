@@ -1,22 +1,25 @@
-"""The federated round engine, main path: one synchronous round on the flat plane.
+"""The federated round engine: one synchronous round on the flat plane.
 
-Counterpart of ``repro.core.engine`` cut to the route this slice ports —
+Counterpart of ``repro.core.engine`` cut to the route this package ports —
 ``use_flat_plane`` with the fused kernels (the reference's
-``use_fused_kernel=True``):
+``use_fused_kernel=True``), for every registered algorithm:
 
-    sample cohort → broadcast (x_t, Δ_t) → K local steps over the cohort
-    plane → faults + quarantine → wire encoding → masked-mean fold +
-    momentum + server step
+    sample cohort → gather the cohort's client-state rows → broadcast
+    (x_t, Δ_t) → K local steps over the cohort plane (+ MimeLite's
+    full-batch gradient at x_t) → faults + quarantine → wire encoding →
+    fold rows + post-step → scatter the client-state rows back
 
 The cohort runs as ONE ``(C, P)`` plane, where the reference vmaps a
 per-client scan: each local step is one batched forward/backward (the
 model's products, left to PyTorch as the reference leaves them to XLA) and
 ONE ``fed_direction`` launch for the whole cohort, with Δ_t broadcast as
-``(P,)``.  The round closes with one ``server_update`` launch per fold
-row, or, when the uplink is compressed to int8 or bf16, one
-``dequant_update`` launch that folds the compressed plane.  All C =
-capacity rows compute; inactive rows carry weight 0 in the fold and in the
-loss metric.
+``(P,)`` and the client-state rows (SCAFFOLD's c_i, FedDyn's λ_i) as a
+per-client ``(C, P)`` aux.  The round closes with one ``server_update``
+launch per fold row — a row over a plane that arrives compressed to int8
+or bf16 is one ``dequant_update`` launch instead — then the spec's
+post-step (plain PyTorch on ``(P,)`` planes).  All C = capacity rows
+compute; inactive rows carry weight 0 in the fold, in the loss metric and
+in the client-state scatter.
 
 Between the local steps and the fold sit the reference's two splices, each
 absent when its config is None: fault injection and quarantine
@@ -52,6 +55,7 @@ from repro_torch.core.compress import (
     as_qplane,
     carries_residuals,
     compress_plane,
+    decompress_plane,
     error_feedback_topk,
     init_residuals,
     uplink_bytes_per_client,
@@ -67,8 +71,14 @@ from repro_torch.core.faults import (
     zero_rows,
 )
 from repro_torch.core.flat import FlatSpec
-from repro_torch.core.registry import ServerState, get_algorithm, list_algorithms, server_init
-from repro_torch.data.pipeline import gather_round_batches
+from repro_torch.core.registry import (
+    ServerState,
+    client_state_init,
+    get_algorithm,
+    list_algorithms,
+    server_init,
+)
+from repro_torch.data.pipeline import gather_full_client_batch, gather_round_batches
 from repro_torch.kernels.fed_direction.ops import direction_operands, fed_direction
 from repro_torch.kernels.server_update.ops import fused_fold
 from repro_torch.utils.draws import uniform as hash_uniform
@@ -76,29 +86,40 @@ from repro_torch.utils.draws import uniform as hash_uniform
 
 class FedState(NamedTuple):
     """Flat engine state.  ``params`` is the ``(P,)`` f32 plane, ``server``
-    holds the ``(P,)`` momentum plane and the int32 round counter, ``rng``
-    the ``torch.Generator`` the cohort and minibatch draws come from
-    (advanced in place), ``residuals`` the ``(N, P)`` f32 top-k
-    error-feedback rows (None unless the uplink is top-k).  Per-client
-    state planes come with the specs that keep them (ROADMAP A.7)."""
+    holds the ``(P,)`` momentum plane, the int32 round counter and the
+    adaptive specs' ``(P,)`` second moment, ``rng`` the ``torch.Generator``
+    the cohort and minibatch draws come from (advanced in place),
+    ``residuals`` the ``(N, P)`` f32 top-k error-feedback rows (None unless
+    the uplink is top-k), ``client_states`` the ``(N, P)`` f32 per-client
+    state plane — SCAFFOLD's c_i, FedDyn's λ_i — (None unless the spec
+    keeps per-client state)."""
 
     params: torch.Tensor
     server: ServerState
     rng: Optional[torch.Generator] = None
     residuals: Optional[torch.Tensor] = None
+    client_states: Optional[torch.Tensor] = None
 
 
 class RoundDraws(NamedTuple):
     """Draws a caller hands ``round_step`` in place of the hash's (any may
     be None): the fault draws of ``faults.fault_masks`` and the int8
-    rounding draw ``u`` ``(C, P)``.  The parity tests inject the
-    reference's threefry draws through it."""
+    rounding draws ``(C, P)`` of the delta plane (``u``), the state-delta
+    plane and the extra plane.  The parity tests inject the reference's
+    threefry draws through it."""
 
     u_drop: Optional[torch.Tensor] = None
     z_deadline: Optional[torch.Tensor] = None
     u_corrupt: Optional[torch.Tensor] = None
     z_noise: Optional[torch.Tensor] = None
     u: Optional[torch.Tensor] = None
+    u_state_delta: Optional[torch.Tensor] = None
+    u_extra: Optional[torch.Tensor] = None
+
+    def rounding(self, plane: str) -> Optional[torch.Tensor]:
+        """The injected int8 rounding draw of the uplink plane ``plane``."""
+        return {"delta": self.u, "state_delta": self.u_state_delta,
+                "extra": self.u_extra}[plane]
 
 
 class RoundMetrics(NamedTuple):
@@ -161,9 +182,8 @@ def check_supported(cfg: FedConfig) -> None:
             raise NotImplementedError(
                 f"{what} is not ported to repro_torch yet (ROADMAP {item})")
     if cfg.algo not in list_algorithms():
-        raise NotImplementedError(
-            f"algorithm {cfg.algo!r} is not ported to repro_torch yet "
-            f"(ROADMAP A.7); ported: {list(list_algorithms())}")
+        raise ValueError(f"unknown federated algorithm {cfg.algo!r}; registered: "
+                         f"{list(list_algorithms())}")
     if cfg.participation not in ("fixed", "bernoulli"):
         raise ValueError(f"unknown participation {cfg.participation!r}")
     for name in ("momentum_dtype", "aggregate_dtype"):
@@ -191,7 +211,8 @@ def sample_cohort_ex(generator: torch.Generator, cfg: FedConfig, device):
     capacity: the ids are the head of a random permutation (a choice
     without replacement); under ``bernoulli`` the count s of independent
     draws at p = S/N activates the first s rows (``mask = arange(C) < s``),
-    and draws beyond capacity are counted in ``n_clipped``."""
+    and draws beyond capacity are counted in ``n_clipped``.  The ids are
+    unique, which the client-state scatter relies on."""
     cap = cohort_capacity(cfg)
     ids = torch.randperm(cfg.num_clients, generator=generator, device=device)[:cap]
     if cfg.participation == "fixed":
@@ -232,7 +253,8 @@ class FederatedEngine:
         state = eng.init(params, generator)
         state, metrics = eng.run_rounds(state, data, n_rounds)
         state, metrics = eng.run_round(state, data)
-        state, metrics = eng.round_step(state, batches, ids, mask)
+        state, metrics = eng.round_step(state, batches, ids, mask,
+                                        full_batches=full)  # full: MimeLite only
     """
 
     def __init__(self, cfg: FedConfig, loss_fn: Callable, spec: FlatSpec,
@@ -251,20 +273,25 @@ class FederatedEngine:
     # -------------------------------------------------- init
     def init(self, params, generator: Optional[torch.Generator] = None) -> FedState:
         """Ravel ``params`` (any device) onto this engine's device and
-        allocate the server planes the spec requires, and the ``(N, P)``
+        allocate the planes the spec's flags require: the server planes
+        (the second moment iff ``needs_second_moment``), the ``(N, P)`` zero
+        client-state plane iff ``needs_client_state``, and the ``(N, P)``
         zero residual rows under top-k compression."""
+        cfg, size = self.cfg, self.spec.size
         return FedState(
             params=self.spec.ravel(params).to(self.device),
-            server=server_init(self.spec.size, self.algo.momentum_dtype(self.cfg),
-                               device=self.device),
+            server=server_init(size, self.algo.momentum_dtype(cfg), device=self.device,
+                               needs_second_moment=self.algo.needs_second_moment),
             rng=generator,
-            residuals=init_residuals(self.compression, self.cfg.num_clients,
-                                     self.spec.size, self.device),
+            residuals=init_residuals(self.compression, cfg.num_clients, size, self.device),
+            client_states=client_state_init(self.algo, cfg.num_clients, size, self.device),
         )
 
     def payload_bytes(self) -> Dict[str, int]:
-        """Per-client per-round communication in bytes (§4.2); under
-        compression the uplink is charged its bytes on the wire."""
+        """Per-client per-round communication in bytes (§4.2): x_t down,
+        plus Δ_t (or SCAFFOLD's c) when the spec broadcasts it; up, P per
+        wire plane (``wire_uplink_planes``), or under compression the
+        planes' bytes on the wire."""
         nbytes = self.spec.nbytes
         down = nbytes * (2 if self.algo.needs_momentum_broadcast else 1)
         up = uplink_bytes_per_client(self.compression, self.algo.wire_uplink_planes,
@@ -282,15 +309,19 @@ class FederatedEngine:
             (g,) = torch.autograd.grad(losses.sum(), plane)
         return losses.detach(), g
 
-    def _flat_cohort_pass(self, x_t, m_t, batches, eta_l):
+    def _flat_cohort_pass(self, x_t, m_t, batches, eta_l, cst=None, full_batches=None):
         """K local steps of the whole cohort on the ``(C, P)`` plane: one
         batched value-and-grad and ONE ``fed_direction`` launch per step.
-        Returns (uplink planes by name, losses) with losses ``(C,)`` the
-        per-client mean over the K steps."""
-        cfg = self.cfg
+        ``cst`` is the cohort's ``(C, P)`` client-state rows (the
+        ``client_state`` stream), ``full_batches`` each client's whole
+        dataset, over which a full-batch spec takes one more batched
+        gradient at x_t.  Returns (uplink planes by name, losses) with
+        losses ``(C,)`` the per-client mean over the K steps."""
+        cfg, algo = self.cfg, self.algo
         C = batches["y"].shape[0]
-        auxes, coefs = direction_operands(self.algo, cfg, m_t, None, x_t, eta_l)
-        x = x_t.expand(C, -1).contiguous()
+        auxes, coefs = direction_operands(algo, cfg, m_t, cst, x_t, eta_l)
+        x0 = x_t.expand(C, -1).contiguous()
+        x = x0
         losses = []
         for k in range(cfg.local_steps):
             batch_k = {key: v[:, k] for key, v in batches.items()}
@@ -299,7 +330,11 @@ class FederatedEngine:
                 g = cfg.weight_decay * x + g
             x = fed_direction(x, g, auxes, coefs)
             losses.append(loss)
-        return sparse_client_finalize(x_t, x), torch.stack(losses, dim=1).mean(dim=1)
+        full_grad = None
+        if algo.needs_full_grad:
+            _, full_grad = self._value_and_grad(x0, full_batches)
+        planes = sparse_client_finalize(algo, cfg, x_t, x, cst, m_t, eta_l, full_grad)
+        return planes, torch.stack(losses, dim=1).mean(dim=1)
 
     # -------------------------------------------------- faults
     def _inject_faults(self, t, ids, mask, planes, d: RoundDraws):
@@ -308,9 +343,11 @@ class FederatedEngine:
         n_quarantined)``.
 
         Drops and the deadline thin the mask; corruption rewrites the delta
-        rows of surviving clients; quarantine both masks out and zeroes any
-        non-finite or norm-outlier row (exact zeros: a 0-weight NaN row
-        would still poison the fold).  With ``cfg.fault`` None nothing runs."""
+        rows of surviving clients; quarantine both masks out and zeroes, in
+        every uplink plane, the rows of a client with a non-finite element
+        in any plane or a delta-norm outlier (exact zeros: a 0-weight NaN
+        row would still poison the fold).  With ``cfg.fault`` None nothing
+        runs."""
         fault = self.cfg.fault
         zero = torch.zeros((), dtype=torch.float32, device=mask.device)
         if fault is None:
@@ -325,9 +362,13 @@ class FederatedEngine:
             mask = mask & ~plan.drop
         if fault.corrupt_rate > 0.0:
             delta = corrupt_uplink(fault, plan.corrupt & mask, plan.noise, delta)
+        planes = {**planes, "delta": delta}
         n_quar = zero
         if fault.quarantine:
             fin = rows_finite(delta)
+            for name in ("state_delta", "extra"):
+                if planes.get(name) is not None:
+                    fin = fin & rows_finite(planes[name])
             bad = ~fin
             if fault.quarantine_norm_mult > 0.0:
                 norm = torch.sqrt(rows_sqnorm(delta))
@@ -335,9 +376,9 @@ class FederatedEngine:
                 med = nanmedian_midpoint(torch.where(act, norm, float("nan")))
                 bad = bad | (act & (norm > fault.quarantine_norm_mult * med))
             n_quar = (mask & bad).to(torch.float32).sum()
-            delta = zero_rows(delta, bad)
+            planes = {k: None if v is None else zero_rows(v, bad) for k, v in planes.items()}
             mask = mask & ~bad
-        return mask, {**planes, "delta": delta}, n_dropped, n_quar
+        return mask, planes, n_dropped, n_quar
 
     # -------------------------------------------------- uplink compression
     def _residual_rows_for(self, state: FedState, ids):
@@ -350,33 +391,56 @@ class FederatedEngine:
                              "FedState.residuals is allocated before stepping")
         return state.residuals.index_select(0, ids.long())
 
-    def _compress_uplink(self, t, ids, planes, w, residual_rows, u=None):
-        """Wire-encode the cohort's delta plane, between fault injection and
-        fold.  Returns ``(planes, new_residual_rows)`` (rows None except
-        under top-k).  int8 and bf16 planes reach the fold compressed, as a
-        ``QPlane`` for the dequant kernel; top-k folds the dense plane that
-        arrived on the wire, and ``w`` (the post-fault weights) keeps the
-        residual of a client that did not transmit."""
+    def _compress_uplink(self, t, ids, planes, w, residual_rows, d: RoundDraws):
+        """Wire-encode the cohort's wire planes (``wire_uplink_planes``),
+        between fault injection and fold.  Returns ``(planes,
+        new_residual_rows)`` (rows None except under top-k).  int8 and bf16
+        planes reach the fold compressed, as a ``QPlane`` for the dequant
+        kernel, each with its own rounding stream — except ``state_delta``,
+        which the client-state scatter needs dense too, so it is decoded at
+        once and folds dense.  Top-k sparsifies the delta plane only (the
+        other wire planes ride f32) and folds the dense plane that arrived
+        on the wire; ``w`` (the post-fault weights) keeps the residual of a
+        client that did not transmit."""
         comp = self.compression
-        delta = planes["delta"]
-        if comp.kind == "topk":
-            _, recon, new_rows = error_feedback_topk(comp, delta, residual_rows, w,
-                                                     delta.shape[-1])
-            return {**planes, "delta": recon}, new_rows
-        if comp.kind == "int8" and u is None:
-            u = hash_uniform(comp.seed, t, COMPRESS_STREAM + PLANE_STREAMS["delta"], ids,
-                             delta.shape[-1])
-        return {**planes, "delta": as_qplane(compress_plane(comp, delta, u))}, None
+        out = dict(planes)
+        new_rows = None
+        for name in self.algo.wire_uplink_planes:
+            pv = planes[name]
+            if comp.kind == "topk":
+                if name == "delta":
+                    _, out[name], new_rows = error_feedback_topk(comp, pv, residual_rows, w,
+                                                                 pv.shape[-1])
+                continue
+            u = d.rounding(name)
+            if comp.kind == "int8" and u is None:
+                u = hash_uniform(comp.seed, t, COMPRESS_STREAM + PLANE_STREAMS[name], ids,
+                                 pv.shape[-1])
+            rep = as_qplane(compress_plane(comp, pv, u))
+            out[name] = decompress_plane(rep) if name == "state_delta" else rep
+        return out, new_rows
+
+    def _close_post(self, fsrv: ServerState, new_x, new_m, mean_delta, n_active, eta_l):
+        """Adopt the folded momentum, then run the spec's post-step on the
+        ``(P,)`` planes with the delta plane's cohort mean (it reads the
+        post-fold momentum)."""
+        new_server = fsrv._replace(momentum=new_m)
+        post = self.algo.server_post_fn
+        if post is not None:
+            new_x, new_server = post(self.cfg, new_x, new_server, mean_delta, n_active, eta_l)
+        return new_x, new_server
 
     # -------------------------------------------------- round
     def round_step(self, state: FedState, batches, ids, mask, n_clipped=None,
-                   draws: Optional[RoundDraws] = None):
+                   draws: Optional[RoundDraws] = None, full_batches=None):
         """One round on given draws: ``batches`` = {"x": (C, K, B, ...),
-        "y": (C, K, B)}, ``ids`` (C,), ``mask`` (C,) bool — the seam where a
-        test injects the reference's draws, with ``draws`` in place of the
-        fault and rounding hashes.  ``ids`` keys the fault and rounding
-        draws and selects the residual rows; ``n_clipped`` is the sampler's
-        overflow count, reported in the metrics."""
+        "y": (C, K, B)}, ``ids`` (C,) unique, ``mask`` (C,) bool — the seam
+        where a test injects the reference's draws, with ``draws`` in place
+        of the fault and rounding hashes.  ``ids`` keys the fault and
+        rounding draws and selects the residual and client-state rows;
+        ``n_clipped`` is the sampler's overflow count, reported in the
+        metrics; ``full_batches`` = {"x": (C, n, ...), "y": (C, n)} is each
+        client's whole dataset, which a full-batch spec (MimeLite) needs."""
         cfg, algo = self.cfg, self.algo
         d = draws or RoundDraws()
         fsrv = state.server
@@ -384,7 +448,17 @@ class FederatedEngine:
         eta_l = local_learning_rate(cfg, t)
         x_t = state.params
         m_t = fsrv.momentum
-        planes, losses = self._flat_cohort_pass(x_t, m_t, batches, eta_l)
+        cst = None
+        if algo.needs_client_state:
+            if state.client_states is None:
+                raise ValueError(f"{algo.name} keeps per-client state — call "
+                                 f"eng.init(params, generator) so FedState.client_states "
+                                 f"is allocated before stepping")
+            cst = state.client_states.index_select(0, ids.long())  # ONE gather
+        if algo.needs_full_grad and full_batches is None:
+            raise ValueError(f"{algo.name} takes a full-batch gradient at x_t: pass "
+                             f"full_batches (data.pipeline.gather_full_client_batch)")
+        planes, losses = self._flat_cohort_pass(x_t, m_t, batches, eta_l, cst, full_batches)
         mask, planes, n_dropped, n_quar = self._inject_faults(t, ids, mask, planes, d)
 
         w = mask.to(torch.float32)
@@ -393,13 +467,25 @@ class FederatedEngine:
         new_res_rows = None
         if self.compression is not None:
             planes, new_res_rows = self._compress_uplink(
-                t, ids, planes, w, self._residual_rows_for(state, ids), d.u)
+                t, ids, planes, w, self._residual_rows_for(state, ids), d)
         new_x, new_m, mean_delta = fused_fold(algo, cfg, planes, w / denom, n_active,
                                               x_t, m_t, eta_l)
-        # a below-quorum (or empty) cohort carries params/momentum through
+        new_x, new_server = self._close_post(fsrv, new_x, new_m, mean_delta, n_active, eta_l)
+        # a below-quorum (or empty) cohort carries the server planes through
         ok = n_active >= float(max(1, cfg.min_quorum))
         new_x = torch.where(ok, new_x, x_t)
-        new_m = torch.where(ok, new_m, m_t)
+        sm = new_server.second_moment
+        new_server = new_server._replace(
+            momentum=torch.where(ok, new_server.momentum, m_t),
+            second_moment=None if sm is None else torch.where(ok, sm, fsrv.second_moment),
+            round=fsrv.round + 1)
+        # client-state rows of active members only; below quorum the
+        # weights are zero and each row is written back as cst + 0·sd
+        new_cst = state.client_states
+        if algo.needs_client_state:
+            w_sc = w * ok.to(torch.float32)
+            upd = cst + planes["state_delta"] * w_sc[:, None]
+            new_cst = new_cst.index_copy(0, ids.long(), upd)
         # the residual is client-side state: it tracks what the client did
         # not send, whatever the quorum decides
         new_res = state.residuals
@@ -422,8 +508,7 @@ class FederatedEngine:
             n_retries=zero,
             quorum_skipped=1.0 - ok.to(torch.float32),
         )
-        new_server = fsrv._replace(momentum=new_m, round=fsrv.round + 1)
-        return FedState(new_x, new_server, state.rng, new_res), metrics
+        return FedState(new_x, new_server, state.rng, new_res, new_cst), metrics
 
     # -------------------------------------------------- data-driven round
     def _sample_round(self, state: FedState, data):
@@ -434,9 +519,13 @@ class FederatedEngine:
         return batches, ids, mask, n_clipped
 
     def run_round(self, state: FedState, data) -> Tuple[FedState, RoundMetrics]:
-        """Samples cohort + minibatches from a FederatedData and steps."""
+        """Samples cohort + minibatches from a FederatedData and steps; a
+        full-batch spec also gets each cohort client's whole dataset."""
         batches, ids, mask, n_clipped = self._sample_round(state, data)
-        return self.round_step(state, batches, ids, mask, n_clipped)
+        full = None
+        if self.algo.needs_full_grad:
+            full = gather_full_client_batch(data.client_x, data.client_y, ids)
+        return self.round_step(state, batches, ids, mask, n_clipped, full_batches=full)
 
     def run_rounds(self, state: FedState, data, n_rounds: int) -> Tuple[FedState, RoundMetrics]:
         """``n_rounds`` rounds as a Python loop; metrics come back stacked

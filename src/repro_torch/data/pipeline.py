@@ -6,6 +6,8 @@ minibatches are gathered in one indexing op per round:
 
     batches = gather_round_batches(data.client_x, data.client_y, gen, ids, K, B)
     # -> {"x": (C, K, B, ...), "y": (C, K, B)}
+    full = gather_full_client_batch(data.client_x, data.client_y, ids)
+    # -> {"x": (C, n_per_client, ...), "y": (C, n_per_client)}  (MimeLite)
 
 Minibatch indices are drawn with replacement from a ``torch.Generator`` on
 the data's device, or injected (``idx``) so that a test can hand both this
@@ -40,6 +42,14 @@ def gather_round_batches(
     rows = cohort_idx.long()[:, None, None]
     idx = idx.to(client_x.device).long()
     return {"x": client_x[rows, idx], "y": client_y[rows, idx]}
+
+
+def gather_full_client_batch(client_x: torch.Tensor, client_y: torch.Tensor,
+                             client_ids: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Each cohort client's whole local dataset, ``(C, n_per_client, ...)``
+    per field: MimeLite's full-batch gradient at x_t runs over it."""
+    rows = client_ids.long()
+    return {"x": client_x[rows], "y": client_y[rows]}
 
 
 class FederatedData:

@@ -1,18 +1,21 @@
-"""Federated training driver of the port (main path: FedCM / FedAvg).
+"""Federated training driver of the port: FedCM and every registered baseline.
 
 Counterpart of ``repro.launch.fed_train`` run with ``--fused-kernel``:
 Dirichlet-partitioned synthetic classification, an MLP 32-128-128-10, the
 paper's scaled Setting I defaults, every local step and server fold through
-the hand-written CUDA kernels.  ``--uplink-compress`` sends the uplink as
-int8, bf16 or top-k, and the ``--fault-*`` flags inject drops, stragglers
-and corrupted uplinks (quarantined before the fold).  Runs on ``cuda`` and
-raises when there is no GPU, unless ``--device cpu`` asks for the CPU (the
-kernels' plain versions).
+the hand-written CUDA kernels.  ``--algo`` takes any registered algorithm
+(``--list-algos`` prints each one's state planes, kernel routing and
+uplink bytes).  ``--uplink-compress`` sends the uplink as int8, bf16 or
+top-k, and the ``--fault-*`` flags inject drops, stragglers and corrupted
+uplinks (quarantined before the fold).  Runs on ``cuda`` and raises when
+there is no GPU, unless ``--device cpu`` asks for the CPU (the kernels'
+plain versions).
 
     PYTHONPATH=src python -m repro_torch.launch.fed_train --algo fedcm \
         --clients 100 --cohort 10 --rounds 100 --dirichlet 0.6
-    PYTHONPATH=src python -m repro_torch.launch.fed_train --uplink-compress int8 \
-        --fault-drop-rate 0.1 --fault-corrupt-rate 0.1
+    PYTHONPATH=src python -m repro_torch.launch.fed_train --algo scaffold \
+        --uplink-compress int8 --fault-drop-rate 0.1 --fault-corrupt-rate 0.1
+    PYTHONPATH=src python -m repro_torch.launch.fed_train --list-algos
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import argparse
 import torch
 
 from repro_torch.configs.base import CompressionConfig, FaultConfig, FedConfig
-from repro_torch.core.compress import validate_compression
+from repro_torch.core.compress import uplink_bytes_per_client, validate_compression
 from repro_torch.core.engine import (
     FederatedEngine,
     make_eval_fn,
@@ -29,7 +32,7 @@ from repro_torch.core.engine import (
     resolve_device,
 )
 from repro_torch.core.flat import FlatSpec
-from repro_torch.core.registry import list_algorithms
+from repro_torch.core.registry import describe_algorithm, get_algorithm, list_algorithms
 from repro_torch.data import FederatedData, make_synthetic_classification
 from repro_torch.models.small import classification_loss, mlp_classifier
 from repro_torch.utils.metrics import MetricLogger
@@ -92,9 +95,45 @@ def run_federated(
     return acc, log
 
 
+def _fmt_bytes(n: float) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB"):
+        if n < 1024 or unit == "GiB":
+            return f"{n:.1f} {unit}" if unit != "B" else f"{n:.0f} B"
+        n /= 1024
+    return f"{n:.1f} GiB"
+
+
+def list_algos_text(dim: int = 32, hidden: int = 128, n_classes: int = 10,
+                    compression: "CompressionConfig | None" = None) -> str:
+    """One line per registered algorithm: the routing row of
+    ``describe_algorithm`` (local step, server fold, state planes, uplink
+    planes) and the per-client uplink bytes a round for this driver's
+    model, priced by the engine's own accounting under ``compression``."""
+    P = FlatSpec.from_tree(mlp_classifier((dim, hidden, hidden, n_classes)).init(
+        torch.Generator().manual_seed(0))).size
+    rows = []
+    for n in list_algorithms():
+        spec = get_algorithm(n)
+        r = describe_algorithm(spec)
+        up = uplink_bytes_per_client(compression, spec.wire_uplink_planes, P, P * 4)
+        r["uplink bytes/round"] = f"{_fmt_bytes(up)}/client"
+        rows.append(r)
+    cols = ["algorithm", "local step", "server fold", "state planes", "uplink",
+            "uplink bytes/round"]
+    widths = {c: max(len(c), *(len(r[c]) for r in rows)) for c in cols}
+    lines = ["  ".join(c.ljust(widths[c]) for c in cols)]
+    lines += ["  ".join(r[c].ljust(widths[c]) for c in cols) for r in rows]
+    wire = "f32 wire" if compression is None else f"{compression.kind} wire"
+    lines.append(f"(P = {P:,} params: mlp {dim}-{hidden}-{hidden}-{n_classes}, {wire})")
+    return "\n".join(lines)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--algo", default="fedcm", choices=list_algorithms())
+    ap.add_argument("--list-algos", action="store_true",
+                    help="print every registered algorithm (state planes, kernel "
+                         "routing, uplink bytes) and exit")
     ap.add_argument("--clients", "--num-clients", dest="clients", type=int, default=100)
     ap.add_argument("--cohort", type=int, default=10)
     ap.add_argument("--rounds", type=int, default=100)
@@ -177,6 +216,9 @@ def resolve_config(args: argparse.Namespace) -> FedConfig:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     cfg = resolve_config(args)
+    if args.list_algos:
+        print(list_algos_text(compression=cfg.compression))
+        return 0
     acc, _ = run_federated(cfg, args.dirichlet, eval_every=args.eval_every,
                            seed=args.seed, device=args.device)
     print(f"\n{args.algo}: final test accuracy = {acc:.4f}")

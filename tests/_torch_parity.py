@@ -36,10 +36,17 @@ import jax
 import jax.numpy as jnp
 
 from repro.configs.base import FedConfig as RefFedConfig
+from repro.core.compress import plane_key, round_key
+from repro.core.faults import _per_client_keys
+from repro.core.registry import get_algorithm as ref_get_algorithm
 from repro.core.engine import FederatedEngine as RefEngine
 from repro.models.small import classification_loss as ref_classification_loss
 from repro.models.small import mlp_classifier as ref_mlp_classifier
 from repro_torch.configs.base import CompressionConfig, FaultConfig, FedConfig
+from repro_torch.core.engine import FederatedEngine, RoundDraws
+from repro_torch.core.flat import FlatSpec
+from repro_torch.data.pipeline import FederatedData
+from repro_torch.models.small import classification_loss, mlp_classifier
 
 RTOL, ATOL = 2e-5, 1e-6
 ROUND_ATOL = 1e-5
@@ -114,6 +121,88 @@ def assert_close(actual, expected, rtol=RTOL, atol=ATOL, what=""):
     np.testing.assert_allclose(np.asarray(actual, np.float32),
                                np.asarray(expected, np.float32),
                                rtol=rtol, atol=atol, err_msg=what)
+
+
+def ref_round_draws(cfg, t, ids, P) -> RoundDraws:
+    """The reference's fault and int8 rounding draws for round ``t``,
+    computed as its engine computes them, as a port ``RoundDraws``: the
+    rounding draw of every wire plane the reference spec sends."""
+    ids = jnp.asarray(ids)
+    out = {}
+    f = cfg.fault
+    if f is not None:
+        kt = jax.random.fold_in(jax.random.PRNGKey(f.seed), t)
+        one_u = jax.vmap(lambda k: jax.random.uniform(k, ()))
+        if f.drop_rate > 0:
+            out["u_drop"] = one_u(_per_client_keys(kt, 1, ids))
+        if f.deadline > 0:
+            out["z_deadline"] = jax.vmap(lambda k: jax.random.normal(k, ()))(
+                _per_client_keys(kt, 2, ids))
+        if f.corrupt_rate > 0:
+            out["u_corrupt"] = one_u(_per_client_keys(kt, 3, ids))
+            if f.corrupt_mode == "noise":
+                lk = jax.vmap(lambda k: jax.random.fold_in(k, 0))(_per_client_keys(kt, 4, ids))
+                out["z_noise"] = jax.vmap(lambda k: jax.random.normal(k, (P,), jnp.float32))(lk)
+    c = cfg.compression
+    if c is not None and c.kind == "int8":
+        fields = {"delta": "u", "state_delta": "u_state_delta", "extra": "u_extra"}
+        for name in ref_get_algorithm(cfg.algo).wire_uplink_planes:
+            out[fields[name]] = jax.random.uniform(plane_key(round_key(c, t), name),
+                                                   (ids.shape[0], P), jnp.float32)
+    return RoundDraws(**{k: torch.tensor(np.asarray(v)) for k, v in out.items()})
+
+
+def count_flips(got, ref, prev, what):
+    """Elements beyond RTOL/ATOL (floor flips); at most FLIP_MAX, each within
+    the reference's largest step this round."""
+    diff = np.abs(got - ref)
+    beyond = diff > ATOL + RTOL * np.abs(ref)
+    n = int(beyond.sum())
+    assert n <= FLIP_MAX, f"{what}: {n} elements beyond tolerance (max diff {diff.max():.3e})"
+    if n:
+        step = float(np.abs(ref - prev).max())
+        assert float(diff[beyond].max()) <= step, f"{what}: flip larger than a step"
+    return n
+
+
+def port_engine(pcfg):
+    """The port's engine on the CPU for the parity MLP."""
+    model = mlp_classifier(DIMS)
+    spec = FlatSpec.from_tree(model.init(torch.Generator().manual_seed(0)))
+    return FederatedEngine(pcfg, classification_loss(model.apply), spec, batch_size=B,
+                           device="cpu")
+
+
+def small_cfg(**kw) -> FedConfig:
+    """The port's own config at the parity size (in-port contracts)."""
+    return FedConfig(num_clients=N_CLIENTS, cohort_size=COHORT, local_steps=K,
+                     participation="fixed", **kw)
+
+
+def data_setup(cfg, seed=0):
+    """(engine, initialized state, FederatedData) of the port on ``cfg``,
+    with its own weights and draws from ``seed``."""
+    cx, cy = client_data()
+    data = FederatedData(cx.reshape(-1, DIMS[0]), cy.reshape(-1), cfg.num_clients, seed=seed,
+                         device="cpu")
+    model = mlp_classifier(DIMS)
+    params = model.init(torch.Generator().manual_seed(seed))
+    eng = FederatedEngine(cfg, classification_loss(model.apply), FlatSpec.from_tree(params),
+                          batch_size=B, device="cpu")
+    return eng, eng.init(params, torch.Generator().manual_seed(seed + 1)), data
+
+
+def assert_states_equal(a, b):
+    """Two port states equal bit for bit, plane for plane."""
+    assert torch.equal(a.params, b.params)
+    assert torch.equal(a.server.momentum, b.server.momentum)
+    assert torch.equal(a.server.round, b.server.round)
+    for x, y in ((a.server.second_moment, b.server.second_moment),
+                 (a.client_states, b.client_states), (a.residuals, b.residuals)):
+        assert (x is None) == (y is None)
+        if x is not None:
+            assert torch.equal(x, y)
+
 
 # SSD scan (tests/test_torch_ssd.py): y sums up to 64 decayed terms of
 # magnitude ~10 (x·dt·C·B), and the chunked and sequential forms reach them

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.configs.base import CompressionConfig, FaultConfig, FedConfig
+from repro_torch.core.registry import list_algorithms
 from repro_torch.launch import fed_train
 
 torch.set_num_threads(1)
@@ -66,8 +67,47 @@ def test_cli_defaults_are_the_scaled_paper_setting():
 
 
 def test_cli_refuses_unported_algorithm():
+    """Every registered algorithm is a choice; a name outside the registry
+    is refused."""
     with pytest.raises(SystemExit):
-        fed_train.build_parser().parse_args(["--algo", "scaffold"])
+        fed_train.build_parser().parse_args(["--algo", "fednova"])
+    for algo in list_algorithms():
+        assert fed_train.build_parser().parse_args(["--algo", algo]).algo == algo
+
+
+def test_cli_scaffold_on_cpu_charges_two_wire_planes(capsys):
+    """``--algo scaffold``: the client-state plane rides the round, Δc_i goes
+    up beside Δ_i (2 × 4P bytes per active client) and c comes down beside
+    x_t (2 × 4P)."""
+    assert fed_train.main(SMALL + ["--algo", "scaffold", "--device", "cpu"]) == 0
+    err = capsys.readouterr()
+    lines = [l for l in err.err.splitlines() if "round=" in l]
+    assert len(lines) == 2
+    for line in lines:
+        kv = dict(tok.split("=") for tok in line.split() if "=" in tok)
+        assert kv["algo"] == "scaffold"
+        n_active = int(kv["n_active"])
+        assert float(kv["mb_up"]) == round(n_active * 2 * 4 * 22026 / 2 ** 20, 2)
+        assert float(kv["mb_down"]) == round(n_active * 2 * 4 * 22026 / 2 ** 20, 2)
+        assert float(kv["loss"]) == float(kv["loss"])  # finite, not NaN
+    assert "scaffold: final test accuracy" in err.out
+
+
+@pytest.mark.parametrize("compress", [None, "int8"])
+def test_cli_list_algos_prints_the_reference_table(capsys, compress):
+    """``--list-algos`` prints one routing row per registered algorithm and
+    exits without running a round; the table is the reference CLI's, row
+    for row, under the same ``--uplink-compress``."""
+    from repro.configs.base import CompressionConfig as RefCompressionConfig
+    from repro.launch.fed_train import list_algos_text as ref_list_algos_text
+
+    argv = ["--list-algos"] + ([] if compress is None else ["--uplink-compress", compress])
+    assert fed_train.main(argv) == 0
+    out = capsys.readouterr()
+    assert "round=" not in out.err
+    comp = None if compress is None else RefCompressionConfig(kind=compress, seed=0)
+    assert out.out.rstrip("\n") == ref_list_algos_text(compression=comp)
+    assert len(out.out.splitlines()) == 1 + len(list_algorithms()) + 1
 
 
 def test_cli_int8_uplink_on_cpu_logs_int8_wire_bytes(capsys):

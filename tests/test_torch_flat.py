@@ -234,9 +234,11 @@ def test_registry_coefficients_match_reference(algo, alpha):
 
 
 def test_registry_lists_the_ported_specs():
-    assert list_algorithms() == ("fedavg", "fedcm")
+    assert list_algorithms() == ("fedacg", "fedadagrad", "fedadam", "fedavg", "fedavgm",
+                                 "fedcm", "feddyn", "fedprox", "fedyogi", "mimelite",
+                                 "scaffold")
     with pytest.raises(KeyError):
-        get_algorithm("scaffold")
+        get_algorithm("fednova")
 
 
 @pytest.mark.parametrize("participation, n, s", [

@@ -96,17 +96,27 @@ def test_fed_direction_cohort_plane_with_broadcast_aux(n_aux):
         assert_close(got[c], np.asarray(expected))
 
 
-@pytest.mark.parametrize("algo, alpha", [("fedcm", 0.1), ("fedcm", 1.0), ("fedavg", 0.1)])
+OTHER_ALGOS = ("fedprox", "fedavgm", "fedacg", "fedadam", "fedadagrad", "fedyogi", "mimelite",
+               "scaffold", "feddyn")
+
+
+@pytest.mark.parametrize("algo, alpha", [("fedcm", 0.1), ("fedcm", 1.0), ("fedavg", 0.1)]
+                         + [(a, 0.1) for a in OTHER_ALGOS])
 def test_flat_direction_step_matches_reference_dispatch(algo, alpha):
-    cfg = ref_cfg(algo=algo, alpha=alpha)
+    """The spec's direction row through the reference's Pallas kernel and
+    the port's plain version: SCAFFOLD's client-state aux before the
+    broadcast one, FedDyn's and FedProx's proximal c_x on a drifted x."""
+    cfg = ref_cfg(algo=algo, alpha=alpha, feddyn_alpha=0.3, fedprox_mu=0.2)
     rng = np.random.default_rng(2)
     P = 300
     x, g, m = _np(rng, P), _np(rng, P), _np(rng, P)
+    cst, x0 = _np(rng, P), _np(rng, P)
     expected = ref_flat_direction_step(ref_get_algorithm(algo), cfg, jnp.asarray(x), jnp.asarray(g),
-                                       jnp.asarray(m), None, jnp.asarray(x), jnp.float32(0.05))
+                                       jnp.asarray(m), jnp.asarray(cst), jnp.asarray(x0),
+                                       jnp.float32(0.05))
     got = flat_direction_step(get_algorithm(algo), port_cfg(cfg), torch.tensor(x),
-                              torch.tensor(g), torch.tensor(m), None, torch.tensor(x),
-                              torch.tensor(0.05))
+                              torch.tensor(g), torch.tensor(m), torch.tensor(cst),
+                              torch.tensor(x0), torch.tensor(0.05))
     assert_close(to_numpy(got), np.asarray(expected))
 
 
@@ -153,9 +163,12 @@ def test_server_update_sum_is_ascending_and_deterministic():
     assert all(torch.equal(u, v) for u, v in zip(a, b))
 
 
-@pytest.mark.parametrize("algo", ["fedcm", "fedavg"])
+@pytest.mark.parametrize("algo", ["fedcm", "fedavg", *OTHER_ALGOS])
 @pytest.mark.parametrize("aggregate_dtype", ["float32", "bfloat16"])
 def test_fused_fold_matches_reference(algo, aggregate_dtype):
+    """Every fold row of the spec, one launch each, over the planes it
+    names: SCAFFOLD's and MimeLite's second row writes the momentum only,
+    the post-step specs' row writes no params."""
     cfg = ref_cfg(algo=algo, aggregate_dtype=aggregate_dtype)
     rng = np.random.default_rng(4)
     C, P = 4, 333
@@ -163,10 +176,14 @@ def test_fused_fold_matches_reference(algo, aggregate_dtype):
     mask = np.array([1, 1, 0, 1], np.float32)
     n = mask.sum()
     x, m = _np(rng, P), _np(rng, P)
-    ex = ref_fused_fold(ref_get_algorithm(algo), cfg, {"delta": jnp.asarray(deltas)},
+    planes = {"delta": deltas, "state_delta": _np(rng, (C, P), 1e-2),
+              "extra": _np(rng, (C, P), 1e-1)}
+    ex = ref_fused_fold(ref_get_algorithm(algo), cfg,
+                        {k: jnp.asarray(v) for k, v in planes.items()},
                         jnp.asarray(mask / n), jnp.float32(n), jnp.asarray(x),
                         jnp.asarray(m), jnp.float32(0.07))
-    got = fused_fold(get_algorithm(algo), port_cfg(cfg), {"delta": torch.tensor(deltas)},
+    got = fused_fold(get_algorithm(algo), port_cfg(cfg),
+                     {k: torch.tensor(v) for k, v in planes.items()},
                      torch.tensor(mask / n), torch.tensor(n), torch.tensor(x),
                      torch.tensor(m), torch.tensor(0.07, dtype=torch.float32))
     for name, e, a in zip(("x", "m", "mean"), ex, got):

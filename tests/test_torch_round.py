@@ -26,6 +26,7 @@ from repro_torch.core.convert import state_from_numpy, state_to_numpy
 from repro_torch.core.engine import (
     FederatedEngine, RoundMetrics, check_supported, metrics_to_host,
 )
+from repro_torch.core.registry import list_algorithms
 from repro_torch.data.pipeline import FederatedData
 from repro_torch.models.small import classification_loss, mlp_classifier
 
@@ -33,6 +34,8 @@ torch.set_num_threads(1)
 
 PARTICIPATIONS = ("fixed", "bernoulli")
 ROUTES = ("kernel", "jnp")
+ALL_ALGOS = ("fedacg", "fedadagrad", "fedadam", "fedavg", "fedavgm", "fedcm", "feddyn",
+             "fedprox", "fedyogi", "mimelite", "scaffold")
 
 
 def _t(a):
@@ -241,13 +244,19 @@ def test_run_round_equals_round_step_on_its_own_draws():
     ({"availability": "zipf"}, "A.11"),
     ({"dropout_rate": 0.1}, "A.11"),
     ({"fault": FaultConfig(store_failure_rate=0.1)}, "A.11"),
-    ({"algo": "fedadam"}, "A.7"),
-    ({"algo": "scaffold"}, "A.7"),
+    pytest.param({"algo": "fednova"}, "unknown federated algorithm", id="unknown-algo"),
+    pytest.param(None, None, id="all-eleven-algos-ported"),
 ])
 def test_unported_config_raises_naming_roadmap_item(knob, item):
     from repro_torch.configs.base import FedConfig
+    if knob is None:  # every algorithm of the reference's registry is ported
+        assert list_algorithms() == ALL_ALGOS
+        for algo in ALL_ALGOS:
+            check_supported(FedConfig(algo=algo))
+        return
     # faults and compression are ported; only the host store's failure
     # model among their knobs is not (tests/test_torch_uplink.py holds
-    # the supported configs)
-    with pytest.raises(NotImplementedError, match=item):
+    # the supported configs); an unknown algorithm name is a bad value
+    error = ValueError if "algo" in knob else NotImplementedError
+    with pytest.raises(error, match=item):
         check_supported(FedConfig(**knob))

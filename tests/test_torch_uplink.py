@@ -25,22 +25,18 @@ import jax
 import jax.numpy as jnp
 
 from _torch_parity import (
-    ATOL, B, DIMS, FLIP_MAX, RTOL, client_data, jax_tree, np_params, port_cfg, ref_cfg,
-    ref_draws, ref_engine, torch_batches,
+    ATOL, RTOL, assert_states_equal, client_data, count_flips, data_setup, jax_tree, np_params,
+    port_cfg, port_engine, ref_cfg, ref_draws, ref_engine, ref_round_draws, small_cfg,
+    torch_batches,
 )
 from repro.configs.base import CompressionConfig as RefCompressionConfig
 from repro.configs.base import FaultConfig as RefFaultConfig
-from repro.core.compress import plane_key, round_key
-from repro.core.faults import _per_client_keys
 from repro_torch.configs.base import CompressionConfig, FaultConfig, FedConfig
 from repro_torch.core.convert import state_from_numpy, state_to_numpy
 from repro_torch.core.engine import (
-    FederatedEngine, RoundDraws, check_supported, local_learning_rate, metrics_to_host,
+    RoundDraws, check_supported, local_learning_rate, metrics_to_host,
 )
-from repro_torch.core.flat import FlatSpec
-from repro_torch.data.pipeline import FederatedData
 from repro_torch.kernels.server_update.ops import fused_fold
-from repro_torch.models.small import classification_loss, mlp_classifier
 
 torch.set_num_threads(1)
 
@@ -50,54 +46,9 @@ def _flat(tree):
                            for l in jax.tree_util.tree_leaves(tree)])
 
 
-def ref_round_draws(cfg, t, ids, P) -> RoundDraws:
-    """The reference's fault and rounding draws for round ``t``, computed as
-    its engine computes them, as a port ``RoundDraws``."""
-    ids = jnp.asarray(ids)
-    out = {}
-    f = cfg.fault
-    if f is not None:
-        kt = jax.random.fold_in(jax.random.PRNGKey(f.seed), t)
-        one_u = jax.vmap(lambda k: jax.random.uniform(k, ()))
-        if f.drop_rate > 0:
-            out["u_drop"] = one_u(_per_client_keys(kt, 1, ids))
-        if f.deadline > 0:
-            out["z_deadline"] = jax.vmap(lambda k: jax.random.normal(k, ()))(
-                _per_client_keys(kt, 2, ids))
-        if f.corrupt_rate > 0:
-            out["u_corrupt"] = one_u(_per_client_keys(kt, 3, ids))
-            if f.corrupt_mode == "noise":
-                lk = jax.vmap(lambda k: jax.random.fold_in(k, 0))(_per_client_keys(kt, 4, ids))
-                out["z_noise"] = jax.vmap(lambda k: jax.random.normal(k, (P,), jnp.float32))(lk)
-    c = cfg.compression
-    if c is not None and c.kind == "int8":
-        out["u"] = jax.random.uniform(plane_key(round_key(c, t), "delta"),
-                                      (ids.shape[0], P), jnp.float32)
-    return RoundDraws(**{k: torch.tensor(np.asarray(v)) for k, v in out.items()})
-
-
-def _port_engine(pcfg):
-    spec = FlatSpec.from_tree(mlp_classifier(DIMS).init(torch.Generator().manual_seed(0)))
-    return FederatedEngine(pcfg, classification_loss(mlp_classifier(DIMS).apply), spec,
-                           batch_size=B, device="cpu")
-
-
 def _ref_numpy(st):
     return {"params": _flat(st.params), "momentum": _flat(st.server.momentum),
             "residuals": None if st.residuals is None else np.asarray(st.residuals)}
-
-
-def _count_flips(got, ref, prev, what):
-    """Elements beyond RTOL/ATOL (floor flips); at most FLIP_MAX, each within
-    the reference's largest step this round."""
-    diff = np.abs(got - ref)
-    beyond = diff > ATOL + RTOL * np.abs(ref)
-    n = int(beyond.sum())
-    assert n <= FLIP_MAX, f"{what}: {n} elements beyond tolerance (max diff {diff.max():.3e})"
-    if n:
-        step = float(np.abs(ref - prev).max())
-        assert float(diff[beyond].max()) <= step, f"{what}: flip larger than a step"
-    return n
 
 
 CASES = {
@@ -126,7 +77,7 @@ def _parity_run(case):
     cfg = ref_cfg(kw.pop("participation", "fixed"), use_fused_kernel=True, **kw)
     reng, _ = ref_engine(cfg)
     rst = reng.init(jax_tree(np_params()), jax.random.PRNGKey(0))
-    peng = _port_engine(port_cfg(cfg))
+    peng = port_engine(port_cfg(cfg))
     cx, cy = client_data()
     totals = {"flips": 0, "n_dropped": 0.0, "n_quarantined": 0.0, "inactive_rows": 0}
     for t in range(3):
@@ -145,7 +96,7 @@ def _parity_run(case):
         for key in ("params", "momentum", "residuals"):
             assert (ref[key] is None) == (got[key] is None), key
             if ref[key] is not None:
-                flips += _count_flips(got[key], ref[key], before[key], f"round {t} {key}")
+                flips += count_flips(got[key], ref[key], before[key], f"round {t} {key}")
         host = {f: v[0] for f, v in metrics_to_host(pm).items()}
         for f in EXACT:
             assert host[f] == np.float32(getattr(rm, f)), f"round {t} {f}"
@@ -173,7 +124,7 @@ def test_topk_residuals_of_inactive_clients_are_kept():
     cfg = port_cfg(ref_cfg("fixed", compression=RefCompressionConfig(kind="topk",
                                                                       topk_frac=0.1),
                            fault=RefFaultConfig(drop_rate=0.5, seed=1)))
-    eng = _port_engine(cfg)
+    eng = port_engine(cfg)
     rng = np.random.default_rng(0)
     res0 = (0.01 * rng.normal(size=(6, eng.spec.size))).astype(np.float32)
     st, _ = state_from_numpy(np_params(), cfg, residuals=res0)
@@ -193,39 +144,15 @@ def test_topk_residuals_of_inactive_clients_are_kept():
 
 
 # ------------------------------------------------------------------ in-port contracts
-def _data_setup(cfg, seed=0):
-    cx, cy = client_data()
-    data = FederatedData(cx.reshape(-1, DIMS[0]), cy.reshape(-1), cfg.num_clients, seed=seed,
-                         device="cpu")
-    model = mlp_classifier(DIMS)
-    params = model.init(torch.Generator().manual_seed(seed))
-    eng = FederatedEngine(cfg, classification_loss(model.apply), FlatSpec.from_tree(params),
-                          batch_size=B, device="cpu")
-    return eng, eng.init(params, torch.Generator().manual_seed(seed + 1)), data
-
-
-def _small(**kw):
-    return FedConfig(num_clients=6, cohort_size=3, local_steps=2, participation="fixed", **kw)
-
-
-def _assert_states_equal(a, b):
-    assert torch.equal(a.params, b.params)
-    assert torch.equal(a.server.momentum, b.server.momentum)
-    assert torch.equal(a.server.round, b.server.round)
-    assert (a.residuals is None) == (b.residuals is None)
-    if a.residuals is not None:
-        assert torch.equal(a.residuals, b.residuals)
-
-
 @pytest.mark.parametrize("comp", [None, CompressionConfig(kind="int8", seed=2),
                                   CompressionConfig(kind="topk", topk_frac=0.1)])
 def test_quarantine_equals_excluding_the_client(comp):
     """A NaN-corrupted uplink, quarantined, folds identically to the same
     round with that client dropped outright: run B routes run A's
     corruption draw into the drop draw (and corrupts nobody)."""
-    eng_a, st_a, data = _data_setup(_small(compression=comp, fault=FaultConfig(
+    eng_a, st_a, data = data_setup(small_cfg(compression=comp, fault=FaultConfig(
         corrupt_rate=0.5, corrupt_mode="nan", seed=5)))
-    eng_b, st_b, _ = _data_setup(_small(compression=comp, fault=FaultConfig(
+    eng_b, st_b, _ = data_setup(small_cfg(compression=comp, fault=FaultConfig(
         drop_rate=0.5, corrupt_rate=0.5, corrupt_mode="nan", seed=5)))
     gen = torch.Generator().manual_seed(3)
     n_quar = 0.0
@@ -238,7 +165,7 @@ def test_quarantine_equals_excluding_the_client(comp):
         assert float(ma.n_active) == float(mb.n_active)
         assert float(ma.n_quarantined) == float(mb.n_dropped)
         n_quar += float(ma.n_quarantined)
-        _assert_states_equal(st_a, st_b)
+        assert_states_equal(st_a, st_b)
     assert n_quar > 0 and torch.all(torch.isfinite(st_a.params))
 
 
@@ -249,21 +176,21 @@ def test_split_run_is_bitwise_the_straight_run(comp):
     into a new engine, then 2 more: the rounding and fault draws are keyed
     by the round counter carried in the state, and the residual rows ride
     the state."""
-    cfg = _small(compression=comp, fault=FaultConfig(drop_rate=0.3, corrupt_rate=0.3, seed=2))
-    eng, st, data = _data_setup(cfg)
+    cfg = small_cfg(compression=comp, fault=FaultConfig(drop_rate=0.3, corrupt_rate=0.3, seed=2))
+    eng, st, data = data_setup(cfg)
     straight, _ = eng.run_rounds(st, data, 4)
 
-    eng1, st1, data1 = _data_setup(cfg)
+    eng1, st1, data1 = data_setup(cfg)
     st1, _ = eng1.run_rounds(st1, data1, 2)
     snap = state_to_numpy(st1)
-    eng2, _, _ = _data_setup(cfg)
+    eng2, _, _ = data_setup(cfg)
     gen = torch.Generator()
     gen.set_state(st1.rng.get_state())
     st2, _ = state_from_numpy(np_params(), cfg, momentum=snap["momentum"],
                               round=snap["round"], residuals=snap["residuals"], generator=gen)
     st2 = st2._replace(params=torch.tensor(snap["params"]))
     resumed, _ = eng2.run_rounds(st2, data1, 2)
-    _assert_states_equal(straight, resumed)
+    assert_states_equal(straight, resumed)
     if comp.kind == "topk":
         assert torch.count_nonzero(straight.residuals) > 0
 
@@ -272,7 +199,7 @@ def test_no_compression_no_fault_is_the_uncompressed_round_bitwise():
     """``compression=None, fault=None`` runs exactly the uncompressed slice's
     round: local steps, then one dense fold.  A fault config whose rates are
     all zero (quarantine on, nothing non-finite) gives the same bits."""
-    eng, st, data = _data_setup(_small())
+    eng, st, data = data_setup(small_cfg())
     batches, ids, mask, _ = eng._sample_round(st, data)
     got, m = eng.round_step(st, batches, ids, mask)
 
@@ -286,9 +213,9 @@ def test_no_compression_no_fault_is_the_uncompressed_round_bitwise():
     assert got.residuals is None
     assert float(m.n_dropped) == 0.0 and float(m.n_quarantined) == 0.0
 
-    eng0, st0, _ = _data_setup(_small(fault=FaultConfig()))
+    eng0, st0, _ = data_setup(small_cfg(fault=FaultConfig()))
     got0, m0 = eng0.round_step(st0, batches, ids, mask)
-    _assert_states_equal(got, got0)
+    assert_states_equal(got, got0)
     assert float(m0.n_quarantined) == 0.0
 
 
@@ -296,7 +223,7 @@ def test_no_compression_no_fault_is_the_uncompressed_round_bitwise():
                                               ("topk", 48 * 8), (None, 4 * 484)])
 def test_bytes_up_is_n_active_times_wire_bytes(kind, per_client):
     comp = None if kind is None else CompressionConfig(kind=kind, topk_frac=0.1)
-    eng, st, data = _data_setup(_small(compression=comp, fault=FaultConfig(drop_rate=0.4,
+    eng, st, data = data_setup(small_cfg(compression=comp, fault=FaultConfig(drop_rate=0.4,
                                                                            seed=1)))
     assert eng.spec.size == 484 and eng.payload_bytes()["up_per_client"] == per_client
     _, ms = eng.run_rounds(st, data, 3)
@@ -306,13 +233,13 @@ def test_bytes_up_is_n_active_times_wire_bytes(kind, per_client):
 
 
 def test_init_allocates_residuals_only_under_topk():
-    eng, st, _ = _data_setup(_small(compression=CompressionConfig(kind="topk")))
+    eng, st, _ = data_setup(small_cfg(compression=CompressionConfig(kind="topk")))
     assert st.residuals.shape == (6, 484) and st.residuals.dtype == torch.float32
     assert torch.count_nonzero(st.residuals) == 0
     for comp in (None, CompressionConfig(kind="int8")):
-        assert _data_setup(_small(compression=comp))[1].residuals is None
+        assert data_setup(small_cfg(compression=comp))[1].residuals is None
     # a top-k state without its residual rows is refused at the round
-    eng, st, data = _data_setup(_small(compression=CompressionConfig(kind="topk")))
+    eng, st, data = data_setup(small_cfg(compression=CompressionConfig(kind="topk")))
     batches, ids, mask, _ = eng._sample_round(st, data)
     with pytest.raises(ValueError, match="residual"):
         eng.round_step(st._replace(residuals=None), batches, ids, mask)
@@ -323,7 +250,7 @@ def test_engine_refuses_malformed_compression(kind, frac):
     """``cfg.compression`` alone selects the wire format, and the engine
     validates it before any round runs."""
     with pytest.raises(ValueError, match="compression kind|topk_frac"):
-        _data_setup(_small(compression=CompressionConfig(kind=kind, topk_frac=frac)))
+        data_setup(small_cfg(compression=CompressionConfig(kind=kind, topk_frac=frac)))
 
 
 @pytest.mark.parametrize("knob", [
@@ -337,6 +264,6 @@ def test_engine_refuses_malformed_compression(kind, frac):
 def test_fault_and_compression_configs_are_supported(knob):
     cfg = FedConfig(**knob)
     check_supported(cfg)
-    eng, st, data = _data_setup(replace(_small(), **knob))
+    eng, st, data = data_setup(replace(small_cfg(), **knob))
     st, m = eng.run_round(st, data)
     assert torch.all(torch.isfinite(st.params))
