@@ -29,7 +29,12 @@ JAX or of the JAX package.  Phases, each of which exits non-zero on failure:
    streaming through the ring); every fold case is launched twice and
    required bitwise equal to the first launch (determinism) and to its
    plain version.  The launch floor, a one-element ``fill_`` timed the
-   same way, is printed beside the main-plane folds.  Times are CUDA-event
+   same way, is printed beside the main-plane folds.  Then both folds with
+   the staleness discount γ ≠ 1 on their coefficient row (``GAMMAS``: 0.9
+   and 0.81) at both planes, x and m written: ``server_update`` with f32
+   and bf16 momentum, ``dequant_update`` with int8 and bf16 q; each
+   launched twice, bitwise against the first launch and its plain version,
+   its time printed beside its γ = 1 twin.  Times are CUDA-event
    medians of 21 samples of a CUDA-graph replay, so they are device time
    without the host's launch cost; ``eager_ms`` is the time per call when
    Python launches each call, which is what the main path pays.  ``flash_attention`` at the
@@ -61,6 +66,26 @@ JAX or of the JAX package.  Phases, each of which exits non-zero on failure:
    after (``fed_direction`` K a round; one fold launch a round per fold
    row: ``FOLDS_PER_ROUND``), a finite loss, its final test accuracy and
    the steady seconds per round of 20 further rounds;
+4c. the async ring — ``run_federated`` with ``--pipeline-depth`` /
+   ``--staleness`` at γ = 0.9 (``ASYNC_RUNS``: fedcm at D=2 S=1 and D=4
+   S=2, scaffold under int8 and mimelite at D=2 S=1) for 20 rounds, each
+   with the launch counts set to 0 just before and read just after (K
+   ``fed_direction`` a round; ``FOLDS_PER_ROUND`` fold launches a round,
+   drain included), a finite loss and the final accuracy;
+   then 20 further rounds of an engine (``folded`` D − 1 zeros, then ones)
+   and their steady seconds per round, measured in turns with the same
+   spec's sync loop before and after;
+4d. the host store at fleet scale — N = ``FLEET_N`` = 1,000,000 clients,
+   scaffold, zipf availability, dropout 0.1, store failures 0.05,
+   ``StreamingClientData``: ``run_federated`` sync and on the ring (D=2,
+   S=1) with their launch counts, then an engine's 20 rounds (touched rows
+   ≤ 20 × capacity, the store's bytes, ``n_retries`` > 0) and 20 more
+   (steady s/round), the device's peak memory under 1 GB throughout (a
+   resident (N, P) f32 plane would be 88.1 GB); then, on device-resident
+   data (N = 100), bit for bit on the card: store ≡ resident for scaffold
+   and feddyn, sync and async, and for scaffold under int8 and top-k (the
+   residual store ≡ the resident residual plane), and the ring at D = 1,
+   S = 0 ≡ the sync loop for scaffold under int8;
 5. card vs CPU — three rounds from one converted state with the same
    injected ids, masks and minibatch indices on ``cuda`` and on ``cpu``;
    then three rounds under int8 + faults, each started on both devices
@@ -71,6 +96,12 @@ JAX or of the JAX package.  Phases, each of which exits non-zero on failure:
    mimelite) full batches on both devices: params, momentum, and where the
    spec has them the (N, P) client states and the second moment, within
    ``PARITY_RTOL`` / ``PARITY_ATOL``;
+5c. card vs CPU under the ring — six launches at D=2, S=1, γ = 0.9 of
+   fedcm, scaffold, fedadam and mimelite from one converted state
+   (nonzero momentum)
+   with the same injected draws on both devices, through the loop
+   ``run_rounds_async`` runs (``run_rounds_async_on``): every state plane
+   within ``PARITY_RTOL`` / ``PARITY_ATOL`` after the drain;
 6. serving — ``repro_torch.launch.serve`` (the CLI's ``run``) at full width
    for llama3.2-1b and mamba2-1.3b, ``--full --batch 4 --prompt-len 1024
    --gen 32 --sessions 2``, with the launch counts set to 0 just before
@@ -127,11 +158,18 @@ OTHER_ALGOS = ("fedprox", "fedavgm", "fedacg", "fedadam", "fedadagrad", "fedyogi
 # same absolute-lr preconditioned step; a copy, so nothing of the benchmarks
 # is imported
 ALGO_SETTINGS = {a: {"eta_g": 0.03, "alpha": 0.1} for a in ("fedadam", "fedadagrad", "fedyogi")}
-# (server_update, dequant_update) launches a round by uplink: one per fold
-# row; under int8 a row over a plane that arrives compressed is a dequant
-# launch (scaffold's state delta is decoded for the scatter and folds dense)
-FOLDS_PER_ROUND = {"scaffold": {None: (2, 0), "int8": (1, 1)},
+# (server_update, dequant_update) launches a fold by uplink, sync round and
+# ring alike: one per fold row; under int8 every row over a plane that
+# arrives compressed is a dequant launch (scaffold's state delta included:
+# the fold decodes it once more for the client-state scatter)
+FOLDS_PER_ROUND = {"scaffold": {None: (2, 0), "int8": (0, 2)},
                    "mimelite": {None: (2, 0), "int8": (0, 2)}}
+# the async ring (phase 4c): (algo, uplink, D, S), each at γ = RING_GAMMA
+ASYNC_RUNS = (("fedcm", None, 2, 1), ("fedcm", None, 4, 2), ("scaffold", "int8", 2, 1),
+              ("mimelite", None, 2, 1))
+RING_GAMMA = 0.9
+FLEET_N = 1_000_000  # the host store's population (phase 4d)
+PAIR_ROUNDS = 6  # rounds of each bitwise store pair (phase 4d)
 
 
 def fail(msg: str) -> None:
@@ -294,27 +332,28 @@ def shifted(torch, t, offset: int):
     return view
 
 
-def fold_inputs(torch, C, P, m_dtype, gen, offset: int = 0):
+def fold_inputs(torch, C, P, m_dtype, gen, offset: int = 0, gamma: float = 1.0):
     """wn (the first 2C/5 rows active, at least one), x and m of a fold
-    case; with ``offset``, x and m are views 1 element into their buffers."""
+    case; with ``offset``, x and m are views 1 element into their buffers;
+    ``gamma`` is the staleness discount γ, coefs[3]."""
     dev = "cuda"
     mask = torch.arange(C, device=dev) < max(1, (C * 2) // 5)
     wn = mask.float() / mask.float().sum()
     x = shifted(torch, torch.randn((P,), generator=gen, device=dev), min(offset, 1))
     m = shifted(torch, torch.randn((P,), generator=gen, device=dev).to(m_dtype), min(offset, 1))
-    coefs = torch.tensor([0.0, -1.0, 1.0, 1.0], dtype=torch.float32, device=dev)
+    coefs = torch.tensor([0.0, -1.0, 1.0, gamma], dtype=torch.float32, device=dev)
     return wn, x, m, coefs
 
 
 def check_server_update(torch, su_kernel, su_ref, C, P, write_x, write_m, m_dtype, gen,
-                        d_dtype=None, offset: int = 0):
+                        d_dtype=None, offset: int = 0, gamma: float = 1.0):
     """``offset``: the plane (and x, m) as views ``offset`` elements into
     their buffers, so their data_ptr is misaligned."""
     dev = "cuda"
     d_dtype = d_dtype or torch.float32
     deltas = shifted(torch, (torch.randn((C, P), generator=gen, device=dev) * 1e-2).to(d_dtype),
                      offset)
-    wn, x, m, coefs = fold_inputs(torch, C, P, m_dtype, gen, offset)
+    wn, x, m, coefs = fold_inputs(torch, C, P, m_dtype, gen, offset, gamma)
 
     def run():
         return su_kernel.server_update_flat(deltas, wn, x, m, coefs,
@@ -344,14 +383,14 @@ def check_server_update(torch, su_kernel, su_ref, C, P, write_x, write_m, m_dtyp
         deltas, wn, x, m, coefs, write_x=write_x, write_m=write_m), reps)
     eager = eager_ms(torch, run, 50 if C * P < 10_000_000 else 5)
     return {"C": C, "P": P, "d": str(d_dtype).split(".")[-1], "offset": offset,
-            "write_x": write_x, "write_m": write_m,
+            "gamma": gamma, "write_x": write_x, "write_m": write_m,
             "m": str(m_dtype).split(".")[-1], "max_abs_err": err, "ok": ok,
             "deterministic": deterministic, "ms": ms, "plain_ms": plain,
             "eager_ms": eager, "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
 
 
 def check_dequant_update(torch, su_kernel, su_ref, C, P, q_kind, write_x, write_m, m_dtype,
-                         gen, offset: int = 0):
+                         gen, offset: int = 0, gamma: float = 1.0):
     """``offset``: the plane as a view ``offset`` elements into its buffer
     (3 for int8, so its data_ptr is 3 bytes past an aligned one), x and m
     1 element."""
@@ -363,7 +402,7 @@ def check_dequant_update(torch, su_kernel, su_ref, C, P, q_kind, write_x, write_
         q = (torch.randn((C, P), generator=gen, device=dev) * 1e-2).to(torch.bfloat16)
         scale = torch.ones((C, 1), device=dev)
     q = shifted(torch, q, offset)
-    wn, x, m, coefs = fold_inputs(torch, C, P, m_dtype, gen, offset)
+    wn, x, m, coefs = fold_inputs(torch, C, P, m_dtype, gen, offset, gamma)
 
     def run():
         return su_kernel.dequant_update_flat(q, scale, wn, x, m, coefs,
@@ -395,8 +434,8 @@ def check_dequant_update(torch, su_kernel, su_ref, C, P, q_kind, write_x, write_
     ms = graph_ms(torch, run, reps)
     plain_ms = graph_ms(torch, plain, reps)
     eager = eager_ms(torch, run, 50 if C * P < 10_000_000 else 5)
-    return {"C": C, "P": P, "q": q_kind, "offset": offset, "write_x": write_x,
-            "write_m": write_m,
+    return {"C": C, "P": P, "q": q_kind, "offset": offset, "gamma": gamma,
+            "write_x": write_x, "write_m": write_m,
             "m": str(m_dtype).split(".")[-1], "max_abs_err": err, "ok": ok,
             "deterministic": deterministic, "ms": ms, "plain_ms": plain_ms,
             "eager_ms": eager, "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
@@ -429,6 +468,44 @@ def fold_edge_cases(torch, su_kernel, su_ref, gen):
             say(f"dequant_update edge {json.dumps(r)}")
     torch.cuda.empty_cache()
     return su, dq
+
+
+# the staleness discounts of the γ cases: γ and γ², the async ring's fold
+# weight γ^(D−1) at D = 2 and 3 for staleness_discount 0.9
+GAMMAS = (0.9, 0.81)
+
+
+def fold_gamma_cases(torch, su_kernel, su_ref, gen):
+    """Both folds with the staleness discount γ ≠ 1 on coefs[3], at the main
+    and the large plane, x and m written: ``server_update`` with f32 and
+    bf16 momentum, ``dequant_update`` with int8 and bf16 q (f32 momentum);
+    each launched twice, bitwise against the first launch and its plain
+    version."""
+    out = []
+    for C, P in ((MAIN_C, MAIN_P), (BIG_C, BIG_P)):
+        for gamma in GAMMAS:
+            for m_dtype in (torch.float32, torch.bfloat16):
+                r = check_server_update(torch, su_kernel, su_ref, C, P, True, True, m_dtype, gen,
+                                        gamma=gamma)
+                out.append(r)
+                say(f"server_update gamma {json.dumps(r)}")
+            for q_kind in ("int8", "bf16"):
+                r = check_dequant_update(torch, su_kernel, su_ref, C, P, q_kind, True, True,
+                                         torch.float32, gen, gamma=gamma)
+                out.append(r)
+                say(f"dequant_update gamma {json.dumps(r)}")
+        torch.cuda.empty_cache()
+    return out
+
+
+def gamma_line(r, cases) -> str:
+    """One γ case's time beside its γ = 1 twin (same shape and dtypes)."""
+    keys = ("C", "P", "m", "d", "q")
+    twin = next(c for c in cases if c.get("offset") == 0 and c["write_x"] and c["write_m"]
+                and all(c.get(k) == r.get(k) for k in keys))
+    name = f"server_update m {r['m']}" if "d" in r else f"dequant_update {r['q']}"
+    return (f"{name} ({r['C']}, {r['P']}) gamma {r['gamma']}: {r['ms']:.6f} "
+            f"(gamma 1: {twin['ms']:.6f})")
 
 
 def launch_floor_ms(torch) -> float:
@@ -713,6 +790,194 @@ def other_algorithms(torch, np, bindings):
     return rows
 
 
+# ---------------------------------------------------------------------- phase 4c
+def async_ring(torch, np, bindings):
+    """``run_federated`` on the async ring for each of ``ASYNC_RUNS`` at the
+    CLI defaults, γ = 0.9, with the launch counts set to 0 just before and
+    read just after (K ``fed_direction`` a round; one fold launch a round
+    per fold row, drain included: ``FOLDS_PER_ROUND``); then the steady seconds
+    per round of 20 further rounds of an engine, whose ``folded`` must be
+    D − 1 zeros and then ones."""
+    from repro_torch.configs.base import CompressionConfig, FedConfig
+    from repro_torch.launch.fed_train import run_federated
+
+    rows = []
+    for algo, comp, D, S in ASYNC_RUNS:
+        cfg = FedConfig(algo=algo, participation="bernoulli", rounds=ROUNDS, pipeline_depth=D,
+                        staleness=S, staleness_discount=RING_GAMMA,
+                        compression=None if comp is None else CompressionConfig(kind=comp))
+        su, dq = FOLDS_PER_ROUND.get(algo, {None: (1, 0)})[comp]
+        expected = {"fed_direction": ROUNDS * K, "server_update": ROUNDS * su,
+                    "dequant_update": ROUNDS * dq, "flash_attention": 0, "ssd_scan": 0}
+        name = f"{algo}{'' if comp is None else ' ' + comp} D={D} S={S}"
+        for b in bindings.values():
+            b.launches = 0
+        t0 = time.perf_counter()
+        acc, log = run_federated(cfg, 0.6, eval_every=EVAL_EVERY, seed=0, echo=False,
+                                 device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: b.launches for k, b in bindings.items()}
+        losses = log.column("loss")
+        if not losses or not all(np.isfinite(losses)):
+            fail(f"async {name}: non-finite or missing loss {losses}")
+        if launches != expected:
+            fail(f"async {name}: launch counts {launches}, expected {expected}")
+        # the sync twin (same spec and uplink, D = 1, S = 0) before and after
+        # the ring, so the two are compared in turns on one host
+        sync_cfg = replace(cfg, pipeline_depth=1, staleness=0)
+        sync_a = steady_seconds_per_round(torch, sync_cfg)[0]
+        s_round, eng, state, _, host = steady_seconds_per_round(torch, cfg, ring=(D, S))
+        sync_b = steady_seconds_per_round(torch, sync_cfg)[0]
+        if not np.isfinite(host["loss"]).all() or not torch.isfinite(state.params).all():
+            fail(f"async {name}: non-finite loss or params in the steady-state rounds")
+        want = [0.0] * (D - 1) + [1.0] * (ROUNDS - D + 1)
+        if host["folded"].tolist() != want:
+            fail(f"async {name}: folded {host['folded'].tolist()}, expected {want}")
+        row = {"algo": algo, "uplink": comp or "f32", "D": D, "S": S, "gamma": RING_GAMMA,
+               "rounds": ROUNDS, "launches": launches, "losses": losses,
+               "final_test_acc": acc, "wall_s": wall, "steady_ms_per_round": s_round * 1e3,
+               "sync_twin_ms_per_round": [sync_a * 1e3, sync_b * 1e3]}
+        say(f"async {name}: {json.dumps(row)}")
+        rows.append(row)
+        del eng, state
+    return rows
+
+
+# ---------------------------------------------------------------------- phase 4d
+def host_store_fleet(torch, np, bindings):
+    """The host store at ``FLEET_N`` clients (scaffold, zipf availability,
+    dropout 0.1, store failures 0.05, ``StreamingClientData``): for the sync
+    loop and the ring at D = 2, S = 1, ``run_federated`` with the launch
+    counts set to 0 just before and read just after, then an engine's 20
+    rounds (the touched rows, the store's bytes, n_retries) and 20 further
+    rounds (steady s/round), the device's peak memory over it all."""
+    from repro_torch.configs.base import FaultConfig, FedConfig
+    from repro_torch.core.engine import cohort_capacity, metrics_to_host
+    from repro_torch.data import StreamingClientData
+    from repro_torch.launch.fed_train import run_federated
+
+    base = FedConfig(algo="scaffold", num_clients=FLEET_N, participation="bernoulli",
+                     rounds=ROUNDS, population_store="host", availability="zipf",
+                     dropout_rate=0.1, fault=FaultConfig(store_failure_rate=0.05),
+                     staleness_discount=RING_GAMMA)
+    cap = cohort_capacity(base)
+    expected = {"fed_direction": ROUNDS * K, "server_update": ROUNDS * 2, "dequant_update": 0,
+                "flash_attention": 0, "ssd_scan": 0}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    rows = []
+    for mode, ring in (("sync", None), ("async D=2 S=1", (2, 1))):
+        cfg = base if ring is None else replace(base, pipeline_depth=ring[0], staleness=ring[1])
+        for b in bindings.values():
+            b.launches = 0
+        acc, log = run_federated(cfg, 0.6, eval_every=EVAL_EVERY, seed=0, echo=False,
+                                 device="cuda")
+        torch.cuda.synchronize()
+        launches = {k: b.launches for k, b in bindings.items()}
+        losses = log.column("loss")
+        if not losses or not all(np.isfinite(losses)):
+            fail(f"host store {mode}: non-finite or missing loss {losses}")
+        if launches != expected:
+            fail(f"host store {mode}: launch counts {launches}, expected {expected}")
+        eng, state, data = fresh_engine(torch, cfg, StreamingClientData(FLEET_N, seed=0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, ms = run_engine(eng, state, data, ROUNDS, ring)
+        torch.cuda.synchronize()
+        first_s = (time.perf_counter() - t0) / ROUNDS
+        first = metrics_to_host(ms)
+        touched, nbytes = eng.population.touched, eng.population.nbytes
+        t0 = time.perf_counter()
+        state, ms = run_engine(eng, state, data, ROUNDS, ring)
+        torch.cuda.synchronize()
+        s_round = (time.perf_counter() - t0) / ROUNDS
+        host = metrics_to_host(ms)
+        if not (np.isfinite(first["loss"]).all() and np.isfinite(host["loss"]).all()
+                and torch.isfinite(state.params).all()):
+            fail(f"host store {mode}: non-finite loss or params")
+        if state.client_states is not None or not 0 < touched <= ROUNDS * cap:
+            fail(f"host store {mode}: {touched} touched rows after {ROUNDS} rounds "
+                 f"(at most {ROUNDS} x {cap}), or an (N, P) device plane")
+        retries = int(first["n_retries"].sum() + host["n_retries"].sum()
+                      + sum(log.column("retries")))
+        row = {"mode": mode, "N": FLEET_N, "capacity": cap, "launches": launches,
+               "losses": losses, "final_test_acc": acc, "touched_rows": touched,
+               "store_bytes": nbytes, "n_retries": retries,
+               "first_ms_per_round": first_s * 1e3, "steady_ms_per_round": s_round * 1e3,
+               "resident_plane_bytes": FLEET_N * eng.spec.size * 4}
+        say(f"host store {mode}: {json.dumps(row)}")
+        rows.append(row)
+        del eng, state, data
+    peak = torch.cuda.max_memory_allocated()
+    say(f"host store at N={FLEET_N}: device memory allocated {before} B before, peak "
+        f"{peak} B over both loops (limit 1 GB); a resident (N, P) f32 plane would take "
+        f"{rows[0]['resident_plane_bytes']} B")
+    if peak >= 1e9:
+        fail(f"host store: peak device memory {peak} B, not under 1 GB")
+    if sum(r["n_retries"] for r in rows) == 0:
+        fail("host store: no store retry at failure rate 0.05")
+    return rows
+
+
+def bitwise_pairs_on_card(torch, np):
+    """Device-resident data (N = 100) on the card, bit for bit: the host
+    store against the resident plane for scaffold and feddyn, sync and
+    async (D = 2, S = 1), and for scaffold under int8 and under top-k (the
+    residual store against the resident residual plane); and the ring at
+    D = 1, S = 0 against the sync loop for scaffold under int8."""
+    from repro_torch.configs.base import CompressionConfig, FedConfig
+    from repro_torch.core.engine import metrics_to_host
+
+    def run(cfg, ring):
+        eng, state, data = fresh_engine(torch, cfg)
+        state, ms = run_engine(eng, state, data, PAIR_ROUNDS, ring)
+        return eng, state, metrics_to_host(ms)
+
+    def rows_of(eng, state):
+        if state.client_states is not None:
+            return state.client_states.cpu().numpy()
+        dense = np.zeros((eng.cfg.num_clients, eng.spec.size), np.float32)
+        tree = eng.population.to_pytree()
+        dense[tree["ids"]] = tree["rows"]
+        return dense
+
+    def same(a, b, what):
+        (ea, sa, ma), (eb, sb, mb) = a, b
+        ok = torch.equal(sa.params, sb.params) and torch.equal(sa.server.momentum,
+                                                               sb.server.momentum)
+        ok = ok and all(np.array_equal(ma[f], mb[f]) for f in ma if f in mb)
+        ok = ok and np.array_equal(rows_of(ea, sa), rows_of(eb, sb))
+        if not ok:
+            fail(f"{what}: not bitwise equal on the card")
+
+    pairs = 0
+    for algo in ("scaffold", "feddyn"):
+        for ring in (None, (2, 1)):
+            cfg = FedConfig(algo=algo, participation="bernoulli", staleness_discount=RING_GAMMA)
+            same(run(cfg, ring), run(replace(cfg, population_store="host"), ring),
+                 f"store vs resident {algo} {'sync' if ring is None else 'async'}")
+            pairs += 1
+    for kind in ("int8", "topk"):
+        cfg = FedConfig(algo="scaffold", participation="bernoulli",
+                        compression=CompressionConfig(kind=kind))
+        res, host = run(cfg, None), run(replace(cfg, population_store="host"), None)
+        same(res, host, f"store vs resident scaffold {kind}")
+        if kind == "topk":
+            dense = np.zeros((cfg.num_clients, host[0].spec.size), np.float32)
+            tree = host[0].residual_population.to_pytree()
+            dense[tree["ids"]] = tree["rows"]
+            if not np.array_equal(dense, res[1].residuals.cpu().numpy()):
+                fail("store vs resident scaffold topk: residual store differs")
+        pairs += 1
+    cfg = FedConfig(algo="scaffold", participation="bernoulli",
+                    compression=CompressionConfig(kind="int8"))
+    same(run(cfg, None), run(cfg, (1, 0)), "ring D=1 S=0 vs sync, scaffold int8")
+    return pairs + 1
+
+
 # ---------------------------------------------------------------------- phase 5
 def card_vs_cpu(torch, np, algo="fedcm"):
     """Three rounds of ``algo`` from one converted state on the card and on
@@ -868,6 +1133,66 @@ def card_vs_cpu_lossy(torch, np):
     return rows
 
 
+def card_vs_cpu_ring(torch, np, algo):
+    """Six launches of the async ring at D = 2, S = 1, γ = 0.9 from one
+    converted state (a nonzero momentum, so the stale broadcast matters)
+    on the card and on the CPU, with the same injected ids, masks,
+    minibatch indices and full batches; every state plane the spec has
+    within the parity tolerance after the drain."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core.convert import params_to_numpy, state_from_numpy, state_to_numpy
+    from repro_torch.core.engine import FederatedEngine, RoundInputs, cohort_capacity
+    from repro_torch.data import (
+        FederatedData, gather_full_client_batch, gather_round_batches,
+        make_synthetic_classification,
+    )
+    from repro_torch.models.small import classification_loss, mlp_classifier
+
+    cfg = FedConfig(algo=algo, participation="bernoulli", staleness_discount=RING_GAMMA,
+                    **ALGO_SETTINGS.get(algo, {}))
+    cap = cohort_capacity(cfg)
+    x_tr, y_tr, _, _ = make_synthetic_classification(n_train=20_000, n_test=10, seed=3)
+    model = mlp_classifier((32, 128, 128, 10))
+    params = params_to_numpy(model.init(torch.Generator().manual_seed(3)))
+    rng = np.random.default_rng(6)
+    momentum = (0.01 * rng.normal(size=MAIN_P)).astype(np.float32)
+    draws = [(rng.permutation(cfg.num_clients)[:cap],
+              np.arange(cap) < rng.binomial(cfg.num_clients, 0.1)) for _ in range(6)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        data = FederatedData(x_tr, y_tr, cfg.num_clients, dirichlet_alpha=0.6, seed=3, device=dev)
+        idx_rng = np.random.default_rng(7)
+        state, spec = state_from_numpy(params, cfg, momentum=momentum, device=dev)
+        eng = FederatedEngine(cfg, classification_loss(model.apply), spec, device=dev)
+        inputs = []
+        for ids, mask in draws:
+            idx = idx_rng.integers(0, data.n_per_client, size=(cap, cfg.local_steps, 50))
+            ids_t = torch.as_tensor(ids, device=dev)
+            full = None
+            if eng.algo.needs_full_grad:
+                full = gather_full_client_batch(data.client_x, data.client_y, ids_t)
+            inputs.append(RoundInputs(
+                gather_round_batches(data.client_x, data.client_y, None, ids_t,
+                                     cfg.local_steps, 50, idx=torch.as_tensor(idx)),
+                ids_t, torch.as_tensor(mask, device=dev), full_batches=full))
+        it = iter(inputs)
+        state, _, _ = eng.run_rounds_async_on(state, lambda _: next(it), len(draws),
+                                              pipeline_depth=2, staleness=1)
+        out[dev] = state_to_numpy(state)
+    res = {}
+    for key in ("params", "momentum", "second_moment", "client_states"):
+        a, b = out["cuda"][key], out["cpu"][key]
+        if (a is None) != (b is None):
+            fail(f"card vs CPU ring {algo}: {key} exists on one device only")
+        if a is None:
+            continue
+        res[key] = float(np.max(np.abs(a - b)))
+        if not np.allclose(a, b, rtol=PARITY_RTOL, atol=PARITY_ATOL):
+            fail(f"card vs CPU ring {algo}: {key} differ beyond rtol {PARITY_RTOL} atol "
+                 f"{PARITY_ATOL} (max abs diff {res[key]:.3e})")
+    return res
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -968,10 +1293,11 @@ def main() -> int:
     su_edge, dq_edge = fold_edge_cases(torch, su_kernel, su_ref, gen)
     su_cases += su_edge
     dq_cases += dq_edge
-    bad = [r for r in fd_cases + su_cases + dq_cases if not r["ok"]]
+    gamma_cases = fold_gamma_cases(torch, su_kernel, su_ref, gen)
+    bad = [r for r in fd_cases + su_cases + dq_cases + gamma_cases if not r["ok"]]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
-    if not all(r["deterministic"] for r in su_cases + dq_cases):
+    if not all(r["deterministic"] for r in su_cases + dq_cases + gamma_cases):
         fail("a fold kernel is not run-to-run deterministic")
     floor_ms = launch_floor_ms(torch)
     say(f"kernels vs plain: fed_direction within tolerance; server_update and dequant_update "
@@ -983,6 +1309,9 @@ def main() -> int:
         f"main-plane folds, x and m written, m f32: " + ", ".join(
             f"{'server_update ' + r['d'] if 'd' in r else 'dequant_update ' + r['q']} "
             f"{r['ms']:.6f} ms" for r in main_xm))
+    say(f"fold cases at gamma 0.9 and 0.81 (x and m written) bitwise equal to their plain "
+        f"versions and deterministic in all {len(gamma_cases)} cases; ms beside gamma 1: "
+        + "; ".join(gamma_line(r, su_cases + dq_cases) for r in gamma_cases))
 
     fa_cases, ssd_cases = [], []
     # (B, Sq, Skv, H, Hkv, hd, dtype, causal, window, q_offset): the serving
@@ -1014,6 +1343,8 @@ def main() -> int:
         fail("the ragged flash_attention case was meant to have rows without keys")
     say(f"kernels vs plain: flash_attention and ssd_scan within {LM_KERNEL_TOL} "
         f"(rtol, atol relative to the largest plain value)")
+
+    say(f"device memory allocated after phase 3: {torch.cuda.memory_allocated()} B")
 
     # ---- 4. main path and the lossy-uplink paths, launch counts from each run only
     from repro_torch.configs.base import CompressionConfig, FaultConfig, FedConfig
@@ -1107,6 +1438,19 @@ def main() -> int:
         f"{r['algo']}{'' if r['uplink'] == 'f32' else ' ' + r['uplink']} "
         f"{r['steady_ms_per_round']:.3f}" for r in algo_rows))
 
+    # ---- 4c. the async ring, launch counts from each run only
+    ring_rows = async_ring(torch, np, bindings)
+    say("async ring, steady ms/round beside its sync twin measured before and after it: "
+        + ", ".join(f"{r['algo']}{'' if r['uplink'] == 'f32' else ' ' + r['uplink']} "
+                    f"D={r['D']} S={r['S']} {r['steady_ms_per_round']:.3f} (sync "
+                    f"{r['sync_twin_ms_per_round'][0]:.3f} / {r['sync_twin_ms_per_round'][1]:.3f})"
+                    for r in ring_rows))
+
+    # ---- 4d. the host store at fleet scale, and store pairs on the card
+    host_store_fleet(torch, np, bindings)
+    say(f"bitwise pairs on the card: {bitwise_pairs_on_card(torch, np)} (4 store vs resident, "
+        f"2 store vs resident under int8 / topk, 1 ring D=1 vs sync for scaffold int8)")
+
     # ---- 5. card vs CPU
     diffs = card_vs_cpu(torch, np)
     say(f"card vs CPU over 3 injected rounds: max |diff| params {diffs['params']:.3e}, "
@@ -1120,6 +1464,12 @@ def main() -> int:
     for algo in OTHER_ALGOS:
         say(f"card vs CPU, {algo}, 3 injected rounds: max |diff| "
             f"{json.dumps(card_vs_cpu(torch, np, algo))} (rtol {PARITY_RTOL}, "
+            f"atol {PARITY_ATOL})")
+
+    # ---- 5c. card vs CPU under the async ring
+    for algo in ("fedcm", "scaffold", "fedadam", "mimelite"):
+        say(f"card vs CPU, ring D=2 S=1 gamma {RING_GAMMA}, {algo}, 6 injected launches: max "
+            f"|diff| {json.dumps(card_vs_cpu_ring(torch, np, algo))} (rtol {PARITY_RTOL}, "
             f"atol {PARITY_ATOL})")
 
     # ---- 6. serving at full width, launch counts from each run only
@@ -1174,29 +1524,49 @@ def main() -> int:
     return 0
 
 
-def steady_seconds_per_round(torch, cfg):
-    """Mean wall seconds per round of an engine on ``cfg`` at the main
-    path's widths after warm-up, synchronized at both ends (host launch
-    cost included).  Returns ``(s_per_round, engine, state, data,
-    metrics)`` with the timed rounds' metrics on the host."""
-    from repro_torch.core.engine import FederatedEngine, metrics_to_host
+def fresh_engine(torch, cfg, data=None):
+    """An engine on ``cfg`` at the main path's widths on the card, its
+    initialized state and its data (``FederatedData`` of the CLI's default
+    task unless ``data`` is given)."""
+    from repro_torch.core.engine import FederatedEngine
     from repro_torch.core.flat import FlatSpec
     from repro_torch.data import FederatedData, make_synthetic_classification
     from repro_torch.models.small import classification_loss, mlp_classifier
 
-    x_tr, y_tr, _, _ = make_synthetic_classification(n_train=50_000, n_test=10, seed=0)
-    data = FederatedData(x_tr, y_tr, cfg.num_clients, dirichlet_alpha=0.6, seed=0, device="cuda")
+    if data is None:
+        x_tr, y_tr, _, _ = make_synthetic_classification(n_train=50_000, n_test=10, seed=0)
+        data = FederatedData(x_tr, y_tr, cfg.num_clients, dirichlet_alpha=0.6, seed=0,
+                             device="cuda")
     model = mlp_classifier((32, 128, 128, 10))
     params = model.init(torch.Generator().manual_seed(0))
     eng = FederatedEngine(cfg, classification_loss(model.apply), FlatSpec.from_tree(params),
                           device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    state = eng.init(params, gen)
-    state, _ = eng.run_rounds(state, data, 2)
+    return eng, eng.init(params, gen), data
+
+
+def run_engine(eng, state, data, n, ring=None):
+    """``n`` rounds of the sync loop, or of the async ring at ``ring = (D,
+    S)`` (drained)."""
+    if ring is None:
+        return eng.run_rounds(state, data, n)
+    return eng.run_rounds_async(state, data, n, pipeline_depth=ring[0], staleness=ring[1])
+
+
+def steady_seconds_per_round(torch, cfg, ring=None, data=None):
+    """Mean wall seconds per round of an engine on ``cfg`` at the main
+    path's widths after warm-up, synchronized at both ends (host launch
+    cost included); the async ring at ``ring = (D, S)`` counts its drain.
+    Returns ``(s_per_round, engine, state, data, metrics)`` with the timed
+    rounds' metrics on the host."""
+    from repro_torch.core.engine import metrics_to_host
+
+    eng, state, data = fresh_engine(torch, cfg, data)
+    state, _ = run_engine(eng, state, data, 2, ring)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, ms = eng.run_rounds(state, data, ROUNDS)
+    state, ms = run_engine(eng, state, data, ROUNDS, ring)
     torch.cuda.synchronize()
     s_round = (time.perf_counter() - t0) / ROUNDS
     return s_round, eng, state, data, metrics_to_host(ms)

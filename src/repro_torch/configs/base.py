@@ -42,8 +42,9 @@ class FaultConfig:
     corrupt_rate: float = 0.0
     corrupt_mode: str = "nan"  # nan | inf | noise
     noise_scale: float = 1.0
-    # transient host-store failures and their retry policy; the store is
-    # ROADMAP A.11, so only store_failure_rate = 0 runs
+    # transient host-store failures (population_store="host": each store
+    # gather / scatter fails with this probability) and the retry policy:
+    # capped exponential backoff, re-raised after store_max_retries
     store_failure_rate: float = 0.0
     store_max_retries: int = 6
     store_backoff_base: float = 0.02
@@ -113,15 +114,31 @@ class FedConfig:
     aggregate_dtype: str = "float32"
     # only True is ported; the per-leaf tree path is ROADMAP A.16
     use_flat_plane: bool = True
-    # async pipelined engine (ROADMAP A.8): only the sync schedule is ported
+    # async pipelined engine (FederatedEngine.run_rounds_async): cohorts in
+    # flight, rounds of momentum staleness the clients descend against, and
+    # the fold weight γ per round of staleness (a fold is D − 1 rounds old
+    # and weighs γ^(D−1))
     pipeline_depth: int = 1
     staleness: int = 0
     staleness_discount: float = 1.0
     # cohort-parallel execution over several devices (ROADMAP A.14)
     cohort_shard: int = 0
-    # per-client state store and availability process (ROADMAP A.11)
+    # where per-client state rows live: "resident" = the (N, P) device
+    # plane, "host" = a sparse host store (repro_torch.data.population),
+    # gathered as (C, P) rows before a cohort's step and scattered after
+    # its fold, so device memory scales with the cohort, not with N
     population_store: str = "resident"
+    # availability process of the cohort sampler: "uniform" (the plain
+    # draw), "zipf" (w_i ∝ (i+1)^-zipf_exponent) or "diurnal" (a sinusoid
+    # over the round counter, client i peaking at phase i/N of a
+    # diurnal_period-round day)
     availability: str = "uniform"
+    zipf_exponent: float = 1.1
+    diurnal_period: float = 24.0
+    diurnal_amplitude: float = 0.8
+    # straggler model: each selected client drops out of the round's mask
+    # with this probability (a fully dropped cohort keeps its first client
+    # unless allow_empty_cohort)
     dropout_rate: float = 0.0
     # bernoulli cohort capacity = mean + σ·sd tail bound; an overflow is
     # counted in RoundMetrics.n_clipped

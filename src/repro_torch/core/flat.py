@@ -12,7 +12,7 @@ how the engine takes one cohort-wide gradient in a single backward.
 from __future__ import annotations
 
 import math
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -85,3 +85,30 @@ class FlatSpec:
 
     def __repr__(self) -> str:
         return f"FlatSpec(n_leaves={len(self.leaves)}, size={self.size})"
+
+
+class CohortUplink(NamedTuple):
+    """One in-flight cohort's uplink: the unit of the async engine's ring.
+
+    ``delta`` and ``extra`` are the raw ``(C, P)`` planes as they left the
+    wire encoding — dense f32, a ``QPlane`` under int8 / bf16, and the
+    delta a ``TopKPlane`` under top-k — so the ring holds the compressed
+    form in flight.  ``state_delta`` is ``(C, P)`` too (dense or a
+    ``QPlane``): the client-state scatter at fold time is per client.
+    ``state_delta`` / ``extra`` are None for specs without them."""
+
+    delta: Any  # (C, P) f32 / QPlane / TopKPlane
+    state_delta: Optional[Any]  # (C, P) f32 / QPlane, or None
+    extra: Optional[Any]  # (C, P) f32 / QPlane, or None
+    ids: Any  # (C,) sampled client ids
+    w: Any  # (C,) f32 post-fault weights
+    eta_l: Any  # f32 η_l at launch (the fold reuses it)
+
+
+def ring_push(pending: Sequence[CohortUplink], entry: CohortUplink):
+    """Append the just-launched ``entry`` and pop the oldest for folding.
+    Returns ``(oldest, new_pending)``; ``pending`` holds D − 1 entries in
+    launch order, so with D = 1 it is empty and the entry folds the round
+    it launches (the sync schedule)."""
+    fifo = (*pending, entry)
+    return fifo[0], fifo[1:]

@@ -43,7 +43,8 @@ from repro.core.engine import FederatedEngine as RefEngine
 from repro.models.small import classification_loss as ref_classification_loss
 from repro.models.small import mlp_classifier as ref_mlp_classifier
 from repro_torch.configs.base import CompressionConfig, FaultConfig, FedConfig
-from repro_torch.core.engine import FederatedEngine, RoundDraws
+from repro_torch.core.convert import state_from_numpy, state_to_numpy
+from repro_torch.core.engine import FederatedEngine, RoundDraws, RoundInputs, metrics_to_host
 from repro_torch.core.flat import FlatSpec
 from repro_torch.data.pipeline import FederatedData
 from repro_torch.models.small import classification_loss, mlp_classifier
@@ -112,6 +113,23 @@ def ref_draws(eng, client_x, client_y, key, t=0):
             np.asarray(ids), np.asarray(mask))
 
 
+def ref_draw_chain(eng, client_x, client_y, key, n_rounds):
+    """The reference's draws for ``n_rounds`` consecutive rounds from the
+    run's initial key, as its round loops take them (``_sample_round``
+    advances the key each round; the round counter is the round index):
+    per round a dict of numpy ``batches``, ``ids``, ``mask``, ``n_clipped``
+    and ``full`` (each cohort client's whole dataset)."""
+    cx, cy = jnp.asarray(client_x), jnp.asarray(client_y)
+    out = []
+    for t in range(n_rounds):
+        key, batches, ids, mask, full, n_clipped = eng._sample_round(key, cx, cy, jnp.int32(t))
+        out.append({"batches": {k: np.asarray(v) for k, v in batches.items()},
+                    "ids": np.asarray(ids), "mask": np.asarray(mask),
+                    "n_clipped": np.asarray(n_clipped),
+                    "full": {k: np.asarray(v) for k, v in full.items()}})
+    return out
+
+
 def torch_batches(batches, device="cpu"):
     return {"x": torch.tensor(np.array(batches["x"]), device=device),
             "y": torch.tensor(np.array(batches["y"]), device=device).long()}
@@ -175,8 +193,8 @@ def port_engine(pcfg):
 
 def small_cfg(**kw) -> FedConfig:
     """The port's own config at the parity size (in-port contracts)."""
-    return FedConfig(num_clients=N_CLIENTS, cohort_size=COHORT, local_steps=K,
-                     participation="fixed", **kw)
+    kw.setdefault("participation", "fixed")
+    return FedConfig(num_clients=N_CLIENTS, cohort_size=COHORT, local_steps=K, **kw)
 
 
 def data_setup(cfg, seed=0):
@@ -202,6 +220,140 @@ def assert_states_equal(a, b):
         assert (x is None) == (y is None)
         if x is not None:
             assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------- state planes
+# the nonzero start state of the algorithm and ring parity tests, and the
+# reference's states as flat numpy planes
+
+
+def like_params(seed, scale, stack=None, positive=False):
+    """A numpy tree of the params' structure (leaves ``(stack, …)`` when
+    ``stack`` is given)."""
+    rng = np.random.default_rng(seed)
+    lead = () if stack is None else (stack,)
+
+    def draw(shape):
+        a = rng.random(lead + shape) if positive else rng.normal(size=lead + shape)
+        return (scale * a).astype(np.float32)
+
+    return [{k: draw(v.shape) for k, v in layer.items()} for layer in np_params()]
+
+
+def flat_tree(tree):
+    """A params-structured tree as its flat ``(P,)`` plane."""
+    leaves = jax.tree_util.tree_leaves(tree)
+    return np.concatenate([np.asarray(l, np.float32).ravel() for l in leaves])
+
+
+def flat_rows(tree):
+    """A stacked ``(N, …)`` tree as its ``(N, P)`` plane."""
+    leaves = jax.tree_util.tree_leaves(tree)
+    return np.concatenate([np.asarray(l, np.float32).reshape(l.shape[0], -1)
+                           for l in leaves], axis=1)
+
+
+def ring_start():
+    """The nonzero state both packages start the ring from, as numpy trees:
+    momentum, a positive second moment and ``(N, …)`` client states."""
+    return {"momentum": like_params(3, 0.05),
+            "second_moment": like_params(4, 1e-3, positive=True),
+            "client_states": like_params(5, 0.05, stack=N_CLIENTS)}
+
+
+def ref_state_numpy(st):
+    return {"params": flat_tree(st.params), "momentum": flat_tree(st.server.momentum),
+            "second_moment": (None if st.server.second_moment is None
+                              else flat_tree(st.server.second_moment)),
+            "client_states": (None if st.client_states is None
+                              else flat_rows(st.client_states)),
+            "residuals": None if st.residuals is None else np.asarray(st.residuals),
+            "round": int(st.server.round)}
+
+
+# ---------------------------------------------------------------- async ring
+# tests/test_torch_async*.py: the port's ring against the reference's
+# run_rounds_async on the reference's draws
+RING_METRICS = ("loss", "n_active", "delta_norm", "momentum_norm", "eta_l", "folded",
+                "n_dropped", "n_quarantined", "quorum_skipped")
+
+
+def ring_parity(algo, depth, stale, gamma, route="kernel", n_rounds=None, **cfg_kw):
+    """The reference's ``run_rounds_async`` scan (``n_rounds`` launches,
+    default D + 1) and its drain, and the port's ring on the same draws,
+    from one nonzero start state.  Returns ``{"ref": …, "port": …}``, each
+    with the numpy planes after the loop (``scan``) and after the drain
+    (``drained``) and the loop's metrics, plus the start planes."""
+    n_rounds = depth + 1 if n_rounds is None else n_rounds
+    cfg = ref_cfg(algo=algo, use_fused_kernel=(route == "kernel"),
+                  staleness_discount=gamma, **cfg_kw)
+    eng, _ = ref_engine(cfg)
+    start = ring_start()
+    st = eng.init(jax_tree(np_params()), jax.random.PRNGKey(11))
+    srv = st.server._replace(momentum=jax_tree(start["momentum"]))
+    if srv.second_moment is not None:
+        srv = srv._replace(second_moment=jax_tree(start["second_moment"]))
+    st = st._replace(server=srv)
+    if st.client_states is not None:
+        st = st._replace(client_states=jax_tree(start["client_states"]))
+    cx, cy = client_data()
+    chain = ref_draw_chain(eng, cx, cy, st.rng, n_rounds)
+    r_scan, pending, rm = eng._run_rounds_async(
+        st, jnp.asarray(cx), jnp.asarray(cy), None, None, None, n_rounds=n_rounds,
+        pipeline_depth=depth, staleness=stale, eval_every=0, predict_fn=None)
+    ref = {"scan": ref_state_numpy(r_scan),  # read before the drain donates it
+           "metrics": {f: np.asarray(getattr(rm, f), np.float32) for f in RING_METRICS}}
+    ref["drained"] = ref_state_numpy(eng._drain_async(r_scan, pending, pipeline_depth=depth))
+
+    pcfg = port_cfg(cfg)
+    peng = port_engine(pcfg)
+    pst, _ = state_from_numpy(np_params(), pcfg, momentum=start["momentum"],
+                              second_moment=start["second_moment"],
+                              client_states=start["client_states"])
+    size = peng.spec.size
+    inputs = iter([RoundInputs(
+        torch_batches(d["batches"]), torch.tensor(d["ids"]), torch.tensor(d["mask"]),
+        torch.tensor(d["n_clipped"]),
+        torch_batches(d["full"]) if peng.algo.needs_full_grad else None,
+        ref_round_draws(cfg, t, d["ids"], size)) for t, d in enumerate(chain)])
+    p_scan, pm, p_pending = peng.run_rounds_async_on(
+        pst, lambda _: next(inputs), n_rounds, pipeline_depth=depth, staleness=stale,
+        drain=False)
+    p_drained = peng.drain_async(p_scan, p_pending, depth)
+    host = metrics_to_host(pm)
+    port = {"scan": state_to_numpy(p_scan), "drained": state_to_numpy(p_drained),
+            "metrics": {f: host[f] for f in RING_METRICS}, "pending": len(p_pending)}
+    first = {"params": flat_tree(np_params()), "momentum": flat_tree(start["momentum"]),
+             "client_states": flat_rows(start["client_states"])}
+    return {"ref": ref, "port": port, "start": first, "draws": chain}
+
+
+RING_CASES = [(algo, d, s, g) for algo in ("fedcm", "scaffold", "mimelite", "feddyn", "fedadam")
+              for d, s, g in ((2, 1, 0.9), (3, 0, 1.0), (4, 2, 0.9))]
+
+
+def assert_ring_states(r):
+    """Every state plane of the port's ring against the reference's: after
+    the loop (two folds, each of a cohort launched from the start state) at
+    ``RTOL`` / ``ATOL``, after the drain at ``ROUND_ATOL``."""
+    for phase, atol in (("scan", ATOL), ("drained", ROUND_ATOL)):
+        for key in ("params", "momentum", "second_moment", "client_states"):
+            got, want = r["port"][phase][key], r["ref"][phase][key]
+            assert (got is None) == (want is None), (phase, key)
+            if got is not None:
+                assert_close(got, want, atol=atol, what=f"{phase} {key}")
+        assert r["port"][phase]["round"] == r["ref"][phase]["round"]
+
+
+def assert_ring_metrics(r):
+    """The loop's metrics: counts and the fill / fold flags exactly, the
+    rest at ``RTOL`` / ``ROUND_ATOL``."""
+    got, want = r["port"]["metrics"], r["ref"]["metrics"]
+    for f in RING_METRICS:
+        if f in ("n_active", "folded", "n_dropped", "n_quarantined", "quorum_skipped"):
+            np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+        else:
+            assert_close(got[f], want[f], atol=ROUND_ATOL, what=f)
 
 
 # SSD scan (tests/test_torch_ssd.py): y sums up to 64 decayed terms of

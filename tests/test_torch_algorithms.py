@@ -30,8 +30,9 @@ import jax.numpy as jnp
 
 from _torch_parity import (
     N_CLIENTS, ROUND_ATOL, assert_close, assert_states_equal, client_data, count_flips,
-    data_setup, jax_tree, np_params, port_cfg, port_engine, ref_cfg, ref_draws, ref_engine,
-    ref_round_draws, small_cfg, torch_batches,
+    data_setup, flat_rows, flat_tree, jax_tree, np_params, port_cfg, port_engine, ref_cfg,
+    ref_draws, ref_engine, ref_round_draws, ref_state_numpy, ring_start, small_cfg,
+    torch_batches,
 )
 from repro.configs.base import CompressionConfig as RefCompressionConfig
 from repro_torch.configs.base import FaultConfig
@@ -50,37 +51,6 @@ ROUTES = ("kernel", "jnp")
 # the reference benchmark's server lr for the adaptive specs (an absolute
 # step on the preconditioned momentum)
 ETA_G = {"fedadam": 0.03, "fedadagrad": 0.03, "fedyogi": 0.03}
-
-
-def _flat(tree):
-    return np.concatenate([np.asarray(l, np.float32).ravel()
-                           for l in jax.tree_util.tree_leaves(tree)])
-
-
-def _flat_rows(tree):
-    """A stacked ``(N, …)`` tree as its ``(N, P)`` plane."""
-    leaves = jax.tree_util.tree_leaves(tree)
-    return np.concatenate([np.asarray(l, np.float32).reshape(l.shape[0], -1)
-                           for l in leaves], axis=1)
-
-
-def _like(seed, scale, stack=None, positive=False):
-    """A numpy tree of the params' structure (leaves ``(stack, …)`` when
-    ``stack`` is given)."""
-    rng = np.random.default_rng(seed)
-    lead = () if stack is None else (stack,)
-
-    def draw(shape):
-        a = rng.random(lead + shape) if positive else rng.normal(size=lead + shape)
-        return (scale * a).astype(np.float32)
-
-    return [{k: draw(v.shape) for k, v in layer.items()} for layer in np_params()]
-
-
-def _start():
-    """The state both packages start from, as numpy trees."""
-    return {"momentum": _like(3, 0.05), "second_moment": _like(4, 1e-3, positive=True),
-            "client_states": _like(5, 0.05, stack=N_CLIENTS)}
 
 
 def _cfg(algo, participation="fixed", route="kernel", **kw):
@@ -102,15 +72,6 @@ def _ref_state(eng, start):
     if st.client_states is not None:
         st = st._replace(client_states=jax_tree(start["client_states"]))
     return st
-
-
-def _ref_numpy(st):
-    return {"params": _flat(st.params), "momentum": _flat(st.server.momentum),
-            "second_moment": (None if st.server.second_moment is None
-                              else _flat(st.server.second_moment)),
-            "client_states": (None if st.client_states is None
-                              else _flat_rows(st.client_states)),
-            "round": int(st.server.round)}
 
 
 def _port_state(pcfg, start):
@@ -142,12 +103,12 @@ def _one_round(algo, participation, route):
     """(reference, port) numpy results of one round from the same state on
     the reference's draws."""
     reng = _ref_engine(algo, participation, route)
-    start = _start()
+    start = ring_start()
     cx, cy = client_data()
     batches, ids, mask = ref_draws(reng, cx, cy, jax.random.PRNGKey(7))
     full = _full(cx, cy, ids)
     rst, rm = _ref_step(reng, _ref_state(reng, start), batches, ids, mask, full)
-    ref = _ref_numpy(rst)
+    ref = ref_state_numpy(rst)
     ref["metrics"] = {f: np.asarray(v, np.float32) for f, v in zip(rm._fields, rm)
                       if v is not None}
     pcfg = port_cfg(reng.cfg)
@@ -193,7 +154,7 @@ def test_three_rounds_match_reference(algo, route):
     """Three chained rounds on the reference's draws (bernoulli): the
     logged loss line for line and every state plane at the end."""
     reng = _ref_engine(algo, "bernoulli", route)
-    start = _start()
+    start = ring_start()
     rst = _ref_state(reng, start)
     pcfg = port_cfg(reng.cfg)
     peng, pst = port_engine(pcfg), _port_state(pcfg, start)
@@ -207,7 +168,7 @@ def test_three_rounds_match_reference(algo, route):
         ref_loss.append(float(rm.loss))
         port_loss.append(float(pm.loss))
     assert_close(port_loss, ref_loss, atol=ROUND_ATOL, what="loss per round")
-    ref, port = _ref_numpy(rst), state_to_numpy(pst)
+    ref, port = ref_state_numpy(rst), state_to_numpy(pst)
     assert port["round"] == 3
     for key in PLANES:
         assert (ref[key] is None) == (port[key] is None), key
@@ -229,11 +190,11 @@ def test_lossy_round_matches_reference_kernel_route(algo, case):
     floor flips within ``FLIP_MAX``."""
     cfg = _cfg(algo, "fixed", "kernel", compression=LOSSY[case])
     reng, _ = ref_engine(cfg)
-    rst = _ref_state(reng, _start())
+    rst = _ref_state(reng, ring_start())
     peng = port_engine(port_cfg(cfg))
     cx, cy = client_data()
     for t in range(3):
-        before = _ref_numpy(rst)
+        before = ref_state_numpy(rst)
         before["residuals"] = None if rst.residuals is None else np.asarray(rst.residuals)
         pst, _ = state_from_numpy(np_params(), peng.cfg, momentum=before["momentum"],
                                   round=t, residuals=before["residuals"],
@@ -244,7 +205,7 @@ def test_lossy_round_matches_reference_kernel_route(algo, case):
         rst, rm = _ref_step(reng, rst, batches, ids, mask, full)
         nst, pm = _port_step(peng, pst, batches, ids, mask, full,
                              draws=ref_round_draws(cfg, t, ids, peng.spec.size))
-        ref, got = _ref_numpy(rst), state_to_numpy(nst)
+        ref, got = ref_state_numpy(rst), state_to_numpy(nst)
         ref["residuals"] = None if rst.residuals is None else np.asarray(rst.residuals)
         for key in ("params", "momentum", "client_states", "residuals"):
             assert (ref[key] is None) == (got[key] is None), key
@@ -384,7 +345,7 @@ def test_below_quorum_round_leaves_every_plane_as_it_was():
     and the second moment is carried through with params and momentum."""
     for algo in ("scaffold", "fedadam"):
         cfg = port_cfg(_cfg(algo, min_quorum=4))  # cohort of 3 < quorum
-        eng, st = port_engine(cfg), _port_state(cfg, _start())
+        eng, st = port_engine(cfg), _port_state(cfg, ring_start())
         cx, cy = client_data()
         batches, ids, mask = ref_draws(_ref_engine(algo, "fixed", "jnp"), cx, cy,
                                        jax.random.PRNGKey(7))
@@ -398,16 +359,16 @@ def test_state_from_numpy_takes_flat_or_stacked_client_states():
     """The reference's stacked ``(N, …)`` client-state tree and its
     ``(N, P)`` ravel give the same plane; second moment likewise."""
     pcfg = small_cfg(algo="scaffold")
-    start = _start()
+    start = ring_start()
     a, spec = state_from_numpy(np_params(), pcfg, client_states=start["client_states"])
-    rows = _flat_rows(start["client_states"])
+    rows = flat_rows(start["client_states"])
     b, _ = state_from_numpy(np_params(), pcfg, client_states=rows)
     assert a.client_states.shape == (N_CLIENTS, spec.size)
     assert torch.equal(a.client_states, b.client_states)
     np.testing.assert_array_equal(state_to_numpy(a)["client_states"], rows)
     acfg = replace(pcfg, algo="fedadam")
     c, _ = state_from_numpy(np_params(), acfg, second_moment=start["second_moment"])
-    d, _ = state_from_numpy(np_params(), acfg, second_moment=_flat(start["second_moment"]))
+    d, _ = state_from_numpy(np_params(), acfg, second_moment=flat_tree(start["second_moment"]))
     assert torch.equal(c.server.second_moment, d.server.second_moment)
     assert state_from_numpy(np_params(), pcfg)[0].server.second_moment is None
     assert state_from_numpy(np_params(), acfg)[0].client_states is None

@@ -145,5 +145,47 @@ def test_resolve_config_wires_fault_and_compression_flags():
     assert cfg.min_quorum == 2
     plain = fed_train.resolve_config(fed_train.build_parser().parse_args([]))
     assert plain.fault is None and plain.compression is None
-    with pytest.raises(SystemExit):  # the host store's failure model is not a flag here
-        fed_train.build_parser().parse_args(["--fault-store-failure-rate", "0.1"])
+    # the host store's failure model is a flag too (ported with the store)
+    store = fed_train.resolve_config(fed_train.build_parser().parse_args(
+        ["--fault-store-failure-rate", "0.1"]))
+    assert store.fault == FaultConfig(store_failure_rate=0.1)
+
+
+def test_resolve_config_wires_async_and_store_flags():
+    args = fed_train.build_parser().parse_args(
+        ["--pipeline-depth", "3", "--staleness", "2", "--staleness-discount", "0.9",
+         "--population-store", "host", "--availability", "zipf", "--zipf-exponent", "1.5",
+         "--dropout-rate", "0.1", "--async"])
+    cfg = fed_train.resolve_config(args)
+    assert (cfg.pipeline_depth, cfg.staleness, cfg.staleness_discount) == (3, 2, 0.9)
+    assert (cfg.population_store, cfg.availability, cfg.zipf_exponent,
+            cfg.dropout_rate) == ("host", "zipf", 1.5, 0.1)
+    assert args.async_pipeline
+    for bad in (["--population-store", "disk"], ["--availability", "lunar"]):
+        with pytest.raises(SystemExit):
+            fed_train.build_parser().parse_args(bad)
+
+
+def _round_lines(err):
+    lines = [l for l in err.splitlines() if "round=" in l]
+    rows = [dict(tok.split("=") for tok in l.split() if "=" in tok) for l in lines]
+    for kv in rows:
+        assert float(kv["loss"]) == float(kv["loss"]) and abs(float(kv["loss"])) < 1e6
+        assert "retries" in kv  # the host store's retries column
+    return rows
+
+
+@pytest.mark.parametrize("argv, n_lines", [
+    (["--pipeline-depth", "2", "--staleness", "1", "--staleness-discount", "0.9"], 2),
+    (["--population-store", "host", "--clients", "100000", "--algo", "scaffold"], 2),
+    (["--availability", "zipf", "--dropout-rate", "0.1"], 2),
+    (["--population-store", "host", "--clients", "100000", "--algo", "scaffold",
+      "--pipeline-depth", "2", "--staleness", "1", "--uplink-compress", "topk"], 1),
+], ids=["async", "host-store", "zipf-dropout", "host-store-async"])
+def test_cli_async_and_store_on_cpu(capsys, argv, n_lines):
+    assert fed_train.main(SMALL + argv + ["--device", "cpu"]) == 0
+    err = capsys.readouterr()
+    rows = _round_lines(err.err)
+    assert len(rows) == n_lines  # the host-store ring evaluates once, at the end
+    assert rows[-1]["round"] == "4"
+    assert "final test accuracy" in err.out

@@ -14,6 +14,8 @@ check are kept apart (tests/_torch_parity.py states the tolerances):
    (the same f32 operations, so no floor can flip);
 3. round-level parity, where a flip is possible — tests/test_torch_uplink.py.
 """
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
@@ -331,8 +333,13 @@ def test_nanmedian_midpoint_is_the_references_definition(values):
 
 
 def test_store_failure_rate_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A.11"):
-        check_supported(FedConfig(fault=FaultConfig(store_failure_rate=0.1)))
+    # ported with the host store: the rate is accepted, and a host store
+    # built under it injects failures through FaultyStore
+    from repro_torch.data.population import FaultyStore, make_population_store
+    cfg = FedConfig(population_store="host", fault=FaultConfig(store_failure_rate=0.1))
+    check_supported(cfg)
+    assert isinstance(make_population_store(cfg, 4), FaultyStore)
+    assert not isinstance(make_population_store(replace(cfg, fault=None), 4), FaultyStore)
 
 
 # ------------------------------------------------------------------ dequant fold

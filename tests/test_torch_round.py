@@ -26,6 +26,7 @@ from repro_torch.core.convert import state_from_numpy, state_to_numpy
 from repro_torch.core.engine import (
     FederatedEngine, RoundMetrics, check_supported, metrics_to_host,
 )
+from repro_torch.core.flat import FlatSpec
 from repro_torch.core.registry import list_algorithms
 from repro_torch.data.pipeline import FederatedData
 from repro_torch.models.small import classification_loss, mlp_classifier
@@ -245,6 +246,8 @@ def test_run_round_equals_round_step_on_its_own_draws():
     ({"dropout_rate": 0.1}, "A.11"),
     ({"fault": FaultConfig(store_failure_rate=0.1)}, "A.11"),
     pytest.param({"algo": "fednova"}, "unknown federated algorithm", id="unknown-algo"),
+    pytest.param({"availability": "lunar"}, "unknown availability", id="unknown-availability"),
+    pytest.param({"population_store": "disk"}, "unknown population_store", id="unknown-store"),
     pytest.param(None, None, id="all-eleven-algos-ported"),
 ])
 def test_unported_config_raises_naming_roadmap_item(knob, item):
@@ -254,9 +257,20 @@ def test_unported_config_raises_naming_roadmap_item(knob, item):
         for algo in ALL_ALGOS:
             check_supported(FedConfig(algo=algo))
         return
-    # faults and compression are ported; only the host store's failure
-    # model among their knobs is not (tests/test_torch_uplink.py holds
-    # the supported configs); an unknown algorithm name is a bad value
-    error = ValueError if "algo" in knob else NotImplementedError
+    if item in ("A.8", "A.11"):
+        # the async ring (A.8) and the population store (A.11) are ported:
+        # their knobs are accepted, by the check and by the engine
+        cfg = FedConfig(**knob)
+        check_supported(cfg)
+        model = mlp_classifier(DIMS)
+        params = model.init(torch.Generator().manual_seed(0))
+        eng = FederatedEngine(cfg, classification_loss(model.apply),
+                              FlatSpec.from_tree(params), device="cpu")
+        state = eng.init(params, torch.Generator().manual_seed(1))
+        assert state.client_states is None  # fedcm keeps no per-client state
+        return
+    # the tree path (A.16) and cohort sharding (A.14) are not ported; an
+    # unknown algorithm, availability process or store is a bad value
+    error = ValueError if item.startswith("unknown") else NotImplementedError
     with pytest.raises(error, match=item):
         check_supported(FedConfig(**knob))
