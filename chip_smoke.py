@@ -86,6 +86,28 @@ JAX or of the JAX package.  Phases, each of which exits non-zero on failure:
    and feddyn, sync and async, and for scaffold under int8 and top-k (the
    residual store ≡ the resident residual plane), and the ring at D = 1,
    S = 0 ≡ the sync loop for scaffold under int8;
+4e. checkpoint and fleet — (a) kill and resume: fedcm with drops 0.1,
+   scaffold under int8 and scaffold on the host store at N = ``FLEET_N``
+   (``KILL_CASES``), each as ``python -m repro_torch.launch.fed_train
+   --rounds 20 --eval-every 5 --ckpt-every 10`` subprocesses (the three
+   cases in parallel): ``--die-after 10`` must exit with code 75, then
+   ``--resume`` runs to round 20 with its launch counts printed and held
+   to the prediction; its round-20 snapshot must equal the straight
+   in-process ``run_federated`` run's plane for plane and byte for byte;
+   the snapshot's bytes and its ``load_fed_run`` / ``save_fed_run`` ms on
+   the card (the re-saved file byte-equal); (b) the fleet loop:
+   ``run_federated(..., ckpt_every=5, serve=True)`` for 20 rounds against
+   ``serve=False``: versions 1-5 published, a hot-swap, served version 5,
+   the in-run health probe 200, ``fleet.check`` clean, the round-20
+   snapshots bitwise equal; then the steady ms a round of an engine with
+   and without a serving thread, in turns (plain, serve, serve, plain);
+   (c) llama3.2-1b at its published widths cut to 2 layers published as
+   version 1, ``serve.run --ckpt DIR --follow --sessions 3 --batch 4
+   --prompt-len 1024 --gen 8`` with version 2 (× 0.5) published from
+   another thread after session 0: a swap, served version 2, 2
+   ``flash_attention`` launches a prefill, the last session's tokens equal
+   to a fresh run on ``DIR/step_2.msgpack``; payload bytes, publish and
+   load ms.  Its files live in ``build/smoke_checkpoint`` (removed after);
 5. card vs CPU — three rounds from one converted state with the same
    injected ids, masks and minibatch indices on ``cuda`` and on ``cpu``;
    then three rounds under int8 + faults, each started on both devices
@@ -170,6 +192,31 @@ ASYNC_RUNS = (("fedcm", None, 2, 1), ("fedcm", None, 4, 2), ("scaffold", "int8",
 RING_GAMMA = 0.9
 FLEET_N = 1_000_000  # the host store's population (phase 4d)
 PAIR_ROUNDS = 6  # rounds of each bitwise store pair (phase 4d)
+# phase 4e: the kill/resume cases (fed_train flags beside the CLI defaults)
+# and the launches predicted for each resumed half (10 rounds) as
+# (fed_direction, server_update, dequant_update)
+KILL_CASES = (
+    ("fedcm drops 0.1", ["--fault-drop-rate", "0.1"], (100, 10, 0)),
+    ("scaffold int8", ["--algo", "scaffold", "--uplink-compress", "int8"], (100, 0, 20)),
+    ("scaffold host store N=1e6", ["--algo", "scaffold", "--population-store", "host",
+                                   "--clients", str(FLEET_N)], (100, 20, 0)),
+)
+KILL_ARGS = ["--rounds", str(ROUNDS), "--eval-every", str(EVAL_EVERY), "--ckpt-every", "10"]
+# fed_train's CLI as ``python -m`` runs it, printing the federated kernels'
+# launch counts of the process when it exits normally
+CLI_WITH_COUNTS = (
+    "import json, runpy, sys\n"
+    "try:\n"
+    "    runpy.run_module('repro_torch.launch.fed_train', run_name='__main__', alter_sys=True)\n"
+    "finally:\n"
+    "    from repro_torch.kernels.fed_direction import kernel as fd\n"
+    "    from repro_torch.kernels.server_update import kernel as su\n"
+    "    print('LAUNCHES ' + json.dumps([fd.KERNEL.launches, su.KERNEL.launches,\n"
+    "                                   su.DEQUANT_KERNEL.launches]), flush=True)\n"
+)
+# phase 4e (c): llama3.2-1b at its published widths cut to 2 layers
+LM_FLEET_ARGS = ["--arch", "llama3.2-1b", "--full", "--batch", "4", "--prompt-len", "1024",
+                 "--gen", "8"]
 
 
 def fail(msg: str) -> None:
@@ -978,6 +1025,285 @@ def bitwise_pairs_on_card(torch, np):
     return pairs + 1
 
 
+# ---------------------------------------------------------------------- phase 4e
+def run_all(cmds, env, timeout: float):
+    """Start every command at once, wait for all; returns ``[(rc, stdout,
+    stderr)]``.  No process outlives the call."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env=env, cwd=ROOT) for c in cmds]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+        return [(p.returncode, *o) for p, o in zip(procs, outs)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def snapshots_equal(torch, a: Path, b: Path):
+    """Plane for plane (``load_flat``), then byte for byte, two snapshots;
+    returns the planes' names."""
+    from repro_torch.checkpoint import load_flat
+
+    fa, ma = load_flat(str(a.parent), int(a.stem.split("_")[1]))
+    fb, mb = load_flat(str(b.parent), int(b.stem.split("_")[1]))
+    if fa.keys() != fb.keys() or ma != mb:
+        fail(f"snapshots {a} and {b}: keys or meta differ ({ma} / {mb})")
+    bad = [k for k in fa if fa[k].dtype != fb[k].dtype or not torch.equal(fa[k], fb[k])]
+    if bad or a.read_bytes() != b.read_bytes():
+        fail(f"snapshots {a} and {b} differ: planes {bad}")
+    return sorted(fa)
+
+
+def kill_and_resume(torch, np, bindings, work: Path):
+    """(a) Each of ``KILL_CASES`` as ``python -m repro_torch.launch.fed_train``
+    subprocesses: killed after the snapshot at round 10 (exit code 75), then
+    resumed to round 20; its snapshot of round 20 against the same run's
+    straight in-process ``run_federated``, plane for plane and byte for
+    byte; then the snapshot's load and save ms (``load_fed_run`` /
+    ``save_fed_run`` on the card, the re-saved file byte-equal)."""
+    import os
+
+    from repro_torch.checkpoint import load_fed_run, save_fed_run
+    from repro_torch.data import StreamingClientData
+    from repro_torch.launch import fed_train
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    dirs = [work / f"kill{i}" for i in range(len(KILL_CASES))]
+    argvs = [[*KILL_ARGS, *flags, "--ckpt-dir", str(d)] for (_, flags, _), d in
+             zip(KILL_CASES, dirs)]
+    t0 = time.perf_counter()
+    died = run_all([[sys.executable, "-m", "repro_torch.launch.fed_train", *a, "--die-after",
+                     "10"] for a in argvs], env, 600)
+    t_die = time.perf_counter() - t0
+    for (name, _, _), (rc, out, err), d in zip(KILL_CASES, died, dirs):
+        if rc != 75 or sorted(p.name for p in d.glob("step_*")) != ["step_10.msgpack"]:
+            fail(f"kill/resume {name}: the killed run exited {rc} with "
+                 f"{sorted(p.name for p in d.glob('step_*'))}: {err[-2000:]}")
+    t0 = time.perf_counter()
+    resumed = run_all([[sys.executable, "-c", CLI_WITH_COUNTS, *a, "--resume"] for a in argvs],
+                      env, 600)
+    t_resume = time.perf_counter() - t0
+    say(f"kill/resume: 3 killed runs (exit code 75 each) in {t_die:.1f} s wall, 3 resumed "
+        f"runs in {t_resume:.1f} s wall, in parallel subprocesses")
+    rows = []
+    for (name, flags, want), (rc, out, err), d in zip(KILL_CASES, resumed, dirs):
+        counts = [json.loads(l.split(" ", 1)[1]) for l in out.splitlines()
+                  if l.startswith("LAUNCHES ")]
+        if rc != 0 or counts != [list(want)]:
+            fail(f"kill/resume {name}: the resumed run exited {rc}, launches {counts} "
+                 f"(predicted {list(want)}): {err[-2000:]}")
+        args = fed_train.build_parser().parse_args([*KILL_ARGS, *flags])
+        cfg = fed_train.resolve_config(args)
+        straight = d.parent / f"{d.name}-straight"
+        for b in bindings.values():
+            b.launches = 0
+        fed_train.run_federated(cfg, args.dirichlet, eval_every=EVAL_EVERY, seed=0, echo=False,
+                                device="cuda", ckpt_every=10, ckpt_dir=str(straight))
+        torch.cuda.synchronize()
+        got = [bindings[k].launches for k in ("fed_direction", "server_update",
+                                              "dequant_update")]
+        if got != [2 * n for n in want]:
+            fail(f"kill/resume {name}: the straight run launched {got}, expected "
+                 f"{[2 * n for n in want]}")
+        snap = d / "step_20.msgpack"
+        planes = snapshots_equal(torch, snap, straight / "step_20.msgpack")
+        host = cfg.population_store == "host"
+        eng, like, _ = fresh_engine(torch, cfg, StreamingClientData(FLEET_N, seed=0)
+                                    if host else None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, pop, res, _ = load_fed_run(str(d), 20, like, eng.spec,
+                                          num_clients=cfg.num_clients)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        again = save_fed_run(str(work / f"resave{len(rows)}"), 20, state, eng.spec,
+                             population=pop, residuals=res)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        if Path(again).read_bytes() != snap.read_bytes():
+            fail(f"kill/resume {name}: the loaded and re-saved snapshot differs from the file")
+        row = {"case": name, "exit_code_killed": 75, "resumed_launches": counts[0],
+               "snapshot_bytes": snap.stat().st_size, "planes": len(planes),
+               "store_rows": int(pop.touched) if pop is not None else 0,
+               "load_ms": load_ms, "save_ms": save_ms}
+        say(f"kill/resume {json.dumps(row)}: round 20 byte-equal to the straight run")
+        rows.append(row)
+        del eng, like, state
+    return rows
+
+
+def fleet_loop(torch, np, bindings, work: Path):
+    """(b) ``run_federated(..., ckpt_every=5, serve=True)`` for 20 rounds at
+    the CLI defaults against the same run with ``serve=False``: versions
+    1-5 published, a hot-swap under load, the served version 5, the in-run
+    health probe 200, ``fleet.check`` clean, the final snapshots equal plane
+    for plane and byte for byte; then the steady ms a round of an engine
+    with and without a serving thread, in turns."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.fleet.check import check
+    from repro_torch.fleet.driver import FleetDriver
+    from repro_torch.fleet.telemetry import events, replay
+    from repro_torch.launch.fed_train import run_federated
+    from repro_torch.models.small import mlp_classifier
+
+    cfg = FedConfig(participation="bernoulli", rounds=ROUNDS)
+    expected = {"fed_direction": ROUNDS * K, "server_update": ROUNDS, "dequant_update": 0,
+                "flash_attention": 0, "ssd_scan": 0}
+    for serve in (False, True):
+        for b in bindings.values():
+            b.launches = 0
+        acc, _ = run_federated(cfg, 0.6, eval_every=EVAL_EVERY, seed=0, echo=False,
+                               device="cuda", ckpt_every=5, ckpt_dir=str(work / f"fleet{serve:d}"),
+                               serve=serve)
+        torch.cuda.synchronize()
+        launches = {k: b.launches for k, b in bindings.items()}
+        if launches != expected:
+            fail(f"fleet loop (serve={serve}): launch counts {launches}, expected {expected}")
+    planes = snapshots_equal(torch, work / "fleet0" / "step_20.msgpack",
+                             work / "fleet1" / "step_20.msgpack")
+    path = str(work / "fleet1" / "telemetry.jsonl")
+    _, rows, _ = replay(path)
+    versions = [e["version"] for e in events(rows, "publish")]
+    summary = events(rows, "serve_summary")[-1]
+    probe = events(rows, "health_probe")[-1]
+    fails = check(path, min_rounds=ROUNDS, min_swaps=1, require_health=True)
+    if (versions != [1, 2, 3, 4, 5] or summary["swaps"] < 1 or summary["served_version"] != 5
+            or probe["status"] != 200 or fails):
+        fail(f"fleet loop: versions {versions}, serve summary {summary}, health probe {probe}, "
+             f"check {fails}")
+    say(f"fleet loop: {len(planes)} planes of the --serve run's round-20 snapshot bitwise "
+        f"equal to the plain run's; versions {versions}; {summary['swaps']} hot-swaps "
+        f"({summary['swaps_mid_session']} under decode load) over {summary['steps']} "
+        f"steps, served version {summary['served_version']}; health {probe['status']}; "
+        f"fleet.check clean; final test_acc {acc:.4f}")
+
+    model = mlp_classifier((32, 128, 128, 10))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    batch = torch.randn(128, 32, device="cuda", generator=gen)
+
+    def turn(serve: bool, i: int):
+        eng, state, data = fresh_engine(torch, cfg)
+        state, _ = eng.run_rounds(state, data, 2)
+        fleet = None
+        if serve:
+            fleet = FleetDriver(ckpt_dir=str(work / f"turn{i}"))
+            fleet.publish(0, eng.spec.unravel(state.params.cpu()))
+            fleet.start_serving(model.apply, template=eng.spec.unravel(state.params),
+                                batch_x=batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = eng.run_rounds(state, data, ROUNDS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / ROUNDS * 1e3
+        steps = fleet.stop()["steps"] if fleet is not None else 0
+        return ms, steps
+
+    turns = [(serve, *turn(serve, i)) for i, serve in enumerate((False, True, True, False))]
+    say("fleet loop, steady ms/round in turns (plain, serve, serve, plain): " + ", ".join(
+        f"{'serve' if s else 'plain'} {ms:.3f}" + (f" ({n} serving steps)" if s else "")
+        for s, ms, n in turns))
+    return {"turns": turns, "versions": versions, "swaps": summary["swaps"]}
+
+
+def lm_serving_from_published(torch, np, bindings, work: Path):
+    """(c) llama3.2-1b at its published widths cut to 2 layers (random init)
+    published as version 1; ``serve.run --ckpt DIR --follow --sessions 3``
+    with version 2 (every weight × 0.5) published from another thread after
+    session 0: a swap, served version 2, ``flash_attention`` in every
+    prefill, and the last session's greedy tokens equal to a fresh
+    ``serve.run --ckpt DIR/step_2.msgpack``."""
+    import threading
+    from dataclasses import replace as dc_replace
+
+    from repro_torch.fleet.publisher import ModelPublisher, load_published
+    from repro_torch.launch import serve
+    from repro_torch.utils.trees import tree_leaves, tree_map
+
+    get_config = serve.get_config
+    serve.get_config = lambda name: dc_replace(get_config(name), n_layers=2)
+    try:
+        pub_dir = work / "lm_pub"
+        args = serve.build_parser().parse_args([*LM_FLEET_ARGS, "--ckpt", str(pub_dir),
+                                                "--follow", "--sessions", "3"])
+        cfg = serve.get_config(args.arch)
+        model = serve.build_model(cfg if args.full else serve.reduced(cfg))
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(11)
+        params = model.init(gen)
+        pub = ModelPublisher(str(pub_dir), retain=2)
+        t0 = time.perf_counter()
+        pub.publish(params, step=0)
+        publish_ms = (time.perf_counter() - t0) * 1e3
+        payload = (pub_dir / "step_1.msgpack").stat().st_size
+        halves = tree_map(lambda a: 0.5 * a, params)
+        del params
+        published = threading.Event()
+
+        def publish_v2():
+            pub.publish(halves, step=1)
+            published.set()
+
+        def on_step(stats):  # after session 0's last decode step
+            if stats.steps == args.gen - 1:
+                t = threading.Thread(target=publish_v2)
+                t.start()
+                t.join(timeout=300)
+
+        for b in bindings.values():
+            b.launches = 0
+        res = serve.run(args, on_step=on_step)
+        torch.cuda.synchronize()
+        launches = {k: b.launches for k, b in bindings.items()}
+        want = {k: 2 * args.sessions if k == "flash_attention" else 0 for k in bindings}
+        if (not published.is_set() or launches != want or res.stats.swaps < 1
+                or res.stats.served_version != 2):
+            fail(f"serving from published params: published {published.is_set()}, launches "
+                 f"{launches} (expected {want}), stats {res.stats}")
+        fresh = serve.run(serve.build_parser().parse_args(
+            [*LM_FLEET_ARGS, "--ckpt", str(pub_dir / "step_2.msgpack")]))
+        if not np.array_equal(res.tokens, fresh.tokens):
+            fail("serving from published params: the last session's tokens differ from a "
+                 "fresh run on version 2")
+        del halves
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, loaded, _ = load_published(str(pub_dir), model.init(gen), 2)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        n_params = sum(t.numel() for t in tree_leaves(loaded))
+        del loaded
+    finally:
+        serve.get_config = get_config
+    row = {"arch": "llama3.2-1b", "n_layers": 2, "params": n_params, "payload_bytes": payload,
+           "publish_ms": publish_ms, "load_ms": load_ms, "swaps": res.stats.swaps,
+           "swap_steps": res.stats.swap_steps, "served_version": res.stats.served_version,
+           "launches": launches, "prefill_ms": [t * 1e3 for t in res.prefill_s]}
+    say(f"serving from published params: {json.dumps(row)}; last session's tokens equal a "
+        f"fresh run on version 2")
+    torch.cuda.empty_cache()
+    return row
+
+
+def checkpoint_and_fleet(torch, np, bindings):
+    """Phase 4e: (a) kill and resume, (b) the fleet loop, (c) LM serving
+    from published params, in a work directory under ``build/`` (ignored by
+    git), removed at the end."""
+    import shutil
+
+    work = ROOT / "build" / "smoke_checkpoint"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    kill_and_resume(torch, np, bindings, work)
+    fleet_loop(torch, np, bindings, work)
+    lm_serving_from_published(torch, np, bindings, work)
+    shutil.rmtree(work)
+    say(f"checkpoint and fleet: phase 4e in {time.perf_counter() - t0:.1f} s")
+
+
 # ---------------------------------------------------------------------- phase 5
 def card_vs_cpu(torch, np, algo="fedcm"):
     """Three rounds of ``algo`` from one converted state on the card and on
@@ -1450,6 +1776,9 @@ def main() -> int:
     host_store_fleet(torch, np, bindings)
     say(f"bitwise pairs on the card: {bitwise_pairs_on_card(torch, np)} (4 store vs resident, "
         f"2 store vs resident under int8 / topk, 1 ring D=1 vs sync for scaffold int8)")
+
+    # ---- 4e. checkpoint and fleet, launch counts from each run only
+    checkpoint_and_fleet(torch, np, bindings)
 
     # ---- 5. card vs CPU
     diffs = card_vs_cpu(torch, np)

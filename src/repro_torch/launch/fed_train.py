@@ -11,9 +11,14 @@ uplinks (quarantined before the fold) and host-store failures.
 ``--pipeline-depth`` / ``--staleness`` (or ``--async``) run the async
 ring; ``--population-store host`` keeps per-client state in a host store
 and streams each sampled client's shard (``StreamingClientData``), so
-``--clients 1000000`` is a literal setting.  Runs on ``cuda`` and raises
-when there is no GPU, unless ``--device cpu`` asks for the CPU (the
-kernels' plain versions).
+``--clients 1000000`` is a literal setting.  ``--ckpt-every`` writes an
+atomic whole-run snapshot (``repro_torch.checkpoint``) every N rounds,
+``--resume`` continues the latest one bitwise and ``--die-after`` kills the
+run (exit code 75) right after a snapshot; ``--serve`` adds the fleet loop
+(``repro_torch.fleet``): each snapshot's params are published, a serving
+thread hot-swaps them, one telemetry row a round, and a health endpoint.
+Runs on ``cuda`` and raises when there is no GPU, unless ``--device cpu``
+asks for the CPU (the kernels' plain versions).
 
     PYTHONPATH=src python -m repro_torch.launch.fed_train --algo fedcm \
         --clients 100 --cohort 10 --rounds 100 --dirichlet 0.6
@@ -23,15 +28,22 @@ kernels' plain versions).
         --staleness-discount 0.9
     PYTHONPATH=src python -m repro_torch.launch.fed_train --population-store host \
         --clients 1000000 --algo scaffold --availability zipf --dropout-rate 0.1
+    PYTHONPATH=src python -m repro_torch.launch.fed_train --rounds 20 --ckpt-every 10 \
+        --ckpt-dir runs/a --die-after 10          # exits 75; add --resume to go on
+    PYTHONPATH=src python -m repro_torch.launch.fed_train --rounds 20 --ckpt-every 5 \
+        --ckpt-dir runs/fleet --serve
     PYTHONPATH=src python -m repro_torch.launch.fed_train --list-algos
 """
 from __future__ import annotations
 
 import argparse
+import os
+import time
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import latest_step, load_fed_run, save_fed_run
 from repro_torch.configs.base import CompressionConfig, FaultConfig, FedConfig
 from repro_torch.core.compress import uplink_bytes_per_client, validate_compression
 from repro_torch.core.engine import (
@@ -63,6 +75,15 @@ def run_federated(
     echo: bool = True,
     device="cuda",
     async_pipeline: bool = False,
+    ckpt_every: int = 0,
+    ckpt_dir: str = "",
+    resume: bool = False,
+    die_after: int = 0,
+    serve: bool = False,
+    health_port: int = 0,
+    round_deadline_s: float = 120.0,
+    telemetry_path: str = "",
+    publish_retain: int = 4,
 ):
     """Returns (final_test_acc, history MetricLogger).
 
@@ -76,7 +97,19 @@ def run_federated(
     replaces the Dirichlet partition) and its iid test split is the test
     set.  Weights are drawn on the CPU from ``seed`` (so they do not depend
     on the device) and the round draws from a generator on ``device``
-    seeded with ``seed + 1``."""
+    seeded with ``seed + 1``.
+
+    Sync only: ``ckpt_every`` > 0 writes an atomic whole-run snapshot
+    (``save_fed_run``: the state, the generator, the host stores) to
+    ``ckpt_dir`` every N rounds, with the chunks aligned to the snapshot
+    boundaries; ``resume`` restores the latest one (``restore_run``) and
+    continues the trajectory bitwise; ``die_after`` R ends the process with
+    exit code 75 right after the first snapshot at round ≥ R.  ``serve``
+    adds the fleet loop (``repro_torch.fleet.FleetDriver``): version 1 is
+    the params entering the run, each snapshot's params are published, a
+    serving thread hot-swaps them between inference steps, one telemetry
+    row a round and a health endpoint.  Fleet is observation-only: the
+    params are bitwise those of the same run without it."""
     dev = resolve_device(device)
     if cfg.population_store == "host":
         data = StreamingClientData(cfg.num_clients, dim=dim, n_classes=n_classes, seed=seed)
@@ -118,6 +151,9 @@ def run_federated(
                 qskip=int(host["quorum_skipped"][:upto].sum()))
 
     if async_pipeline or cfg.pipeline_depth > 1 or cfg.staleness > 0:
+        if ckpt_every > 0 or resume or serve:
+            raise ValueError("snapshots, resume and the fleet loop run on sync rounds; "
+                             "the async ring has no snapshot of the cohorts in flight")
         if cfg.population_store == "host":
             # the host loop has no in-loop eval: evaluate once at the end
             state, ms = eng.run_rounds_async(state, data, cfg.rounds)
@@ -138,14 +174,93 @@ def run_federated(
             acc = evaluate(spec.unravel(state.params), x_te_t, y_te_t)
         return acc, log
     acc, r = 0.0, 0
+    if resume:
+        state, r = restore_run(eng, state, ckpt_dir, seed)
+    fleet = None
+    if serve:
+        from repro_torch.fleet.driver import FleetDriver
+
+        fleet = FleetDriver(
+            ckpt_dir=ckpt_dir, telemetry_path=telemetry_path or None, retain=publish_retain,
+            deadline_s=round_deadline_s, health_port=health_port,
+            meta={"algo": cfg.algo, "rounds": cfg.rounds, "num_clients": cfg.num_clients,
+                  "cohort_size": cfg.cohort_size, "ckpt_every": ckpt_every, "resumed_at": r})
+        # version 1 = the params entering the run: the serving thread never
+        # serves unpublished (random) weights
+        fleet.publish(r, spec.unravel(state.params.cpu()))
+        fleet.start_serving(model.apply, template=spec.unravel(state.params),
+                            batch_x=x_te_t[:min(128, x_te_t.shape[0])])
+        print(f"fleet: serving + health at {fleet.health.url} "
+              f"(telemetry: {fleet.telemetry.path})")
     while r < cfg.rounds:
         chunk = min(eval_every, cfg.rounds - r)
+        if ckpt_every > 0:
+            # chunks end on snapshot boundaries, so a resumed run runs the
+            # same chunks relative to the absolute round
+            chunk = min(chunk, ckpt_every * (r // ckpt_every + 1) - r)
+        t0 = time.perf_counter()
         state, ms = eng.run_rounds(state, data, chunk)
-        host = metrics_to_host(ms)  # one transfer per chunk
+        host = metrics_to_host(ms)  # one transfer per chunk, for the log and telemetry
+        dt = time.perf_counter() - t0
         r += chunk
         acc = evaluate(spec.unravel(state.params), x_te_t, y_te_t)
+        version = None
+        snapshot = ckpt_every > 0 and (r % ckpt_every == 0 or r >= cfg.rounds)
+        if snapshot:
+            save_fed_run(ckpt_dir, r, state, spec, population=_inner(eng.population),
+                         residuals=_inner(eng.residual_population))
+            if fleet is not None:
+                version = fleet.publish(r, spec.unravel(state.params.cpu()))
+        if fleet is not None:
+            fleet.record_chunk(start_round=r - chunk, host=host, seconds=dt, eval_acc=acc,
+                               published_version=version)
         log_row(r, host, -1, acc, chunk)
+        if snapshot and 0 < die_after <= r:
+            # preemption: no clean-up, no atexit; the snapshot just written
+            # (and the telemetry rows, already fsynced) is all a resume has
+            os._exit(75)
+    if fleet is not None:
+        summary = fleet.stop()
+        print(f"fleet: {summary.get('swaps', 0)} hot-swaps "
+              f"({summary.get('swaps_mid_session', 0)} under decode load) over "
+              f"{summary.get('steps', 0)} decode steps; health={summary.get('health_status')}")
     return acc, log
+
+
+def _inner(store):
+    """The plain store under a ``FaultyStore`` (None stays None)."""
+    return getattr(store, "inner", store)
+
+
+def restore_run(eng: FederatedEngine, state, ckpt_dir: str, seed: int):
+    """Restore the latest snapshot of ``ckpt_dir`` into ``eng`` →
+    ``(state, round)``.  ``state`` (the fresh ``eng.init``) fixes the planes
+    and the device.  Store rows are assigned straight into the engine's
+    stores, past any ``FaultyStore``, so the restore itself cannot fail.  A
+    snapshot the reference wrote carries a threefry key that torch cannot
+    continue: the generator is then seeded from ``seed`` and the round, and
+    the draws from there on are the port's own."""
+    step = latest_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(f"--resume: no checkpoints in {ckpt_dir!r}")
+    state, population, residuals, meta = load_fed_run(ckpt_dir, step, state, eng.spec,
+                                                      num_clients=eng.cfg.num_clients)
+    for name, store, rows in (("population", eng.population, population),
+                              ("residuals", eng.residual_population, residuals)):
+        if store is None:
+            continue
+        if rows is None:
+            raise ValueError(f"--resume: {ckpt_dir}/step_{step}.msgpack has no {name} "
+                             f"store, which this run keeps on the host")
+        _inner(store)._rows = rows._rows
+    if state.rng is None:
+        gen = torch.Generator(device=state.params.device)
+        gen.manual_seed(seed + 1 + step)
+        print(f"--resume: {ckpt_dir}/step_{step}.msgpack carries the reference's threefry "
+              f"key, which torch cannot continue; the draws from round {step} on are the "
+              f"port's own (generator seeded with {seed + 1 + step})")
+        state = state._replace(rng=gen)
+    return state, int(meta["step"])
 
 
 def _fmt_bytes(n: float) -> str:
@@ -260,7 +375,60 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--min-quorum", type=int, default=0,
                     help="skip the server fold (params carried unchanged) when "
                          "surviving clients fall below this count")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="write an atomic whole-run snapshot (state, generator, host "
+                         "stores) every N rounds; sync rounds only")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="snapshot directory (needed with --ckpt-every / --resume)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the latest snapshot from --ckpt-dir and continue "
+                         "the trajectory bitwise")
+    ap.add_argument("--die-after", type=int, default=0,
+                    help="exit with code 75 right after the first snapshot at round "
+                         ">= N (pair with --resume in a second run)")
+    fleet = ap.add_argument_group(
+        "fleet serving",
+        "--serve runs the round-to-serving loop: a serving thread runs inference "
+        "against the latest published params (published at every --ckpt-every "
+        "snapshot, hot-swapped between steps), a /healthz /metrics /telemetry/tail "
+        "endpoint, and an append-only telemetry JSONL with one row a round")
+    fleet.add_argument("--serve", action="store_true",
+                       help="serving + health + telemetry beside the round loop (needs "
+                            "--ckpt-every and --ckpt-dir: publication rides the snapshots)")
+    fleet.add_argument("--health-port", type=int, default=0,
+                       help="health endpoint port (0 = ephemeral; printed at start-up)")
+    fleet.add_argument("--round-deadline", type=float, default=120.0,
+                       help="/healthz liveness deadline: 503 once the last round is "
+                            "older than this many seconds")
+    fleet.add_argument("--telemetry", default="",
+                       help="telemetry JSONL path (default <ckpt-dir>/telemetry.jsonl)")
+    fleet.add_argument("--publish-retain", type=int, default=4,
+                       help="published versions kept on disk (>= 2)")
     return ap
+
+
+def check_flags(ap: argparse.ArgumentParser, args: argparse.Namespace) -> None:
+    """The reference CLI's refusals of flag combinations (``ap.error``,
+    exit code 2)."""
+    use_async = args.async_pipeline or args.pipeline_depth > 1 or args.staleness > 0
+    if args.ckpt_every > 0 and use_async:
+        ap.error("--ckpt-every snapshots between sync round chunks; the async ring "
+                 "has no snapshot of the cohorts in flight — drop --async / "
+                 "--pipeline-depth / --staleness")
+    if (args.ckpt_every > 0 or args.resume) and not args.ckpt_dir:
+        ap.error("--ckpt-every / --resume need --ckpt-dir")
+    if args.die_after > 0 and args.ckpt_every <= 0:
+        ap.error("--die-after kills AFTER a snapshot — add --ckpt-every")
+    if args.resume and args.ckpt_every <= 0:
+        ap.error("--resume continues a snapshotted run — add --ckpt-every")
+    if args.serve and args.ckpt_every <= 0:
+        ap.error("--serve publishes at snapshot boundaries — add --ckpt-every N "
+                 "--ckpt-dir DIR")
+    if args.serve and not args.ckpt_dir:
+        ap.error("--serve needs --ckpt-dir (publisher + telemetry live under it)")
+    if args.publish_retain < 2:
+        ap.error("--publish-retain must be >= 2: the publication ring must outlive a "
+                 "reader's just-resolved version")
 
 
 def resolve_config(args: argparse.Namespace) -> FedConfig:
@@ -298,14 +466,22 @@ def resolve_config(args: argparse.Namespace) -> FedConfig:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
     cfg = resolve_config(args)
     if args.list_algos:
         print(list_algos_text(compression=cfg.compression))
         return 0
+    check_flags(ap, args)
     acc, _ = run_federated(cfg, args.dirichlet, eval_every=args.eval_every,
                            seed=args.seed, device=args.device,
-                           async_pipeline=args.async_pipeline)
+                           async_pipeline=args.async_pipeline,
+                           ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir,
+                           resume=args.resume, die_after=args.die_after,
+                           serve=args.serve, health_port=args.health_port,
+                           round_deadline_s=args.round_deadline,
+                           telemetry_path=args.telemetry,
+                           publish_retain=args.publish_retain)
     print(f"\n{args.algo}: final test accuracy = {acc:.4f}")
     return 0
 

@@ -9,6 +9,13 @@ are decoded step by step.  Greedy sampling (temperature 0) by default;
 ``serve_loop`` is the reusable decode loop with step-boundary hot-swaps of
 the served params, copied from the reference.
 
+``--ckpt DIR`` serves published params (``repro_torch.fleet.publisher``
+layout: ``LATEST.json`` + ``step_<v>.msgpack``, from either package) in
+place of random init, and ``--ckpt DIR/step_<v>.msgpack`` one version of
+them; ``--follow`` keeps watching the directory and hot-swaps each new
+version between decode steps, so a decode step runs against exactly one
+complete version.
+
 Weights are random, drawn from ``--seed`` on the serving device (f32, the
 reference's ``param_dtype``; each use casts them to the activation dtype,
 bf16 at full width).  Prompts come from the
@@ -22,10 +29,13 @@ unless ``--device cpu`` asks for the CPU (the kernels' plain versions).
         --batch 4 --prompt-len 32 --gen 32 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b --full \
         --batch 4 --prompt-len 1024 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --ckpt runs/pub --follow \
+        --sessions 8
 """
 from __future__ import annotations
 
 import argparse
+import os
 import threading
 import time
 from dataclasses import dataclass, field
@@ -158,12 +168,40 @@ def merge(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     return dst
 
 
-def run(args: argparse.Namespace) -> ServeResult:
+def load_ckpt_params(path: str, template: Any, *, follow: bool = False):
+    """Resolve ``--ckpt`` → ``(version, params, provider-or-None)``.
+
+    ``path`` is a publisher directory (``LATEST.json`` pointer) or a single
+    ``step_<v>.msgpack`` payload file from one; ``template`` (the model's
+    params tree) fixes the structure and the device."""
+    from repro_torch.fleet.publisher import ParamsWatch, load_published
+
+    if os.path.isdir(path):
+        watcher = ParamsWatch(path, template=template)
+        try:
+            got = watcher.poll()
+        except KeyError as e:
+            raise SystemExit(
+                f"--ckpt {path}: published params do not match this serving model's "
+                f"template ({e}) — the directory was published by a different model "
+                f"(e.g. a fed_train classifier run, not --arch)") from e
+        if got is None:
+            raise FileNotFoundError(f"--ckpt {path}: no LATEST.json — nothing published yet")
+        version, params, _ = got
+        return version, params, (watcher if follow else None)
+    d, name = os.path.split(path)
+    if not (name.startswith("step_") and name.endswith(".msgpack")):
+        raise ValueError(f"--ckpt {path}: expected a publisher directory or a "
+                         f"step_<version>.msgpack payload")
+    version, params, _ = load_published(d, template, int(name[len("step_"):-len(".msgpack")]))
+    return version, params, None
+
+
+def run(args: argparse.Namespace, on_step: Optional[Callable[[ServeStats], None]] = None
+        ) -> ServeResult:
     """Build the model and prompts for ``args`` and serve ``args.sessions``
-    sessions of ``args.gen`` tokens."""
-    if args.ckpt or args.follow:
-        raise NotImplementedError("--ckpt / --follow serve published params: the checkpoint "
-                                  "and fleet layers are not ported yet (ROADMAP A.12, A.13)")
+    sessions of ``args.gen`` tokens; ``on_step`` is ``serve_loop``'s
+    per-step callback."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if not args.full:
@@ -172,6 +210,10 @@ def run(args: argparse.Namespace) -> ServeResult:
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = model.init(gen)
+    version, provider = 0, None
+    if args.ckpt:
+        version, params, provider = load_ckpt_params(args.ckpt, params, follow=args.follow)
+        print(f"serving published params: version {version} from {args.ckpt}")
     prompts = torch.as_tensor(
         make_synthetic_lm(min(cfg.vocab_size, PROMPT_VOCAB), args.prompt_len, args.batch,
                           seed=args.seed), dtype=torch.long, device=device)
@@ -214,8 +256,9 @@ def run(args: argparse.Namespace) -> ServeResult:
         last["gen"] = torch.cat(st["out"], dim=1).cpu().numpy()
 
     _, stats = serve_loop(params, decode_step, begin_session=begin_session,
-                          end_session=end_session, steps_per_session=args.gen - 1,
-                          max_sessions=args.sessions)
+                          end_session=end_session, params_provider=provider,
+                          steps_per_session=args.gen - 1, max_sessions=args.sessions,
+                          on_step=on_step, version=version)
     return ServeResult(cfg.name, last["gen"], stats, prefill_s, decode_s)
 
 
@@ -230,8 +273,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--ckpt", default="", help="not ported yet (ROADMAP A.12); raises")
-    ap.add_argument("--follow", action="store_true", help="not ported yet (ROADMAP A.13); raises")
+    ap.add_argument("--ckpt", default="",
+                    help="serve published params (a publisher directory or one of its "
+                         "step_<v>.msgpack files) instead of random init")
+    ap.add_argument("--follow", action="store_true",
+                    help="with --ckpt DIR: keep watching for new published versions and "
+                         "hot-swap them between decode steps")
     ap.add_argument("--sessions", type=int, default=1,
                     help="prefill→decode sessions to run")
     ap.add_argument("--device", default="cuda",
@@ -240,7 +287,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.follow and not args.ckpt:
+        ap.error("--follow watches the --ckpt directory — add --ckpt DIR")
     res = run(args)
     n = max(res.stats.sessions, 1)
     t_prefill, t_decode = sum(res.prefill_s) / n, sum(res.decode_s) / n

@@ -113,15 +113,16 @@ def ref_draws(eng, client_x, client_y, key, t=0):
             np.asarray(ids), np.asarray(mask))
 
 
-def ref_draw_chain(eng, client_x, client_y, key, n_rounds):
+def ref_draw_chain(eng, client_x, client_y, key, n_rounds, t0=0):
     """The reference's draws for ``n_rounds`` consecutive rounds from the
-    run's initial key, as its round loops take them (``_sample_round``
-    advances the key each round; the round counter is the round index):
-    per round a dict of numpy ``batches``, ``ids``, ``mask``, ``n_clipped``
-    and ``full`` (each cohort client's whole dataset)."""
+    key of round ``t0`` (the run's initial key for ``t0`` = 0), as its round
+    loops take them (``_sample_round`` advances the key each round; the
+    round counter is the round index): per round a dict of numpy
+    ``batches``, ``ids``, ``mask``, ``n_clipped`` and ``full`` (each cohort
+    client's whole dataset)."""
     cx, cy = jnp.asarray(client_x), jnp.asarray(client_y)
     out = []
-    for t in range(n_rounds):
+    for t in range(t0, t0 + n_rounds):
         key, batches, ids, mask, full, n_clipped = eng._sample_round(key, cx, cy, jnp.int32(t))
         out.append({"batches": {k: np.asarray(v) for k, v in batches.items()},
                     "ids": np.asarray(ids), "mask": np.asarray(mask),

@@ -189,3 +189,56 @@ def test_cli_async_and_store_on_cpu(capsys, argv, n_lines):
     assert len(rows) == n_lines  # the host-store ring evaluates once, at the end
     assert rows[-1]["round"] == "4"
     assert "final test accuracy" in err.out
+
+
+# ----------------------------------------------------- snapshots and fleet
+@pytest.mark.parametrize("argv", [
+    ["--ckpt-every", "5"],  # no --ckpt-dir
+    ["--ckpt-every", "5", "--ckpt-dir", "/tmp/x", "--async"],
+    ["--ckpt-every", "5", "--ckpt-dir", "/tmp/x", "--pipeline-depth", "2"],
+    ["--ckpt-every", "5", "--ckpt-dir", "/tmp/x", "--staleness", "1"],
+    ["--die-after", "5", "--ckpt-dir", "/tmp/x"],  # no --ckpt-every
+    ["--resume", "--ckpt-dir", "/tmp/x"],  # no --ckpt-every
+    ["--resume", "--ckpt-every", "5"],  # no --ckpt-dir
+], ids=["no-dir", "async", "depth", "staleness", "die-no-every", "resume-no-every",
+        "resume-no-dir"])
+def test_cli_refuses_bad_snapshot_flags(argv):
+    """The reference CLI's refusals, before anything runs (exit code 2)."""
+    with pytest.raises(SystemExit) as e:
+        fed_train.main(argv + ["--device", "cpu"])
+    assert e.value.code == 2
+
+
+@pytest.mark.parametrize("argv", [
+    ["--serve"],  # no snapshot cadence to publish on
+    ["--serve", "--ckpt-every", "2"],  # no dir
+    ["--serve", "--ckpt-every", "2", "--ckpt-dir", "/tmp/x", "--publish-retain", "1"],
+], ids=["no-every", "no-dir", "retain"])
+def test_cli_refuses_bad_serve_flags(argv):
+    with pytest.raises(SystemExit) as e:
+        fed_train.main(argv + ["--device", "cpu"])
+    assert e.value.code == 2
+
+
+def test_cli_kill_and_resume_matches_the_straight_run_byte_for_byte(tmp_path):
+    """``--die-after`` ends the process with exit code 75 right after its
+    snapshot; ``--resume`` continues it; the resumed run's final snapshot
+    is the straight run's, byte for byte (state, generator, store rows)."""
+    argv = SMALL + ["--rounds", "4", "--ckpt-every", "2", "--algo", "scaffold",
+                    "--population-store", "host", "--fault-drop-rate", "0.1",
+                    "--device", "cpu"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "repro_torch.launch.fed_train", *argv,
+           "--ckpt-dir", str(tmp_path / "a")]
+    died = subprocess.run(cmd + ["--die-after", "2"], capture_output=True, text=True, env=env,
+                          timeout=120)
+    assert died.returncode == 75, died.stderr
+    assert sorted(p.name for p in (tmp_path / "a").iterdir()) == ["step_2.msgpack"]
+    resumed = subprocess.run(cmd + ["--resume"], capture_output=True, text=True, env=env,
+                             timeout=120)
+    assert resumed.returncode == 0, resumed.stderr
+    assert "round=4" in resumed.stderr and "round=2" not in resumed.stderr
+    assert fed_train.main(argv + ["--ckpt-dir", str(tmp_path / "b")]) == 0
+    for step in (2, 4):
+        assert ((tmp_path / "a" / f"step_{step}.msgpack").read_bytes()
+                == (tmp_path / "b" / f"step_{step}.msgpack").read_bytes())
