@@ -108,6 +108,28 @@ JAX or of the JAX package.  Phases, each of which exits non-zero on failure:
    ``flash_attention`` launches a prefill, the last session's tokens equal
    to a fresh run on ``DIR/step_2.msgpack``; payload bytes, publish and
    load ms.  Its files live in ``build/smoke_checkpoint`` (removed after);
+4f. cohort sharding — (a) the fold on column shards: at both planes and
+   for n in ``SHARD_WORLDS`` (2, 4), a round's uplink split exactly as
+   ``scatter_fold`` lays it out (``columns_send`` blocks as the
+   ``all_to_all`` delivers them, the cohort padded to C_pad with zero
+   weights, x and m as ``plane_chunk`` views at misaligned offsets), in one
+   process: ``server_update`` (f32) and ``dequant_update`` (int8) on each
+   ``(C_pad, ceil(P/n))`` block, the joined outputs bitwise the unsharded
+   launch, each shard's time beside the whole launch's and the shard's
+   bound; (b) whole sharded rounds: ``SHARD_RUNS`` (fedcm, scaffold int8,
+   mimelite, fedcm with drops and NaN corruption, the fedcm ring at D=2
+   S=1), ``SHARD_ROUNDS`` rounds each at the CLI defaults, on worlds of 2
+   and 4 ranks that share cuda:0 over gloo (``repro_torch.launch.mesh``;
+   collectives staged through the host, so their ms/round is not a
+   multi-card time), after a warm-up run: each rank's launch counts (K
+   ``fed_direction`` a round, ``FOLDS_PER_ROUND`` folds), every rank
+   bitwise rank 0, and rank 0 against the unsharded run on the card,
+   bitwise or within ``PARITY_RTOL`` / ``PARITY_ATOL`` (the largest
+   difference printed); (c) the same over NCCL, one rank a card, on 2 and
+   ``min(4, device_count)`` cards when there are two or more, else the
+   line ``nccl: not run (1 card visible)``.  ``--nccl`` (not part of the
+   default run) runs phases 1–2 and then (c) alone, beside the unsharded
+   runs it is compared with, on a machine with several cards;
 5. card vs CPU — three rounds from one converted state with the same
    injected ids, masks and minibatch indices on ``cuda`` and on ``cpu``;
    then three rounds under int8 + faults, each started on both devices
@@ -1304,6 +1326,233 @@ def checkpoint_and_fleet(torch, np, bindings):
     say(f"checkpoint and fleet: phase 4e in {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------- phase 4f
+# (label, algo, uplink, fault, ring (D, S)) of the sharded whole-round runs,
+# each SHARD_ROUNDS rounds (iterations on the ring, drain included) at the
+# CLI defaults; SHARD_WORLDS ranks share cuda:0 over gloo
+SHARD_RUNS = (("fedcm", "fedcm", None, None, None),
+              ("scaffold int8", "scaffold", "int8", None, None),
+              ("mimelite", "mimelite", None, None, None),
+              ("fedcm faults", "fedcm", None, {"drop_rate": 0.1, "corrupt_rate": 0.1,
+                                               "corrupt_mode": "nan"}, None),
+              ("fedcm ring D=2 S=1", "fedcm", None, None, (2, 1)))
+SHARD_ROUNDS = 4
+SHARD_WORLDS = (2, 4)
+SHARD_TIMEOUT_S, SHARD_DEADLINE_S = 60.0, 150.0
+
+
+def shard_fold_cases(torch, su_kernel, gen):
+    """Phase 4f (a): a round's uplink split exactly as ``scatter_fold`` lays
+    it out (``columns_send`` blocks, as the ``all_to_all`` delivers them;
+    x and m as ``plane_chunk`` views, 4 bytes past a 16-byte boundary or
+    more), in one process, at both planes for n in ``SHARD_WORLDS``: each
+    shard's ``server_update`` (f32 deltas) and ``dequant_update`` (int8 q)
+    launch on its ``(C_pad, chunk)`` block; the joined outputs must equal
+    the unsharded launch bit for bit.  Returns the rows it printed."""
+    from repro_torch.core.flat import columns_send, pad_cohort, plane_chunk
+    from repro_torch.sharding.rules import padded_cohort
+
+    rows = []
+    for C, P in ((MAIN_C, MAIN_P), (BIG_C, BIG_P)):
+        deltas = torch.randn((C, P), generator=gen, device="cuda") * 1e-2
+        q = torch.randint(-127, 128, (C, P), generator=gen, device="cuda", dtype=torch.int8)
+        scale = torch.rand((C, 1), generator=gen, device="cuda") * 1e-3
+        wn, x, m, coefs = fold_inputs(torch, C, P, torch.float32, gen)
+        reps = 20 if C * P < 10_000_000 else 5
+        kinds = {"server_update": (deltas, None), "dequant_update": (q, scale)}
+
+        def launch(plane, sc, wn_, x_, m_):
+            if sc is None:
+                return su_kernel.server_update_flat(plane, wn_, x_, m_, coefs)
+            return su_kernel.dequant_update_flat(plane, sc, wn_, x_, m_, coefs)
+
+        for kind, (plane, sc) in kinds.items():
+            whole = launch(plane, sc, wn, x, m)
+            whole_ms = graph_ms(torch, lambda: launch(plane, sc, wn, x, m), reps)
+            for n in SHARD_WORLDS:
+                c_pad = padded_cohort(C, n)
+                c_loc = c_pad // n
+                padded = pad_cohort(plane, c_pad)
+                sends = [columns_send(padded[s * c_loc:(s + 1) * c_loc], n) for s in range(n)]
+                wn_p = pad_cohort(wn, c_pad, "zero")
+                sc_p = None if sc is None else pad_cohort(sc, c_pad)
+                outs, shard_ms, offsets = [], [], []
+                for r in range(n):
+                    block = torch.cat([sends[s][r] for s in range(n)])
+                    xr, mr = plane_chunk(x, r, n), plane_chunk(m, r, n)
+                    offsets.append(xr.data_ptr() % 16)
+                    outs.append(launch(block, sc_p, wn_p, xr, mr))
+                    shard_ms.append(graph_ms(torch, lambda: launch(block, sc_p, wn_p, xr, mr),
+                                             reps))
+                chunk = -(-P // n)
+                joined = [torch.cat([o[i] for o in outs])[:P] for i in range(3)]
+                bitwise = all(torch.equal(a, b) for a, b in zip(joined, whole))
+                nbytes = (c_pad * chunk * plane.element_size() + c_pad * 4 + 16 + chunk * 4
+                          + 4 * chunk * 4 + (c_pad * 4 if sc is not None else 0))
+                flops = (2 if sc is None else 3) * c_pad * chunk + 6 * chunk
+                b_ms, b_by = bound(nbytes, flops)
+                row = {"kernel": kind, "C": C, "P": P, "n": n, "C_pad": c_pad, "chunk": chunk,
+                       "x_m_offset_mod16": offsets, "bitwise": bitwise,
+                       "shard_ms": shard_ms, "whole_ms": whole_ms,
+                       "shard_bound_ms": b_ms, "shard_bound_by": b_by}
+                say(f"shard fold {json.dumps(row)}")
+                rows.append(row)
+                if not bitwise:
+                    fail(f"{kind} on {n} column shards of ({C}, {P}) is not bitwise the "
+                         f"unsharded launch")
+                del padded, sends, outs, joined
+            torch.cuda.empty_cache()
+        del deltas, q
+        torch.cuda.empty_cache()
+    return rows
+
+
+def shard_run(torch, spec, device, group):
+    """One of ``SHARD_RUNS`` at the CLI defaults on ``device``, sharded over
+    ``group`` (None: unsharded), with the federated kernels' launch counts
+    set to 0 just before and read just after.  Returns numpy planes,
+    metrics, launches and the wall seconds of the rounds (synchronized)."""
+    from repro_torch.configs.base import CompressionConfig, FaultConfig, FedConfig
+    from repro_torch.core.convert import state_to_numpy
+    from repro_torch.core.engine import FederatedEngine, metrics_to_host
+    from repro_torch.core.flat import FlatSpec
+    from repro_torch.data import FederatedData, make_synthetic_classification
+    from repro_torch.kernels.fed_direction import kernel as fd_kernel
+    from repro_torch.kernels.server_update import kernel as su_kernel
+    from repro_torch.models.small import classification_loss, mlp_classifier
+
+    _, algo, comp, fault, ring = spec
+    cfg = FedConfig(algo=algo, participation="bernoulli",
+                    compression=None if comp is None else CompressionConfig(kind=comp),
+                    fault=None if fault is None else FaultConfig(**fault),
+                    **ALGO_SETTINGS.get(algo, {}))
+    x_tr, y_tr, _, _ = make_synthetic_classification(n_train=50_000, n_test=10, seed=0)
+    data = FederatedData(x_tr, y_tr, cfg.num_clients, dirichlet_alpha=0.6, seed=0,
+                         device=device)
+    model = mlp_classifier((32, 128, 128, 10))
+    params = model.init(torch.Generator().manual_seed(0))
+    eng = FederatedEngine(cfg, classification_loss(model.apply), FlatSpec.from_tree(params),
+                          device=device, cohort_group=group)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    state = eng.init(params, gen)
+    counted = {"fed_direction": fd_kernel.KERNEL, "server_update": su_kernel.KERNEL,
+               "dequant_update": su_kernel.DEQUANT_KERNEL}
+    for b in counted.values():
+        b.launches = 0
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    if ring is None:
+        state, ms = eng.run_rounds(state, data, SHARD_ROUNDS)
+    else:
+        state, ms = eng.run_rounds_async(state, data, SHARD_ROUNDS, pipeline_depth=ring[0],
+                                         staleness=ring[1])
+    torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    return {"state": state_to_numpy(state), "metrics": metrics_to_host(ms),
+            "launches": {k: b.launches for k, b in counted.items()}, "seconds": seconds}
+
+
+def shard_rank(rank, device, runs):
+    """A rank of a phase-4f world: a warm-up run of ``runs[0]`` (so no timed
+    run pays the process's first CUDA and cuBLAS calls), then every run of
+    ``runs`` in turn."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shard_run(torch, runs[0], device, dist.group.WORLD)
+    return [shard_run(torch, spec, device, dist.group.WORLD) for spec in runs]
+
+
+def _planes_diff(np, a, b):
+    """Largest |a − b| over every state plane and metric of two runs, and
+    whether they are bitwise equal and within the parity tolerance."""
+    worst, same, close = 0.0, True, True
+    pairs = [(a["state"][k], b["state"][k]) for k in ("params", "momentum", "second_moment",
+                                                       "client_states", "residuals")]
+    pairs += [(a["metrics"][k], b["metrics"][k]) for k in b["metrics"]]
+    for u, v in pairs:
+        if (u is None) != (v is None):
+            return float("inf"), False, False
+        if u is None:
+            continue
+        same = same and np.array_equal(u, v, equal_nan=True)
+        close = close and np.allclose(u, v, rtol=PARITY_RTOL, atol=PARITY_ATOL, equal_nan=True)
+        if u.size:
+            worst = max(worst, float(np.nanmax(np.abs(u.astype(np.float64) - v))))
+    return worst, same, close
+
+
+def sharded_worlds(torch, np, n_worlds, backend, plain):
+    """Phase 4f (b) / (c): every ``SHARD_RUNS`` run on worlds of
+    ``n_worlds`` ranks, checked rank against rank 0 (bitwise), against the
+    predicted launch counts, and against the unsharded runs ``plain``
+    (bitwise, or within ``PARITY_RTOL`` / ``PARITY_ATOL`` with the largest
+    difference printed)."""
+    from repro_torch.launch.mesh import spawn_cohort
+
+    where = ("gloo, ranks sharing cuda:0 (collectives staged through the host; not a "
+             "multi-card time)" if backend == "gloo" else "nccl, one card a rank")
+    for n in n_worlds:
+        t0 = time.perf_counter()
+        ranks = spawn_cohort(shard_rank, n, args=(SHARD_RUNS,), device="cuda", backend=backend,
+                             timeout_s=SHARD_TIMEOUT_S, deadline_s=SHARD_DEADLINE_S)
+        wall = time.perf_counter() - t0
+        for i, spec in enumerate(SHARD_RUNS):
+            label, algo, comp = spec[:3]
+            su, dq = FOLDS_PER_ROUND.get(algo, {None: (1, 0), "int8": (0, 1)})[comp]
+            expected = {"fed_direction": SHARD_ROUNDS * K, "server_update": SHARD_ROUNDS * su,
+                        "dequant_update": SHARD_ROUNDS * dq}
+            for r in range(n):
+                if ranks[r][i]["launches"] != expected:
+                    fail(f"{label} on {n} {backend} ranks: rank {r} launched "
+                         f"{ranks[r][i]['launches']}, expected {expected}")
+                if r and not _planes_diff(np, ranks[r][i], ranks[0][i])[1]:
+                    fail(f"{label} on {n} {backend} ranks: rank {r} differs from rank 0")
+            diff, same, close = _planes_diff(np, ranks[0][i], plain[i])
+            if not close:
+                fail(f"{label} on {n} {backend} ranks vs unsharded on the card: max |diff| "
+                     f"{diff:.3e} beyond rtol {PARITY_RTOL} atol {PARITY_ATOL}")
+            loss = ranks[0][i]["metrics"]["loss"]
+            if not np.isfinite(loss).all():
+                fail(f"{label} on {n} {backend} ranks: non-finite loss {loss}")
+            row = {"run": label, "ranks": n, "backend": backend, "rounds": SHARD_ROUNDS,
+                   "launches_per_rank": ranks[0][i]["launches"], "ranks_equal": True,
+                   "vs_unsharded": "bitwise" if same else f"max |diff| {diff:.3e}",
+                   "ms_per_round": ranks[0][i]["seconds"] / SHARD_ROUNDS * 1e3,
+                   "unsharded_ms_per_round": plain[i]["seconds"] / SHARD_ROUNDS * 1e3,
+                   "loss": loss.tolist()}
+            say(f"sharded rounds ({where}): {json.dumps(row)}")
+        say(f"sharded world of {n} {backend} ranks: {wall:.1f} s wall (start-up included)")
+
+
+def cohort_sharding(torch, np, su_kernel, nccl_only: bool = False):
+    """Phase 4f: (a) the fold on column shards, (b) whole sharded rounds on
+    2 and 4 gloo ranks sharing cuda:0, (c) the same over NCCL on 2 and
+    ``min(4, device_count)`` cards when there are two or more.
+    ``nccl_only`` (``--nccl``) runs (c) and the unsharded runs it is
+    compared with, nothing else."""
+    t0 = time.perf_counter()
+    if not nccl_only:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(19)
+        shard_fold_cases(torch, su_kernel, gen)
+    plain = [shard_run(torch, spec, torch.device("cuda"), None)
+             for spec in SHARD_RUNS[:1] + SHARD_RUNS][1:]  # the first is a warm-up
+    if not nccl_only:
+        sharded_worlds(torch, np, SHARD_WORLDS, "gloo", plain)
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        sharded_worlds(torch, np, sorted({2, min(4, cards)}), "nccl", plain)
+    elif nccl_only:
+        fail(f"--nccl needs two or more cards; {cards} visible")
+    else:
+        say(f"nccl: not run ({cards} card visible)")
+    say(f"cohort sharding: phase 4f in {time.perf_counter() - t0:.1f} s")
+
+
 # ---------------------------------------------------------------------- phase 5
 def card_vs_cpu(torch, np, algo="fedcm"):
     """Three rounds of ``algo`` from one converted state on the card and on
@@ -1585,6 +1834,16 @@ def main() -> int:
             if not bulk or min(bulk) == 0:
                 fail(f"{name}: a fold kernel has no bulk-copy (UBLKCP) instruction: {bulk}")
 
+    if "--nccl" in sys.argv[1:]:
+        # phase 4f (c) alone, on a machine with several cards
+        cohort_sharding(torch, np, su_kernel, nccl_only=True)
+        for line in smi.stdout.strip().splitlines():
+            say(line)
+        say(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                               "kind": torch.cuda.get_device_name(0),
+                                               "count": torch.cuda.device_count()}}))
+        return 0
+
     # ---- 3. kernels vs plain
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -1779,6 +2038,9 @@ def main() -> int:
 
     # ---- 4e. checkpoint and fleet, launch counts from each run only
     checkpoint_and_fleet(torch, np, bindings)
+
+    # ---- 4f. cohort sharding, launch counts from each rank's runs only
+    cohort_sharding(torch, np, su_kernel)
 
     # ---- 5. card vs CPU
     diffs = card_vs_cpu(torch, np)

@@ -121,7 +121,8 @@ class FedConfig:
     pipeline_depth: int = 1
     staleness: int = 0
     staleness_discount: float = 1.0
-    # cohort-parallel execution over several devices (ROADMAP A.14)
+    # cohort-parallel execution: the number of ranks (one process each)
+    # the cohort is sharded over; 0 = one process (repro_torch.launch.mesh)
     cohort_shard: int = 0
     # where per-client state rows live: "resident" = the (N, P) device
     # plane, "host" = a sparse host store (repro_torch.data.population),

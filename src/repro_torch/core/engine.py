@@ -49,11 +49,26 @@ absent when its config is None: fault injection and quarantine
 counter-based hashes keyed by the device round counter
 (``repro_torch.utils.draws``), or injected (``RoundDraws``).
 
+Cohort sharding (``cohort_group=`` / ``cfg.cohort_shard``) spreads a round
+over the ranks of a ``torch.distributed`` process group, one process a
+shard (``repro_torch.launch.mesh``), where the reference runs ``shard_map``
+over a ``("clients",)`` mesh.  Every rank draws the WHOLE cohort from its
+own copy of the generator (the unsharded stream), pads it to C_pad =
+``padded_cohort(C, n)`` (data by edge rows, weights by zeros) and computes
+only its rows ``[r·C_loc, (r+1)·C_loc)``: the local steps, corruption and
+wire encoding.  The fold is ``scatter_fold``: an ``all_to_all`` to column
+blocks, the ported fold kernels on this rank's ``(C_pad, ceil(P/n))``
+block, then an ``all_gather`` of the ``(P,)`` planes.  The masks, the
+quarantine's decision (from all-gathered row flags and norms), the loss
+metric (from the all-gathered loss row) and the post-step run replicated;
+updated client-state and top-k residual rows are all-gathered into every
+rank's replicated ``(N, P)`` planes.  Sharded ≡ unsharded, bit for bit.
+
 Every per-round value — the round counter, η_l, the fold coefficients, the
 cohort mask and |S| — lives in device memory, and nothing in a resident
 round reads one back to the host.  The host store reads the cohort's ids.
-The per-leaf tree path (A.16) and cohort sharding (A.14) raise
-``NotImplementedError`` naming their ROADMAP item (``check_supported``).
+The per-leaf tree path (A.16) raises ``NotImplementedError`` naming its
+ROADMAP item (``check_supported``).
 """
 from __future__ import annotations
 
@@ -63,6 +78,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import FedConfig
 from repro_torch.core import algorithms  # noqa: F401  (registers the builtin specs)
@@ -90,7 +106,7 @@ from repro_torch.core.faults import (
     rows_sqnorm,
     zero_rows,
 )
-from repro_torch.core.flat import CohortUplink, FlatSpec, ring_push
+from repro_torch.core.flat import CohortUplink, FlatSpec, gather_rows, pad_cohort, ring_push
 from repro_torch.core.registry import (
     ServerState,
     client_state_init,
@@ -107,7 +123,9 @@ from repro_torch.data.population import (
     make_population_store,
 )
 from repro_torch.kernels.fed_direction.ops import direction_operands, fed_direction
-from repro_torch.kernels.server_update.ops import fused_fold
+from repro_torch.kernels.server_update.ops import fused_fold, scatter_fold
+from repro_torch.launch.mesh import make_cohort_group
+from repro_torch.sharding.rules import cohort_axis_size, padded_cohort
 from repro_torch.utils.draws import uniform as hash_uniform
 
 
@@ -239,7 +257,6 @@ def resolve_device(device) -> torch.device:
 # (predicate, what, ROADMAP item) for every knob the port does not run yet
 _UNPORTED = (
     (lambda c: not c.use_flat_plane, "use_flat_plane=False (the per-leaf tree path)", "A.16"),
-    (lambda c: c.cohort_shard > 0, "cohort_shard (multi-GPU cohort sharding)", "A.14"),
 )
 
 
@@ -373,11 +390,36 @@ class FederatedEngine:
 
     ``data`` is a ``FederatedData`` (device-resident shards) or, under
     ``population_store="host"``, also a ``StreamingClientData``.
+
+    ``cohort_group`` (a process group this rank belongs to) or
+    ``cfg.cohort_shard = n`` (the default group, which must have n ranks)
+    shards the cohort over the group's ranks; each rank builds the same
+    engine and calls the same methods, and every rank ends each call with
+    the same state.
     """
 
     def __init__(self, cfg: FedConfig, loss_fn: Callable, spec: FlatSpec,
-                 batch_size: int = 50, device="cuda") -> None:
+                 batch_size: int = 50, device="cuda", cohort_group=None) -> None:
         check_supported(cfg)
+        if cfg.population_store == "host" and (cohort_group is not None
+                                               or cfg.cohort_shard > 0):
+            raise ValueError("population_store='host' is host-loop execution and is not "
+                             "composable with cohort sharding — drop cohort_group / set "
+                             "cfg.cohort_shard=0")
+        if cohort_group is None and cfg.cohort_shard > 0:
+            cohort_group = make_cohort_group(cfg.cohort_shard)
+        # cohort sharding: the group, its size n, this rank, and the rows
+        # [r·C_loc, (r+1)·C_loc) this rank owns of the padded cohort
+        self.cohort_group = cohort_group
+        self._shards, self._rank, self._rows = 1, 0, None
+        if cohort_group is not None:
+            self._shards = cohort_axis_size(cohort_group)
+            if cfg.cohort_shard > 0 and self._shards != cfg.cohort_shard:
+                raise ValueError(f"cfg.cohort_shard={cfg.cohort_shard} but the cohort group "
+                                 f"has {self._shards} ranks")
+            self._rank = dist.get_rank(cohort_group)
+            c_loc = padded_cohort(cohort_capacity(cfg), self._shards) // self._shards
+            self._rows = slice(self._rank * c_loc, (self._rank + 1) * c_loc)
         self.cfg = cfg
         self.algo = get_algorithm(cfg.algo)
         self.loss_fn = loss_fn
@@ -395,6 +437,36 @@ class FederatedEngine:
     @property
     def _host(self) -> bool:
         return self.cfg.population_store == "host"
+
+    # -------------------------------------------------- cohort sharding
+    @property
+    def cohort_rank(self) -> int:
+        """This process's rank in the cohort group (0 when unsharded)."""
+        return self._rank
+
+    def _padded(self, a, mode: str = "edge"):
+        """``a`` (cohort-leading, C rows) padded to C_pad rows; as it is
+        when unsharded."""
+        if self._rows is None:
+            return a
+        return pad_cohort(a, self._shards * (self._rows.stop - self._rows.start), mode)
+
+    def _own(self, a, mode: str = "edge"):
+        """This rank's rows of the cohort-leading ``a`` (a tensor, a dict
+        of them or None) after padding; all of ``a`` when unsharded."""
+        if self._rows is None or a is None:
+            return a
+        a = self._padded(a, mode)
+        if isinstance(a, dict):
+            return {k: v[self._rows] for k, v in a.items()}
+        return a[self._rows]
+
+    def _all_rows(self, rows):
+        """Every rank's rows of a ``(C_loc, ...)`` tensor, all-gathered into
+        the padded cohort ``(C_pad, ...)``; as it is when unsharded."""
+        if self._rows is None:
+            return rows
+        return gather_rows(rows, self.cohort_group, self._shards)
 
     # -------------------------------------------------- init
     def init(self, params, generator: Optional[torch.Generator] = None) -> FedState:
@@ -495,21 +567,28 @@ class FederatedEngine:
         every uplink plane, the rows of a client with a non-finite element
         in any plane or a delta-norm outlier (exact zeros: a 0-weight NaN
         row would still poison the fold).  With ``cfg.fault`` None nothing
-        runs."""
+        runs.
+
+        Under cohort sharding ``ids`` and ``mask`` are the whole cohort's,
+        ``planes`` this rank's rows: the drop and deadline draws run for the
+        whole cohort on every rank, corruption touches this rank's rows
+        (never a pad row), and the quarantine decides from every rank's
+        row flags and norms, all-gathered, so every rank decides alike."""
         fault = self.cfg.fault
         zero = torch.zeros((), dtype=torch.float32, device=mask.device)
         if fault is None:
             return mask, planes, zero, zero
         delta = planes["delta"]
-        plan = fault_masks(fault, t, ids, delta.shape[-1], u_drop=d.u_drop,
-                           z_deadline=d.z_deadline, u_corrupt=d.u_corrupt,
-                           z_noise=d.z_noise)
+        plan = fault_masks(fault, t, ids, delta.shape[-1], noise_ids=self._own(ids),
+                           u_drop=d.u_drop, z_deadline=d.z_deadline, u_corrupt=d.u_corrupt,
+                           z_noise=self._own(d.z_noise))
         n_dropped = zero
         if fault.drop_rate > 0.0 or fault.deadline > 0.0:
             n_dropped = (mask & plan.drop).to(torch.float32).sum()
             mask = mask & ~plan.drop
         if fault.corrupt_rate > 0.0:
-            delta = corrupt_uplink(fault, plan.corrupt & mask, plan.noise, delta)
+            delta = corrupt_uplink(fault, self._own(plan.corrupt & mask, "zero"), plan.noise,
+                                   delta)
         planes = {**planes, "delta": delta}
         n_quar = zero
         if fault.quarantine:
@@ -517,15 +596,18 @@ class FederatedEngine:
             for name in ("state_delta", "extra"):
                 if planes.get(name) is not None:
                     fin = fin & rows_finite(planes[name])
+            fin = self._all_rows(fin)
+            mask_p = self._padded(mask, "zero")
             bad = ~fin
             if fault.quarantine_norm_mult > 0.0:
-                norm = torch.sqrt(rows_sqnorm(delta))
-                act = mask & fin
+                norm = self._all_rows(torch.sqrt(rows_sqnorm(delta)))
+                act = mask_p & fin
                 med = nanmedian_midpoint(torch.where(act, norm, float("nan")))
                 bad = bad | (act & (norm > fault.quarantine_norm_mult * med))
-            n_quar = (mask & bad).to(torch.float32).sum()
-            planes = {k: None if v is None else zero_rows(v, bad) for k, v in planes.items()}
-            mask = mask & ~bad
+            n_quar = (mask_p & bad).to(torch.float32).sum()
+            mine = bad if self._rows is None else bad[self._rows]
+            planes = {k: None if v is None else zero_rows(v, mine) for k, v in planes.items()}
+            mask = mask & ~bad[:mask.shape[0]]
         return mask, planes, n_dropped, n_quar
 
     # -------------------------------------------------- uplink compression
@@ -560,7 +642,7 @@ class FederatedEngine:
                     out[name], _, new_rows = error_feedback_topk(comp, pv, residual_rows, w,
                                                                  pv.shape[-1])
                 continue
-            u = d.rounding(name)
+            u = self._own(d.rounding(name))
             if comp.kind == "int8" and u is None:
                 u = hash_uniform(comp.seed, t, COMPRESS_STREAM + PLANE_STREAMS[name], ids,
                                  pv.shape[-1])
@@ -581,25 +663,32 @@ class FederatedEngine:
         d = inp.draws or RoundDraws()
         t = state.server.round
         eta_l = local_learning_rate(cfg, t)
+        # under cohort sharding this rank computes its rows only; the ids,
+        # the mask and the weight row stay whole (C,)
+        C = inp.ids.shape[0]
+        ids = self._own(inp.ids)
         cst = None
         if algo.needs_client_state:
-            cst = cohort_rows if cohort_rows is not None else self._client_rows(state, inp.ids)
+            cst = cohort_rows if cohort_rows is not None else self._client_rows(state, ids)
         if algo.needs_full_grad and inp.full_batches is None:
             raise ValueError(f"{algo.name} takes a full-batch gradient at x_t: pass "
                              f"full_batches (data.pipeline.gather_full_client_batch)")
-        planes, losses = self._flat_cohort_pass(state.params, m_used, inp.batches, eta_l, cst,
-                                                inp.full_batches)
+        planes, losses = self._flat_cohort_pass(state.params, m_used, self._own(inp.batches),
+                                                eta_l, cst, self._own(inp.full_batches))
         mask, planes, n_dropped, n_quar = self._inject_faults(t, inp.ids, inp.mask, planes, d)
         w = mask.to(torch.float32)
         n_active = w.sum()
         new_res_rows = None
         if self.compression is not None:
             res = (residual_rows if residual_rows is not None
-                   else self._residual_rows_for(state, inp.ids))
-            planes, new_res_rows = self._compress_uplink(t, inp.ids, planes, w, res, d)
+                   else self._residual_rows_for(state, ids))
+            planes, new_res_rows = self._compress_uplink(t, ids, planes, self._own(w, "zero"),
+                                                         res, d)
+            if new_res_rows is not None:
+                new_res_rows = self._all_rows(new_res_rows)[:C]
         entry = CohortUplink(delta=planes["delta"], state_delta=planes.get("state_delta"),
                              extra=planes.get("extra"), ids=inp.ids, w=w, eta_l=eta_l)
-        loss = (losses * w).sum() / n_active.clamp(min=1.0)
+        loss = (self._all_rows(losses)[:C] * w).sum() / n_active.clamp(min=1.0)
         return entry, _Launched(n_active, loss, n_dropped, n_quar), new_res_rows
 
     def _close_post(self, fsrv: ServerState, new_x, new_m, mean_delta, n_active, eta_l,
@@ -626,7 +715,12 @@ class FederatedEngine:
         compressed state delta is decoded for the scatter; with
         ``emit_rows`` the updated ``(C, P)`` rows come back instead of being
         scattered.  Leaves the round counter alone.  Returns ``(state,
-        ‖mean Δ‖, quorum_skipped, rows)``."""
+        ‖mean Δ‖, quorum_skipped, rows)``.
+
+        Under cohort sharding the entry's planes are this rank's rows: the
+        fold rows run through ``scatter_fold`` and the updated client-state
+        rows are all-gathered before the scatter, which writes the C real
+        rows only (pad ids repeat the last id)."""
         cfg, algo = self.cfg, self.algo
         delta = entry.delta
         if isinstance(delta, TopKPlane):
@@ -635,9 +729,15 @@ class FederatedEngine:
         n_active = w.sum()
         x_t, fsrv = state.params, state.server
         planes = {"delta": delta, "state_delta": entry.state_delta, "extra": entry.extra}
-        new_x, new_m, mean_delta = fused_fold(algo, cfg, planes, w / n_active.clamp(min=1.0),
-                                              n_active, x_t, fsrv.momentum, entry.eta_l,
-                                              discount=discount)
+        wn = w / n_active.clamp(min=1.0)
+        if self._rows is None:
+            new_x, new_m, mean_delta = fused_fold(algo, cfg, planes, wn, n_active, x_t,
+                                                  fsrv.momentum, entry.eta_l, discount=discount)
+        else:
+            new_x, new_m, mean_delta = scatter_fold(
+                algo, cfg, planes, self._padded(wn, "zero"), n_active, x_t, fsrv.momentum,
+                entry.eta_l, discount=discount, group=self.cohort_group, rank=self._rank,
+                n_shards=self._shards)
         new_x, new_server = self._close_post(fsrv, new_x, new_m, mean_delta, n_active,
                                              entry.eta_l, discount)
         # a below-quorum (or empty) cohort carries the server planes through
@@ -654,8 +754,10 @@ class FederatedEngine:
             sd = entry.state_delta
             if isinstance(sd, QPlane):
                 sd = decompress_plane(sd)
-            base = fold_rows if fold_rows is not None else self._client_rows(state, entry.ids)
-            rows = base + sd * (w * ok.to(torch.float32))[:, None]
+            base = (fold_rows if fold_rows is not None
+                    else self._client_rows(state, self._own(entry.ids)))
+            rows = base + sd * (self._own(w, "zero") * ok.to(torch.float32))[:, None]
+            rows = self._all_rows(rows)[:w.shape[0]]
             if not emit_rows:
                 new_cst = new_cst.index_copy(0, entry.ids.long(), rows)
                 rows = None

@@ -39,13 +39,14 @@ class FaultPlan(NamedTuple):
     noise: Optional[torch.Tensor]
 
 
-def fault_masks(fault, t, ids: torch.Tensor, size: int = 0, *,
+def fault_masks(fault, t, ids: torch.Tensor, size: int = 0, *, noise_ids=None,
                 u_drop=None, z_deadline=None, u_corrupt=None, z_noise=None) -> FaultPlan:
     """Reproducible per-client fault draws for absolute round ``t`` (a
     device tensor).  ``size`` is the plane length P the "noise" mode draws
-    over.  An injected draw replaces the hash's: ``u_drop`` / ``u_corrupt``
-    (C,) uniforms, ``z_deadline`` (C,) normals, ``z_noise`` (C, P)
-    normals."""
+    over, for the rows of ``noise_ids`` (default ``ids``; a cohort shard
+    draws its own rows only).  An injected draw replaces the hash's:
+    ``u_drop`` / ``u_corrupt`` (C,) uniforms, ``z_deadline`` (C,) normals,
+    ``z_noise`` the noise rows' normals."""
     C, dev = ids.shape[0], ids.device
     drop = torch.zeros((C,), dtype=torch.bool, device=dev)
     if fault.drop_rate > 0.0:
@@ -63,8 +64,8 @@ def fault_masks(fault, t, ids: torch.Tensor, size: int = 0, *,
             draws.uniform(fault.seed, t, STREAM_CORRUPT, ids)
         corrupt = u < fault.corrupt_rate
         if fault.corrupt_mode == "noise":
-            noise = z_noise if z_noise is not None else \
-                draws.normal(fault.seed, t, STREAM_NOISE, ids, size)
+            noise = z_noise if z_noise is not None else draws.normal(
+                fault.seed, t, STREAM_NOISE, ids if noise_ids is None else noise_ids, size)
     return FaultPlan(drop=drop, corrupt=corrupt, noise=noise)
 
 

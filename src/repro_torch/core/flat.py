@@ -15,6 +15,7 @@ import math
 from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.utils.trees import (
     ravel_leaves,
@@ -103,6 +104,95 @@ class CohortUplink(NamedTuple):
     ids: Any  # (C,) sampled client ids
     w: Any  # (C,) f32 post-fault weights
     eta_l: Any  # f32 η_l at launch (the fold reuses it)
+
+
+def pad_cohort(a, target: int, mode: str = "edge"):
+    """Pad the leading (cohort) axis of ``a`` — a tensor, a dict of tensors
+    or None — to ``target`` rows.
+
+    The cohort-parallel engine pads the drawn cohort to a multiple of the
+    shard count AFTER the minibatch and client-state draws, so the
+    generator's stream and every real client's inputs are the unsharded
+    round's.  ``mode="edge"`` (data: batches, ids, gathered client-state
+    rows, full batches) repeats the last real row, so pad clients compute
+    on a real client's finite inputs; ``mode="zero"`` (the weight row and
+    masks) pads exact zeros, so pad rows never count: a trailing ``+0.0``
+    in the fold is exact."""
+    if a is None:
+        return None
+    if isinstance(a, dict):
+        return {k: pad_cohort(v, target, mode) for k, v in a.items()}
+    extra = target - a.shape[0]
+    if extra <= 0:
+        return a
+    if mode == "edge":
+        tail = a[-1:].expand(extra, *a.shape[1:])
+    else:
+        tail = torch.zeros((extra, *a.shape[1:]), dtype=a.dtype, device=a.device)
+    return torch.cat([a, tail])
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bytes as a uint8 tensor (last axis × itemsize).  The
+    collectives here move data and reduce nothing, so they send bytes: any
+    dtype crosses any transport (gloo refuses int16, for one)."""
+    return t.contiguous().view(torch.uint8)
+
+
+def gather_rows(rows: torch.Tensor, group, n_shards: int) -> torch.Tensor:
+    """All-gather each rank's ``(C_loc, ...)`` rows into the ``(n·C_loc,
+    ...)`` padded cohort, rank r's rows at ``[r·C_loc, (r+1)·C_loc)``."""
+    send = _bytes(rows)
+    parts = [torch.empty_like(send) for _ in range(n_shards)]
+    dist.all_gather(parts, send, group=group)
+    return torch.cat(parts).view(rows.dtype).reshape(n_shards * rows.shape[0],
+                                                     *rows.shape[1:])
+
+
+def cohort_to_columns(plane: torch.Tensor, group, n_shards: int) -> torch.Tensor:
+    """This rank's ``(C_loc, P)`` rows → the ``(C_pad, chunk)`` column block
+    ``r`` of the whole padded cohort, ``chunk = ceil(P / n_shards)``: pad
+    P to ``n·chunk``, lay the rows out as ``(n, C_loc, chunk)`` (block s
+    goes to rank s) and ``all_to_all``.  The received blocks stack in rank
+    order, so rows come out in global client order BECAUSE rank r holds the
+    r-th block of rows.
+
+    This is the first half of a reduce-scatter: the fold then reduces over
+    the COMPLETE cohort for its columns, in the unsharded order.  A
+    ``reduce_scatter`` would pre-reduce each rank's rows and re-associate
+    the f32 sum, and sharded ≡ unsharded bitwise would break."""
+    send = columns_send(plane, n_shards)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(_bytes(recv), _bytes(send), group=group)
+    return recv.reshape(-1, send.shape[-1])
+
+
+def columns_send(plane: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """``cohort_to_columns``' send buffer: this rank's ``(C_loc, P)`` rows
+    as a contiguous ``(n, C_loc, chunk)`` tensor whose block s, the rows'
+    columns ``[s·chunk, (s+1)·chunk)`` of the plane padded to ``n·chunk``,
+    goes to rank s.  Rank r receives block r of every rank, in rank
+    order."""
+    C_loc, Pn = plane.shape
+    chunk = -(-Pn // n_shards)
+    padded = torch.nn.functional.pad(plane, (0, chunk * n_shards - Pn))
+    return padded.reshape(C_loc, n_shards, chunk).transpose(0, 1).contiguous()
+
+
+def plane_chunk(vec: torch.Tensor, rank: int, n_shards: int) -> torch.Tensor:
+    """Rank ``rank``'s column chunk of a replicated ``(P,)`` plane, aligned
+    with ``cohort_to_columns``: a view at element ``rank·chunk`` of the
+    plane padded to ``n·chunk`` (so any byte offset, not only 16-byte
+    ones)."""
+    chunk = -(-vec.shape[-1] // n_shards)
+    padded = torch.nn.functional.pad(vec, (0, chunk * n_shards - vec.shape[-1]))
+    return padded[rank * chunk:(rank + 1) * chunk]
+
+
+def gather_plane(chunk: torch.Tensor, group, n_shards: int, size: int) -> torch.Tensor:
+    """Inverse of ``plane_chunk``: all-gather the ranks' column chunks into
+    the replicated ``(size,)`` plane (pad columns dropped)."""
+    return gather_rows(chunk, group, n_shards)[:size]
 
 
 def ring_push(pending: Sequence[CohortUplink], entry: CohortUplink):

@@ -3,7 +3,9 @@
 ``fused_server_step`` launches one coefficient-row pass over a dense
 plane, ``dequant_server_step`` one over a compressed int8/bf16 plane;
 ``fused_fold`` runs all of an ``AlgorithmSpec``'s ``FoldPass`` rows against
-the cohort's uplink planes, a ``QPlane`` through the dequant fold.  A statically-zero coefficient skips the matching output:
+the cohort's uplink planes, a ``QPlane`` through the dequant fold, and
+``scatter_fold`` runs them under cohort sharding on this rank's column
+block.  A statically-zero coefficient skips the matching output:
 a pass with ``c_xd == 0.0`` never rewrites params, one with ``c_md == 0.0,
 c_mm == 1.0`` never touches the momentum.  Coefficients go to the kernel
 as a device f32 vector (``coef_vector``), so the per-round
@@ -17,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.compress import QPlane, TopKPlane
+from repro_torch.core.flat import cohort_to_columns, gather_plane, gather_rows, plane_chunk
 from repro_torch.core.registry import _fold_coef, _is_static_one, _is_static_zero
 from repro_torch.kernels import coef_vector
 from repro_torch.kernels.server_update import kernel
@@ -88,3 +91,39 @@ def fused_fold(spec, cfg, planes, wn, n_active, x, m, eta_l, discount=1.0):
         if adopt_m:
             m = new_m
     return x, m, mean_delta
+
+
+def scatter_fold(spec, cfg, planes, wn, n_active, x, m, eta_l, discount=1.0, *, group,
+                 rank: int, n_shards: int):
+    """``fused_fold`` under cohort sharding, in each rank of ``group``.
+
+    ``planes`` holds this rank's ``(C_loc, P)`` rows of each uplink plane
+    (dense or a ``QPlane``), ``wn`` the padded ``(C_pad,)`` mask/|S| row
+    (zeros on pad rows), ``x`` / ``m`` the replicated ``(P,)`` server
+    planes.  Three steps:
+
+    1. ``cohort_to_columns``: an ``all_to_all`` turns each plane into the
+       ``(C_pad, ceil(P/n))`` column block of this rank — the complete
+       cohort for its columns.  A ``QPlane`` moves its int8 / bf16 payload
+       so, and all-gathers its ``(C_loc, 1)`` f32 scales into ``(C_pad, 1)``;
+    2. ``fused_fold`` on the block, with ``plane_chunk`` views of x and m:
+       each fold row's kernel sums the cohort in the unsharded order;
+    3. ``gather_plane`` rebuilds the replicated planes.
+
+    Returns ``(new_x, new_m, mean_delta)`` as ``fused_fold`` does, bit for
+    bit the unsharded fold's."""
+    def to_columns(v):
+        if isinstance(v, QPlane):
+            return QPlane(q=cohort_to_columns(v.q, group, n_shards),
+                          scale=gather_rows(v.scale, group, n_shards))
+        return cohort_to_columns(v, group, n_shards)
+
+    size = x.shape[-1]
+    # in the fold rows' order: every rank runs the same collectives in turn
+    cols = {name: to_columns(planes[name]) for name in dict.fromkeys(p.plane for p in spec.fold)}
+    new_x, new_m, mean = fused_fold(spec, cfg, cols, wn, n_active,
+                                    plane_chunk(x, rank, n_shards),
+                                    plane_chunk(m, rank, n_shards), eta_l, discount=discount)
+    return (gather_plane(new_x, group, n_shards, size),
+            gather_plane(new_m, group, n_shards, size),
+            None if mean is None else gather_plane(mean, group, n_shards, size))

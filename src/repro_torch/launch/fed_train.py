@@ -17,8 +17,11 @@ atomic whole-run snapshot (``repro_torch.checkpoint``) every N rounds,
 run (exit code 75) right after a snapshot; ``--serve`` adds the fleet loop
 (``repro_torch.fleet``): each snapshot's params are published, a serving
 thread hot-swaps them, one telemetry row a round, and a health endpoint.
-Runs on ``cuda`` and raises when there is no GPU, unless ``--device cpu``
-asks for the CPU (the kernels' plain versions).
+``--cohort-shard N`` spawns N ranks that shard each cohort between them
+(``repro_torch.launch.mesh``): NCCL on ``cuda:0`` … ``cuda:N−1``, or gloo
+with ``--device cpu``; rank 0 prints the log, line for line the unsharded
+run's.  Runs on ``cuda`` and raises when there is no GPU, unless ``--device
+cpu`` asks for the CPU (the kernels' plain versions).
 
     PYTHONPATH=src python -m repro_torch.launch.fed_train --algo fedcm \
         --clients 100 --cohort 10 --rounds 100 --dirichlet 0.6
@@ -32,16 +35,19 @@ asks for the CPU (the kernels' plain versions).
         --ckpt-dir runs/a --die-after 10          # exits 75; add --resume to go on
     PYTHONPATH=src python -m repro_torch.launch.fed_train --rounds 20 --ckpt-every 5 \
         --ckpt-dir runs/fleet --serve
+    PYTHONPATH=src python -m repro_torch.launch.fed_train --cohort-shard 4 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.fed_train --list-algos
 """
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import latest_step, load_fed_run, save_fed_run
 from repro_torch.configs.base import CompressionConfig, FaultConfig, FedConfig
@@ -56,8 +62,15 @@ from repro_torch.core.flat import FlatSpec
 from repro_torch.core.registry import describe_algorithm, get_algorithm, list_algorithms
 from repro_torch.data import FederatedData, StreamingClientData, make_synthetic_classification
 from repro_torch.data.population import AVAILABILITY_PROCESSES, POPULATION_STORES
+from repro_torch.launch.mesh import RankFailure, spawn_cohort
 from repro_torch.models.small import classification_loss, mlp_classifier
 from repro_torch.utils.metrics import MetricLogger
+
+PREEMPTED = 75  # --die-after's exit code
+# a sharded run's world: each collective may wait this long for a slow or
+# dead rank, and the whole run may take this long
+SHARD_TIMEOUT_S = 600.0
+SHARD_DEADLINE_S = 7 * 24 * 3600.0
 
 
 def run_federated(
@@ -109,7 +122,12 @@ def run_federated(
     the params entering the run, each snapshot's params are published, a
     serving thread hot-swaps them between inference steps, one telemetry
     row a round and a health endpoint.  Fleet is observation-only: the
-    params are bitwise those of the same run without it."""
+    params are bitwise those of the same run without it.
+
+    ``cfg.cohort_shard`` > 0: this process is one rank of a cohort world
+    (``main`` spawns them; the state is replicated), and rank 0 alone
+    writes the snapshots, every rank passing a barrier after each; a
+    resume reads the same file on every rank."""
     dev = resolve_device(device)
     if cfg.population_store == "host":
         data = StreamingClientData(cfg.num_clients, dim=dim, n_classes=n_classes, seed=seed)
@@ -207,8 +225,11 @@ def run_federated(
         version = None
         snapshot = ckpt_every > 0 and (r % ckpt_every == 0 or r >= cfg.rounds)
         if snapshot:
-            save_fed_run(ckpt_dir, r, state, spec, population=_inner(eng.population),
-                         residuals=_inner(eng.residual_population))
+            if eng.cohort_rank == 0:
+                save_fed_run(ckpt_dir, r, state, spec, population=_inner(eng.population),
+                             residuals=_inner(eng.residual_population))
+            if eng.cohort_group is not None:
+                dist.barrier(eng.cohort_group)
             if fleet is not None:
                 version = fleet.publish(r, spec.unravel(state.params.cpu()))
         if fleet is not None:
@@ -218,7 +239,7 @@ def run_federated(
         if snapshot and 0 < die_after <= r:
             # preemption: no clean-up, no atexit; the snapshot just written
             # (and the telemetry rows, already fsynced) is all a resume has
-            os._exit(75)
+            os._exit(PREEMPTED)
     if fleet is not None:
         summary = fleet.stop()
         print(f"fleet: {summary.get('swaps', 0)} hot-swaps "
@@ -404,6 +425,9 @@ def build_parser() -> argparse.ArgumentParser:
                        help="telemetry JSONL path (default <ckpt-dir>/telemetry.jsonl)")
     fleet.add_argument("--publish-retain", type=int, default=4,
                        help="published versions kept on disk (>= 2)")
+    ap.add_argument("--cohort-shard", type=int, default=0,
+                    help="shard each cohort over N ranks, one process each: NCCL on "
+                         "cuda:0..N-1, or gloo with --device cpu; 0 = one process")
     return ap
 
 
@@ -429,6 +453,11 @@ def check_flags(ap: argparse.ArgumentParser, args: argparse.Namespace) -> None:
     if args.publish_retain < 2:
         ap.error("--publish-retain must be >= 2: the publication ring must outlive a "
                  "reader's just-resolved version")
+    if args.cohort_shard < 0:
+        ap.error("--cohort-shard must be >= 0")
+    if args.population_store == "host" and args.cohort_shard > 0:
+        ap.error("--population-store host is a single-device host loop; it does not "
+                 "compose with --cohort-shard")
 
 
 def resolve_config(args: argparse.Namespace) -> FedConfig:
@@ -462,6 +491,7 @@ def resolve_config(args: argparse.Namespace) -> FedConfig:
         population_store=args.population_store, availability=args.availability,
         zipf_exponent=args.zipf_exponent, dropout_rate=args.dropout_rate,
         fault=fault, min_quorum=args.min_quorum, compression=compression,
+        cohort_shard=args.cohort_shard,
     )
 
 
@@ -473,8 +503,32 @@ def main(argv=None) -> int:
         print(list_algos_text(compression=cfg.compression))
         return 0
     check_flags(ap, args)
+    if args.cohort_shard > 0:
+        if args.serve:
+            raise NotImplementedError("--serve under --cohort-shard (the fleet loop of a "
+                                      "sharded run) is not ported to repro_torch yet "
+                                      "(ROADMAP A.14)")
+        resolve_device(args.device)
+        try:
+            acc = spawn_cohort(_shard_main, args.cohort_shard,
+                               args=(sys.argv[1:] if argv is None else list(argv),),
+                               device=args.device, timeout_s=SHARD_TIMEOUT_S,
+                               deadline_s=SHARD_DEADLINE_S)[0]
+        except RankFailure as e:
+            if not e.errors and PREEMPTED in e.exitcodes.values():
+                # --die-after: a rank leaves only past the barrier that
+                # follows the snapshot's write
+                return PREEMPTED
+            raise
+    else:
+        acc = _run(args, cfg, args.device)
+    print(f"\n{args.algo}: final test accuracy = {acc:.4f}")
+    return 0
+
+
+def _run(args, cfg: FedConfig, device, echo: bool = True) -> float:
     acc, _ = run_federated(cfg, args.dirichlet, eval_every=args.eval_every,
-                           seed=args.seed, device=args.device,
+                           seed=args.seed, device=device, echo=echo,
                            async_pipeline=args.async_pipeline,
                            ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir,
                            resume=args.resume, die_after=args.die_after,
@@ -482,8 +536,14 @@ def main(argv=None) -> int:
                            round_deadline_s=args.round_deadline,
                            telemetry_path=args.telemetry,
                            publish_retain=args.publish_retain)
-    print(f"\n{args.algo}: final test accuracy = {acc:.4f}")
-    return 0
+    return acc
+
+
+def _shard_main(rank: int, device, argv) -> float:
+    """One rank of ``--cohort-shard N``: the same run on this rank's
+    device, the log on rank 0 only."""
+    args = build_parser().parse_args(argv)
+    return _run(args, resolve_config(args), device, echo=rank == 0)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,214 @@
+"""The cohort group and the ranks behind it: one process a cohort shard.
+
+Counterpart of ``repro.launch.mesh.make_cohort_mesh``.  The reference runs
+the cohort-parallel round as one SPMD program over a ``("clients",)`` device
+mesh; the port runs one process a shard, joined by a ``torch.distributed``
+process group.  ``spawn_cohort`` starts the ranks and ``make_cohort_group``
+gives the engine the group inside each of them.
+
+Backends: NCCL when the ranks are on distinct cards (rank r on ``cuda:r``);
+gloo when the ranks run on the CPU, or when the caller asks for it, which
+is how ranks that share one card are joined (gloo stages CUDA tensors
+through the host).  Nothing switches backend on its own.
+
+Every world has a timeout on its collectives (``timeout_s``: a rank that
+died leaves the others blocked in a collective only that long) and a
+deadline on its join (``deadline_s``), past which every rank is killed; a
+rank that fails ends the world at once.
+
+    results = spawn_cohort(fn, 4, args=(...), device="cpu")   # gloo
+    results = spawn_cohort(fn, 2, device="cuda")              # NCCL, cuda:0-1
+    results = spawn_cohort(fn, 4, device="cuda", backend="gloo")  # cuda:0 shared
+
+``fn(rank, device, *args)`` runs in rank ``rank`` after the group is up, on
+``device`` (a ``torch.device``); it must be importable by name (spawned
+ranks re-import its module) and return a picklable value, which
+``spawn_cohort`` returns in rank order.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import queue
+import shutil
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.sharding.rules import cohort_axis_size
+
+BACKENDS = ("nccl", "gloo")
+
+
+class RankFailure(RuntimeError):
+    """A rank of a cohort world raised, exited without a result or outlived
+    the deadline.  ``exitcodes`` maps each rank that ended without a result
+    or a traceback to its exit code (negative: killed by the launcher when
+    the world failed), ``errors`` each rank that raised to its traceback."""
+
+    def __init__(self, msg: str, exitcodes: Dict[int, Optional[int]], errors: Dict[int, str]):
+        super().__init__(msg)
+        self.exitcodes = exitcodes
+        self.errors = errors
+
+
+def resolve_backend(device, backend: Optional[str]) -> str:
+    """The world's backend: NCCL for ranks on cards, gloo on the CPU, or
+    the caller's explicit choice (gloo for ranks that share a card)."""
+    dev = torch.device(device)
+    if backend is None:
+        return "gloo" if dev.type == "cpu" else "nccl"
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError("the nccl backend joins ranks on CUDA cards; ranks on the CPU "
+                         "use gloo")
+    return backend
+
+
+def check_cards(n_shards: int, device, backend: str) -> None:
+    """Refuse a world that asks for more cards than are visible (NCCL puts
+    one rank on a card), or a CUDA world on a machine with none."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    need = n_shards if backend == "nccl" else 1
+    if need > visible:
+        raise ValueError(
+            f"cohort group wants {need} CUDA card{'s' if need > 1 else ''} for "
+            f"{n_shards} {backend} ranks but only {visible} are visible (ranks that share "
+            f"one card: backend='gloo'; on the CPU: device='cpu')")
+
+
+def rank_device(rank: int, device, backend: str) -> torch.device:
+    """Rank ``rank``'s device: the CPU, ``cuda:rank`` under NCCL, or the
+    cards in turn under gloo (``cuda:0`` for every rank on a one-card
+    machine)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev
+    if backend == "nccl":
+        return torch.device("cuda", rank)
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def make_cohort_group(n_shards: int = 0):
+    """The process group the cohort-parallel engine shards over: the
+    default group of this rank's world, whose size must be ``n_shards`` (0:
+    any size).  Raises when no world is up, naming how to start one."""
+    if not dist.is_initialized():
+        raise ValueError(
+            f"cohort_shard={n_shards} needs a process group of {n_shards} ranks and none "
+            f"is initialized; start the ranks with repro_torch.launch.mesh.spawn_cohort "
+            f"(CLI: --cohort-shard {n_shards}) or pass cohort_group=")
+    group = dist.group.WORLD
+    size = cohort_axis_size(group)
+    if n_shards and size != n_shards:
+        raise ValueError(f"cohort_shard={n_shards} but the process group has {size} ranks")
+    return group
+
+
+def _rank_main(rank, n_shards, backend, device, init_method, timeout_s, fn, args, results):
+    """A rank's body: join the world, run ``fn``, report its result (or
+    its traceback) and leave the world."""
+    try:
+        torch.set_num_threads(1)
+        dev = rank_device(rank, device, backend)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group(backend, init_method=init_method, world_size=n_shards,
+                                rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+        try:
+            out = fn(rank, dev, *args)
+        finally:
+            dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 — reported to the launcher, then re-raised
+        results.put((rank, False, traceback.format_exc()))
+        raise
+    results.put((rank, True, out))
+
+
+def _kill(procs) -> None:
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    for p in procs:
+        p.join(5)
+
+
+def spawn_cohort(fn: Callable, n_shards: int, args: Sequence[Any] = (), *, device="cpu",
+                 backend: Optional[str] = None, timeout_s: float = 60.0,
+                 deadline_s: float = 600.0) -> List[Any]:
+    """Run ``fn(rank, device, *args)`` in ``n_shards`` spawned ranks joined
+    by a process group (a ``file://`` store in a fresh temporary
+    directory), and return their results in rank order.  ``timeout_s``
+    bounds each collective, ``deadline_s`` the whole world.  Raises
+    ``RankFailure`` when a rank raises or exits without a result (the
+    others are killed at once) or the deadline passes (all are killed)."""
+    if n_shards < 1:
+        raise ValueError(f"a cohort world needs n_shards >= 1, got {n_shards}")
+    backend = resolve_backend(device, backend)
+    check_cards(n_shards, device, backend)
+    ctx = torch.multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    tmp = tempfile.mkdtemp(prefix="cohort_")
+    init_method = f"file://{os.path.join(tmp, 'store')}"
+    procs = [ctx.Process(target=_rank_main, daemon=True,
+                         args=(r, n_shards, backend, str(device), init_method, timeout_s, fn,
+                               tuple(args), results))
+             for r in range(n_shards)]
+    out: Dict[int, Any] = {}
+    errors: Dict[int, str] = {}
+    end = time.monotonic() + deadline_s
+    try:
+        for p in procs:
+            p.start()
+        late = False
+        while len(out) < n_shards and not errors:
+            try:
+                rank, ok, value = results.get(timeout=0.2)
+            except queue.Empty:
+                late = time.monotonic() > end
+                # a rank that ended with code 0 put its result before it exited
+                if late or any(p.exitcode not in (None, 0) and r not in out
+                               for r, p in enumerate(procs)):
+                    break
+                continue
+            (out if ok else errors)[rank] = value
+        if len(out) < n_shards:
+            # a rank raised, ended without a result, or the deadline passed:
+            # take what the others report within a moment, then end the world
+            stop = time.monotonic() + 1.0
+            while time.monotonic() < stop and len(out) + len(errors) < n_shards:
+                try:
+                    rank, ok, value = results.get(timeout=0.1)
+                except queue.Empty:
+                    continue
+                (out if ok else errors)[rank] = value
+            _kill(procs)
+            ended = {r: p.exitcode for r, p in enumerate(procs)
+                     if r not in out and r not in errors}
+            what = [f"passed its {deadline_s:g} s deadline"] if late else []
+            if errors:
+                what.append(f"rank(s) {sorted(errors)} raised")
+            if ended:
+                what.append(f"rank(s) {sorted(ended)} exited without a result (exit codes "
+                            f"{ended})")
+            raise RankFailure(f"cohort world of {n_shards} ranks: " + "; ".join(what)
+                              + _errors_text(errors), exitcodes=ended, errors=errors)
+        for p in procs:
+            p.join(max(1.0, end - time.monotonic()))
+        return [out[r] for r in range(n_shards)]
+    finally:
+        _kill(procs)
+        results.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _errors_text(errors: Dict[int, str]) -> str:
+    return "".join(f"\n--- rank {r} ---\n{tb}" for r, tb in sorted(errors.items()))

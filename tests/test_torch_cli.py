@@ -242,3 +242,66 @@ def test_cli_kill_and_resume_matches_the_straight_run_byte_for_byte(tmp_path):
     for step in (2, 4):
         assert ((tmp_path / "a" / f"step_{step}.msgpack").read_bytes()
                 == (tmp_path / "b" / f"step_{step}.msgpack").read_bytes())
+
+
+def _log_lines(stderr: str):
+    """The per-round log lines without their elapsed-time prefix."""
+    return [l.split("] ", 1)[1] for l in stderr.splitlines() if "round=" in l]
+
+
+def test_cli_cohort_shard_prints_the_unsharded_runs_lines():
+    """``--cohort-shard 4 --device cpu`` spawns four gloo ranks; rank 0's
+    log is the unsharded run's, line for line (sharded ≡ unsharded)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "repro_torch.launch.fed_train", "--rounds", "6",
+           "--eval-every", "3", "--device", "cpu"]
+    plain = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=120)
+    sharded = subprocess.run(cmd + ["--cohort-shard", "4"], capture_output=True, text=True,
+                             env=env, timeout=120)
+    assert plain.returncode == 0, plain.stderr
+    assert sharded.returncode == 0, sharded.stderr
+    assert len(_log_lines(plain.stderr)) == 2
+    assert _log_lines(sharded.stderr) == _log_lines(plain.stderr)
+    assert sharded.stdout.splitlines()[-1] == plain.stdout.splitlines()[-1]
+
+
+def test_cli_sharded_kill_and_resume_matches_the_straight_run_byte_for_byte(tmp_path):
+    """Under ``--cohort-shard 2`` rank 0 writes each snapshot and every rank
+    passes a barrier; ``--die-after`` makes the launcher exit with 75, and
+    ``--resume`` (the same file on every rank) ends on the straight
+    unsharded run's round-6 snapshot, byte for byte."""
+    argv = SMALL + ["--rounds", "6", "--eval-every", "3", "--ckpt-every", "3", "--algo",
+                    "scaffold", "--fault-drop-rate", "0.1", "--device", "cpu"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "repro_torch.launch.fed_train", *argv, "--cohort-shard", "2",
+           "--ckpt-dir", str(tmp_path / "a")]
+    died = subprocess.run(cmd + ["--die-after", "3"], capture_output=True, text=True, env=env,
+                          timeout=120)
+    assert died.returncode == 75, died.stderr
+    assert sorted(p.name for p in (tmp_path / "a").iterdir()) == ["step_3.msgpack"]
+    resumed = subprocess.run(cmd + ["--resume"], capture_output=True, text=True, env=env,
+                             timeout=120)
+    assert resumed.returncode == 0, resumed.stderr
+    assert _log_lines(resumed.stderr)[0].startswith("round=6")
+    assert fed_train.main(argv + ["--ckpt-dir", str(tmp_path / "b")]) == 0
+    for step in (3, 6):
+        assert ((tmp_path / "a" / f"step_{step}.msgpack").read_bytes()
+                == (tmp_path / "b" / f"step_{step}.msgpack").read_bytes())
+
+
+@pytest.mark.parametrize("argv", [
+    ["--cohort-shard", "-1"],
+    ["--cohort-shard", "2", "--population-store", "host"],
+], ids=["negative", "host-store"])
+def test_cli_refuses_bad_cohort_shard_flags(argv):
+    with pytest.raises(SystemExit) as e:
+        fed_train.main(argv + ["--device", "cpu"])
+    assert e.value.code == 2
+
+
+def test_cli_cohort_shard_wires_the_config_and_defers_serve():
+    args = fed_train.build_parser().parse_args(["--cohort-shard", "4"])
+    assert fed_train.resolve_config(args).cohort_shard == 4
+    with pytest.raises(NotImplementedError, match="A.14"):
+        fed_train.main(["--cohort-shard", "2", "--serve", "--ckpt-every", "2", "--ckpt-dir",
+                        "/tmp/x", "--device", "cpu"])

@@ -269,8 +269,19 @@ def test_unported_config_raises_naming_roadmap_item(knob, item):
         state = eng.init(params, torch.Generator().manual_seed(1))
         assert state.client_states is None  # fedcm keeps no per-client state
         return
-    # the tree path (A.16) and cohort sharding (A.14) are not ported; an
-    # unknown algorithm, availability process or store is a bad value
+    if item == "A.14":
+        # cohort sharding (A.14) is ported: the check accepts it, and the
+        # engine asks for the process group of its ranks, saying how to
+        # start one (tests/test_torch_cohort_shard.py runs it)
+        cfg = FedConfig(**knob)
+        check_supported(cfg)
+        model = mlp_classifier(DIMS)
+        spec = FlatSpec.from_tree(model.init(torch.Generator().manual_seed(0)))
+        with pytest.raises(ValueError, match="spawn_cohort"):
+            FederatedEngine(cfg, classification_loss(model.apply), spec, device="cpu")
+        return
+    # the tree path (A.16) is not ported; an unknown algorithm,
+    # availability process or store is a bad value
     error = ValueError if item.startswith("unknown") else NotImplementedError
     with pytest.raises(error, match=item):
         check_supported(FedConfig(**knob))
