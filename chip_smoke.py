@@ -13,9 +13,11 @@ JAX or of the JAX package.  Phases, each of which exits non-zero on failure:
    (``server_update.cu`` holds the dense fold and the dequant fold); then
    the tensor-core instructions (``HMMA``) of every compiled kernel, counted
    in ``cuobjdump -sass``: each tensor-core kernel of ``flash_attention``
-   and ``ssd_scan`` (the bf16 routes, ``*_mma_kernel``) must have some; and
-   the bulk copies (``UBLKCP``, ``cp.async.bulk`` global -> shared) of each
-   of the 32 ``fold_kernel`` instantiations, which must have some;
+   and ``ssd_scan`` (the bf16 routes, ``*_mma_kernel``) must have some; their
+   local-memory loads and stores (``LDL`` / ``STL``: register spills),
+   printed; and the bulk copies (``UBLKCP``, ``cp.async.bulk`` global ->
+   shared) of each of the 32 ``fold_kernel`` instantiations, which must
+   have some;
 3. kernels vs plain — each kernel against its plain PyTorch version on the
    card, at the main path's plane (C, P) = (25, 22026) and at a ResNet-18
    sized plane (25, 11173962, ragged on purpose): ``fed_direction`` at
@@ -42,11 +44,15 @@ JAX or of the JAX package.  Phases, each of which exits non-zero on failure:
    beside ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
    as the library yardstick), at a ragged shape with a window and
    q_offset that leaves rows no key, in f32 with hd=128 without the
-   causal mask, in bf16 with hd=128 at a ragged causal shape, and in bf16
-   without the causal mask (GQA, Sq ≠ Skv);
+   causal mask, in bf16 with hd=128 at a ragged causal shape, in bf16
+   without the causal mask (GQA, Sq ≠ Skv), then at the other archs'
+   shapes, each beside SDPA: gemma3's serving shape (H=16, Hkv=8, hd=256),
+   its local layer past the 1024 window (S=2048), the f32 route at hd=256,
+   zamba2's shared block (32 / 32 heads, hd=112) and qwen3 (40 / 8, hd=128);
    ``ssd_scan`` at the serving shape (B=4, S=1024, H=64, P=64, N=128,
-   L=64, bf16 x), at a ragged S, and at S < L in f32 and in bf16 — each
-   within the tolerance stated at ``LM_KERNEL_TOL``;
+   L=64, bf16 x), at a ragged S, at S < L in f32 and in bf16, and at
+   zamba2's shape (H=112, N=64) — each within the tolerance stated at
+   ``LM_KERNEL_TOL``;
 4. main path — ``repro_torch.launch.fed_train.run_federated`` with FedCM at
    the CLI defaults (N=100, cohort 10 Bernoulli → capacity 25, K=10, B=50,
    MLP 32-128-128-10) for 20 rounds, eval every 5, uncompressed, then with
@@ -147,18 +153,24 @@ JAX or of the JAX package.  Phases, each of which exits non-zero on failure:
    ``run_rounds_async`` runs (``run_rounds_async_on``): every state plane
    within ``PARITY_RTOL`` / ``PARITY_ATOL`` after the drain;
 6. serving — ``repro_torch.launch.serve`` (the CLI's ``run``) at full width
-   for llama3.2-1b and mamba2-1.3b, ``--full --batch 4 --prompt-len 1024
-   --gen 32 --sessions 2``, with the launch counts set to 0 just before
-   each and read just after: 16 ``flash_attention`` launches per prefill
-   (llama) and 48 ``ssd_scan`` (mamba2), none of the federated kernels;
-   prefill and decode ms and tok/s of each session; then one decode step
-   of each arch at that shape: its ms, and the device operations it runs
-   with their summed device time (torch.profiler);
-7. card vs CPU, serving — each arch at full width cut to 2 layers, B=2,
-   prompt 128, the same f32 weights on both devices: prefill logits and
-   cache, then 4 teacher-forced decode steps, each within ``LM_REL_L2``;
+   for the nine archs of ``SERVE_ARCHS``, ``--full --batch 4 --prompt-len
+   1024 --gen 32 --sessions 2``, chameleon, maverick and dbrx cut in depth
+   to fit one card (the cut config passed to ``run``), with the launch
+   counts set to 0 just before each and read just after: ``flash_attention``
+   / ``ssd_scan`` launches per prefill as the table says, none of the
+   federated kernels; tokens in range, finite logits, the run's peak device
+   memory; prefill and decode ms and tok/s of each session; then one
+   decode step of llama and mamba2 at that shape: its ms, and the device
+   operations it runs with their summed device time (torch.profiler);
+7. card vs CPU, serving — each arch at full width cut to one period
+   (``CARD_VS_CPU``), B=2, prompt 128, the same f32 weights on both
+   devices: prefill logits and cache, then 4 teacher-forced decode steps,
+   each within ``LM_REL_L2``; with f32 activations (the MoE archs,
+   zamba2's whole period) within ``F32_REL_L2``, the MoE archs with no
+   (token, choice) route differing between the devices;
 8. summary — the ``nvidia-smi`` line, one JSON line ``{"kernels": [...]}``
-   and, last, ``{"ok": true, "device": {...}}``.
+   (``flash_attention`` / ``ssd_scan`` launches summed over phase 6's
+   serving runs) and, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -193,7 +205,49 @@ LM_KERNEL_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -7, 1e-5)}
 # GEMMs summing in another order than the CPU's: relative L2 error ≤ 2e-2
 # (~10 half-ulps) for the logits and every cache leaf.
 LM_REL_L2 = 2e-2
+# Card vs CPU with f32 activations (phase 7): logits and caches agree to the
+# f32 GEMMs' summation order.  The MoE archs run so, because in bf16 a
+# one-ulp difference between the devices can flip a top-k route and change
+# that token's output wholesale, which is not a fault; in f32 no route may
+# differ.  So does zamba2's whole period (7 layers): in bf16 its prefill on
+# the CPU sits past LM_REL_L2 from the f32 model's (2.4e-2 relative L2 in its
+# largest cache leaf; phase 7 prints this drift for every row), so two bf16
+# runs that round differently cannot be held to LM_REL_L2 there.
+F32_REL_L2 = 1e-4
 SERVE_ARGS = ["--full", "--batch", "4", "--prompt-len", "1024", "--gen", "32", "--sessions", "2"]
+# phase 6: (arch, cut of the published config, kernel launches a prefill).
+# Depth is cut only where one 80 GB card forces it; maverick also stores its
+# params in bf16 (the reference's param_dtype field; its routers stay f32).
+SERVE_ARCHS = (
+    ("llama3.2-1b", {}, {"flash_attention": 16}),
+    ("mamba2-1.3b", {}, {"ssd_scan": 48}),
+    ("qwen3-14b", {}, {"flash_attention": 40}),
+    ("gemma3-12b", {}, {"flash_attention": 48}),
+    ("starcoder2-7b", {}, {"flash_attention": 32}),
+    ("zamba2-7b", {}, {"flash_attention": 13, "ssd_scan": 68}),
+    ("chameleon-34b", {"n_layers": 16}, {"flash_attention": 16}),
+    ("llama4-maverick-400b-a17b", {"n_layers": 2, "param_dtype": "bfloat16"},
+     {"flash_attention": 2}),
+    ("dbrx-132b", {"n_layers": 4}, {"flash_attention": 4}),
+)
+# phase 7: each arch at its published widths cut to one period, the same f32
+# weights on both devices, bf16 activations within LM_REL_L2 or f32 ones
+# within F32_REL_L2: zamba2 in bf16 as one mamba layer and the shared block
+# (attn_every 2, as the reference's ``reduced``), and in f32 as its whole
+# period plus one tail layer; the MoE archs in f32, maverick's experts cut
+# to 16 for the host's memory
+CARD_VS_CPU = (
+    ("llama3.2-1b", {"n_layers": 2}),
+    ("mamba2-1.3b", {"n_layers": 2}),
+    ("qwen3-14b", {"n_layers": 2}),
+    ("starcoder2-7b", {"n_layers": 2}),
+    ("chameleon-34b", {"n_layers": 2}),
+    ("gemma3-12b", {"n_layers": 6}),
+    ("zamba2-7b", {"n_layers": 2, "attn_every": 2}),
+    ("zamba2-7b", {"n_layers": 7, "dtype": "float32"}),
+    ("dbrx-132b", {"n_layers": 1, "dtype": "float32"}),
+    ("llama4-maverick-400b-a17b", {"n_layers": 2, "n_experts": 16, "dtype": "float32"}),
+)
 # the algorithms beyond FedCM and FedAvg (phases 4b and 5b)
 OTHER_ALGOS = ("fedprox", "fedavgm", "fedacg", "fedadam", "fedadagrad", "fedyogi", "mimelite",
                "scaffold", "feddyn")
@@ -636,10 +690,13 @@ def check_flash_attention(torch, fa_kernel, fa_ref, B, Sq, Skv, H, Hkv, hd, dtyp
     if library:  # the yardstick: one PyTorch call, (B, H, S, hd) layout, never on the path
         sdpa = torch.nn.functional.scaled_dot_product_attention
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        lib = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+        if window is None and q_offset == 0:  # the built-in masks: no mask tensor
+            lkw = dict(is_causal=causal, enable_gqa=True)
+        else:
+            lkw = dict(attn_mask=keep, enable_gqa=True)
+        lib = sdpa(qt, kt, vt, **lkw).transpose(1, 2)
         res["library_max_abs_diff"] = max_err(torch, lib, ref)
-        res["library_ms"] = graph_ms(
-            torch, lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), reps)
+        res["library_ms"] = graph_ms(torch, lambda: sdpa(qt, kt, vt, **lkw), reps)
     return res
 
 
@@ -687,29 +744,35 @@ def check_ssd_scan(torch, ssd_kernel, ssd_ref, B, S, H, P, N, L, dtype, gen):
 
 # ---------------------------------------------------------------------- phase 6
 def serve_full_width(torch, np, bindings):
-    """``repro_torch.launch.serve`` at full width for both ported archs,
-    each with the launch counts set to 0 just before and read just after."""
+    """``repro_torch.launch.serve.run`` at full width for every arch of
+    ``SERVE_ARCHS`` (its cut passed as ``cfg``), each with the launch counts
+    set to 0 just before and read just after, and the peak device memory
+    of the run."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import serve
 
-    per_prefill = {"llama3.2-1b": {"flash_attention": 16}, "mamba2-1.3b": {"ssd_scan": 48}}
     out = {}
-    for arch, want in per_prefill.items():
+    for arch, cut, want in SERVE_ARCHS:
         args = serve.build_parser().parse_args(["--arch", arch, *SERVE_ARGS])
+        cfg = replace(get_config(arch), **cut)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         for b in bindings.values():
             b.launches = 0
         t0 = time.perf_counter()
-        res = serve.run(args)
+        res = serve.run(args, cfg=cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: b.launches for k, b in bindings.items()}
         expected = {k: want.get(k, 0) * args.sessions for k in bindings}
         if launches != expected:
             fail(f"serving {arch}: launch counts {launches}, expected {expected}")
-        vocab = get_config(arch).padded_vocab
         if res.tokens.shape != (args.batch, args.gen) or not (
-                (res.tokens >= 0).all() and (res.tokens < vocab).all()):
-            fail(f"serving {arch}: tokens of shape {res.tokens.shape} outside [0, {vocab})")
+                (res.tokens >= 0).all() and (res.tokens < cfg.padded_vocab).all()):
+            fail(f"serving {arch}: tokens of shape {res.tokens.shape} outside "
+                 f"[0, {cfg.padded_vocab})")
+        if not res.finite:
+            fail(f"serving {arch}: non-finite logits")
         rows = []
         for s, (tp, td) in enumerate(zip(res.prefill_s, res.decode_s)):
             rows.append({"session": s, "prefill_ms": tp * 1e3,
@@ -717,9 +780,13 @@ def serve_full_width(torch, np, bindings):
                          "decode_ms": td * 1e3,
                          "decode_tok_s": args.batch * (args.gen - 1) / td})
             say(f"serving {arch}: {json.dumps(rows[-1])}")
-        say(f"serving {arch}: launches {launches} in {args.sessions} sessions "
-            f"({wall:.1f} s with init); first tokens {res.tokens[0, :8].tolist()}")
-        out[arch] = {"launches": launches, "sessions": args.sessions, "rows": rows}
+        peak = torch.cuda.max_memory_allocated()
+        say(f"serving {arch} (n_layers {cfg.n_layers} of {get_config(arch).n_layers}, params "
+            f"{cfg.param_dtype}): launches {launches} in {args.sessions} sessions "
+            f"({wall:.1f} s with init), peak device memory {peak} B; first tokens "
+            f"{res.tokens[0, :8].tolist()}")
+        out[arch] = {"launches": launches, "sessions": args.sessions, "rows": rows,
+                     "n_layers": cfg.n_layers, "peak_bytes": peak}
         del res
         torch.cuda.empty_cache()
     return out
@@ -769,47 +836,91 @@ def decode_step_breakdown(torch, arch: str):
 
 
 # ---------------------------------------------------------------------- phase 7
-def serve_card_vs_cpu(torch, np, arch: str):
-    """Full width cut to 2 layers, B=2, prompt 128: prefill logits and cache,
-    then 4 teacher-forced decode steps on the card and on the CPU from the
-    same f32 weights (drawn on the CPU), each within ``LM_REL_L2``."""
-    from dataclasses import replace as dc_replace
-
+def serve_card_vs_cpu(torch, np, arch: str, cut: dict):
+    """The published widths with ``cut`` (``CARD_VS_CPU``), B=2, prompt 128:
+    prefill logits and cache, then 4 teacher-forced decode steps on the
+    card and on the CPU from the same f32 weights (drawn on the card),
+    each within ``LM_REL_L2`` (bf16 activations) or ``F32_REL_L2`` (f32).
+    An MoE arch is also held to the same top-k route for every (token,
+    choice) of every router call on both devices; the smallest gap between
+    the k-th and (k+1)-th router probability is reported.  Beside the
+    gaps, the scale of bf16 rounding at that depth: the largest relative
+    L2 between the CPU's prefill in bf16 and in f32 (logits, cache)."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch.serve import merge
+    from repro_torch.models import layers
     from repro_torch.models.model import build_model
     from repro_torch.utils.trees import tree_leaves, tree_map
 
-    cfg = dc_replace(get_config(arch), n_layers=2)
+    cfg = replace(get_config(arch), **cut)
     model = build_model(cfg)
-    params_cpu = model.init(torch.Generator().manual_seed(5))
-    params = {"cpu": params_cpu, "cuda": tree_map(lambda t: t.cuda(), params_cpu)}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    params = {"cuda": model.init(gen)}
+    params["cpu"] = tree_map(lambda t: t.cpu(), params["cuda"])
+    moe = cfg.n_experts > 0
+    tol = F32_REL_L2 if cfg.dtype == "float32" else LM_REL_L2
     B, S, steps = 2, 128, 4
     toks = np.random.default_rng(5).integers(0, cfg.vocab_size, size=(B, S + steps))
-    outs = {}
+    outs, routes = {}, {}
+    router = layers._router
+
     for dev in ("cuda", "cpu"):
-        p = params[dev]
-        t = torch.as_tensor(toks, device=dev)
-        logits, pre, _ = model.apply(p, t[:, :S], return_cache=True)
-        seq = [("prefill logits", logits)]
-        seq += [(f"prefill cache {i}", x) for i, x in enumerate(tree_leaves(pre))]
-        cache = tree_map(merge, model.init_cache(p, B, S + steps), pre)
-        for i in range(steps):
-            lg, cache = model.decode_step(p, t[:, S + i:S + i + 1], cache, S + i)
-            seq.append((f"decode {i} logits", lg))
-        seq += [(f"decode cache {i}", x) for i, x in enumerate(tree_leaves(cache))]
-        outs[dev] = [(name, x.detach().float().cpu()) for name, x in seq]
+        calls = routes[dev] = []
+
+        def recording_router(p, x, c):  # every MoE layer's routing decision, in call order
+            got = router(p, x, c)
+            calls.append((got[1].cpu(), got[2].float().cpu()))
+            return got
+
+        layers._router = recording_router
+        try:
+            p = params[dev]
+            t = torch.as_tensor(toks, device=dev)
+            logits, pre, _ = model.apply(p, t[:, :S], return_cache=True)
+            seq = [("prefill logits", logits)]
+            seq += [(f"prefill cache {i}", x) for i, x in enumerate(tree_leaves(pre))]
+            cache = tree_map(merge, model.init_cache(p, B, S + steps), pre)
+            for i in range(steps):
+                lg, cache = model.decode_step(p, t[:, S + i:S + i + 1], cache, S + i)
+                seq.append((f"decode {i} logits", lg))
+            seq += [(f"decode cache {i}", x) for i, x in enumerate(tree_leaves(cache))]
+            outs[dev] = [(name, x.detach().float().cpu()) for name, x in seq]
+        finally:
+            layers._router = router
+    # the scale of bf16 rounding at this depth: the CPU's prefill with the
+    # other activation dtype (f32 for a bf16 row, bf16 for an f32 row)
+    alt = build_model(replace(cfg, dtype="float32" if cfg.dtype == "bfloat16" else "bfloat16"))
+    a_logits, a_pre, _ = alt.apply(params["cpu"], torch.as_tensor(toks[:, :S]), return_cache=True)
+    drift = max(float((x.float() - y).norm() / y.norm().clamp_min(1e-30)) for x, (_, y) in zip(
+        [a_logits, *tree_leaves(a_pre)], outs["cpu"]))
+    del params, a_logits, a_pre
+    torch.cuda.empty_cache()
     worst = {}
     for (name, a), (_, b) in zip(outs["cuda"], outs["cpu"]):
         rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
         worst[name] = rel
-        if not (rel <= LM_REL_L2 and bool(torch.isfinite(a).all())):
+        if not (rel <= tol and bool(torch.isfinite(a).all())):
             fail(f"card vs CPU serving {arch}: {name} relative L2 error {rel:.3e} "
-                 f"> {LM_REL_L2} (max abs diff {float((a - b).abs().max()):.3e})")
-    logits_rel = max(v for k, v in worst.items() if "logits" in k)
-    cache_rel = max(v for k, v in worst.items() if "cache" in k)
-    return {"arch": arch, "n_layers": 2, "B": B, "prompt": S, "decode_steps": steps,
-            "max_rel_l2_logits": logits_rel, "max_rel_l2_cache": cache_rel}
+                 f"> {tol} (max abs diff {float((a - b).abs().max()):.3e})")
+    row = {"arch": arch, "cut": cut, "B": B, "prompt": S, "decode_steps": steps,
+           "max_rel_l2_logits": max(v for k, v in worst.items() if "logits" in k),
+           "max_rel_l2_cache": max(v for k, v in worst.items() if "cache" in k),
+           "rel_l2_limit": tol, "cpu_bf16_vs_f32_prefill_rel_l2": drift}
+    if moe:
+        if len(routes["cuda"]) != len(routes["cpu"]) or not routes["cpu"]:
+            fail(f"card vs CPU serving {arch}: {len(routes['cuda'])} router calls on the card, "
+                 f"{len(routes['cpu'])} on the CPU")
+        flips = sum(int((a[0] != b[0]).sum()) for a, b in zip(routes["cuda"], routes["cpu"]))
+        k = cfg.top_k
+        gap = min(float((pr.sort(dim=-1, descending=True).values[:, k - 1]
+                         - pr.sort(dim=-1, descending=True).values[:, k]).min())
+                  for _, pr in routes["cpu"])
+        row.update(router_calls=len(routes["cpu"]), route_flips=flips,
+                   min_kth_prob_gap=gap)
+        if flips:
+            fail(f"card vs CPU serving {arch}: {flips} (token, choice) routes differ")
+    return row
 
 
 # ---------------------------------------------------------------------- phase 4b
@@ -1244,61 +1355,56 @@ def lm_serving_from_published(torch, np, bindings, work: Path):
     from repro_torch.launch import serve
     from repro_torch.utils.trees import tree_leaves, tree_map
 
-    get_config = serve.get_config
-    serve.get_config = lambda name: dc_replace(get_config(name), n_layers=2)
-    try:
-        pub_dir = work / "lm_pub"
-        args = serve.build_parser().parse_args([*LM_FLEET_ARGS, "--ckpt", str(pub_dir),
-                                                "--follow", "--sessions", "3"])
-        cfg = serve.get_config(args.arch)
-        model = serve.build_model(cfg if args.full else serve.reduced(cfg))
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(11)
-        params = model.init(gen)
-        pub = ModelPublisher(str(pub_dir), retain=2)
-        t0 = time.perf_counter()
-        pub.publish(params, step=0)
-        publish_ms = (time.perf_counter() - t0) * 1e3
-        payload = (pub_dir / "step_1.msgpack").stat().st_size
-        halves = tree_map(lambda a: 0.5 * a, params)
-        del params
-        published = threading.Event()
+    pub_dir = work / "lm_pub"
+    args = serve.build_parser().parse_args([*LM_FLEET_ARGS, "--ckpt", str(pub_dir),
+                                            "--follow", "--sessions", "3"])
+    cfg = dc_replace(serve.get_config(args.arch), n_layers=2)
+    model = serve.build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    params = model.init(gen)
+    pub = ModelPublisher(str(pub_dir), retain=2)
+    t0 = time.perf_counter()
+    pub.publish(params, step=0)
+    publish_ms = (time.perf_counter() - t0) * 1e3
+    payload = (pub_dir / "step_1.msgpack").stat().st_size
+    halves = tree_map(lambda a: 0.5 * a, params)
+    del params
+    published = threading.Event()
 
-        def publish_v2():
-            pub.publish(halves, step=1)
-            published.set()
+    def publish_v2():
+        pub.publish(halves, step=1)
+        published.set()
 
-        def on_step(stats):  # after session 0's last decode step
-            if stats.steps == args.gen - 1:
-                t = threading.Thread(target=publish_v2)
-                t.start()
-                t.join(timeout=300)
+    def on_step(stats):  # after session 0's last decode step
+        if stats.steps == args.gen - 1:
+            t = threading.Thread(target=publish_v2)
+            t.start()
+            t.join(timeout=300)
 
-        for b in bindings.values():
-            b.launches = 0
-        res = serve.run(args, on_step=on_step)
-        torch.cuda.synchronize()
-        launches = {k: b.launches for k, b in bindings.items()}
-        want = {k: 2 * args.sessions if k == "flash_attention" else 0 for k in bindings}
-        if (not published.is_set() or launches != want or res.stats.swaps < 1
-                or res.stats.served_version != 2):
-            fail(f"serving from published params: published {published.is_set()}, launches "
-                 f"{launches} (expected {want}), stats {res.stats}")
-        fresh = serve.run(serve.build_parser().parse_args(
-            [*LM_FLEET_ARGS, "--ckpt", str(pub_dir / "step_2.msgpack")]))
-        if not np.array_equal(res.tokens, fresh.tokens):
-            fail("serving from published params: the last session's tokens differ from a "
-                 "fresh run on version 2")
-        del halves
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, loaded, _ = load_published(str(pub_dir), model.init(gen), 2)
-        torch.cuda.synchronize()
-        load_ms = (time.perf_counter() - t0) * 1e3
-        n_params = sum(t.numel() for t in tree_leaves(loaded))
-        del loaded
-    finally:
-        serve.get_config = get_config
+    for b in bindings.values():
+        b.launches = 0
+    res = serve.run(args, on_step=on_step, cfg=cfg)
+    torch.cuda.synchronize()
+    launches = {k: b.launches for k, b in bindings.items()}
+    want = {k: 2 * args.sessions if k == "flash_attention" else 0 for k in bindings}
+    if (not published.is_set() or launches != want or res.stats.swaps < 1
+            or res.stats.served_version != 2):
+        fail(f"serving from published params: published {published.is_set()}, launches "
+             f"{launches} (expected {want}), stats {res.stats}")
+    fresh = serve.run(serve.build_parser().parse_args(
+        [*LM_FLEET_ARGS, "--ckpt", str(pub_dir / "step_2.msgpack")]), cfg=cfg)
+    if not np.array_equal(res.tokens, fresh.tokens):
+        fail("serving from published params: the last session's tokens differ from a "
+             "fresh run on version 2")
+    del halves
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, loaded, _ = load_published(str(pub_dir), model.init(gen), 2)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    n_params = sum(t.numel() for t in tree_leaves(loaded))
+    del loaded
     row = {"arch": "llama3.2-1b", "n_layers": 2, "params": n_params, "payload_bytes": payload,
            "publish_ms": publish_ms, "load_ms": load_ms, "swaps": res.stats.swaps,
            "swap_steps": res.stats.swap_steps, "served_version": res.stats.served_version,
@@ -1821,9 +1927,13 @@ def main() -> int:
         b.load()
         say(f"  bound {name}: {b.symbol} in {b.source}.cu")
     for name, info in built.items():
-        funcs = sass_counts(info["path"], {"HMMA": r"\bHMMA\b", "UBLKCP": r"\bUBLKCP"})
+        funcs = sass_counts(info["path"], {"HMMA": r"\bHMMA\b", "UBLKCP": r"\bUBLKCP",
+                                           "LDL": r"\bLDL\b", "STL": r"\bSTL\b"})
         counts = {k: c["HMMA"] for k, c in funcs}
         say(f"  HMMA per kernel in {name}: {json.dumps(counts)}")
+        if name in ("flash_attention", "ssd_scan"):  # spills show as local loads / stores
+            say(f"  local memory (LDL / STL) per kernel in {name}: "
+                f"{json.dumps({k: [c['LDL'], c['STL']] for k, c in funcs})}")
         mma = {k: v for k, v in counts.items() if "_mma_kernel" in k}
         if name in ("flash_attention", "ssd_scan") and (not mma or min(mma.values()) == 0):
             fail(f"{name}: a bf16 tensor-core kernel has no HMMA instruction: {counts}")
@@ -1899,24 +2009,35 @@ def main() -> int:
         + "; ".join(gamma_line(r, su_cases + dq_cases) for r in gamma_cases))
 
     fa_cases, ssd_cases = [], []
-    # (B, Sq, Skv, H, Hkv, hd, dtype, causal, window, q_offset): the serving
-    # shape, a ragged one whose window and q_offset leave rows 29-76 no key,
-    # f32 with hd=128 without the causal mask, bf16 with hd=128 ragged and
-    # causal, and bf16 without the causal mask (GQA, Sq ≠ Skv)
-    for B, Sq, Skv, H, Hkv, hd, dtype, causal, window, q_offset in (
-            (4, 1024, 1024, 32, 8, 64, torch.bfloat16, True, None, 0),
-            (2, 77, 50, 8, 2, 64, torch.bfloat16, True, 20, 40),
-            (2, 333, 301, 16, 4, 128, torch.float32, False, None, 0),
-            (2, 333, 333, 16, 4, 128, torch.bfloat16, True, None, 0),
-            (2, 200, 300, 8, 2, 64, torch.bfloat16, False, None, 0)):
+    # (B, Sq, Skv, H, Hkv, hd, dtype, causal, window, q_offset, library): the
+    # serving shape, a ragged one whose window and q_offset leave rows 29-76
+    # no key, f32 with hd=128 without the causal mask, bf16 with hd=128
+    # ragged and causal, bf16 without the causal mask (GQA, Sq ≠ Skv); then
+    # the other archs' shapes, each beside SDPA: gemma3's serving shape
+    # (hd 256), its local layer past the window, the f32 route at hd 256,
+    # zamba2's shared block (hd 112, padded to 128) and qwen3 (40 / 8 heads)
+    for B, Sq, Skv, H, Hkv, hd, dtype, causal, window, q_offset, library in (
+            (4, 1024, 1024, 32, 8, 64, torch.bfloat16, True, None, 0, True),
+            (2, 77, 50, 8, 2, 64, torch.bfloat16, True, 20, 40, False),
+            (2, 333, 301, 16, 4, 128, torch.float32, False, None, 0, False),
+            (2, 333, 333, 16, 4, 128, torch.bfloat16, True, None, 0, False),
+            (2, 200, 300, 8, 2, 64, torch.bfloat16, False, None, 0, False),
+            (4, 1024, 1024, 16, 8, 256, torch.bfloat16, True, None, 0, True),
+            (2, 2048, 2048, 16, 8, 256, torch.bfloat16, True, 1024, 0, True),
+            (2, 333, 301, 16, 8, 256, torch.float32, False, None, 0, True),
+            (4, 1024, 1024, 32, 32, 112, torch.bfloat16, True, None, 0, True),
+            (4, 1024, 1024, 40, 8, 128, torch.bfloat16, True, None, 0, True)):
         r = check_flash_attention(torch, fa_kernel, fa_ref, B, Sq, Skv, H, Hkv, hd, dtype,
-                                  causal, window, q_offset, gen, library=not fa_cases)
+                                  causal, window, q_offset, gen, library=library)
         fa_cases.append(r)
         say(f"flash_attention {json.dumps(r)}")
+    # mamba2's serving shape, a ragged S, S < L in f32 and bf16, zamba2's
+    # serving shape (112 heads, N = 64)
     for B, S, H, P, N, L, dtype in ((4, 1024, 64, 64, 128, 64, torch.bfloat16),
                                     (2, 1000, 64, 64, 128, 64, torch.bfloat16),
                                     (2, 40, 16, 64, 128, 64, torch.float32),
-                                    (2, 40, 16, 64, 128, 64, torch.bfloat16)):
+                                    (2, 40, 16, 64, 128, 64, torch.bfloat16),
+                                    (4, 1024, 112, 64, 64, 64, torch.bfloat16)):
         r = check_ssd_scan(torch, ssd_kernel, ssd_ref, B, S, H, P, N, L, dtype, gen)
         ssd_cases.append(r)
         say(f"ssd_scan {json.dumps(r)}")
@@ -2067,13 +2188,12 @@ def main() -> int:
     serving = serve_full_width(torch, np, bindings)
     for arch in ("llama3.2-1b", "mamba2-1.3b"):
         say(f"decode step: {json.dumps(decode_step_breakdown(torch, arch))}")
-    launches["flash_attention"] = serving["llama3.2-1b"]["launches"]["flash_attention"]
-    launches["ssd_scan"] = serving["mamba2-1.3b"]["launches"]["ssd_scan"]
+    for name in ("flash_attention", "ssd_scan"):  # summed over the serving runs
+        launches[name] = sum(r["launches"][name] for r in serving.values())
 
     # ---- 7. card vs CPU, serving
-    for arch in ("llama3.2-1b", "mamba2-1.3b"):
-        say(f"card vs CPU serving: {json.dumps(serve_card_vs_cpu(torch, np, arch))} "
-            f"(relative L2 ≤ {LM_REL_L2})")
+    for arch, cut in CARD_VS_CPU:
+        say(f"card vs CPU serving: {json.dumps(serve_card_vs_cpu(torch, np, arch, cut))}")
 
     # ---- 8. summary
     def main_case(cases, **sel):

@@ -9,8 +9,9 @@ registered algorithms (FedCM, paper Algorithm 2, and its baselines) with the
 lossy uplink, synchronous or on the async ring, with per-client state on the
 device or in a host population store; the local step and the server folds
 as hand-written CUDA kernels (``repro_torch/csrc``); LM serving (prefill →
-decode) for the dense and ssm families, with flash attention and the SSD
-scan as CUDA kernels; whole-run snapshots with kill and resume
+decode) for the nine decoder-only archs (dense, moe, ssm, hybrid and vlm
+families), with flash attention and the SSD scan as CUDA kernels; whole-run
+snapshots with kill and resume
 (``repro_torch.checkpoint``, the reference's msgpack layout); and the
 fleet loop (``repro_torch.fleet``): publication of each snapshot's params,
 hot-swap serving, per-round telemetry and a health endpoint.  Entry points

@@ -1,7 +1,8 @@
 """Configurations: copies of ``repro.configs.base``'s ``FedConfig`` (cut to
 the fields this package reads), ``FaultConfig``, ``CompressionConfig`` and
-``ModelConfig`` (cut to the fields the LM serving slice reads), with the same
-names and defaults, and the architecture registry of the ported archs.
+``ModelConfig`` (every field), with the same names and defaults, and the
+architecture registry of the ported archs: the nine decoder-only ones
+(dense, moe, ssm, hybrid, vlm).
 
 Fields for features the port does not run yet stay in the copy so that a
 config asking for them fails loudly (``repro_torch.core.engine`` raises
@@ -156,13 +157,10 @@ class FedConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """An LM architecture (counterpart of ``repro.configs.base.ModelConfig``).
-
-    The copy keeps every field the reference's ``reduced`` and the two
-    ported families (dense, ssm) read, under the same names and defaults.
-    Fields of families the port does not run yet (MoE, hybrid,
-    encoder-decoder) stay so that such a config is refused by name
-    (``repro_torch.models.transformer.period_layout``, ROADMAP A.15)."""
+    """An LM architecture (counterpart of ``repro.configs.base.ModelConfig``):
+    every field, under the same names and defaults.  The encoder-decoder
+    fields stay so that such a config is refused by name
+    (``repro_torch.models.model.build_model``, ROADMAP A.15)."""
 
     name: str
     family: str  # dense | moe | ssm | hybrid | encdec | vlm | audio
@@ -186,10 +184,14 @@ class ModelConfig:
     mlp_type: str = "gated_silu"  # gated_silu | gelu
     tie_embeddings: bool = False
 
-    # --- MoE (not ported: ROADMAP A.15) ---
+    # --- MoE ---
     n_experts: int = 0
     top_k: int = 0
-    moe_every: int = 1
+    capacity_factor: float = 1.25
+    moe_every: int = 1  # a layer is MoE iff (layer_idx % moe_every == moe_every-1)
+    shared_expert: bool = False
+    router_z_loss: float = 1e-3
+    load_balance_loss: float = 1e-2
 
     # --- SSM (mamba2 / SSD) ---
     ssm_state: int = 0
@@ -198,10 +200,15 @@ class ModelConfig:
     ssm_conv: int = 4
     ssm_chunk: int = 64
 
-    # --- hybrid and encoder-decoder (not ported: ROADMAP A.15) ---
+    # --- hybrid (zamba2-style): a shared attention block every attn_every layers ---
     attn_every: int = 0
+
+    # --- encoder-decoder (not ported: ROADMAP A.15) ---
     is_encoder_decoder: bool = False
     n_encoder_layers: int = 0
+
+    # --- modality frontend (stubbed, as in the reference) ---
+    input_mode: str = "tokens"  # tokens | embeddings
 
     # --- numerics ---
     dtype: str = "float32"  # activation dtype
@@ -241,7 +248,14 @@ REFERENCE_ARCH_IDS = [
 ]
 
 _MODULE_FOR: Dict[str, str] = {
+    "starcoder2-7b": "starcoder2_7b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "dbrx-132b": "dbrx_132b",
+    "zamba2-7b": "zamba2_7b",
     "llama3.2-1b": "llama3_2_1b",
+    "qwen3-14b": "qwen3_14b",
+    "gemma3-12b": "gemma3_12b",
+    "chameleon-34b": "chameleon_34b",
     "mamba2-1.3b": "mamba2_1_3b",
 }
 ARCH_IDS = list(_MODULE_FOR)
@@ -250,7 +264,8 @@ ARCH_IDS = list(_MODULE_FOR)
 def get_config(name: str) -> ModelConfig:
     """The published config of a ported arch (``llama3.2-1b`` or
     ``mamba2_1_3b`` spelling).  An arch of the reference's pool that is
-    not ported raises ``NotImplementedError``; an unknown name ``KeyError``."""
+    not ported (the encoder-decoder seamless-m4t) raises
+    ``NotImplementedError``; an unknown name ``KeyError``."""
     key = name.replace("_", "-") if name not in _MODULE_FOR else name
     for k, mod in _MODULE_FOR.items():
         if mod == name:

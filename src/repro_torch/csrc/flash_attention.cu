@@ -42,14 +42,19 @@
 // one-ulp tolerance (tests/test_torch_kernel_precision.py); q, k, v are bf16
 // already and enter as they are.  V is read by ldmatrix.trans.  The output
 // goes out through shared memory in 16-byte stores.  Shared memory: 45 KB
-// (hd ≤ 64) or 85 KB (hd ≤ 128).  wgmma, TMA and warp specialisation
-// (FlashAttention-3) are the next step.
+// (hd ≤ 64), 85 KB (hd ≤ 128) or 165 KB (hd ≤ 256, gemma3).  Past hd 128 a
+// thread's output tile alone is 128 f32 accumulators (32 n8 tiles × 4), so
+// the Q fragments (64 more registers) are not held across the KV loop: each
+// k16 step reads its Q fragment from the shared Q tile again (ldmatrix),
+// which keeps the kernel inside the 255 registers a thread may have.  wgmma,
+// TMA and warp specialisation (FlashAttention-3) are the next step.
 //
 // The f32 route (attn_f32_kernel) keeps its products on the f32 CUDA cores
 // (TF32 would not hold the f32 tolerance): 256 threads, each owning 4 q rows
 // × 4 keys of a score tile and 4 q rows × hd/16 output dims; Q and K stored
 // transposed (d-major) and P key-major, so every inner-loop read is one
-// float4; 65 KB (hd ≤ 64) or 113 KB (hd ≤ 128) of shared memory.
+// float4; 65 KB (hd ≤ 64), 113 KB (hd ≤ 128) or 209 KB (hd ≤ 256) of shared
+// memory.
 //
 // Sums run in another order than the plain version's softmax and matrix
 // products, so the two agree to a tolerance, not bitwise.
@@ -87,7 +92,7 @@ constexpr size_t f32_smem_bytes(int hd_pad) {
                           static_cast<size_t>(kBKV) * hd_pad + static_cast<size_t>(kBKV) * kPRow);
 }
 
-// The f32 route.  HD: hd padded to 64 or 128 (zero-filled in shared memory).
+// The f32 route.  HD: hd padded to 64, 128 or 256 (zero-filled in shared memory).
 template <int HD>
 __global__ void __launch_bounds__(kThreads) attn_f32_kernel(AttnArgs a) {
   constexpr int kDG = HD / 64;  // float4 groups of output dims per thread
@@ -243,7 +248,7 @@ __global__ void __launch_bounds__(kThreads) attn_f32_kernel(AttnArgs a) {
   }
 }
 
-// The bf16 route.  HD: hd padded to 64 or 128 (zero-filled in shared memory).
+// The bf16 route.  HD: hd padded to 64, 128 or 256 (zero-filled in shared memory).
 template <int HD>
 constexpr size_t mma_smem_bytes() {
   return sizeof(__nv_bfloat16) * 5 * kBQ * (HD + 8);  // Q, K[2], V[2]
@@ -257,6 +262,7 @@ __global__ void __launch_bounds__(kMmaThreads) attn_mma_kernel(AttnArgs a) {
   constexpr int kRow = HD + 8;     // padded shared row, in bf16
   constexpr int kKSteps = HD / 16; // k16 steps of Q·Kᵀ
   constexpr int kDTiles = HD / 8;  // n8 tiles of the output
+  constexpr bool kQInRegs = HD <= 128;  // else Q fragments are re-read from shared memory
   extern __shared__ float4 smem4[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem4);  // [kBQ][kRow]
   __nv_bfloat16* ks = qs + kBQ * kRow;                           // [2][kBKV][kRow]
@@ -312,7 +318,7 @@ __global__ void __launch_bounds__(kMmaThreads) attn_mma_kernel(AttnArgs a) {
     for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};  // rows g and g + 8 of this warp, log2 domain
   float l[2] = {0.f, 0.f};              // this thread's part of the row sums
-  uint32_t qf[kKSteps][4];
+  uint32_t qf[kQInRegs ? kKSteps : 1][4];
   const int row_a = q0 + warp * 16 + g;  // this thread's two q rows: row_a, row_a + 8
 
   int stage = 0;
@@ -325,10 +331,12 @@ __global__ void __launch_bounds__(kMmaThreads) attn_mma_kernel(AttnArgs a) {
       tc::cp_async_wait<0>();
     }
     __syncthreads();  // tile kv0 (and, the first time, Q) is in shared memory
-    if (kv0 == kv_begin) {
+    const __nv_bfloat16* q_frag = qs + (warp * 16 + (lane & 15)) * kRow + (lane >> 4) * 8;
+    if constexpr (kQInRegs) {
+      if (kv0 == kv_begin) {
 #pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk)
-        ldmatrix_x4(qf[kk], qs + (warp * 16 + (lane & 15)) * kRow + kk * 16 + (lane >> 4) * 8);
+        for (int kk = 0; kk < kKSteps; ++kk) ldmatrix_x4(qf[kk], q_frag + kk * 16);
+      }
     }
     const __nv_bfloat16* kt = ks + stage * kBKV * kRow;
     const __nv_bfloat16* vt = vs + stage * kBKV * kRow;
@@ -341,13 +349,20 @@ __global__ void __launch_bounds__(kMmaThreads) attn_mma_kernel(AttnArgs a) {
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < kKSteps; ++kk) {
+      uint32_t qa[4];
+      if constexpr (kQInRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        ldmatrix_x4(qa, q_frag + kk * 16);
+      }
 #pragma unroll
       for (int np = 0; np < 4; ++np) {  // key tiles 2np, 2np + 1
         uint32_t kf[4];
         ldmatrix_x4(kf, kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * kRow + kk * 16 +
                             ((lane >> 3) & 1) * 8);
-        mma_16816(s[2 * np], qf[kk], kf[0], kf[1]);
-        mma_16816(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+        mma_16816(s[2 * np], qa, kf[0], kf[1]);
+        mma_16816(s[2 * np + 1], qa, kf[2], kf[3]);
       }
     }
 
@@ -480,12 +495,12 @@ int launch_mma(const AttnArgs& a, int device, cudaStream_t stream) {
 // Returns cudaGetLastError() after the launch (0 = success).  q, k, v, out
 // are contiguous device buffers: q and out (B, Sq, H, hd), k and v
 // (B, Skv, Hkv, hd), all f32 (is_bf16 = 0) or all bf16 (is_bf16 = 1); the
-// caller checked shapes (H % Hkv == 0, 1 ≤ hd ≤ 128).  window ≤ 0: none.
+// caller checked shapes (H % Hkv == 0, 1 ≤ hd ≤ 256).  window ≤ 0: none.
 extern "C" int flash_attention_launch(
     void* out, const void* q, const void* k, const void* v, int B, int Sq, int Skv, int H,
     int Hkv, int hd, int causal, int window, int q_offset, float scale, int is_bf16,
     int device, void* stream) {
-  if (B < 0 || Sq < 0 || Skv < 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || hd <= 0 || hd > 128)
+  if (B < 0 || Sq < 0 || Skv < 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || hd <= 0 || hd > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   int current = -1;
   if (cudaGetDevice(&current) != cudaSuccess || current != device) {
@@ -497,8 +512,12 @@ extern "C" int flash_attention_launch(
   const int vec = hd % 8 == 0 && aligned(out) && aligned(q) && aligned(k) && aligned(v);
   const AttnArgs a{out, q, k, v, B, Sq, Skv, H, Hkv, hd, causal, window, q_offset, scale, vec};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return hd <= 64 ? launch_mma<64>(a, device, s) : launch_mma<128>(a, device, s);
-  return hd <= 64 ? launch_f32<64>(a, device, s) : launch_f32<128>(a, device, s);
+  if (is_bf16) {
+    if (hd <= 64) return launch_mma<64>(a, device, s);
+    return hd <= 128 ? launch_mma<128>(a, device, s) : launch_mma<256>(a, device, s);
+  }
+  if (hd <= 64) return launch_f32<64>(a, device, s);
+  return hd <= 128 ? launch_f32<128>(a, device, s) : launch_f32<256>(a, device, s);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -19,7 +19,7 @@ KERNEL = NativeKernel(
     [_P] * 4 + [_I] * 9 + [ctypes.c_float] + [_I] * 2 + [_P],
 )
 DTYPES = (torch.float32, torch.bfloat16)
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256  # hd pads to 64, 128 or 256 inside the kernel
 
 
 def _check(q, k, v):

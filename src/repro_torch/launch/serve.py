@@ -144,15 +144,16 @@ def serve_loop(
 @dataclass
 class ServeResult:
     """One ``run``: the served config's name, the last session's generated
-    tokens ``(B, gen)``, the loop's stats, and the wall seconds of each
+    tokens ``(B, gen)``, the loop's stats, the wall seconds of each
     session's prefill and decode (synchronized with the device at both
-    ends)."""
+    ends), and whether every logit that was sampled from was finite."""
 
     arch: str
     tokens: np.ndarray
     stats: ServeStats
     prefill_s: List[float]
     decode_s: List[float]
+    finite: bool
 
 
 def _sync(device: torch.device) -> None:
@@ -197,15 +198,17 @@ def load_ckpt_params(path: str, template: Any, *, follow: bool = False):
     return version, params, None
 
 
-def run(args: argparse.Namespace, on_step: Optional[Callable[[ServeStats], None]] = None
-        ) -> ServeResult:
+def run(args: argparse.Namespace, on_step: Optional[Callable[[ServeStats], None]] = None,
+        cfg=None) -> ServeResult:
     """Build the model and prompts for ``args`` and serve ``args.sessions``
     sessions of ``args.gen`` tokens; ``on_step`` is ``serve_loop``'s
-    per-step callback."""
+    per-step callback.  ``cfg`` serves that config in place of ``--arch``'s
+    (``--full`` / reduced): a published one cut in depth, say."""
     device = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if not args.full:
-        cfg = reduced(cfg)
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if not args.full:
+            cfg = reduced(cfg)
     model = build_model(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
@@ -218,9 +221,11 @@ def run(args: argparse.Namespace, on_step: Optional[Callable[[ServeStats], None]
         make_synthetic_lm(min(cfg.vocab_size, PROMPT_VOCAB), args.prompt_len, args.batch,
                           seed=args.seed), dtype=torch.long, device=device)
     max_len = args.prompt_len + args.gen
+    finite = torch.ones((), dtype=torch.bool, device=device)  # read once, at the end
 
     def sample(lg, generator):
         last = lg[:, -1].to(torch.float32)
+        finite.logical_and_(torch.isfinite(last).all())
         if args.temperature <= 0:
             return torch.argmax(last, dim=-1)[:, None]
         probs = torch.softmax(last / args.temperature, dim=-1)
@@ -259,14 +264,15 @@ def run(args: argparse.Namespace, on_step: Optional[Callable[[ServeStats], None]
                           end_session=end_session, params_provider=provider,
                           steps_per_session=args.gen - 1, max_sessions=args.sessions,
                           on_step=on_step, version=version)
-    return ServeResult(cfg.name, last["gen"], stats, prefill_s, decode_s)
+    return ServeResult(cfg.name, last["gen"], stats, prefill_s, decode_s, bool(finite))
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", default="llama3.2-1b", choices=REFERENCE_ARCH_IDS,
-                    help="llama3.2-1b and mamba2-1.3b are ported; the others raise")
+                    help="the nine decoder-only archs are ported; seamless-m4t-large-v2 "
+                         "(encoder-decoder) raises")
     ap.add_argument("--full", action="store_true", help="the published widths (else reduced)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -1,7 +1,7 @@
 """Layers (counterpart of ``repro.models.layers``): the initializers, norms,
-rotary embeddings, self-attention and gated-SiLU MLP of the LM serving
-slice, as plain functions over dict param trees with the reference's keys
-and layouts.
+rotary embeddings, self-attention, the MLPs (gated SiLU and tanh GELU) and
+the capacity-based mixture of experts of the LM serving slice, as plain
+functions over dict param trees with the reference's keys and layouts.
 
 Conventions as in the reference: activations ``(B, S, D)``, attention heads
 ``(B, S, H, hd)``; norms and softmax compute in f32 whatever the activation
@@ -29,13 +29,13 @@ def dense_init(generator: torch.Generator, shape: Sequence[int],
     std = 1.0 / math.sqrt(max(1, fan_in))
     w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
                     device=device)
-    return (std * w).to(dtype)
+    return w.mul_(std).to(dtype)  # in place: a full-width leaf is tens of GB
 
 
 def embed_init(generator: torch.Generator, shape: Sequence[int], dtype=torch.float32,
                device=None) -> torch.Tensor:
     w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32, device=device)
-    return (0.02 * w).to(dtype)
+    return w.mul_(0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------- norms
@@ -177,18 +177,126 @@ def init_mlp(generator, cfg, d_ff: Optional[int] = None, dtype=torch.float32,
              lead: Sequence[int] = (), device=None) -> Dict[str, torch.Tensor]:
     D = cfg.d_model
     Fd = d_ff if d_ff is not None else cfg.d_ff
-    return {
-        "w_gate": dense_init(generator, (*lead, D, Fd), in_axis_size=D, dtype=dtype,
-                             device=device),
-        "w_up": dense_init(generator, (*lead, D, Fd), in_axis_size=D, dtype=dtype,
-                           device=device),
-        "w_down": dense_init(generator, (*lead, Fd, D), in_axis_size=Fd, dtype=dtype,
-                             device=device),
-    }
+    names = ("w_gate", "w_up") if cfg.mlp_type == "gated_silu" else ("w_up",)
+    p = {n: dense_init(generator, (*lead, D, Fd), in_axis_size=D, dtype=dtype, device=device)
+         for n in names}
+    p["w_down"] = dense_init(generator, (*lead, Fd, D), in_axis_size=Fd, dtype=dtype,
+                             device=device)
+    return p
 
 
 def mlp(params: Dict[str, Any], x: torch.Tensor, *, cfg) -> torch.Tensor:
-    """Gated SiLU MLP (the port's only ``mlp_type``)."""
-    g = torch.matmul(x, params["w_gate"].to(x.dtype))
-    u = torch.matmul(x, params["w_up"].to(x.dtype))
-    return torch.matmul(F.silu(g) * u, params["w_down"].to(x.dtype))
+    """Gated SiLU, or (``mlp_type="gelu"``) GELU in the tanh approximation,
+    which is ``jax.nn.gelu``'s default."""
+    if cfg.mlp_type == "gated_silu":
+        g = torch.matmul(x, params["w_gate"].to(x.dtype))
+        u = torch.matmul(x, params["w_up"].to(x.dtype))
+        h = F.silu(g) * u
+    else:
+        h = F.gelu(torch.matmul(x, params["w_up"].to(x.dtype)), approximate="tanh")
+    return torch.matmul(h, params["w_down"].to(x.dtype))
+
+
+# ---------------------------------------------------------- mixture of experts
+def init_moe(generator, cfg, dtype=torch.float32, lead: Sequence[int] = (),
+             device=None) -> Dict[str, Any]:
+    """Router (D, E), kept f32 whatever ``dtype`` is; experts (E, D, F) /
+    (E, F, D); the shared expert an MLP."""
+    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p: Dict[str, Any] = {
+        "router": dense_init(generator, (*lead, D, E), in_axis_size=D, dtype=torch.float32,
+                             device=device),
+        "w_gate": dense_init(generator, (*lead, E, D, Fd), in_axis_size=D, dtype=dtype,
+                             device=device),
+        "w_up": dense_init(generator, (*lead, E, D, Fd), in_axis_size=D, dtype=dtype,
+                           device=device),
+        "w_down": dense_init(generator, (*lead, E, Fd, D), in_axis_size=Fd, dtype=dtype,
+                             device=device),
+    }
+    if cfg.shared_expert:
+        p["shared"] = init_mlp(generator, cfg, dtype=dtype, lead=lead, device=device)
+    return p
+
+
+def _router(params, x: torch.Tensor, cfg):
+    """x (T, D) → ``(gates (T, k) f32, experts (T, k), probs (T, E), aux)``:
+    f32 logits and softmax, top-k, gates renormalised over the k; aux is
+    the load-balance (Switch) loss plus the router z-loss, f32."""
+    T = x.shape[0]
+    logits = torch.matmul(x.to(torch.float32), params["router"])
+    probs = torch.softmax(logits, dim=-1)
+    gates, experts = torch.topk(probs, cfg.top_k, dim=-1)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    me = probs.mean(dim=0)
+    # expert counts are integers, exact in f32 in any order
+    ce = torch.bincount(experts.reshape(-1), minlength=cfg.n_experts).to(torch.float32)
+    ce = ce / (T * cfg.top_k)
+    lb = cfg.n_experts * torch.sum(me * ce) * cfg.load_balance_loss
+    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2) * cfg.router_z_loss
+    return gates, experts, probs, lb + z
+
+
+def moe_ref(params, x: torch.Tensor, *, cfg):
+    """Dense oracle: every expert on every token, combined by the gates
+    (O(T·E·D·F); tests only).  Returns ``(out (B, S, D), aux)``."""
+    B, S, D = x.shape
+    xt = x.reshape(-1, D)
+    gates, experts, _, aux = _router(params, xt, cfg)
+    comb = torch.zeros((xt.shape[0], cfg.n_experts), dtype=x.dtype, device=x.device)
+    comb.scatter_add_(1, experts, gates.to(x.dtype))
+    h = F.silu(torch.matmul(xt, params["w_gate"].to(x.dtype))) * \
+        torch.matmul(xt, params["w_up"].to(x.dtype))  # (E, T, F)
+    outs = torch.matmul(h, params["w_down"].to(x.dtype))  # (E, T, D)
+    out = torch.einsum("te,etd->td", comb, outs)
+    if cfg.shared_expert:
+        out = out + mlp(params["shared"], x, cfg=cfg).reshape(-1, D)
+    return out.reshape(B, S, D), aux
+
+
+def moe_capacity(cfg, tokens: int) -> int:
+    """Slots per expert: ⌈T·k / E · capacity_factor⌉ rounded up to 8, at least 8."""
+    c = int(math.ceil(tokens * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+    return max(8, -(-c // 8) * 8)
+
+
+def moe_dropping(params, x: torch.Tensor, *, cfg):
+    """Capacity-based MoE (the reference's unsharded branch): each (token,
+    choice) takes the next slot of its expert's queue in token-major
+    order, so a full expert drops the same choices as the reference;
+    expert GEMMs over ``(E, C, D)`` slot buffers.  Returns ``(out, aux)``."""
+    B, S, D = x.shape
+    out, aux = _moe_local(params, x.reshape(-1, D), cfg=cfg)
+    out = out.reshape(B, S, D)
+    if cfg.shared_expert:
+        out = out + mlp(params["shared"], x, cfg=cfg)
+    return out, aux
+
+
+def _moe_local(params, xt: torch.Tensor, *, cfg):
+    """Tokens ``xt`` (T, D) through all E experts with capacity slots."""
+    T, D = xt.shape
+    E, k = cfg.n_experts, cfg.top_k
+    C = moe_capacity(cfg, T)
+    gates, experts, _, aux = _router(params, xt, cfg)
+
+    flat_e = experts.reshape(-1)  # (T·k,), token-major
+    pos = torch.cumsum(F.one_hot(flat_e, E), dim=0) - 1  # queue position, per expert
+    pos = torch.gather(pos, 1, flat_e[:, None])[:, 0]
+    slot = torch.where(pos < C, flat_e * C + pos, E * C)  # E·C: the drop row
+    tok_idx = torch.arange(T, device=xt.device).repeat_interleave(k)
+    # every kept slot is written once (0 + x in the reference: x exactly);
+    # the drop row takes many writes in no set order and is never read
+    buf = xt.new_zeros((E * C + 1, D))
+    buf[slot] = xt[tok_idx]
+    buf = buf[:-1].reshape(E, C, D)
+
+    h = torch.bmm(buf, params["w_gate"].to(xt.dtype))
+    u = torch.bmm(buf, params["w_up"].to(xt.dtype))
+    eout = torch.bmm(F.silu(h) * u, params["w_down"].to(xt.dtype)).reshape(E * C, D)
+    eout = torch.cat([eout, xt.new_zeros((1, D))])  # a dropped choice reads zeros
+
+    gathered = (eout[slot] * gates.reshape(-1)[:, None].to(xt.dtype)).reshape(T, k, D)
+    out = gathered[:, 0]
+    for j in range(1, k):  # the k choices summed in ascending order: no atomics
+        out = out + gathered[:, j]
+    return out, aux

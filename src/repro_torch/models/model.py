@@ -1,4 +1,5 @@
-"""Uniform model API (counterpart of ``repro.models.model``), decoder-only:
+"""Uniform model API (counterpart of ``repro.models.model``) for the
+decoder-only families (dense, moe, ssm, hybrid, vlm):
 
     params          = model.init(generator)
     logits, cache, aux = model.apply(params, tokens, return_cache=True)   # prefill
@@ -28,7 +29,7 @@ def build_model(cfg) -> Model:
     if cfg.is_encoder_decoder:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models are not ported yet "
                                   f"(ROADMAP A.15)")
-    transformer.period_layout(cfg)  # refuse an unported family here, not at first use
+    transformer.period_layout(cfg)  # refuse a ragged layout here, not at first use
 
     def init(generator):
         return transformer.init_params(generator, cfg)

@@ -1,13 +1,17 @@
-"""Decoder-only LM assembly for the dense and ssm families (counterpart of
-``repro.models.transformer``).
+"""Decoder-only LM assembly for the dense, moe, ssm, hybrid and vlm families
+(counterpart of ``repro.models.transformer``).
 
 The layer stack keeps the reference's period layout: each architecture has
-a static period of slots, and parameters (and caches) are stacked on a
-leading ``n_periods`` axis, so a params tree converts leaf for leaf.  The
-reference's ``lax.scan`` over periods is a Python loop here that indexes
-the stacked leaves (views, no copies).  The hybrid, MoE, VLM and
-encoder-decoder families are not ported (ROADMAP A.15) and are refused by
-``period_layout``.
+a static period of slots (gemma3: 5 local-attention slots + 1 global;
+llama4-maverick: a dense slot + an MoE slot; zamba2: 5 mamba slots + 1
+shared-attention slot, then tail mamba layers), and parameters (and
+caches) are stacked on a leading ``n_periods`` axis, so a params tree
+converts leaf for leaf.  Zamba2's shared attention block is one unstacked
+parameter set in ``params["shared"]``, applied at every shared slot, with a
+KV cache per application.  The reference's ``lax.scan`` over periods is a
+Python loop here that indexes the stacked leaves (views, no copies).  The
+encoder-decoder family is not ported (ROADMAP A.15): ``build_model``
+refuses it.
 """
 from __future__ import annotations
 
@@ -21,8 +25,10 @@ from repro_torch.models.layers import (
     embed_init,
     init_attention,
     init_mlp,
+    init_moe,
     init_rmsnorm,
     mlp,
+    moe_dropping,
     rmsnorm,
     self_attention,
 )
@@ -33,20 +39,20 @@ from repro_torch.utils.trees import tree_map
 class SlotSpec:
     kind: str  # "attn" | "mamba"
     is_global: bool = True  # attention: full vs sliding window
+    is_moe: bool = False
+    shared: bool = False  # params live in params["shared"], not the stack
 
 
-def period_layout(cfg) -> Tuple[List[SlotSpec], int]:
-    """Returns ``(period_slots, n_periods)`` for the dense and ssm families;
-    raises ``NotImplementedError`` for the families the port does not run."""
+def period_layout(cfg) -> Tuple[List[SlotSpec], int, List[SlotSpec]]:
+    """Returns ``(period_slots, n_periods, tail_slots)``, as the reference."""
     if cfg.family == "ssm":
-        return [SlotSpec("mamba")], cfg.n_layers
-    if cfg.family != "dense" or cfg.n_experts > 0 or cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (experts={cfg.n_experts}) is not ported yet "
-            f"(ROADMAP A.15); the port runs the dense and ssm families")
-    if cfg.mlp_type != "gated_silu":
-        raise NotImplementedError(f"{cfg.name}: mlp_type {cfg.mlp_type!r} is not ported yet "
-                                  f"(ROADMAP A.15); the port runs gated_silu")
+        return [SlotSpec("mamba")], cfg.n_layers, []
+    if cfg.family == "hybrid":
+        period = cfg.attn_every
+        slots = [SlotSpec("mamba")] * (period - 1) + [SlotSpec("attn", shared=True)]
+        n_periods = cfg.n_layers // period
+        return slots, n_periods, [SlotSpec("mamba")] * (cfg.n_layers - n_periods * period)
+    # dense / moe / vlm: attention + ffn slots
     if cfg.local_global_pattern is not None:
         n_local, n_global = cfg.local_global_pattern
         slots = [SlotSpec("attn", is_global=False)] * n_local + \
@@ -55,74 +61,126 @@ def period_layout(cfg) -> Tuple[List[SlotSpec], int]:
         slots = [SlotSpec("attn", is_global=False)]
     else:
         slots = [SlotSpec("attn", is_global=True)]
+    if cfg.n_experts > 0 and cfg.moe_every > 1:
+        # the period expands to moe_every slots, so MoE-ness is static per slot
+        slots = [SlotSpec("attn", slots[i % len(slots)].is_global,
+                          is_moe=i == cfg.moe_every - 1) for i in range(cfg.moe_every)]
+    elif cfg.n_experts > 0:
+        slots = [SlotSpec("attn", s.is_global, is_moe=True) for s in slots]
     if cfg.n_layers % len(slots):
         raise ValueError(f"{cfg.name}: {cfg.n_layers} layers is not a whole number of "
                          f"{len(slots)}-slot periods")
-    return slots, cfg.n_layers // len(slots)
+    return slots, cfg.n_layers // len(slots), []
 
 
 # ----------------------------------------------------------------------- init
-def _init_slot(generator, slot: SlotSpec, cfg, dtype, n: int, device) -> Dict[str, Any]:
-    """One slot's params, every leaf with a leading (n,) periods axis."""
-    lead = (n,)
+def _init_slot(generator, slot: SlotSpec, cfg, dtype, lead, device) -> Dict[str, Any]:
+    """One slot's params, every leaf with a leading ``lead`` axis (``(n,)``
+    periods, or ``()`` for the shared block)."""
     p: Dict[str, Any] = {"norm1": init_rmsnorm(cfg.d_model, dtype, lead, device)}
     if slot.kind == "mamba":
         p["mamba"] = m2.init_mamba2(generator, cfg, dtype, lead, device)
         return p
     p["attn"] = init_attention(generator, cfg, dtype, lead, device)
     p["norm2"] = init_rmsnorm(cfg.d_model, dtype, lead, device)
-    if cfg.d_ff > 0:
+    if slot.is_moe:
+        p["moe"] = init_moe(generator, cfg, dtype, lead, device)
+    elif cfg.d_ff > 0:
         p["mlp"] = init_mlp(generator, cfg, dtype=dtype, lead=lead, device=device)
     return p
 
 
+def _stack_init(generator, n: int, slots: List[SlotSpec], cfg, dtype, device):
+    """n periods of params stacked on a leading axis; shared slots have none."""
+    return {f"slot{i}": _init_slot(generator, s, cfg, dtype, (n,), device)
+            for i, s in enumerate(slots) if not s.shared}
+
+
 def init_params(generator: torch.Generator, cfg) -> Dict[str, Any]:
     """Random params from ``generator`` (drawn on its device), in
-    ``cfg.param_dtype``, with the reference's tree layout."""
+    ``cfg.param_dtype`` (MoE routers f32), with the reference's tree layout."""
     dtype = getattr(torch, cfg.param_dtype)
     device = generator.device
-    slots, n_periods = period_layout(cfg)
+    slots, n_periods, tail = period_layout(cfg)
     params: Dict[str, Any] = {
         "embed": embed_init(generator, (cfg.padded_vocab, cfg.d_model), dtype, device),
         "final_norm": init_rmsnorm(cfg.d_model, dtype, device=device),
-        "periods": {f"slot{i}": _init_slot(generator, s, cfg, dtype, n_periods, device)
-                    for i, s in enumerate(slots)},
+        "periods": _stack_init(generator, n_periods, slots, cfg, dtype, device),
     }
     if not cfg.tie_embeddings:
         params["unembed"] = embed_init(generator, (cfg.d_model, cfg.padded_vocab), dtype, device)
+    if tail:
+        params["tail"] = _stack_init(generator, len(tail), tail[:1], cfg, dtype, device)
+    if any(s.shared for s in slots):
+        params["shared"] = _init_slot(generator, SlotSpec("attn"), cfg, dtype, (), device)
     return params
 
 
 # -------------------------------------------------------------------- forward
 def _apply_slot(slot: SlotSpec, p, h, *, cfg, positions, cache_slot, cache_pos,
                 emit_cache: bool):
-    """One slot (attention + MLP, or mamba).  Returns (h, new_cache_slot)."""
+    """One slot (attention + MLP / MoE, or mamba).  Returns ``(h,
+    new_cache_slot, aux)``; aux is None but for an MoE slot."""
     if slot.kind == "mamba":
         y, new_state = m2.mamba2_block(p["mamba"], rmsnorm(h, p["norm1"]), cfg=cfg,
                                        state=cache_slot, return_state=emit_cache)
-        return h + y, new_state
+        return h + y, new_state, None
     attn_out, new_kv = self_attention(
         p["attn"], rmsnorm(h, p["norm1"]), cfg=cfg, positions=positions,
         is_global=slot.is_global, cache=cache_slot, cache_pos=cache_pos,
         return_kv=emit_cache)
     h = h + attn_out
-    if "mlp" in p:
+    aux = None
+    if slot.is_moe:
+        y, aux = moe_dropping(p["moe"], rmsnorm(h, p["norm2"]), cfg=cfg)
+        h = h + y
+    elif "mlp" in p:
         h = h + mlp(p["mlp"], rmsnorm(h, p["norm2"]), cfg=cfg)
-    return h, new_kv
+    return h, new_kv, aux
+
+
+def _run_stack(slots, stacked, n: int, shared, h, aux, cache, emit: bool, **kw):
+    """The reference's scan over ``n`` periods of ``slots``: returns ``(h,
+    aux, emitted)``.  Decode (``cache`` given) writes every new cache leaf
+    into the cache's stacked buffers in place; prefill with ``emit``
+    returns the new caches stacked over periods."""
+    emitted = []
+    for i in range(n):
+        pp = tree_map(lambda a: a[i], stacked)
+        cache_i = None if cache is None else tree_map(lambda a: a[i], cache)
+        out_i = {}
+        for j, slot in enumerate(slots):
+            key = f"slot{j}"
+            cslot = None if cache_i is None else cache_i[key]
+            h, new_c, a = _apply_slot(slot, shared if slot.shared else pp[key], h,
+                                      cache_slot=cslot, emit_cache=emit, **kw)
+            if a is not None:
+                aux = aux + a
+            if cslot is not None:
+                for name, view in cslot.items():
+                    if new_c[name] is not view:
+                        view.copy_(new_c[name])
+            elif new_c is not None:
+                out_i[key] = new_c
+        emitted.append(out_i)
+    stacked_out = tree_map(lambda *xs: torch.stack(xs), *emitted) if emit else None
+    return h, aux, stacked_out
 
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor, *, cfg,
             cache: Optional[Dict[str, Any]] = None, cache_pos: Optional[int] = None,
             return_cache: bool = False):
     """Returns ``(logits (B, S, padded_vocab), new_cache, aux)``; ``aux`` is
-    the reference's auxiliary loss, 0 for the dense and ssm families.
+    the reference's auxiliary loss (f32): the MoE slots' load-balance and
+    router z-losses summed over slots in order, 0 without experts.
 
     With ``cache`` (decode, S = 1 at position ``cache_pos``) every layer
     writes its new K/V, SSM and conv states into the cache's stacked
     buffers in place and the same tree is returned.  With
     ``return_cache`` and no cache (prefill) the per-layer K/V (attention)
-    or final SSM + conv states (mamba) come back stacked over periods."""
-    slots, n_periods = period_layout(cfg)
+    or final SSM + conv states (mamba) come back stacked over periods
+    (and over the tail layers)."""
+    slots, n_periods, tail = period_layout(cfg)
     adtype = getattr(torch, cfg.dtype)
     dev = tokens.device
     # the scale is cast to the activation dtype first, as JAX's weakly typed
@@ -135,32 +193,23 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, *, cfg,
     else:
         positions = torch.full((1,), int(cache_pos), device=dev)
     emit = return_cache and cache is None
+    kw = dict(cfg=cfg, positions=positions, cache_pos=cache_pos)
+    shared = params.get("shared")
 
-    emitted = []
-    for i in range(n_periods):
-        pp = tree_map(lambda a: a[i], params["periods"])
-        cache_i = None if cache is None else tree_map(lambda a: a[i], cache["periods"])
-        out_i = {}
-        for j, slot in enumerate(slots):
-            key = f"slot{j}"
-            cslot = None if cache_i is None else cache_i[key]
-            h, new_c = _apply_slot(slot, pp[key], h, cfg=cfg, positions=positions,
-                                   cache_slot=cslot, cache_pos=cache_pos, emit_cache=emit)
-            if cslot is not None:
-                for name, view in cslot.items():
-                    if new_c[name] is not view:
-                        view.copy_(new_c[name])
-            elif new_c is not None:
-                out_i[key] = new_c
-        emitted.append(out_i)
-
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    h, aux, out_periods = _run_stack(slots, params["periods"], n_periods, shared, h, aux,
+                                     None if cache is None else cache["periods"], emit, **kw)
+    if tail:
+        h, aux, out_tail = _run_stack(tail[:1], params["tail"], len(tail), shared, h, aux,
+                                      None if cache is None else cache["tail"], emit, **kw)
     new_cache = cache
     if emit:
-        new_cache = {"periods": tree_map(lambda *xs: torch.stack(xs), *emitted)}
+        new_cache = {"periods": out_periods}
+        if tail:
+            new_cache["tail"] = out_tail
 
     h = rmsnorm(h, params["final_norm"])
     unembed = (params["embed"].T if cfg.tie_embeddings else params["unembed"]).to(adtype)
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
     return torch.matmul(h, unembed), new_cache, aux
 
 
@@ -168,15 +217,18 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, *, cfg,
 def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None) -> Dict[str, Any]:
     """Zero cache in the period layout: attention slots {"k","v"}
     (n_periods, B, max_len, Hkv, hd); mamba slots {"ssm","conv"} stacked
-    likewise."""
+    likewise; the tail's mamba layers under ``"tail"``."""
     dtype = dtype or getattr(torch, cfg.dtype)
-    slots, n_periods = period_layout(cfg)
+    slots, n_periods, tail = period_layout(cfg)
 
-    def slot_cache(slot: SlotSpec):
+    def slot_cache(slot: SlotSpec, n: int):
         if slot.kind == "mamba":
-            return m2.init_mamba2_state(cfg, batch, dtype, (n_periods,), device)
-        shape = (n_periods, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+            return m2.init_mamba2_state(cfg, batch, dtype, (n,), device)
+        shape = (n, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
-    return {"periods": {f"slot{i}": slot_cache(s) for i, s in enumerate(slots)}}
+    cache = {"periods": {f"slot{i}": slot_cache(s, n_periods) for i, s in enumerate(slots)}}
+    if tail:
+        cache["tail"] = {"slot0": slot_cache(tail[0], len(tail))}
+    return cache

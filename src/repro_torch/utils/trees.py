@@ -21,36 +21,38 @@ def tree_flatten_with_path(tree) -> Tuple[List[Tuple[str, Any]], Any]:
     """Returns ``([(path, leaf), ...], treedef)``; anything that is not a
     list, tuple or dict is a leaf."""
     out: List[Tuple[str, Any]] = []
-
-    def walk(node, path):
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return ("dict", tuple(keys),
-                    tuple(walk(node[k], f"{path}[{k!r}]") for k in keys))
-        if isinstance(node, (list, tuple)):
-            kind = "list" if isinstance(node, list) else "tuple"
-            return (kind, len(node),
-                    tuple(walk(c, f"{path}[{i}]") for i, c in enumerate(node)))
-        out.append((path, node))
-        return None
-
-    treedef = walk(tree, "")
+    treedef = _walk(tree, "", out)
     return out, treedef
 
 
+# The recursions are module-level functions: a nested function that calls
+# itself is a reference cycle (function -> closure cell -> function) that
+# would hold every leaf it saw, a full model's weights, until the garbage
+# collector next runs.
+def _walk(node, path, out):
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return ("dict", tuple(keys), tuple(_walk(node[k], f"{path}[{k!r}]", out) for k in keys))
+    if isinstance(node, (list, tuple)):
+        kind = "list" if isinstance(node, list) else "tuple"
+        return (kind, len(node),
+                tuple(_walk(c, f"{path}[{i}]", out) for i, c in enumerate(node)))
+    out.append((path, node))
+    return None
+
+
+def _build(node, it):
+    if node is None:
+        return next(it)
+    kind, meta, children = node
+    built = [_build(c, it) for c in children]
+    if kind == "dict":
+        return dict(zip(meta, built))
+    return built if kind == "list" else tuple(built)
+
+
 def tree_unflatten(treedef, leaves: Sequence[Any]):
-    it = iter(leaves)
-
-    def build(node):
-        if node is None:
-            return next(it)
-        kind, meta, children = node
-        built = [build(c) for c in children]
-        if kind == "dict":
-            return dict(zip(meta, built))
-        return built if kind == "list" else tuple(built)
-
-    return build(treedef)
+    return _build(treedef, iter(leaves))
 
 
 def tree_leaves(tree) -> List[Any]:

@@ -56,6 +56,8 @@ CASES = [
     (2, 11, 29, 8, 2, 32, True, None, 9),
     (1, 11, 29, 4, 4, 64, True, 7, 9),
     (2, 19, 9, 8, 2, 32, False, None, 0),
+    (1, 13, 13, 4, 2, 256, True, 5, 0),  # gemma3's head_dim, a local layer
+    (2, 13, 13, 4, 4, 112, True, None, 0),  # zamba2's head_dim
 ]
 
 
@@ -159,7 +161,7 @@ def test_wrapper_validates_before_loading(monkeypatch, case):
     elif case == "groups":
         k = v = _meta(2, 6, 3, 16)
     elif case == "head_dim":
-        q, k, v = _meta(2, 8, 4, 160), _meta(2, 6, 2, 160), _meta(2, 6, 2, 160)
+        q, k, v = _meta(2, 8, 4, 264), _meta(2, 6, 2, 264), _meta(2, 6, 2, 264)
     elif case == "dtype":
         q, k, v = (_meta(*t.shape, dtype=torch.float16) for t in (q, k, v))
     elif case == "mixed_dtype":

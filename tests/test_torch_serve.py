@@ -28,6 +28,7 @@ from repro.configs.base import get_config as ref_get_config
 from repro.configs.base import reduced as ref_reduced
 from repro.launch import serve as ref_serve
 from repro.models import build_model as ref_build_model
+from repro_torch.configs.base import ARCH_IDS
 from repro_torch.core.convert import params_from_numpy
 from repro_torch.launch import serve
 from repro_torch.launch.serve import serve_loop
@@ -44,7 +45,7 @@ def _samples(text):
     return [line.strip() for line in lines[i + 1:] if line.strip().startswith("[")]
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_greedy_tokens_match_reference_cli(arch, monkeypatch, capsys):
     assert ref_serve.main(["--arch", arch, *SMALL]) == 0
     expected = _samples(capsys.readouterr().out)
@@ -80,7 +81,7 @@ def test_cli_without_device_raises_when_there_is_no_gpu(monkeypatch):
         serve.main(SMALL)
 
 
-@pytest.mark.parametrize("flags,item", [(["--arch", "zamba2-7b"], "A.15")])
+@pytest.mark.parametrize("flags,item", [(["--arch", "seamless-m4t-large-v2"], "A.15")])
 def test_unported_options_raise(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         serve.main([*SMALL, *flags, "--device", "cpu"])
