@@ -48,7 +48,8 @@ JAX or of the JAX package.  Phases, each of which exits non-zero on failure:
    without the causal mask (GQA, Sq ≠ Skv), then at the other archs'
    shapes, each beside SDPA: gemma3's serving shape (H=16, Hkv=8, hd=256),
    its local layer past the 1024 window (S=2048), the f32 route at hd=256,
-   zamba2's shared block (32 / 32 heads, hd=112) and qwen3 (40 / 8, hd=128);
+   zamba2's shared block (32 / 32 heads, hd=112), qwen3 (40 / 8, hd=128) and
+   seamless' encoder (16 / 16 heads, hd=64, bf16, without the causal mask);
    ``ssd_scan`` at the serving shape (B=4, S=1024, H=64, P=64, N=128,
    L=64, bf16 x), at a ragged S, at S < L in f32 and in bf16, and at
    zamba2's shape (H=112, N=64) — each within the tolerance stated at
@@ -153,9 +154,11 @@ JAX or of the JAX package.  Phases, each of which exits non-zero on failure:
    ``run_rounds_async`` runs (``run_rounds_async_on``): every state plane
    within ``PARITY_RTOL`` / ``PARITY_ATOL`` after the drain;
 6. serving — ``repro_torch.launch.serve`` (the CLI's ``run``) at full width
-   for the nine archs of ``SERVE_ARCHS``, ``--full --batch 4 --prompt-len
+   for the ten archs of ``SERVE_ARCHS``, ``--full --batch 4 --prompt-len
    1024 --gen 32 --sessions 2``, chameleon, maverick and dbrx cut in depth
-   to fit one card (the cut config passed to ``run``), with the launch
+   to fit one card (the cut config passed to ``run``); seamless-m4t serves
+   one session, as the reference's encoder-decoder does (1024 source frames
+   encoded through 24 flash launches, 32 greedy decode steps); with the launch
    counts set to 0 just before each and read just after: ``flash_attention``
    / ``ssd_scan`` launches per prefill as the table says, none of the
    federated kernels; tokens in range, finite logits, the run's peak device
@@ -167,8 +170,23 @@ JAX or of the JAX package.  Phases, each of which exits non-zero on failure:
    devices: prefill logits and cache, then 4 teacher-forced decode steps,
    each within ``LM_REL_L2``; with f32 activations (the MoE archs,
    zamba2's whole period) within ``F32_REL_L2``, the MoE archs with no
-   (token, choice) route differing between the devices;
-8. summary — the ``nvidia-smi`` line, one JSON line ``{"kernels": [...]}``
+   (token, choice) route differing between the devices; then seamless-m4t at
+   2 + 2 layers (``ENCDEC_VS_CPU``, bf16, 128 source frames): the encoder
+   output, the cross-attention K/V, 4 teacher-forced decode steps' logits
+   and the self-attention cache, each within ``LM_REL_L2``;
+8. training — (a) each arch (``TRAIN_VS_CPU``: one period at the published
+   widths, the vocabulary cut to ``TRAIN_VOCAB``, in f32) two
+   ``launch/steps.py`` train steps on the CPU and on the card from the same
+   weights and batch: losses, grad norms, every updated param leaf and both
+   AdamW moments within ``F32_REL_L2`` (a leaf that starts at 0 within
+   ``UPDATE_REL_L2``), no kernel launched; (b) ``launch/train.run``
+   at full width (``TRAIN_FULL``: llama3.2-1b at batch 8, seamless-m4t at
+   batch 4, 512 tokens a row, 30 steps, warmup 5): a finite loss that falls,
+   ms/step and tok/s after the first ``TRAIN_WARM`` steps, the peak device
+   memory and the share of the bf16 peak that the step's matmul FLOPs
+   (6 · params · tokens, part by part, the embedding gather left out) over
+   its time reach, no kernel launched;
+9. summary — the ``nvidia-smi`` line, one JSON line ``{"kernels": [...]}``
    (``flash_attention`` / ``ssd_scan`` launches summed over phase 6's
    serving runs) and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -229,6 +247,7 @@ SERVE_ARCHS = (
     ("llama4-maverick-400b-a17b", {"n_layers": 2, "param_dtype": "bfloat16"},
      {"flash_attention": 2}),
     ("dbrx-132b", {"n_layers": 4}, {"flash_attention": 4}),
+    ("seamless-m4t-large-v2", {}, {"flash_attention": 24}),
 )
 # phase 7: each arch at its published widths cut to one period, the same f32
 # weights on both devices, bf16 activations within LM_REL_L2 or f32 ones
@@ -248,6 +267,45 @@ CARD_VS_CPU = (
     ("dbrx-132b", {"n_layers": 1, "dtype": "float32"}),
     ("llama4-maverick-400b-a17b", {"n_layers": 2, "n_experts": 16, "dtype": "float32"}),
 )
+# phase 7: the encoder-decoder at its published widths cut to 2 + 2 layers
+ENCDEC_VS_CPU = ("seamless-m4t-large-v2", {"n_layers": 2, "n_encoder_layers": 2})
+# phase 8 (a): two train steps of each arch in f32 on the card and on the CPU
+# from the same weights and batch (TRAIN_B × TRAIN_S tokens), at the
+# published widths of every layer.  The CPU holds the params, gradients, both
+# AdamW moments and the new ones at once (~7 × the f32 params) and streams
+# each through AdamW's ~30 elementwise passes, ~10 s a GB for two steps; so
+# each arch runs one period (gemma3 one local and one global layer, zamba2 a
+# mamba layer and the shared block, seamless 1 + 1 layers), the MoE archs
+# with the fewest experts their top-k allows, and the vocabulary cut to
+# TRAIN_VOCAB
+TRAIN_VOCAB = 4096
+TRAIN_VS_CPU = (
+    ("llama3.2-1b", {"n_layers": 1}),
+    ("mamba2-1.3b", {"n_layers": 1}),
+    ("qwen3-14b", {"n_layers": 1}),
+    ("starcoder2-7b", {"n_layers": 1}),
+    ("chameleon-34b", {"n_layers": 1}),
+    ("gemma3-12b", {"n_layers": 2, "local_global_pattern": (1, 1)}),
+    ("zamba2-7b", {"n_layers": 2, "attn_every": 2}),
+    ("dbrx-132b", {"n_layers": 1, "n_experts": 4}),
+    ("llama4-maverick-400b-a17b", {"n_layers": 2, "n_experts": 2}),
+    ("seamless-m4t-large-v2", {"n_layers": 1, "n_encoder_layers": 1}),
+)
+TRAIN_B, TRAIN_S, TRAIN_LR = 2, 32, 1e-5
+# A train step's update (new − old params) goes through AdamW's
+# g / (|g| + ε), ε = 1e-8: an element whose gradient lies within its rounding
+# noise of 0 (|g| ~ 1e-9) moves by up to lr·|Δg|/ε and may flip sign, so a
+# few elements of a leaf differ by a sizeable part of lr.  The CPU tests
+# (tests/_torch_parity.py takes this definition) measured per-leaf relative
+# L2 ≤ 8.7e-4 of the update over 3 steps × 8 cases (mamba2's 1-d dt_bias and
+# A_log).  Here a leaf that starts at 0 (the norms' scale − 1, the conv bias)
+# is, after two steps, that update alone, so it is held to this bound; every
+# other updated leaf and both moments (linear in the gradients) to F32_REL_L2
+UPDATE_REL_L2 = 2e-3
+# phase 8 (b): ``launch/train.run`` at full width; the batch is the only cut
+TRAIN_FULL = (("llama3.2-1b", 8), ("seamless-m4t-large-v2", 4))
+TRAIN_ARGS = ["--full", "--seq", "512", "--steps", "30", "--warmup", "5", "--log-every", "5"]
+TRAIN_WARM = 5  # steps left out of ms/step and tok/s
 # the algorithms beyond FedCM and FedAvg (phases 4b and 5b)
 OTHER_ALGOS = ("fedprox", "fedavgm", "fedacg", "fedadam", "fedadagrad", "fedyogi", "mimelite",
                "scaffold", "feddyn")
@@ -764,7 +822,10 @@ def serve_full_width(torch, np, bindings):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: b.launches for k, b in bindings.items()}
-        expected = {k: want.get(k, 0) * args.sessions for k in bindings}
+        # the encoder-decoder serves one session of --gen steps, as the reference's
+        sessions, steps = (1, args.gen) if cfg.is_encoder_decoder else (args.sessions,
+                                                                       args.gen - 1)
+        expected = {k: want.get(k, 0) * sessions for k in bindings}
         if launches != expected:
             fail(f"serving {arch}: launch counts {launches}, expected {expected}")
         if res.tokens.shape != (args.batch, args.gen) or not (
@@ -778,14 +839,14 @@ def serve_full_width(torch, np, bindings):
             rows.append({"session": s, "prefill_ms": tp * 1e3,
                          "prefill_tok_s": args.batch * args.prompt_len / tp,
                          "decode_ms": td * 1e3,
-                         "decode_tok_s": args.batch * (args.gen - 1) / td})
+                         "decode_tok_s": args.batch * steps / td})
             say(f"serving {arch}: {json.dumps(rows[-1])}")
         peak = torch.cuda.max_memory_allocated()
         say(f"serving {arch} (n_layers {cfg.n_layers} of {get_config(arch).n_layers}, params "
-            f"{cfg.param_dtype}): launches {launches} in {args.sessions} sessions "
+            f"{cfg.param_dtype}): launches {launches} in {sessions} sessions "
             f"({wall:.1f} s with init), peak device memory {peak} B; first tokens "
             f"{res.tokens[0, :8].tolist()}")
-        out[arch] = {"launches": launches, "sessions": args.sessions, "rows": rows,
+        out[arch] = {"launches": launches, "sessions": sessions, "rows": rows,
                      "n_layers": cfg.n_layers, "peak_bytes": peak}
         del res
         torch.cuda.empty_cache()
@@ -921,6 +982,203 @@ def serve_card_vs_cpu(torch, np, arch: str, cut: dict):
         if flips:
             fail(f"card vs CPU serving {arch}: {flips} (token, choice) routes differ")
     return row
+
+
+def encdec_card_vs_cpu(torch, np, arch: str, cut: dict):
+    """The encoder-decoder at its published widths with ``cut``, bf16
+    activations, from the same f32 weights (drawn on the card) on both
+    devices, B=2, 128 source frames: the encoder output (its attention
+    through the flash kernel on the card, its plain version on the CPU),
+    the cross-attention K/V, then 4 teacher-forced decode steps' logits and
+    the self-attention cache, each within ``LM_REL_L2``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import encdec
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.trees import tree_map
+
+    cfg = replace(get_config(arch), **cut)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    params = {"cuda": model.init(gen)}
+    params["cpu"] = tree_map(lambda t: t.cpu(), params["cuda"])
+    B, S, steps = 2, 128, 4
+    rng = np.random.default_rng(5)
+    src = rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab_size, size=(B, steps))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        p = params[dev]
+        enc = encdec.encode(p, torch.as_tensor(src, device=dev), cfg=cfg, use_kernels=True)
+        cache = model.init_cache(p, B, steps, enc_out=enc)
+        seq = [("encoder output", enc), ("cross k", cache["cross_k"]),
+               ("cross v", cache["cross_v"])]
+        t = torch.as_tensor(toks, device=dev)
+        for i in range(steps):
+            lg, cache = model.decode_step(p, t[:, i:i + 1], cache, i)
+            seq.append((f"decode {i} logits", lg))
+        seq += [("self cache k", cache["k"]), ("self cache v", cache["v"])]
+        outs[dev] = [(name, x.detach().float().cpu()) for name, x in seq]
+    del params
+    torch.cuda.empty_cache()
+    worst = {}
+    for (name, a), (_, b) in zip(outs["cuda"], outs["cpu"]):
+        rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        worst[name] = rel
+        if not (rel <= LM_REL_L2 and bool(torch.isfinite(a).all())):
+            fail(f"card vs CPU serving {arch}: {name} relative L2 error {rel:.3e} > {LM_REL_L2}")
+    return {"arch": arch, "cut": cut, "B": B, "source_frames": S, "decode_steps": steps,
+            "rel_l2": worst, "rel_l2_limit": LM_REL_L2}
+
+
+# ---------------------------------------------------------------------- phase 8
+def rel_l2(torch, a, b) -> float:
+    """‖a − b‖ / ‖b‖ in f64, on ``a``'s device (the card's, for phase 8)."""
+    a = a.detach().double()
+    b = b.detach().to(a.device).double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def train_matmul_flops(cfg, counts: dict, batch: int, seq: int) -> int:
+    """A train step's matmul FLOPs by the 6 · params · tokens rule, part by
+    part (``counts``: params by top-level key, ``TrainResult.param_counts``),
+    for the dense archs of ``TRAIN_FULL``: the encoder's params see the
+    source frames (``seq`` of them, as ``launch/train`` draws them), the
+    rest the target tokens; the input ``embed`` is a gather and does no
+    matmul unless it is tied (then it is also the unembedding).  Attention's
+    score and value products are left out, as the rule leaves them out."""
+    src_tokens = tgt_tokens = batch * seq
+    matmul = {k: n for k, n in counts.items() if k != "embed" or cfg.tie_embeddings}
+    enc = sum(n for k, n in matmul.items() if k.startswith("enc"))
+    return 6 * (enc * src_tokens + (sum(matmul.values()) - enc) * tgt_tokens)
+
+
+def train_card_vs_cpu(torch, np, bindings, arch: str, cut: dict):
+    """Two ``launch/steps.py`` train steps (AdamW at ``TRAIN_LR``, clip 1,
+    f32 activations) of ``arch`` with ``cut`` and ``TRAIN_VOCAB`` on the CPU
+    and on the card from the same f32 weights (drawn on the card) and the
+    same ``dummy_batch``: each step's loss and grad norm, every updated param
+    leaf and both AdamW moments within ``F32_REL_L2`` (a leaf that starts at
+    0 within ``UPDATE_REL_L2``), and no kernel launched on the card
+    (training takes the plain route).  The CPU runs first and keeps only
+    its new state, so the host holds one run at a time."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.steps import Knobs, build_train_step
+    from repro_torch.utils.trees import tree_flatten_with_path, tree_leaves, tree_map
+
+    cfg = replace(get_config(arch), dtype="float32", vocab_size=TRAIN_VOCAB, **cut)
+    step = build_train_step(cfg, Knobs(remat="none", learning_rate=TRAIN_LR))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    params = step.model.init(gen)
+    zero = [not bool(t.any()) for t in tree_leaves(params)]
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batch = step.model.dummy_batch(TRAIN_B, TRAIN_S)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.cpu(), params) if dev == "cpu" else params
+        params = None if dev == "cuda" else params  # the card run consumes the drawn weights
+        o = step.opt.init(p)
+        b = tree_map(lambda t: t.to(dev), batch)
+        for k in bindings.values():
+            k.launches = 0
+        metrics, t0 = [], time.perf_counter()
+        for _ in range(2):
+            p, o, m = step.fn(p, o, b)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[dev] = {"state": (p, o[1], o[2]), "metrics": metrics,
+                     "s": time.perf_counter() - t0,
+                     "launches": {k: v.launches for k, v in bindings.items()}}
+        del o, p
+    torch.cuda.empty_cache()
+    if any(runs["cuda"]["launches"].values()):
+        fail(f"card vs CPU training {arch}: kernels launched in training: "
+             f"{runs['cuda']['launches']}")
+    worst_metric = 0.0
+    for card, cpu in zip(runs["cuda"]["metrics"], runs["cpu"]["metrics"]):
+        if not np.isfinite(card).all():
+            fail(f"card vs CPU training {arch}: non-finite loss or grad norm {card}")
+        worst_metric = max(worst_metric, *(abs(a - b) / max(abs(b), 1e-30)
+                                           for a, b in zip(card, cpu)))
+    worst = {}
+    for name, card, cpu in zip(("params", "m", "v"), runs["cuda"]["state"],
+                               runs["cpu"]["state"]):
+        for (path, a), b, z in zip(tree_flatten_with_path(card)[0], tree_leaves(cpu), zero):
+            if not bool(torch.isfinite(a).all()):
+                fail(f"card vs CPU training {arch}: non-finite {name} {path}")
+            limit = UPDATE_REL_L2 if name == "params" and z else F32_REL_L2
+            rel = rel_l2(torch, a, b)
+            if rel > limit:
+                fail(f"card vs CPU training {arch}: {name} {path} relative L2 {rel:.3e} > "
+                     f"{limit}")
+            key = f"{name} {'from 0' if name == 'params' and z else ''}".strip()
+            if rel >= worst.get(key, (-1.0, ""))[0]:
+                worst[key] = (rel, path)
+    row = {"arch": arch, "cut": dict(cut, vocab_size=TRAIN_VOCAB), "params": n_params,
+           "B": TRAIN_B, "S": TRAIN_S, "loss_grad_norm_max_rel": worst_metric,
+           "max_rel_l2": worst, "limits": [F32_REL_L2, UPDATE_REL_L2],
+           "losses": [m[0] for m in runs["cuda"]["metrics"]],
+           "card_s_2_steps": runs["cuda"]["s"], "cpu_s_2_steps": runs["cpu"]["s"]}
+    del runs
+    torch.cuda.empty_cache()
+    if worst_metric > F32_REL_L2:
+        fail(f"card vs CPU training {arch}: {json.dumps(row)}")
+    return row
+
+
+def train_full_width(torch, np, bindings):
+    """``repro_torch.launch.train.run`` at full width for ``TRAIN_FULL``
+    (``TRAIN_ARGS``: 30 steps of 512 tokens a row, warmup 5), with the launch
+    counts set to 0 just before each and read just after (training launches
+    no kernel): a finite loss whose last logged value is below the first,
+    ms/step and tok/s of the steps after the first ``TRAIN_WARM``, the peak
+    device memory, and the share of the card's bf16 peak that the step's
+    matmul FLOPs (``train_matmul_flops``) over its time reach.  A batch the card cannot hold
+    is halved and the cut printed; the width is never cut."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train
+
+    rows = []
+    for arch, batch in TRAIN_FULL:
+        while True:
+            args = train.build_parser().parse_args(["--arch", arch, "--batch", str(batch),
+                                                    *TRAIN_ARGS])
+            torch.cuda.empty_cache()
+            for b in bindings.values():
+                b.launches = 0
+            t0 = time.perf_counter()
+            try:
+                res = train.run(args, echo=False)
+                break
+            except torch.cuda.OutOfMemoryError:
+                say(f"training {arch}: batch {batch} does not fit the card; cut to {batch // 2}")
+                torch.cuda.empty_cache()
+                if batch == 1:
+                    fail(f"training {arch}: batch 1 does not fit the card")
+                batch //= 2
+        wall = time.perf_counter() - t0
+        launches = {k: b.launches for k, b in bindings.items()}
+        if any(launches.values()):
+            fail(f"training {arch}: kernels launched in training: {launches}")
+        logged = [r["loss"] for r in res.rows]
+        if not (np.isfinite(res.losses).all() and logged[-1] < logged[0]):
+            fail(f"training {arch}: losses {res.losses} (logged {logged})")
+        steady = res.step_s[TRAIN_WARM:]
+        step_s = statistics.mean(steady)
+        tokens = batch * args.seq
+        flops = train_matmul_flops(get_config(arch), res.param_counts, batch, args.seq)
+        row = {"arch": arch, "params": sum(res.param_counts.values()),
+               "matmul_flops_per_step": flops, "batch": batch, "seq": args.seq,
+               "steps": len(res.losses), "logged_losses": logged,
+               "ms_per_step": step_s * 1e3, "ms_per_step_median": statistics.median(steady) * 1e3,
+               "tok_s": tokens / step_s, "peak_bytes": res.peak_bytes,
+               "bf16_peak_share": flops / step_s / BF16_FLOPS_PER_S,
+               "wall_s_with_init": wall}
+        say(f"training at full width: {json.dumps(row)}")
+        rows.append(row)
+        del res
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------- phase 4b
@@ -2015,7 +2273,8 @@ def main() -> int:
     # ragged and causal, bf16 without the causal mask (GQA, Sq ≠ Skv); then
     # the other archs' shapes, each beside SDPA: gemma3's serving shape
     # (hd 256), its local layer past the window, the f32 route at hd 256,
-    # zamba2's shared block (hd 112, padded to 128) and qwen3 (40 / 8 heads)
+    # zamba2's shared block (hd 112, padded to 128), qwen3 (40 / 8 heads) and
+    # seamless' encoder (16 / 16 heads, hd 64, bidirectional)
     for B, Sq, Skv, H, Hkv, hd, dtype, causal, window, q_offset, library in (
             (4, 1024, 1024, 32, 8, 64, torch.bfloat16, True, None, 0, True),
             (2, 77, 50, 8, 2, 64, torch.bfloat16, True, 20, 40, False),
@@ -2026,7 +2285,8 @@ def main() -> int:
             (2, 2048, 2048, 16, 8, 256, torch.bfloat16, True, 1024, 0, True),
             (2, 333, 301, 16, 8, 256, torch.float32, False, None, 0, True),
             (4, 1024, 1024, 32, 32, 112, torch.bfloat16, True, None, 0, True),
-            (4, 1024, 1024, 40, 8, 128, torch.bfloat16, True, None, 0, True)):
+            (4, 1024, 1024, 40, 8, 128, torch.bfloat16, True, None, 0, True),
+            (4, 1024, 1024, 16, 16, 64, torch.bfloat16, False, None, 0, True)):
         r = check_flash_attention(torch, fa_kernel, fa_ref, B, Sq, Skv, H, Hkv, hd, dtype,
                                   causal, window, q_offset, gen, library=library)
         fa_cases.append(r)
@@ -2194,8 +2454,17 @@ def main() -> int:
     # ---- 7. card vs CPU, serving
     for arch, cut in CARD_VS_CPU:
         say(f"card vs CPU serving: {json.dumps(serve_card_vs_cpu(torch, np, arch, cut))}")
+    say(f"card vs CPU serving: {json.dumps(encdec_card_vs_cpu(torch, np, *ENCDEC_VS_CPU))}")
 
-    # ---- 8. summary
+    # ---- 8. training: card vs CPU, then at full width, launch counts from each run only
+    t0 = time.perf_counter()
+    for arch, cut in TRAIN_VS_CPU:
+        row = train_card_vs_cpu(torch, np, bindings, arch, cut)
+        say(f"card vs CPU training: {json.dumps(row)}")
+    say(f"card vs CPU training: phase 8 (a) in {time.perf_counter() - t0:.1f} s")
+    train_full_width(torch, np, bindings)
+
+    # ---- 9. summary
     def main_case(cases, **sel):
         return next(r for r in cases if r["C"] == MAIN_C and r["P"] == MAIN_P
                     and all(r[k] == v for k, v in sel.items()))

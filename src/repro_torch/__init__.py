@@ -9,8 +9,10 @@ registered algorithms (FedCM, paper Algorithm 2, and its baselines) with the
 lossy uplink, synchronous or on the async ring, with per-client state on the
 device or in a host population store; the local step and the server folds
 as hand-written CUDA kernels (``repro_torch/csrc``); LM serving (prefill →
-decode) for the nine decoder-only archs (dense, moe, ssm, hybrid and vlm
-families), with flash attention and the SSD scan as CUDA kernels; whole-run
+decode) for all ten archs (the dense, moe, ssm, hybrid and vlm decoder-only
+families and the encoder-decoder), with flash attention and the SSD scan as
+CUDA kernels; LM training (``repro_torch.launch.train``: autograd on the
+plain route, AdamW from ``repro_torch.optim``); whole-run
 snapshots with kill and resume
 (``repro_torch.checkpoint``, the reference's msgpack layout); and the
 fleet loop (``repro_torch.fleet``): publication of each snapshot's params,

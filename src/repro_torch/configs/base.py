@@ -1,8 +1,8 @@
 """Configurations: copies of ``repro.configs.base``'s ``FedConfig`` (cut to
 the fields this package reads), ``FaultConfig``, ``CompressionConfig`` and
 ``ModelConfig`` (every field), with the same names and defaults, and the
-architecture registry of the ported archs: the nine decoder-only ones
-(dense, moe, ssm, hybrid, vlm).
+architecture registry: all ten archs of the reference's pool (the dense,
+moe, ssm, hybrid and vlm decoder-only families and the encoder-decoder).
 
 Fields for features the port does not run yet stay in the copy so that a
 config asking for them fails loudly (``repro_torch.core.engine`` raises
@@ -158,9 +158,7 @@ class FedConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     """An LM architecture (counterpart of ``repro.configs.base.ModelConfig``):
-    every field, under the same names and defaults.  The encoder-decoder
-    fields stay so that such a config is refused by name
-    (``repro_torch.models.model.build_model``, ROADMAP A.15)."""
+    every field, under the same names and defaults."""
 
     name: str
     family: str  # dense | moe | ssm | hybrid | encdec | vlm | audio
@@ -203,7 +201,7 @@ class ModelConfig:
     # --- hybrid (zamba2-style): a shared attention block every attn_every layers ---
     attn_every: int = 0
 
-    # --- encoder-decoder (not ported: ROADMAP A.15) ---
+    # --- encoder-decoder (seamless-m4t) ---
     is_encoder_decoder: bool = False
     n_encoder_layers: int = 0
 
@@ -232,24 +230,11 @@ class ModelConfig:
         return (self.ssm_expand * self.d_model) // self.ssm_head_dim
 
 
-# The reference's architecture pool; the port serves the archs of
-# _MODULE_FOR and refuses the others by name.
-REFERENCE_ARCH_IDS = [
-    "starcoder2-7b",
-    "llama4-maverick-400b-a17b",
-    "seamless-m4t-large-v2",
-    "dbrx-132b",
-    "zamba2-7b",
-    "llama3.2-1b",
-    "qwen3-14b",
-    "gemma3-12b",
-    "chameleon-34b",
-    "mamba2-1.3b",
-]
-
+# The reference's architecture pool, in its order, all ported.
 _MODULE_FOR: Dict[str, str] = {
     "starcoder2-7b": "starcoder2_7b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
     "dbrx-132b": "dbrx_132b",
     "zamba2-7b": "zamba2_7b",
     "llama3.2-1b": "llama3_2_1b",
@@ -262,21 +247,15 @@ ARCH_IDS = list(_MODULE_FOR)
 
 
 def get_config(name: str) -> ModelConfig:
-    """The published config of a ported arch (``llama3.2-1b`` or
-    ``mamba2_1_3b`` spelling).  An arch of the reference's pool that is
-    not ported (the encoder-decoder seamless-m4t) raises
-    ``NotImplementedError``; an unknown name ``KeyError``."""
+    """The published config of an arch (``llama3.2-1b`` or ``mamba2_1_3b``
+    spelling); an unknown name raises ``KeyError``."""
     key = name.replace("_", "-") if name not in _MODULE_FOR else name
     for k, mod in _MODULE_FOR.items():
         if mod == name:
             key = k
     if key in _MODULE_FOR:
         return importlib.import_module(f"repro_torch.configs.{_MODULE_FOR[key]}").CONFIG
-    if key in REFERENCE_ARCH_IDS:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet (ROADMAP A.15); the port "
-            f"serves {ARCH_IDS}")
-    raise KeyError(f"unknown architecture {name!r}; known: {REFERENCE_ARCH_IDS}")
+    raise KeyError(f"unknown architecture {name!r}; known: {ARCH_IDS}")
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

@@ -42,8 +42,12 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 def params_from_numpy(tree, device="cpu"):
     """numpy tree → tensor tree on ``device``, leaf for leaf in the tree's
     dtypes: the MLP's params (list of {"w", "b"} dicts), an LM params tree
-    from the reference's ``model.init`` or an LM cache tree (nested dicts,
-    stacked on the periods axis; bf16 leaves stay bf16)."""
+    from the reference's ``model.init`` (decoder-only: stacked on the
+    periods axis; encoder-decoder: the ``enc`` / ``dec`` stacks beside
+    ``embed``, ``unembed``, ``enc_norm`` and ``dec_norm``), an LM cache
+    tree, or an optimizer state such as AdamW's ``(step, m, v)`` tuple (the
+    int32 step stays a 0-d int32 tensor; ``params_to_numpy`` carries it
+    back).  bf16 leaves stay bf16."""
     return tree_map(lambda a: to_tensor(a, device), tree)
 
 

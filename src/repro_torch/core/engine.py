@@ -254,6 +254,13 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (a no-op on the CPU), so a host
+    clock read after it times that work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 # (predicate, what, ROADMAP item) for every knob the port does not run yet
 _UNPORTED = (
     (lambda c: not c.use_flat_plane, "use_flat_plane=False (the per-leaf tree path)", "A.16"),

@@ -1,4 +1,4 @@
-"""Federated data pipeline.
+"""Federated data pipeline, and the LM training batches.
 
 ``FederatedData`` holds the client-partitioned dataset as stacked device
 tensors ``(num_clients, n_per_client, ...)`` so a whole cohort's K local
@@ -11,7 +11,8 @@ minibatches are gathered in one indexing op per round:
 
 Minibatch indices are drawn with replacement from a ``torch.Generator`` on
 the data's device, or injected (``idx``) so that a test can hand both this
-package and the reference the same draws.
+package and the reference the same draws.  ``lm_batch_iterator`` feeds the
+centralized LM training loop (``repro_torch.launch.train``).
 """
 from __future__ import annotations
 
@@ -70,3 +71,18 @@ class FederatedData:
             np.stack([x[p[:n_per]] for p in parts]), device=device)  # (N, n, ...)
         self.client_y = torch.as_tensor(
             np.stack([y[p[:n_per]] for p in parts]), device=device)  # (N, n)
+
+
+def lm_batch_iterator(tokens: np.ndarray, batch_size: int, seed: int = 0, device="cpu",
+                      dtype=torch.int64):
+    """Endless ``{"tokens": (B, S), "labels": (B, S)}`` batches for LM
+    training, the reference's ``lm_batch_iterator`` draw for draw: rows of
+    ``tokens`` ``(n_seqs, S + 1)`` picked with replacement by
+    ``default_rng(seed)``, labels the inputs shifted by one, as ``dtype``
+    tensors on ``device``."""
+    rng = np.random.default_rng(seed)
+    n = tokens.shape[0]
+    while True:
+        batch = tokens[rng.integers(0, n, size=batch_size)]
+        yield {"tokens": torch.as_tensor(batch[:, :-1], dtype=dtype, device=device),
+               "labels": torch.as_tensor(batch[:, 1:], dtype=dtype, device=device)}

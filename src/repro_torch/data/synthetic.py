@@ -1,14 +1,22 @@
 """Synthetic classification and language-model data.
 
-Numpy-only copies of ``repro.data.synthetic.make_synthetic_classification``
+Numpy copies of ``repro.data.synthetic.make_synthetic_classification``
 and ``make_synthetic_lm``, kept draw for draw so both packages build the
-same data for the same seed.
+same data for the same seed; and the encoder-decoder's synthetic source
+frames (``source_frames``), drawn with a ``torch.Generator``.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+import torch
+
+# The LM CLIs (serving prompts, training data) draw from the chain over the
+# first min(vocab, CHAIN_VOCAB) token ids: the chain is a dense (V, V) f64
+# matrix, 131.6 GB at llama3.2-1b's vocabulary (ROADMAP queue C); at the
+# reduced configs' vocab of 512 the reference draws the same data.
+CHAIN_VOCAB = 512
 
 
 def make_synthetic_classification(
@@ -52,7 +60,7 @@ def make_synthetic_lm(
 
     ``temperature`` controls row entropy (lower = more predictable).  The
     chain is a dense (vocab, vocab) f64 matrix, so callers keep
-    ``vocab_size`` small (the serving CLI draws over at most 512 ids)."""
+    ``vocab_size`` small (the CLIs draw over at most ``CHAIN_VOCAB`` ids)."""
     rng = np.random.default_rng(seed)
     if transition is None:
         logits = rng.normal(size=(vocab_size, vocab_size)) / max(temperature, 1e-3)
@@ -68,6 +76,15 @@ def make_synthetic_lm(
         state = np.minimum(state, vocab_size - 1)
         toks[:, t] = state
     return toks
+
+
+def source_frames(batch: int, seq: int, d_model: int, seed: int, device) -> torch.Tensor:
+    """An encoder-decoder's synthetic source frames (the stubbed speech
+    frontend's output), ``(batch, seq, d_model)`` f32 normal from a
+    ``torch.Generator`` on ``device`` seeded with ``seed``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return torch.randn((batch, seq, d_model), generator=gen, device=device)
 
 
 def _softmax(x: np.ndarray) -> np.ndarray:

@@ -23,8 +23,12 @@ MAX_HEAD_DIM = 256  # hd pads to 64, 128 or 256 inside the kernel
 
 
 def _check(q, k, v):
-    """Validate shapes, dtypes, contiguity and device (before any build or
-    launch); returns ``(B, Sq, Skv, H, Hkv, hd)``."""
+    """Validate autograd, shapes, dtypes, contiguity and device (before any
+    build or launch); returns ``(B, Sq, Skv, H, Hkv, hd)``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("flash_attention kernel has no backward, and its output would carry "
+                         "no gradient: an input requires grad; training takes the plain route "
+                         "(use_kernels=False)")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q must be (B, Sq, H, hd) and k, v (B, Skv, Hkv, hd); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}")

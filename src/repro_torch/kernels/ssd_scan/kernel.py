@@ -26,8 +26,12 @@ CB_TILE = 64  # the C·Bᵀ scratch holds one (64, 64) f32 tile per (batch, chun
 
 
 def _check(x, dt, A, Bm, Cm, chunk):
-    """Validate shapes, dtypes, strides and device (before any build or
-    launch); returns ``(Bsz, S, H, P, N)``."""
+    """Validate autograd, shapes, dtypes, strides and device (before any
+    build or launch); returns ``(Bsz, S, H, P, N)``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, Bm, Cm)):
+        raise ValueError("ssd_scan kernel has no backward, and its outputs would carry no "
+                         "gradient: an input requires grad; training takes the plain route "
+                         "(use_kernels=False)")
     if x.dim() != 4 or Bm.dim() != 3 or Cm.dim() != 3:
         raise ValueError(f"x must be (B, S, H, P) and B, C (B, S, N); got {tuple(x.shape)}, "
                          f"{tuple(Bm.shape)}, {tuple(Cm.shape)}")

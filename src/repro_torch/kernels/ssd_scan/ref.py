@@ -16,6 +16,8 @@ y (B, S, H, P) in x's dtype and the final state (B, H, P, N) in f32.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -45,8 +47,11 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, chunk: int):
     # ---- intra-chunk (masked quadratic)
     seg = dAcs[:, :, :, None, :] - dAcs[:, :, None, :, :]  # (B, nc, i, j, H)
     mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
-    Lmat = torch.where(mask[None, None, :, :, None], torch.exp(seg),
-                       torch.zeros((), dtype=f32, device=x.device))
+    # the reference's where(mask, exp(seg), 0), with the mask applied before
+    # the exp: the same values, but exp(seg) above the diagonal (positive
+    # exponents) can overflow to inf, and its gradient 0·inf would be NaN
+    Lmat = torch.exp(torch.where(mask[None, None, :, :, None], seg,
+                                 torch.full((), -math.inf, dtype=f32, device=x.device)))
     CB = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
     scores = CB[..., None] * Lmat  # (B, nc, i, j, H)
     xdt = xc * dtc[..., None]  # (B, nc, L, H, P)

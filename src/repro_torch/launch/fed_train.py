@@ -396,6 +396,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--min-quorum", type=int, default=0,
                     help="skip the server fold (params carried unchanged) when "
                          "surviving clients fall below this count")
+    ap.add_argument("--allow-empty-cohort", action="store_true",
+                    help="let dropout empty the cohort entirely (the fold "
+                         "degrades to a guarded no-op round) instead of the "
+                         "legacy keep-first-client guard")
     ap.add_argument("--ckpt-every", type=int, default=0,
                     help="write an atomic whole-run snapshot (state, generator, host "
                          "stores) every N rounds; sync rounds only")
@@ -490,7 +494,8 @@ def resolve_config(args: argparse.Namespace) -> FedConfig:
         staleness_discount=args.staleness_discount,
         population_store=args.population_store, availability=args.availability,
         zipf_exponent=args.zipf_exponent, dropout_rate=args.dropout_rate,
-        fault=fault, min_quorum=args.min_quorum, compression=compression,
+        fault=fault, min_quorum=args.min_quorum,
+        allow_empty_cohort=args.allow_empty_cohort, compression=compression,
         cohort_shard=args.cohort_shard,
     )
 

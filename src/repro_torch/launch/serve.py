@@ -9,6 +9,15 @@ are decoded step by step.  Greedy sampling (temperature 0) by default;
 ``serve_loop`` is the reusable decode loop with step-boundary hot-swaps of
 the served params, copied from the reference.
 
+The encoder-decoder (seamless-m4t-large-v2) serves as the reference's
+``_serve_encdec`` does: one session that encodes ``(batch, prompt_len,
+d_model)`` source frames once (the encoder's attention through the
+flash-attention kernel), precomputes each decoder layer's cross-attention
+K/V, and decodes ``--gen`` greedy tokens from BOS 0 at positions 0 … gen−1.
+Its frames come from a ``torch.Generator`` seeded from ``--seed`` (the
+reference draws them with threefry); ``--ckpt`` serves published params,
+``--follow`` is refused.
+
 ``--ckpt DIR`` serves published params (``repro_torch.fleet.publisher``
 layout: ``LATEST.json`` + ``step_<v>.msgpack``, from either package) in
 place of random init, and ``--ckpt DIR/step_<v>.msgpack`` one version of
@@ -44,13 +53,12 @@ from typing import Any, Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import REFERENCE_ARCH_IDS, get_config, reduced
-from repro_torch.core.engine import resolve_device
-from repro_torch.data.synthetic import make_synthetic_lm
+from repro_torch.configs.base import ARCH_IDS, get_config, reduced
+from repro_torch.core.engine import resolve_device, synchronize
+from repro_torch.data.synthetic import CHAIN_VOCAB, make_synthetic_lm, source_frames
+from repro_torch.models import encdec
 from repro_torch.models.model import build_model
 from repro_torch.utils.trees import tree_map
-
-PROMPT_VOCAB = 512  # prompts draw from the chain over the first 512 token ids
 
 
 @dataclass
@@ -146,7 +154,8 @@ class ServeResult:
     """One ``run``: the served config's name, the last session's generated
     tokens ``(B, gen)``, the loop's stats, the wall seconds of each
     session's prefill and decode (synchronized with the device at both
-    ends), and whether every logit that was sampled from was finite."""
+    ends), whether every logit that was sampled from was finite, and
+    whether the config is the encoder-decoder (its prefill is the encode)."""
 
     arch: str
     tokens: np.ndarray
@@ -154,11 +163,7 @@ class ServeResult:
     prefill_s: List[float]
     decode_s: List[float]
     finite: bool
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    encoder_decoder: bool = False
 
 
 def merge(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
@@ -198,17 +203,52 @@ def load_ckpt_params(path: str, template: Any, *, follow: bool = False):
     return version, params, None
 
 
+def _serve_encdec(model, params, args, device, version: int,
+                  src: Optional[torch.Tensor]) -> ServeResult:
+    """One session: encode the source frames once, build the cross cache,
+    decode ``args.gen`` greedy tokens from BOS 0.  The prefill time is the
+    encode time (the cross K/V included)."""
+    cfg = model.cfg
+    if src is None:
+        src = source_frames(args.batch, args.prompt_len, cfg.d_model, args.seed + 2, device)
+    finite = torch.ones((), dtype=torch.bool, device=device)
+    synchronize(device)
+    t0 = time.perf_counter()
+    enc_out = encdec.encode(params, src.to(device), cfg=cfg, use_kernels=True)
+    cache = model.init_cache(params, args.batch, args.gen, enc_out=enc_out)
+    synchronize(device)
+    t_enc = time.perf_counter() - t0
+    tok = torch.zeros((args.batch, 1), dtype=torch.long, device=device)  # BOS
+    outs = []
+    t0 = time.perf_counter()
+    for i in range(args.gen):
+        logits, cache = model.decode_step(params, tok, cache, i)
+        last = logits[:, -1].to(torch.float32)
+        finite.logical_and_(torch.isfinite(last).all())
+        tok = torch.argmax(last, dim=-1)[:, None]
+        outs.append(tok)
+    synchronize(device)
+    t_dec = time.perf_counter() - t0
+    stats = ServeStats(steps=args.gen, sessions=1, served_version=version, t_active_s=t_enc + t_dec)
+    return ServeResult(cfg.name, torch.cat(outs, dim=1).cpu().numpy(), stats, [t_enc], [t_dec],
+                       bool(finite), encoder_decoder=True)
+
+
 def run(args: argparse.Namespace, on_step: Optional[Callable[[ServeStats], None]] = None,
-        cfg=None) -> ServeResult:
+        cfg=None, src_embeds: Optional[torch.Tensor] = None) -> ServeResult:
     """Build the model and prompts for ``args`` and serve ``args.sessions``
     sessions of ``args.gen`` tokens; ``on_step`` is ``serve_loop``'s
     per-step callback.  ``cfg`` serves that config in place of ``--arch``'s
-    (``--full`` / reduced): a published one cut in depth, say."""
+    (``--full`` / reduced): a published one cut in depth, say.  An
+    encoder-decoder serves one session of ``src_embeds`` (default: the
+    seeded ``source_frames``)."""
     device = resolve_device(args.device)
     if cfg is None:
         cfg = get_config(args.arch)
         if not args.full:
             cfg = reduced(cfg)
+    if cfg.is_encoder_decoder and args.follow:
+        raise ValueError("--follow is not served for the encoder-decoder: it runs one session")
     model = build_model(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
@@ -217,8 +257,10 @@ def run(args: argparse.Namespace, on_step: Optional[Callable[[ServeStats], None]
     if args.ckpt:
         version, params, provider = load_ckpt_params(args.ckpt, params, follow=args.follow)
         print(f"serving published params: version {version} from {args.ckpt}")
+    if cfg.is_encoder_decoder:
+        return _serve_encdec(model, params, args, device, version, src_embeds)
     prompts = torch.as_tensor(
-        make_synthetic_lm(min(cfg.vocab_size, PROMPT_VOCAB), args.prompt_len, args.batch,
+        make_synthetic_lm(min(cfg.vocab_size, CHAIN_VOCAB), args.prompt_len, args.batch,
                           seed=args.seed), dtype=torch.long, device=device)
     max_len = args.prompt_len + args.gen
     finite = torch.ones((), dtype=torch.bool, device=device)  # read once, at the end
@@ -236,16 +278,16 @@ def run(args: argparse.Namespace, on_step: Optional[Callable[[ServeStats], None]
     last = {"gen": None}
 
     def begin_session(p, s):
-        _sync(device)
+        synchronize(device)
         t0 = time.perf_counter()
         logits, pre_cache, _ = model.apply(p, prompts, return_cache=True)
-        _sync(device)
+        synchronize(device)
         prefill_s.append(time.perf_counter() - t0)
         cache = tree_map(merge, model.init_cache(p, args.batch, max_len), pre_cache)
         generator = torch.Generator(device=device)
         generator.manual_seed(args.seed + 1 + s)
         tok = sample(logits, generator)
-        _sync(device)
+        synchronize(device)
         return {"tok": tok, "cache": cache, "gen": generator, "out": [tok],
                 "t0": time.perf_counter()}
 
@@ -256,7 +298,7 @@ def run(args: argparse.Namespace, on_step: Optional[Callable[[ServeStats], None]
         return {**st, "tok": tok, "cache": cache}
 
     def end_session(p, st):
-        _sync(device)
+        synchronize(device)
         decode_s.append(time.perf_counter() - st["t0"])
         last["gen"] = torch.cat(st["out"], dim=1).cpu().numpy()
 
@@ -270,9 +312,10 @@ def run(args: argparse.Namespace, on_step: Optional[Callable[[ServeStats], None]
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--arch", default="llama3.2-1b", choices=REFERENCE_ARCH_IDS,
-                    help="the nine decoder-only archs are ported; seamless-m4t-large-v2 "
-                         "(encoder-decoder) raises")
+    ap.add_argument("--arch", default="llama3.2-1b", choices=ARCH_IDS,
+                    help="any of the ten archs; seamless-m4t-large-v2 (encoder-decoder) "
+                         "encodes --prompt-len source frames and decodes --gen tokens in "
+                         "one session")
     ap.add_argument("--full", action="store_true", help="the published widths (else reduced)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -297,7 +340,16 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.follow and not args.ckpt:
         ap.error("--follow watches the --ckpt directory — add --ckpt DIR")
-    res = run(args)
+    try:
+        res = run(args)
+    except ValueError as e:  # an option this arch does not serve
+        ap.error(str(e))
+    if res.encoder_decoder:
+        t_enc, t_dec = res.prefill_s[0], res.decode_s[0]
+        print(f"encdec arch={res.arch}: encode {t_enc*1e3:.1f}ms, decode {t_dec*1e3:.1f}ms "
+              f"({args.batch*args.gen/max(t_dec,1e-9):.0f} tok/s)")
+        print("sample:", res.tokens[0, :16].tolist())
+        return 0
     n = max(res.stats.sessions, 1)
     t_prefill, t_decode = sum(res.prefill_s) / n, sum(res.decode_s) / n
     print(f"arch={res.arch} batch={args.batch} prompt={args.prompt_len} "

@@ -1,0 +1,102 @@
+"""The LM train step (counterpart of the train half of ``repro.launch.steps``):
+loss → grads (optionally accumulated over microbatches) → global-norm clip
+→ AdamW → new params.
+
+``build_train_step(cfg, knobs).fn(params, opt_state, batch)`` returns
+``(params, opt_state, {"loss", "grad_norm"})`` as new trees and leaves its
+inputs alone, as the reference's jitted step does (which then donates
+them).  Gradients come from ``torch.autograd`` through the model's plain
+route (``loss_fn(..., use_kernels=False)``): the hand-written kernels have
+no backward, as the reference's Pallas kernels have none.
+
+The ``Knobs`` fields keep the reference's names and defaults.  Gradients
+accumulate in f32 and the moments are f32 (``adamw``'s ``moment_dtype``
+default); the weights keep the dtype ``model.init`` gives them (the
+config's ``param_dtype``).  Left out are ``seq_shard_acts``,
+``serve_params`` and ``scan_unroll`` (lowering and mesh knobs, ROADMAP
+A.16), and the prefill / serve step bundles (serving is
+``repro_torch.launch.serve``).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, NamedTuple
+
+import torch
+
+from repro_torch.models.model import Model, build_model
+from repro_torch.models.transformer import check_remat
+from repro_torch.optim.optimizers import Optimizer, adamw, clip_by_global_norm
+from repro_torch.utils.trees import tree_flatten_with_path, tree_map, tree_unflatten
+
+F32 = torch.float32
+
+
+@dataclass(frozen=True)
+class Knobs:
+    microbatches: int = 1  # grad-accumulation chunks of the global batch
+    remat: str = "full"  # "none" | "full" (each period under torch.utils.checkpoint)
+    learning_rate: Any = 3e-4  # a float or a schedule step -> lr
+    grad_clip: float = 1.0
+    use_kernels: bool = False  # only False: True raises, no kernel has a backward
+
+
+class TrainStep(NamedTuple):
+    fn: Callable[..., Any]  # (params, opt_state, batch) -> (params, opt_state, metrics)
+    opt: Optimizer
+    model: Model
+
+
+def value_and_grad(loss_fn: Callable, params, batch):
+    """``((loss, metrics), grads)`` of ``loss_fn(params, batch)`` by autograd,
+    each gradient in its param's dtype (zeros for a leaf the loss does not
+    reach)."""
+    leaves, treedef = tree_flatten_with_path(params)
+    with torch.enable_grad():
+        live = [p.detach().requires_grad_(True) for _, p in leaves]
+        loss, metrics = loss_fn(tree_unflatten(treedef, live), batch)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(live, grads)]
+    return (loss.detach(), tree_map(torch.Tensor.detach, metrics)), tree_unflatten(treedef, grads)
+
+
+def build_train_step(cfg, knobs: Knobs = Knobs()) -> TrainStep:
+    if knobs.use_kernels:
+        raise NotImplementedError(
+            "Knobs.use_kernels=True: the flash-attention and SSD kernels have no backward (nor "
+            "have the JAX package's Pallas kernels); training takes the plain route")
+    check_remat(knobs.remat)
+    model = build_model(cfg)
+    opt = adamw(knobs.learning_rate)
+    M = knobs.microbatches
+
+    def loss_fn(params, mb):
+        return model.loss_fn(params, mb, remat=knobs.remat, use_kernels=False)
+
+    def train_step(params, opt_state, batch: Dict[str, torch.Tensor]):
+        if M == 1:
+            (loss, _), grads = value_and_grad(loss_fn, params, batch)
+        else:
+            B = next(iter(batch.values())).shape[0]
+            if B % M:
+                raise ValueError(f"batch {B} is not a multiple of {M} microbatches")
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=F32, device=p.device),
+                             params)
+            loss = torch.zeros((), dtype=F32, device=next(iter(batch.values())).device)
+            for i in range(M):
+                mb = {k: v.reshape(M, B // M, *v.shape[1:])[i] for k, v in batch.items()}
+                (l, _), g = value_and_grad(loss_fn, params, mb)
+                grads = tree_map(lambda a, gi: a + gi.to(a.dtype), grads, g)
+                loss = loss + l
+            grads = tree_map(lambda g: g / M, grads)
+            loss = loss / M
+        with torch.no_grad():
+            grads, gnorm = clip_by_global_norm(grads, knobs.grad_clip)
+            updates, opt_state = opt.update(grads, opt_state, params)
+            del grads
+            # p + u in f32, written into the update (a fresh tensor) when it is f32
+            params = tree_map(lambda p, u: u.to(F32).add_(p.to(F32)).to(p.dtype), params,
+                              updates)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm}
+
+    return TrainStep(train_step, opt, model)

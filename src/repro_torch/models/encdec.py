@@ -1,0 +1,177 @@
+"""Encoder-decoder backbone, the SeamlessM4T family (counterpart of
+``repro.models.encdec``).
+
+The speech frontend is the allowed stub, as in the reference: the encoder
+consumes precomputed frame embeddings ``(B, S_src, D)``.  After that: a
+bidirectional encoder stack, a causal decoder stack with cross-attention,
+teacher-forced training (``decode_train``), and incremental decoding
+(``decode_step``) against a self-attention KV cache written in place at
+``pos`` and the cross-attention K/V precomputed once per layer
+(``init_decode_cache``).
+
+Layers are stacked on a leading axis (``params["enc"]``, ``params["dec"]``)
+as the reference's ``vmap``-ed init lays them out; its ``lax.scan`` over
+layers is a Python loop over views.  ``encode`` with ``use_kernels`` sends
+the encoder's bidirectional attention through the flash-attention kernel
+(``causal=False``), as serving prefill does; training, ``decode_train`` and
+the decoder's attention take the reference's plain route.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.layers import (
+    BLOCKED_ATTENTION_THRESHOLD,
+    _project,
+    apply_rope,
+    attend_blocked,
+    attend_direct,
+    cross_attention,
+    embed_init,
+    encode_kv,
+    init_attention,
+    init_mlp,
+    init_rmsnorm,
+    mlp,
+    rmsnorm,
+    self_attention,
+)
+from repro_torch.models.transformer import check_remat
+from repro_torch.utils.trees import tree_map
+
+
+def init_params(generator: torch.Generator, cfg) -> Dict[str, Any]:
+    """Random params from ``generator`` (on its device) in ``cfg.param_dtype``,
+    in the reference's tree layout: untied ``embed`` / ``unembed``, the
+    ``enc`` and ``dec`` stacks, ``enc_norm`` and ``dec_norm``."""
+    dtype = getattr(torch, cfg.param_dtype)
+    dev = generator.device
+    D, V = cfg.d_model, cfg.padded_vocab
+    le, ld = (cfg.n_encoder_layers,), (cfg.n_layers,)
+    return {
+        "embed": embed_init(generator, (V, D), dtype, dev),
+        "unembed": embed_init(generator, (D, V), dtype, dev),
+        "enc": {"norm1": init_rmsnorm(D, dtype, le, dev),
+                "attn": init_attention(generator, cfg, dtype, le, dev),
+                "norm2": init_rmsnorm(D, dtype, le, dev),
+                "mlp": init_mlp(generator, cfg, dtype=dtype, lead=le, device=dev)},
+        "dec": {"norm1": init_rmsnorm(D, dtype, ld, dev),
+                "self_attn": init_attention(generator, cfg, dtype, ld, dev),
+                "norm_x": init_rmsnorm(D, dtype, ld, dev),
+                "cross_attn": init_attention(generator, cfg, dtype, ld, dev),
+                "norm2": init_rmsnorm(D, dtype, ld, dev),
+                "mlp": init_mlp(generator, cfg, dtype=dtype, lead=ld, device=dev)},
+        "enc_norm": init_rmsnorm(D, dtype, device=dev),
+        "dec_norm": init_rmsnorm(D, dtype, device=dev),
+    }
+
+
+def _layers(stacked, n: int):
+    for i in range(n):
+        yield tree_map(lambda a: a[i], stacked)
+
+
+def _maybe_remat(fn, remat: str, h):
+    return checkpoint(fn, h, use_reentrant=False) if remat == "full" else fn(h)
+
+
+def _embed(params, tokens, cfg) -> torch.Tensor:
+    adtype = getattr(torch, cfg.dtype)
+    scale = torch.full((), cfg.d_model ** 0.5, dtype=adtype, device=tokens.device)
+    return params["embed"][tokens].to(adtype) * scale
+
+
+def encode(params, src_embeds: torch.Tensor, *, cfg, use_kernels: bool = False,
+           remat: str = "none") -> torch.Tensor:
+    """src_embeds ``(B, S_src, D)`` from the (stubbed) frontend →
+    ``(B, S_src, D)`` in the activation dtype.  Bidirectional attention:
+    through the flash kernel with ``use_kernels``, else ``attend_direct``
+    (``attend_blocked`` from ``BLOCKED_ATTENTION_THRESHOLD`` frames)."""
+    check_remat(remat)
+    h = src_embeds.to(getattr(torch, cfg.dtype))
+    B, S, D = h.shape
+    positions = torch.arange(S, device=h.device)
+    scale = cfg.resolved_head_dim ** -0.5
+
+    def layer(lp, h):
+        x = rmsnorm(h, lp["norm1"])
+        p = lp["attn"]
+        q, k, v = _project(x, p["wq"]), _project(x, p["wk"]), _project(x, p["wv"])
+        if cfg.use_rope:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+        if use_kernels:
+            a = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=False,
+                                scale=scale)
+        elif S >= BLOCKED_ATTENTION_THRESHOLD:
+            a = attend_blocked(q, k, v, causal=False, window=None, scale=scale,
+                               q_positions=positions, kv_positions=positions)
+        else:
+            a = attend_direct(q, k, v, torch.ones((1, 1, S, S), dtype=torch.bool,
+                                                  device=h.device), scale)
+        h = h + torch.matmul(a.reshape(B, S, -1), p["wo"].to(x.dtype).reshape(-1, D))
+        return h + mlp(lp["mlp"], rmsnorm(h, lp["norm2"]), cfg=cfg)
+
+    for lp in _layers(params["enc"], cfg.n_encoder_layers):
+        h = _maybe_remat(lambda h_, lp=lp: layer(lp, h_), remat, h)
+    return rmsnorm(h, params["enc_norm"])
+
+
+def decode_train(params, tgt_tokens: torch.Tensor, enc_out: torch.Tensor, *, cfg,
+                 remat: str = "none") -> torch.Tensor:
+    """Teacher-forced decoder on the plain route: tgt_tokens ``(B, S_tgt)`` →
+    logits ``(B, S_tgt, padded_vocab)`` in the activation dtype."""
+    check_remat(remat)
+    h = _embed(params, tgt_tokens, cfg)
+    positions = torch.arange(tgt_tokens.shape[1], device=h.device)
+
+    def layer(lp, h):
+        a, _ = self_attention(lp["self_attn"], rmsnorm(h, lp["norm1"]), cfg=cfg,
+                              positions=positions, is_global=True, use_kernels=False)
+        h = h + a
+        kv = encode_kv(lp["cross_attn"], enc_out, cfg=cfg)
+        h = h + cross_attention(lp["cross_attn"], rmsnorm(h, lp["norm_x"]), kv, cfg=cfg)
+        return h + mlp(lp["mlp"], rmsnorm(h, lp["norm2"]), cfg=cfg)
+
+    for lp in _layers(params["dec"], cfg.n_layers):
+        h = _maybe_remat(lambda h_, lp=lp: layer(lp, h_), remat, h)
+    h = rmsnorm(h, params["dec_norm"])
+    return torch.matmul(h, params["unembed"].to(h.dtype))
+
+
+def init_decode_cache(params, cfg, batch: int, max_len: int, enc_out: torch.Tensor
+                      ) -> Dict[str, torch.Tensor]:
+    """Zero self-attention cache ``k`` / ``v`` ``(L, B, max_len, Hkv, hd)`` in
+    the activation dtype, and each decoder layer's cross-attention K/V of
+    ``enc_out``, ``cross_k`` / ``cross_v`` ``(L, B, S_src, Hkv, hd)``."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    dtype = getattr(torch, cfg.dtype)
+    cross = [encode_kv(lp["cross_attn"], enc_out, cfg=cfg)
+             for lp in _layers(params["dec"], cfg.n_layers)]
+    return {"k": torch.zeros(shape, dtype=dtype, device=enc_out.device),
+            "v": torch.zeros(shape, dtype=dtype, device=enc_out.device),
+            "cross_k": torch.stack([c["k"] for c in cross]),
+            "cross_v": torch.stack([c["v"] for c in cross])}
+
+
+def decode_step(params, token: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int, *,
+                cfg):
+    """token ``(B, 1)`` at position ``pos`` → ``(logits (B, 1, V), cache)``;
+    each layer writes its K/V into ``cache`` at ``pos`` in place, and the
+    same dict is returned."""
+    h = _embed(params, token, cfg)
+    positions = torch.full((1,), int(pos), device=h.device)
+    for i, lp in enumerate(_layers(params["dec"], cfg.n_layers)):
+        a, _ = self_attention(lp["self_attn"], rmsnorm(h, lp["norm1"]), cfg=cfg,
+                              positions=positions, is_global=True,
+                              cache={"k": cache["k"][i], "v": cache["v"][i]}, cache_pos=pos)
+        h = h + a
+        h = h + cross_attention(lp["cross_attn"], rmsnorm(h, lp["norm_x"]),
+                                {"k": cache["cross_k"][i], "v": cache["cross_v"][i]}, cfg=cfg)
+        h = h + mlp(lp["mlp"], rmsnorm(h, lp["norm2"]), cfg=cfg)
+    h = rmsnorm(h, params["dec_norm"])
+    return torch.matmul(h, params["unembed"].to(h.dtype)), cache

@@ -1,14 +1,18 @@
 """Layers (counterpart of ``repro.models.layers``): the initializers, norms,
-rotary embeddings, self-attention, the MLPs (gated SiLU and tanh GELU) and
-the capacity-based mixture of experts of the LM serving slice, as plain
-functions over dict param trees with the reference's keys and layouts.
+rotary embeddings, self- and cross-attention, the MLPs (gated SiLU and tanh
+GELU) and the capacity-based mixture of experts, as plain functions over
+dict param trees with the reference's keys and layouts.
 
 Conventions as in the reference: activations ``(B, S, D)``, attention heads
 ``(B, S, H, hd)``; norms and softmax compute in f32 whatever the activation
 dtype; every weight is cast to the activation dtype where it is used.
-Prefill attention goes through the flash-attention kernel
-(``repro_torch.kernels.flash_attention``); decode attends over the cache
-with plain PyTorch ops (``attend_direct``), as the reference does.
+Prefill attention with ``use_kernels`` goes through the flash-attention
+kernel (``repro_torch.kernels.flash_attention``), which has no backward;
+without it, and always in training, it takes the reference's plain route:
+``attend_direct`` (a materialized score matrix) below
+``BLOCKED_ATTENTION_THRESHOLD`` tokens and ``attend_blocked`` (online
+softmax over blocks) at or above it.  Decode and cross-attention with one
+query attend with plain PyTorch ops, as the reference does.
 """
 from __future__ import annotations
 
@@ -121,6 +125,90 @@ def attend_direct(q, k, v, mask, scale: float) -> torch.Tensor:
     return _gqa_combine(p, v)
 
 
+def attend_blocked(q, k, v, *, causal: bool, window: Optional[int], scale: float,
+                   q_positions: torch.Tensor, kv_positions: torch.Tensor, q_block: int = 512,
+                   kv_block: int = 1024) -> torch.Tensor:
+    """Blocked online-softmax attention in plain PyTorch ops (the reference's
+    ``attend_blocked``, its scans as Python loops over the same blocks).
+
+    Each q block visits kv blocks with a running (max, sum, acc), so memory
+    is O(q_block · kv_block) a step.  With ``window`` and ``causal`` each q
+    block sees a slice of K/V of static length ≥ window + q_block (its
+    start clamped into range, as ``lax.dynamic_slice`` clamps it).  Causal
+    without a window, q block i visits only the kv blocks up to its diagonal
+    (the reference's ``causal_skip``): a block past it is all masked and
+    adds exactly 0, so the values are those of visiting every block.
+    Padded query rows carry position −1 and padded keys 2^30; both are
+    masked."""
+    B, Sq, H, hd = q.shape
+    Skv = k.shape[1]
+    dev = q.device
+    nq = -(-Sq // q_block)
+    q_pad = nq * q_block - Sq
+    qp = F.pad(q, (0, 0, 0, 0, 0, q_pad))
+    qpos = F.pad(q_positions, (0, q_pad), value=-1)
+    neg = torch.full((), -1e30, dtype=torch.float32, device=dev)
+
+    def kv_inner(qblk, qpos_blk, kblocks):
+        """Online softmax of one q block over ``kblocks`` [(k, v, kpos)]."""
+        m = torch.full((B, H, q_block), -math.inf, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, H, q_block), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, q_block, H, hd), dtype=torch.float32, device=dev)
+        for kblk, vblk, kpos_blk in kblocks:
+            s = _gqa_scores(qblk, kblk) * scale  # (B, H, qb, kvb) f32
+            msk = (qpos_blk[:, None] >= 0) & (kpos_blk[None, :] < 2 ** 30)
+            if causal:
+                msk = msk & (qpos_blk[:, None] >= kpos_blk[None, :])
+            if window is not None:
+                msk = msk & (qpos_blk[:, None] - kpos_blk[None, :] < window)
+            s = torch.where(msk[None, None], s, neg)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = _gqa_combine(p.to(qblk.dtype), vblk)  # (B, qb, H, hd)
+            acc = acc * corr.transpose(1, 2)[..., None] + pv.to(torch.float32)
+            m = m_new
+        lT = l.transpose(1, 2)[..., None]
+        return (acc / torch.clamp(lT, min=1e-30)).to(qblk.dtype)
+
+    def blocks(kp, vp, kpos, lo, n):
+        return [(kp[:, lo + j * kv_block:lo + (j + 1) * kv_block],
+                 vp[:, lo + j * kv_block:lo + (j + 1) * kv_block],
+                 kpos[lo + j * kv_block:lo + (j + 1) * kv_block]) for j in range(n)]
+
+    def q_blk(i):
+        return qp[:, i * q_block:(i + 1) * q_block], qpos[i * q_block:(i + 1) * q_block]
+
+    if window is not None and causal:
+        w_up = -(-window // kv_block) * kv_block
+        n_in = -(-(w_up + q_block) // kv_block)
+        span = n_in * kv_block
+        kp = F.pad(k, (0, 0, 0, 0, w_up, q_pad))
+        vp = F.pad(v, (0, 0, 0, 0, w_up, q_pad))
+        kpos = F.pad(kv_positions, (w_up, q_pad), value=2 ** 30)
+        outs = []
+        for i in range(nq):
+            st = min(i * q_block, kp.shape[1] - span)  # dynamic_slice's clamp
+            outs.append(kv_inner(*q_blk(i), blocks(kp, vp, kpos, st, n_in)))
+        return torch.cat(outs, dim=1)[:, :Sq]
+
+    nkv = -(-Skv // kv_block)
+    kv_pad = nkv * kv_block - Skv
+    kp = F.pad(k, (0, 0, 0, 0, 0, kv_pad))
+    vp = F.pad(v, (0, 0, 0, 0, 0, kv_pad))
+    kpos = F.pad(kv_positions, (0, kv_pad), value=2 ** 30)
+    kblocks = blocks(kp, vp, kpos, 0, nkv)
+    outs = []
+    for i in range(nq):
+        n = min(nkv, -(-((i + 1) * q_block) // kv_block)) if causal else nkv
+        outs.append(kv_inner(*q_blk(i), kblocks[:n]))
+    return torch.cat(outs, dim=1)[:, :Sq]
+
+
+BLOCKED_ATTENTION_THRESHOLD = 4096
+
+
 def self_attention(
     params: Dict[str, torch.Tensor],
     x: torch.Tensor,
@@ -131,13 +219,17 @@ def self_attention(
     cache: Optional[Dict[str, torch.Tensor]] = None,  # {"k","v"}: (B, S_max, Hkv, hd)
     cache_pos: Optional[int] = None,  # decode: write index
     return_kv: bool = False,  # prefill: emit this segment's K/V as a cache
+    use_kernels: bool = True,  # prefill: the flash kernel, else the plain route
 ):
     """Returns ``(out, new_cache)``; decode mode iff ``cache`` is given.
 
-    Prefill runs causal attention over x itself through the flash-attention
-    kernel.  Decode writes the token's k/v into ``cache`` at ``cache_pos``
-    IN PLACE (the reference's serving loop donates the cache to the same
-    end) and attends over the cache; ``new_cache`` holds the same tensors."""
+    Prefill runs causal attention over x itself: through the flash-attention
+    kernel with ``use_kernels``, else on the reference's plain route
+    (``attend_direct``, or ``attend_blocked`` from
+    ``BLOCKED_ATTENTION_THRESHOLD`` tokens).  Decode writes the token's k/v
+    into ``cache`` at ``cache_pos`` IN PLACE (the reference's serving loop
+    donates the cache to the same end) and attends over the cache;
+    ``new_cache`` holds the same tensors."""
     B, S, D = x.shape
     hd = cfg.resolved_head_dim
     scale = 1.0 / math.sqrt(hd)
@@ -153,8 +245,17 @@ def self_attention(
     window = None if is_global else cfg.sliding_window
 
     if cache is None:
-        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
-                              window=window, scale=scale)
+        if use_kernels:
+            out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+                                  window=window, scale=scale)
+        elif S >= BLOCKED_ATTENTION_THRESHOLD:
+            out = attend_blocked(q, k, v, causal=True, window=window, scale=scale,
+                                 q_positions=positions, kv_positions=positions)
+        else:
+            msk = positions[:, None] >= positions[None, :]
+            if window is not None:
+                msk = msk & (positions[:, None] - positions[None, :] < window)
+            out = attend_direct(q, k, v, msk[None, None], scale)
         new_cache = {"k": k, "v": v} if return_kv else None
     else:
         kc, vc = cache["k"], cache["v"]
@@ -170,6 +271,34 @@ def self_attention(
 
     o = torch.matmul(out.reshape(B, S, -1), params["wo"].to(x.dtype).reshape(-1, D))
     return o, new_cache
+
+
+# ------------------------------------------------- cross attention (encoder-decoder)
+def cross_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                    enc_kv: Dict[str, torch.Tensor], *, cfg) -> torch.Tensor:
+    """x: (B, Sq, D) queries; enc_kv: {"k", "v"}: (B, S_src, Hkv, hd).  No
+    mask and no positions; ``attend_blocked`` once either length reaches
+    ``BLOCKED_ATTENTION_THRESHOLD``, as in the reference."""
+    scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
+    B, Sq, D = x.shape
+    q = _project(x, params["wq"])
+    k = enc_kv["k"].to(x.dtype)
+    v = enc_kv["v"].to(x.dtype)
+    S_src = k.shape[1]
+    if max(Sq, S_src) >= BLOCKED_ATTENTION_THRESHOLD:
+        out = attend_blocked(q, k, v, causal=False, window=None, scale=scale,
+                             q_positions=torch.arange(Sq, device=x.device),
+                             kv_positions=torch.arange(S_src, device=x.device))
+    else:
+        out = attend_direct(q, k, v, torch.ones((1, 1, Sq, S_src), dtype=torch.bool,
+                                                device=x.device), scale)
+    return torch.matmul(out.reshape(B, Sq, -1), params["wo"].to(x.dtype).reshape(-1, D))
+
+
+def encode_kv(params: Dict[str, torch.Tensor], enc_out: torch.Tensor, *, cfg
+              ) -> Dict[str, torch.Tensor]:
+    """Cross-attention K/V of the encoder output (computed once a layer)."""
+    return {"k": _project(enc_out, params["wk"]), "v": _project(enc_out, params["wv"])}
 
 
 # ------------------------------------------------------------------------ MLP

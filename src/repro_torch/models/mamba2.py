@@ -1,9 +1,11 @@
 """Mamba2 (SSD — state-space duality, arXiv:2405.21060) block (counterpart
 of ``repro.models.mamba2``).
 
-Prefill: the chunked SSD scan through ``repro_torch.kernels.ssd_scan`` (the
-CUDA kernel on the card; on the CPU its plain version, the port of the
-reference's ``ssd_chunked``).  Decode: the O(1) recurrent state update.
+Prefill with ``use_kernels``: the chunked SSD scan through
+``repro_torch.kernels.ssd_scan`` (the CUDA kernel on the card; on the CPU
+its plain version).  Without it, and always in training (the kernel has no
+backward), the plain ``ssd_chunked_ref`` directly, the port of the
+reference's ``ssd_chunked``.  Decode: the O(1) recurrent state update.
 
 Shapes (single group, G=1, as in the released mamba2 configs):
   x_in   (B, S, D)
@@ -21,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan.ops import ssd
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
 from repro_torch.models.layers import dense_init
 
 
@@ -106,6 +109,7 @@ def mamba2_block(
     cfg,
     state: Optional[Dict[str, torch.Tensor]] = None,  # decode: {"ssm", "conv"}
     return_state: bool = False,  # prefill: emit the final recurrent state
+    use_kernels: bool = True,  # prefill: the SSD kernel, else the plain scan
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Returns (out (B,S,D), new_state or None)."""
     Bsz, S, D = x.shape
@@ -123,7 +127,8 @@ def mamba2_block(
         xs = xBC[..., :d_inner].reshape(Bsz, S, H, Pd)
         Bm = xBC[..., d_inner:d_inner + N]
         Cm = xBC[..., d_inner + N:]
-        y, final_state = ssd(xs, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
+        scan = ssd if use_kernels else ssd_chunked_ref
+        y, final_state = scan(xs, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
         new_state = None
         if return_state:
             k = cfg.ssm_conv

@@ -1,43 +1,88 @@
-"""Uniform model API (counterpart of ``repro.models.model``) for the
-decoder-only families (dense, moe, ssm, hybrid, vlm):
+"""Uniform model API over all architecture families (counterpart of
+``repro.models.model``):
 
-    params          = model.init(generator)
+    params             = model.init(generator)
+    loss, metrics      = model.loss_fn(params, batch)                      # training
     logits, cache, aux = model.apply(params, tokens, return_cache=True)   # prefill
-    cache           = model.init_cache(params, batch, max_len)
-    logits, cache   = model.decode_step(params, token, cache, pos)
+    cache              = model.init_cache(params, batch, max_len)          # enc-dec: enc_out=
+    logits, cache      = model.decode_step(params, token, cache, pos)
+    batch              = model.dummy_batch(batch, seq_len)
 
-``loss_fn`` comes with the training slice (ROADMAP A.15).  The reference's
-``use_kernels`` switch has no counterpart: prefill always goes through the
-kernels (their plain versions on the CPU).
+``use_kernels``: serving's prefill (``apply``, and the encoder-decoder's
+``encode``) defaults to the hand-written kernels (their plain versions on
+the CPU); ``loss_fn`` defaults to the reference's plain route, which is
+the only route training may take: the kernels have no backward, and their
+wrappers refuse inputs that require grad.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple
 
-from repro_torch.models import transformer
+import numpy as np
+import torch
+
+from repro_torch.models import encdec, transformer
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, z_reg: float = 0.0
+                  ) -> torch.Tensor:
+    """Mean token cross entropy in f32.  logits ``(B, S, V)``, labels ``(B, S)``.
+
+    As in the reference: logsumexp over the whole last axis (the padded
+    vocab's columns too) around the detached row max.  The label logit is
+    gathered; the reference's one-hot einsum adds exactly one nonzero term,
+    so the value is the same without a ``(B, S, V)`` one-hot."""
+    lf = logits.to(torch.float32)
+    m = lf.amax(dim=-1, keepdim=True).detach()
+    logz = m[..., 0] + torch.log(torch.exp(lf - m).sum(dim=-1))
+    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    loss = torch.mean(logz - ll)
+    if z_reg:
+        loss = loss + z_reg * torch.mean(torch.square(logz))
+    return loss
 
 
 class Model(NamedTuple):
     cfg: Any
     init: Callable[..., Any]
     apply: Callable[..., Any]
+    loss_fn: Callable[..., Any]
     init_cache: Callable[..., Any]
     decode_step: Callable[..., Any]
+    dummy_batch: Callable[..., Dict[str, torch.Tensor]]
 
 
 def build_model(cfg) -> Model:
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are not ported yet "
-                                  f"(ROADMAP A.15)")
+        return _build_encdec(cfg)
+    return _build_decoder_only(cfg)
+
+
+def _dummy_tokens(cfg, batch: int, seq_len: int):
+    """The reference's ``dummy_batch`` draw: ``default_rng(0)`` tokens and
+    their labels rolled by one."""
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, size=(batch, seq_len))
+    return rng, toks, np.roll(toks, -1, axis=1)
+
+
+def _build_decoder_only(cfg) -> Model:
     transformer.period_layout(cfg)  # refuse a ragged layout here, not at first use
 
     def init(generator):
         return transformer.init_params(generator, cfg)
 
-    def apply(params, tokens, *, cache=None, cache_pos=None, return_cache=False):
+    def apply(params, tokens, *, cache=None, cache_pos=None, return_cache=False,
+              use_kernels=True, remat="none"):
         """Returns ``(logits, cache, aux)``."""
-        return transformer.forward(params, tokens, cfg=cfg, cache=cache,
-                                   cache_pos=cache_pos, return_cache=return_cache)
+        return transformer.forward(params, tokens, cfg=cfg, cache=cache, cache_pos=cache_pos,
+                                   return_cache=return_cache, use_kernels=use_kernels,
+                                   remat=remat)
+
+    def loss_fn(params, batch, *, remat="none", use_kernels=False):
+        logits, _, aux = apply(params, batch["tokens"], remat=remat, use_kernels=use_kernels)
+        xe = cross_entropy(logits, batch["labels"])
+        return xe + aux, {"xent": xe, "aux": aux}
 
     def init_cache(params, batch, max_len):
         return transformer.init_cache(cfg, batch, max_len, device=params["embed"].device)
@@ -46,4 +91,45 @@ def build_model(cfg) -> Model:
         logits, new_cache, _ = apply(params, token, cache=cache, cache_pos=pos)
         return logits, new_cache
 
-    return Model(cfg, init, apply, init_cache, decode_step)
+    def dummy_batch(batch, seq_len, device="cpu"):
+        _, toks, labels = _dummy_tokens(cfg, batch, seq_len)
+        return {"tokens": torch.as_tensor(toks, device=device),
+                "labels": torch.as_tensor(labels, device=device)}
+
+    return Model(cfg, init, apply, loss_fn, init_cache, decode_step, dummy_batch)
+
+
+def _build_encdec(cfg) -> Model:
+    def init(generator):
+        return encdec.init_params(generator, cfg)
+
+    def apply(params, batch, *, use_kernels=False, remat="none"):
+        """``batch`` holds ``src_embeds`` and ``tgt_tokens``; returns
+        ``(logits, None, aux = 0)``."""
+        enc_out = encdec.encode(params, batch["src_embeds"], cfg=cfg, use_kernels=use_kernels,
+                                remat=remat)
+        logits = encdec.decode_train(params, batch["tgt_tokens"], enc_out, cfg=cfg, remat=remat)
+        return logits, None, logits.new_zeros((), dtype=torch.float32)
+
+    def loss_fn(params, batch, *, remat="none", use_kernels=False):
+        logits, _, aux = apply(params, batch, use_kernels=use_kernels, remat=remat)
+        xe = cross_entropy(logits, batch["labels"])
+        return xe, {"xent": xe, "aux": aux}
+
+    def init_cache(params, batch, max_len, enc_out=None):
+        if enc_out is None:
+            raise ValueError("the encoder-decoder cache needs enc_out")
+        return encdec.init_decode_cache(params, cfg, batch, max_len, enc_out)
+
+    def decode_step(params, token, cache, pos):
+        return encdec.decode_step(params, token, cache, pos, cfg=cfg)
+
+    def dummy_batch(batch, seq_len, device="cpu"):
+        rng, toks, labels = _dummy_tokens(cfg, batch, seq_len)
+        src = rng.normal(size=(batch, seq_len, cfg.d_model))
+        return {"src_embeds": torch.as_tensor(src, dtype=torch.float32, device=device).to(
+                    getattr(torch, cfg.dtype)),
+                "tgt_tokens": torch.as_tensor(toks, device=device),
+                "labels": torch.as_tensor(labels, device=device)}
+
+    return Model(cfg, init, apply, loss_fn, init_cache, decode_step, dummy_batch)

@@ -9,9 +9,10 @@ caches) are stacked on a leading ``n_periods`` axis, so a params tree
 converts leaf for leaf.  Zamba2's shared attention block is one unstacked
 parameter set in ``params["shared"]``, applied at every shared slot, with a
 KV cache per application.  The reference's ``lax.scan`` over periods is a
-Python loop here that indexes the stacked leaves (views, no copies).  The
-encoder-decoder family is not ported (ROADMAP A.15): ``build_model``
-refuses it.
+Python loop here that indexes the stacked leaves (views, no copies), and
+``remat="full"`` wraps each period in ``torch.utils.checkpoint`` as the
+reference wraps its scan body in ``jax.checkpoint``.  The encoder-decoder
+family lives in ``repro_torch.models.encdec``.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import mamba2 as m2
 from repro_torch.models.layers import (
@@ -117,18 +119,29 @@ def init_params(generator: torch.Generator, cfg) -> Dict[str, Any]:
 
 
 # -------------------------------------------------------------------- forward
+def check_remat(remat: str) -> None:
+    """``"none"`` or ``"full"``; the reference's ``"dots"`` policy (save the
+    matmuls' outputs, recompute the rest) is not ported (ROADMAP A.16)."""
+    if remat == "dots":
+        raise NotImplementedError('remat="dots" (jax.checkpoint_policies) is not ported '
+                                  '(ROADMAP A.16); use "none" or "full"')
+    if remat not in ("none", "full"):
+        raise ValueError(f"remat must be 'none' or 'full', got {remat!r}")
+
+
 def _apply_slot(slot: SlotSpec, p, h, *, cfg, positions, cache_slot, cache_pos,
-                emit_cache: bool):
+                emit_cache: bool, use_kernels: bool):
     """One slot (attention + MLP / MoE, or mamba).  Returns ``(h,
     new_cache_slot, aux)``; aux is None but for an MoE slot."""
     if slot.kind == "mamba":
         y, new_state = m2.mamba2_block(p["mamba"], rmsnorm(h, p["norm1"]), cfg=cfg,
-                                       state=cache_slot, return_state=emit_cache)
+                                       state=cache_slot, return_state=emit_cache,
+                                       use_kernels=use_kernels)
         return h + y, new_state, None
     attn_out, new_kv = self_attention(
         p["attn"], rmsnorm(h, p["norm1"]), cfg=cfg, positions=positions,
         is_global=slot.is_global, cache=cache_slot, cache_pos=cache_pos,
-        return_kv=emit_cache)
+        return_kv=emit_cache, use_kernels=use_kernels)
     h = h + attn_out
     aux = None
     if slot.is_moe:
@@ -139,7 +152,36 @@ def _apply_slot(slot: SlotSpec, p, h, *, cfg, positions, cache_slot, cache_pos,
     return h, new_kv, aux
 
 
-def _run_stack(slots, stacked, n: int, shared, h, aux, cache, emit: bool, **kw):
+def _run_period(slots, pp, shared, h, aux, cache_i, emit: bool, kw):
+    """One period of ``slots``: returns ``(h, aux, emitted caches)``."""
+    out_i = {}
+    for j, slot in enumerate(slots):
+        key = f"slot{j}"
+        cslot = None if cache_i is None else cache_i[key]
+        h, new_c, a = _apply_slot(slot, shared if slot.shared else pp[key], h,
+                                  cache_slot=cslot, emit_cache=emit, **kw)
+        if a is not None:
+            aux = aux + a
+        if cslot is not None:
+            for name, view in cslot.items():
+                if new_c[name] is not view:
+                    view.copy_(new_c[name])
+        elif new_c is not None:
+            out_i[key] = new_c
+    return h, aux, out_i
+
+
+def _remat_period(slots, pp, shared, h, aux, kw):
+    """A training period (no cache) under ``torch.utils.checkpoint``: its
+    activations are recomputed in backward instead of kept."""
+    def body(h_, aux_):
+        return _run_period(slots, pp, shared, h_, aux_, None, False, kw)[:2]
+
+    return checkpoint(body, h, aux, use_reentrant=False)
+
+
+def _run_stack(slots, stacked, n: int, shared, h, aux, cache, emit: bool,
+               remat: str = "none", **kw):
     """The reference's scan over ``n`` periods of ``slots``: returns ``(h,
     aux, emitted)``.  Decode (``cache`` given) writes every new cache leaf
     into the cache's stacked buffers in place; prefill with ``emit``
@@ -147,21 +189,11 @@ def _run_stack(slots, stacked, n: int, shared, h, aux, cache, emit: bool, **kw):
     emitted = []
     for i in range(n):
         pp = tree_map(lambda a: a[i], stacked)
+        if remat == "full" and cache is None and not emit:
+            h, aux = _remat_period(slots, pp, shared, h, aux, kw)
+            continue
         cache_i = None if cache is None else tree_map(lambda a: a[i], cache)
-        out_i = {}
-        for j, slot in enumerate(slots):
-            key = f"slot{j}"
-            cslot = None if cache_i is None else cache_i[key]
-            h, new_c, a = _apply_slot(slot, shared if slot.shared else pp[key], h,
-                                      cache_slot=cslot, emit_cache=emit, **kw)
-            if a is not None:
-                aux = aux + a
-            if cslot is not None:
-                for name, view in cslot.items():
-                    if new_c[name] is not view:
-                        view.copy_(new_c[name])
-            elif new_c is not None:
-                out_i[key] = new_c
+        h, aux, out_i = _run_period(slots, pp, shared, h, aux, cache_i, emit, kw)
         emitted.append(out_i)
     stacked_out = tree_map(lambda *xs: torch.stack(xs), *emitted) if emit else None
     return h, aux, stacked_out
@@ -169,7 +201,7 @@ def _run_stack(slots, stacked, n: int, shared, h, aux, cache, emit: bool, **kw):
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor, *, cfg,
             cache: Optional[Dict[str, Any]] = None, cache_pos: Optional[int] = None,
-            return_cache: bool = False):
+            return_cache: bool = False, use_kernels: bool = True, remat: str = "none"):
     """Returns ``(logits (B, S, padded_vocab), new_cache, aux)``; ``aux`` is
     the reference's auxiliary loss (f32): the MoE slots' load-balance and
     router z-losses summed over slots in order, 0 without experts.
@@ -179,7 +211,13 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, *, cfg,
     buffers in place and the same tree is returned.  With
     ``return_cache`` and no cache (prefill) the per-layer K/V (attention)
     or final SSM + conv states (mamba) come back stacked over periods
-    (and over the tail layers)."""
+    (and over the tail layers).
+
+    ``use_kernels`` sends prefill attention and the SSD scan through the
+    kernels (serving); training passes False, the reference's plain route,
+    since the kernels have no backward.  ``remat`` is ``"none"`` or
+    ``"full"`` (each period under ``torch.utils.checkpoint``)."""
+    check_remat(remat)
     slots, n_periods, tail = period_layout(cfg)
     adtype = getattr(torch, cfg.dtype)
     dev = tokens.device
@@ -193,15 +231,17 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, *, cfg,
     else:
         positions = torch.full((1,), int(cache_pos), device=dev)
     emit = return_cache and cache is None
-    kw = dict(cfg=cfg, positions=positions, cache_pos=cache_pos)
+    kw = dict(cfg=cfg, positions=positions, cache_pos=cache_pos, use_kernels=use_kernels)
     shared = params.get("shared")
 
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     h, aux, out_periods = _run_stack(slots, params["periods"], n_periods, shared, h, aux,
-                                     None if cache is None else cache["periods"], emit, **kw)
+                                     None if cache is None else cache["periods"], emit, remat,
+                                     **kw)
     if tail:
         h, aux, out_tail = _run_stack(tail[:1], params["tail"], len(tail), shared, h, aux,
-                                      None if cache is None else cache["tail"], emit, **kw)
+                                      None if cache is None else cache["tail"], emit, remat,
+                                      **kw)
     new_cache = cache
     if emit:
         new_cache = {"periods": out_periods}

@@ -151,6 +151,17 @@ def test_resolve_config_wires_fault_and_compression_flags():
     assert store.fault == FaultConfig(store_failure_rate=0.1)
 
 
+def test_quorum_and_empty_cohort_flags_wire_through():
+    """As the reference CLI's ``tests/test_fed_train_cli.py`` case."""
+    def resolved(argv):
+        return fed_train.resolve_config(fed_train.build_parser().parse_args(argv))
+
+    assert resolved([]).min_quorum == 0
+    assert resolved([]).allow_empty_cohort is False
+    cfg = resolved(["--min-quorum", "3", "--allow-empty-cohort"])
+    assert cfg.min_quorum == 3 and cfg.allow_empty_cohort is True
+
+
 def test_resolve_config_wires_async_and_store_flags():
     args = fed_train.build_parser().parse_args(
         ["--pipeline-depth", "3", "--staleness", "2", "--staleness-discount", "0.9",

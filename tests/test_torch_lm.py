@@ -173,18 +173,30 @@ def test_config_copy_matches_reference(arch, cut):
 
 
 def test_get_config_refuses_unported_and_unknown_archs():
+    """Every arch of the reference's pool is ported now, seamless-m4t
+    included (it was refused until the encoder-decoder slice); only an
+    unknown name is refused."""
     assert get_config("mamba2_1_3b").name == "mamba2-1.3b"
-    with pytest.raises(NotImplementedError, match="A.15"):
-        get_config("seamless-m4t-large-v2")
+    assert get_config("seamless-m4t-large-v2").is_encoder_decoder
+    assert get_config("seamless_m4t_large_v2").name == "seamless-m4t-large-v2"
+    assert len(ARCH_IDS) == 10 and "seamless-m4t-large-v2" in ARCH_IDS
     with pytest.raises(KeyError):
         get_config("gpt-5")
 
 
 @pytest.mark.parametrize("kw", [dict(family="encdec", is_encoder_decoder=True)])
 def test_unported_families_are_refused(kw):
-    cfg = replace(reduced(get_config("llama3.2-1b")), **kw)
-    with pytest.raises(NotImplementedError, match="A.15"):
-        build_model(cfg)
+    """The encoder-decoder family, refused until its slice, now builds: the
+    Model has the training members, and its cache needs the encoder output."""
+    cfg = replace(reduced(get_config("llama3.2-1b")), n_encoder_layers=1, **kw)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    assert {"enc", "dec", "enc_norm", "dec_norm", "embed", "unembed"} == set(params)
+    batch = model.dummy_batch(2, 5)
+    loss, metrics = model.loss_fn(params, batch)
+    assert bool(torch.isfinite(loss)) and float(metrics["aux"]) == 0.0
+    with pytest.raises(ValueError, match="enc_out"):
+        model.init_cache(params, 2, 8)
 
 
 @pytest.mark.parametrize("vocab", [512, 37])
@@ -211,6 +223,16 @@ def test_init_params_have_the_reference_layout(variant):
 def test_init_cache_has_the_reference_layout():
     for arch, kw in [(a, {}) for a in ARCH_IDS] + list(VARIANTS.values()):
         rcfg = replace(ref_reduced(ref_get_config(arch)), **kw)
+        if rcfg.is_encoder_decoder:  # the self-attention cache and the cross K/V of enc_out
+            rmodel = ref_build_model(rcfg)
+            rparams = rmodel.init(jax.random.PRNGKey(0))
+            enc = np.zeros((3, 7, rcfg.d_model), np.float32)
+            ref = jax.eval_shape(lambda: rmodel.init_cache(rparams, 3, 40, jnp.asarray(enc)))
+            cache = build_model(port_model_cfg(rcfg)).init_cache(
+                params_from_numpy(_np_tree(rparams)), 3, 40, enc_out=torch.as_tensor(enc))
+            assert [(tuple(t.shape), str(t.dtype).split(".")[-1]) for t in tree_leaves(cache)] \
+                == [(r.shape, str(r.dtype)) for r in jax.tree_util.tree_leaves(ref)]
+            continue
         ref = jax.eval_shape(lambda: ref_build_model(rcfg).init_cache(None, 3, 40))
         cache = transformer.init_cache(port_model_cfg(rcfg), 3, 40)
         assert [tuple(t.shape) for t in tree_leaves(cache)] == \

@@ -41,16 +41,25 @@ SMALL = ["--batch", "2", "--prompt-len", "12", "--gen", "8", "--seed", "3"]
 
 def _samples(text):
     lines = text.splitlines()
+    if any(line.startswith("encdec arch=") for line in lines):  # one row, as the reference
+        return [line[len("sample:"):].strip() for line in lines if line.startswith("sample:")]
     i = lines.index("sample generations (first 16 tokens):")
     return [line.strip() for line in lines[i + 1:] if line.strip().startswith("[")]
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_greedy_tokens_match_reference_cli(arch, monkeypatch, capsys):
+    """The encoder-decoder prints one row of tokens, as the reference's
+    ``_serve_encdec`` does; its source frames are the reference's threefry
+    draw, injected."""
     assert ref_serve.main(["--arch", arch, *SMALL]) == 0
     expected = _samples(capsys.readouterr().out)
+    rcfg = ref_reduced(ref_get_config(arch))
+    if rcfg.is_encoder_decoder:
+        src = np.array(jax.random.normal(jax.random.PRNGKey(3 + 2), (2, 12, rcfg.d_model)))
+        monkeypatch.setattr(serve, "source_frames", lambda *shape_seed_device: torch.as_tensor(src))
 
-    rparams = ref_build_model(ref_reduced(ref_get_config(arch))).init(jax.random.PRNGKey(3))
+    rparams = ref_build_model(rcfg).init(jax.random.PRNGKey(3))
     tree = jax.tree_util.tree_map(np.asarray, rparams)
     build = serve.build_model
 
@@ -60,6 +69,10 @@ def test_greedy_tokens_match_reference_cli(arch, monkeypatch, capsys):
     monkeypatch.setattr(serve, "build_model", with_reference_weights)
     assert serve.main(["--arch", arch, *SMALL, "--device", "cpu"]) == 0
     out = capsys.readouterr().out
+    if rcfg.is_encoder_decoder:
+        assert f"encdec arch={arch}-reduced: encode" in out
+        assert _samples(out) == expected and len(expected) == 1
+        return
     assert f"arch={arch}-reduced batch=2 prompt=12 gen=8 sessions=1" in out
     assert "prefill:" in out and "decode:" in out
     assert _samples(out) == expected and len(expected) == 2
@@ -81,10 +94,17 @@ def test_cli_without_device_raises_when_there_is_no_gpu(monkeypatch):
         serve.main(SMALL)
 
 
-@pytest.mark.parametrize("flags,item", [(["--arch", "seamless-m4t-large-v2"], "A.15")])
-def test_unported_options_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
+@pytest.mark.parametrize("flags,item", [(["--arch", "seamless-m4t-large-v2", "--ckpt", "d",
+                                           "--follow"], "one session")])
+def test_unported_options_raise(flags, item, capsys):
+    """The encoder-decoder serves (it raised until its slice); what it does
+    not serve is ``--follow``: it runs one session, as the reference's."""
+    with pytest.raises(SystemExit):
         serve.main([*SMALL, *flags, "--device", "cpu"])
+    assert item in capsys.readouterr().err
+    args = serve.build_parser().parse_args([*SMALL, *flags, "--device", "cpu"])
+    with pytest.raises(ValueError, match=item):
+        serve.run(args)
 
 
 def test_cli_module_entry_point_runs_on_cpu():
