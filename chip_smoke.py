@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, ``nvcc`` and PyTorch built for CUDA; imports nothing of
-JAX or of the JAX package.  Phases, each of which exits non-zero on failure:
+JAX or of the JAX package.  Phases, each of which exits non-zero on failure
+and ends with a ``clock:`` line (seconds since the script started):
 
 1. device check — CUDA present, the card's name and power limit from
    ``nvidia-smi``, TF32 off for matmuls and convolutions;
@@ -36,7 +37,11 @@ JAX or of the JAX package.  Phases, each of which exits non-zero on failure:
    and 0.81) at both planes, x and m written: ``server_update`` with f32
    and bf16 momentum, ``dequant_update`` with int8 and bf16 q; each
    launched twice, bitwise against the first launch and its plain version,
-   its time printed beside its γ = 1 twin.  Times are CUDA-event
+   its time printed beside its γ = 1 twin.  Then both kernels of the
+   federated LM's round at its cohort plane (``FULL_C``, ``FULL_P``) = (2,
+   1,235,814,400), 9.9 GB, each alone on an emptied card:
+   ``fed_direction`` with one broadcast f32 aux within tolerance,
+   ``server_update`` with f32 m, x and m written, bitwise.  Times are CUDA-event
    medians of 21 samples of a CUDA-graph replay, so they are device time
    without the host's launch cost; ``eager_ms`` is the time per call when
    Python launches each call, which is what the main path pays.  ``flash_attention`` at the
@@ -134,7 +139,12 @@ JAX or of the JAX package.  Phases, each of which exits non-zero on failure:
    bitwise or within ``PARITY_RTOL`` / ``PARITY_ATOL`` (the largest
    difference printed); (c) the same over NCCL, one rank a card, on 2 and
    ``min(4, device_count)`` cards when there are two or more, else the
-   line ``nccl: not run (1 card visible)``.  ``--nccl`` (not part of the
+   line ``nccl: not run (1 card visible)``; (d) the fleet loop of a sharded
+   run: ``run_federated`` with ``cohort_shard`` 2 on 2 gloo ranks sharing
+   cuda:0, 10 rounds, a snapshot every 2, without and with ``serve`` (rank
+   0 the publisher and the serving thread): the round-10 snapshots bitwise
+   and byte-equal, versions 1-6 published, the served version the last
+   one, health 200, ``fleet.check`` clean.  ``--nccl`` (not part of the
    default run) runs phases 1–2 and then (c) alone, beside the unsharded
    runs it is compared with, on a machine with several cards;
 5. card vs CPU — three rounds from one converted state with the same
@@ -185,10 +195,29 @@ JAX or of the JAX package.  Phases, each of which exits non-zero on failure:
    ms/step and tok/s after the first ``TRAIN_WARM`` steps, the peak device
    memory and the share of the bf16 peak that the step's matmul FLOPs
    (6 · params · tokens, part by part, the embedding gather left out) over
-   its time reach, no kernel launched;
+   its time reach, no kernel launched; (c) FedCM over an LM, card vs CPU
+   (``FED_LM_VS_CPU``: llama3.2-1b at its published widths cut to one
+   layer, vocabulary ``TRAIN_VOCAB``, f32; N 4, a fixed cohort of 2, K 2,
+   B 2 × 32, 3 rounds of ``FederatedEngine.round_step`` over
+   ``cohort_loss_fn``) from one converted state with the same ids and
+   minibatch indices: params within ``PARITY_RTOL`` / ``PARITY_ATOL``,
+   momentum and each round's loss within ``F32_REL_L2``, 6
+   ``fed_direction`` and 3 ``server_update`` launches on the card; (d)
+   ``launch/federated_llm.run`` over llama3.2-1b at its published config
+   (``FED_LM_FULL``; f32 params, P = 1,235,814,400), N 4, cohort 2, K 2, B 4
+   × 64, 3 rounds: 6 / 3 launches, finite losses, the last round's below
+   the first's, ms a round and the peak device memory; an out-of-memory
+   error fails it (nothing is retried smaller).  ``--profile`` (not part
+   of the default run) then profiles one local step of (d) with the
+   engine's gradient route and with the whole-plane one
+   (``fed_lm_step_profile``);
 9. summary — the ``nvidia-smi`` line, one JSON line ``{"kernels": [...]}``
    (``flash_attention`` / ``ssd_scan`` launches summed over phase 6's
-   serving runs) and, last, ``{"ok": true, "device": {...}}``.
+   serving runs, the federated kernels' those of the main path; beside
+   them, for ``fed_direction`` and ``server_update``, ``launches_by_path``
+   — the main path, phase 8 (c)'s card run and 8 (d), each its own count —
+   and ``full_plane``, their times and bound at the federated LM's cohort
+   plane) and, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -206,6 +235,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 MAIN_C, MAIN_P = 25, 22026
 BIG_C, BIG_P = 25, 11_173_962
+# phase 3: the full-width federated LM's cohort plane (phase 8 (d)): a cohort
+# of 2 over llama3.2-1b's 1,235,814,400 f32 params (its 33 RMSNorm scales
+# included), 9.9 GB a plane
+FULL_C, FULL_P = 2, 1_235_814_400
 ROUNDS, EVAL_EVERY, K = 20, 5, 10
 PARITY_RTOL, PARITY_ATOL = 2e-5, 1e-5  # tests/_torch_parity.py (three rounds)
 BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
@@ -307,6 +340,15 @@ TRAIN_FULL = (("llama3.2-1b", 8), ("seamless-m4t-large-v2", 4))
 TRAIN_ARGS = ["--full", "--seq", "512", "--steps", "30", "--warmup", "5", "--log-every", "5"]
 TRAIN_WARM = 5  # steps left out of ms/step and tok/s
 # the algorithms beyond FedCM and FedAvg (phases 4b and 5b)
+# phase 8 (c): FedCM over llama3.2-1b at its published widths cut to one
+# layer, the vocabulary cut to TRAIN_VOCAB, f32 activations, on the card and
+# on the CPU from one converted state with the same ids, masks and minibatch
+# indices; (d) ``launch/federated_llm.run`` at the published config, nothing
+# cut (a cohort of 2 is what one card holds)
+FED_LM_VS_CPU = ("llama3.2-1b", {"n_layers": 1, "vocab_size": TRAIN_VOCAB, "dtype": "float32"})
+FED_LM_FULL = "llama3.2-1b"
+FED_LM_RUN = {"n_clients": 4, "cohort": 2, "local_steps": 2, "rounds": 3}
+FED_LM_VS_CPU_BATCH, FED_LM_FULL_BATCH = (2, 32), (4, 64)  # (B, S) a client a step
 OTHER_ALGOS = ("fedprox", "fedavgm", "fedacg", "fedadam", "fedadagrad", "fedyogi", "mimelite",
                "scaffold", "feddyn")
 # the reference benchmark's per-algorithm settings (benchmarks/common.py: η_g
@@ -490,8 +532,10 @@ def check_fed_direction(torch, fd_kernel, fd_ref, C, P, n_aux, dtype, gen, layou
     nbytes = (x.numel() * x.element_size() + g.numel() * g.element_size()
               + sum(a.numel() * a.element_size() for a in auxes)
               + coefs.numel() * 4 + out.numel() * out.element_size())
+    del out, ref  # at the full plane each is 9.9 GB: the timing needs the room
+    torch.cuda.empty_cache()
     b_ms, b_by = bound(nbytes, n * (5 + 2 * n_aux))
-    reps = 20 if n < 10_000_000 else 5
+    reps = 20 if n < 10_000_000 else 5 if n < 1_000_000_000 else 1
     ms = graph_ms(torch, lambda: fd_kernel.fed_direction_flat(x, g, auxes, coefs), reps)
     plain = graph_ms(torch, lambda: fd_ref.fed_direction_ref(x, g, auxes, coefs), reps)
     eager = eager_ms(torch, lambda: fd_kernel.fed_direction_flat(x, g, auxes, coefs),
@@ -542,10 +586,11 @@ def check_server_update(torch, su_kernel, su_ref, C, P, write_x, write_m, m_dtyp
 
     out1 = run()
     out2 = run()
-    ref = su_ref.server_update_ref(deltas, wn, x, m, coefs, write_x=write_x, write_m=write_m)
-    torch.cuda.synchronize()
     deterministic = all((a is None and b is None) or torch.equal(a, b)
                         for a, b in zip(out1, out2))
+    del out2  # the full plane's plain fold needs the room
+    ref = su_ref.server_update_ref(deltas, wn, x, m, coefs, write_x=write_x, write_m=write_m)
+    torch.cuda.synchronize()
     err, ok = 0.0, True
     for a, b in zip(out1, ref):
         if (a is None) != (b is None):
@@ -553,12 +598,14 @@ def check_server_update(torch, su_kernel, su_ref, C, P, write_x, write_m, m_dtyp
         elif a is not None:
             err = max(err, max_err(torch, a, b))
             ok = ok and torch.equal(a, b)  # bitwise: the same f32 operations
+    del out1, ref
+    torch.cuda.empty_cache()
     nbytes = (deltas.numel() * deltas.element_size() + C * 4 + 16 + P * 4  # deltas, wn, coefs, mean
               + (2 * P * 4 if write_x else 0)
               + (2 * P * m.element_size() if write_m else 0))
     flops = 2 * C * P + P + (2 * P if write_x else 0) + (3 * P if write_m else 0)
     b_ms, b_by = bound(nbytes, flops)
-    reps = 20 if C * P < 10_000_000 else 5
+    reps = 20 if C * P < 10_000_000 else 5 if C * P < 1_000_000_000 else 1
     ms = graph_ms(torch, run, reps)
     plain = graph_ms(torch, lambda: su_ref.server_update_ref(
         deltas, wn, x, m, coefs, write_x=write_x, write_m=write_m), reps)
@@ -654,6 +701,31 @@ def fold_edge_cases(torch, su_kernel, su_ref, gen):
 # the staleness discounts of the γ cases: γ and γ², the async ring's fold
 # weight γ^(D−1) at D = 2 and 3 for staleness_discount 0.9
 GAMMAS = (0.9, 0.81)
+
+
+def full_plane_cases(torch, fd_kernel, fd_ref, su_kernel, su_ref, gen, smi_line: str):
+    """Both kernels of the federated LM's round at its cohort plane
+    ``(FULL_C, FULL_P)``, each alone with the card emptied before it (the
+    plain fold there holds ~50 GB): ``fed_direction`` with one broadcast f32
+    aux (FedCM's Δ_t), f32 x, within tolerance; ``server_update`` with f32
+    m, x and m written, bitwise.  Each printed with its time beside its
+    bound and its plain version's."""
+    out = {}
+    for name, check in (
+            ("fed_direction", lambda: check_fed_direction(
+                torch, fd_kernel, fd_ref, FULL_C, FULL_P, 1, torch.float32, gen)),
+            ("server_update", lambda: check_server_update(
+                torch, su_kernel, su_ref, FULL_C, FULL_P, True, True, torch.float32, gen))):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        r = check()
+        torch.cuda.empty_cache()
+        say(f"{name} at the full-width federated LM plane ({FULL_C}, {FULL_P}): "
+            f"{json.dumps(r)}; {r['ms']:.3f} ms against a {r['bound_ms']:.3f} ms bound "
+            f"({r['bound_ms'] / r['ms']:.1%} of it), plain {r['plain_ms']:.3f} ms; "
+            f"{time.perf_counter() - t0:.1f} s; {smi_line}")
+        out[name] = r
+    return out
 
 
 def fold_gamma_cases(torch, su_kernel, su_ref, gen):
@@ -1181,6 +1253,222 @@ def train_full_width(torch, np, bindings):
     return rows
 
 
+def fed_lm_card_vs_cpu(torch, np, bindings, smi_line: str):
+    """Phase 8 (c): ``FED_LM_RUN`` rounds of FedCM over ``FED_LM_VS_CPU`` on
+    the card and on the CPU through ``FederatedEngine.round_step``
+    (``cohort_loss_fn``; ``LMFederatedData`` from ``federated_lm_corpora``),
+    from one converted state, with the same ids, masks and minibatch
+    indices: params within ``PARITY_RTOL`` / ``PARITY_ATOL``, momentum within
+    ``F32_REL_L2``, each round's loss too; on the card K ``fed_direction``
+    and one ``server_update`` a round, no other kernel."""
+    from repro_torch.configs.base import FedConfig, get_config
+    from repro_torch.core.convert import params_to_numpy, state_from_numpy, state_to_numpy
+    from repro_torch.core.engine import FederatedEngine, metrics_to_host
+    from repro_torch.data import LMFederatedData, federated_lm_corpora, gather_round_batches
+    from repro_torch.launch import federated_llm
+    from repro_torch.models.model import build_model, cohort_loss_fn
+
+    arch, cut = FED_LM_VS_CPU
+    cfg = replace(get_config(arch), **cut)
+    model = build_model(cfg)
+    B, S = FED_LM_VS_CPU_BATCH
+    n, C, K, R = (FED_LM_RUN[k] for k in ("n_clients", "cohort", "local_steps", "rounds"))
+    fed = FedConfig(algo="fedcm", num_clients=n, cohort_size=C, local_steps=K,
+                    alpha=federated_llm.ALPHA, eta_l=0.05,
+                    weight_decay=federated_llm.WEIGHT_DECAY, participation="fixed")
+    params = params_to_numpy(model.init(torch.Generator().manual_seed(8)))
+    toks = federated_lm_corpora(cfg.vocab_size, n, S + 1, 64)
+    rng = np.random.default_rng(8)
+    draws = [(rng.permutation(n)[:C], rng.integers(0, toks.shape[1], size=(C, K, B)))
+             for _ in range(R)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        data = LMFederatedData(toks, device=dev)
+        state, spec = state_from_numpy(params, fed, device=dev)
+        eng = FederatedEngine(fed, cohort_loss_fn(model), spec, batch_size=B, device=dev)
+        for b in bindings.values():
+            b.launches = 0
+        losses, t0 = [], time.perf_counter()
+        for ids, idx in draws:
+            ids_t = torch.as_tensor(ids, device=dev)
+            batches = gather_round_batches(data.client_x, data.client_y, None, ids_t, K, B,
+                                           idx=torch.as_tensor(idx))
+            state, m = eng.round_step(state, batches, ids_t,
+                                      torch.ones(C, dtype=torch.bool, device=dev))
+            losses.append(float(metrics_to_host(m)["loss"][0]))
+        runs[dev] = {"state": state_to_numpy(state), "losses": losses,
+                     "s": time.perf_counter() - t0,
+                     "launches": {k: b.launches for k, b in bindings.items()}}
+        del state, eng, data
+    torch.cuda.empty_cache()
+    expected = {"fed_direction": R * K, "server_update": R, "dequant_update": 0,
+                "flash_attention": 0, "ssd_scan": 0}
+    if runs["cuda"]["launches"] != expected:
+        fail(f"federated LM card vs CPU: launch counts {runs['cuda']['launches']}, "
+             f"expected {expected}")
+    card, cpu = runs["cuda"], runs["cpu"]
+    p_diff = float(np.max(np.abs(card["state"]["params"] - cpu["state"]["params"])))
+    m_rel = rel_l2(torch, torch.from_numpy(card["state"]["momentum"]),
+                   torch.from_numpy(cpu["state"]["momentum"]))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+    row = {"arch": arch, "cut": cut, "params": int(card["state"]["params"].size), "N": n,
+           "cohort": C, "K": K, "B": B, "S": S, "rounds": R, "losses": card["losses"],
+           "loss_max_rel": loss_rel, "params_max_abs_diff": p_diff,
+           "momentum_rel_l2": m_rel, "launches": card["launches"],
+           "card_s": card["s"], "cpu_s": cpu["s"], "card": smi_line,
+           "limits": {"params": [PARITY_RTOL, PARITY_ATOL], "momentum": F32_REL_L2}}
+    if not (np.isfinite(card["losses"]).all()
+            and np.allclose(card["state"]["params"], cpu["state"]["params"], rtol=PARITY_RTOL,
+                            atol=PARITY_ATOL)
+            and m_rel <= F32_REL_L2 and loss_rel <= F32_REL_L2):
+        fail(f"federated LM card vs CPU: {json.dumps(row)}")
+    say(f"federated LM card vs CPU: {json.dumps(row)}")
+    return card["launches"]
+
+
+def fed_lm_full_width(torch, np, bindings, smi_line: str):
+    """Phase 8 (d): ``launch/federated_llm.run`` over ``FED_LM_FULL`` with
+    ``FED_LM_RUN`` and ``FED_LM_FULL_BATCH``, the launch counts set to 0
+    just before and read just after: K ``fed_direction`` and one
+    ``server_update`` a round, no other kernel; finite losses, the last
+    round's mean local loss below the first's; ms a round and the peak
+    device memory printed.  An out-of-memory error fails the phase: nothing
+    is retried smaller."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import federated_llm
+
+    cfg = get_config(FED_LM_FULL)
+    B, S = FED_LM_FULL_BATCH
+    torch.cuda.empty_cache()
+    for b in bindings.values():
+        b.launches = 0
+    t0 = time.perf_counter()
+    res = federated_llm.run(cfg, **FED_LM_RUN, batch=B, seq=S, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = {k: b.launches for k, b in bindings.items()}
+    R, K = FED_LM_RUN["rounds"], FED_LM_RUN["local_steps"]
+    expected = {"fed_direction": R * K, "server_update": R, "dequant_update": 0,
+                "flash_attention": 0, "ssd_scan": 0}
+    losses = [r["loss"] for r in res.rounds]
+    row = {"arch": FED_LM_FULL, "cut": "none (published config)", "params": res.n_params,
+           "cohort_plane_bytes": FED_LM_RUN["cohort"] * res.n_params * 4,
+           **FED_LM_RUN, "B": B, "S": S, "losses": losses,
+           "momentum_norm": [r["momentum_norm"] for r in res.rounds],
+           "ms_per_round": res.round_ms, "peak_gb": res.peak_bytes / 1e9,
+           "launches": launches, "wall_s_with_init": wall, "card": smi_line}
+    say(f"federated LM at full width: {json.dumps(row)}")
+    if launches != expected:
+        fail(f"federated LM at full width: launch counts {launches}, expected {expected}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"federated LM at full width: losses {losses} do not fall")
+    del res
+    torch.cuda.empty_cache()
+    return launches
+
+
+def fed_lm_step_profile(torch, smi_line: str) -> None:
+    """``--profile``: one FedCM local step of phase 8 (d)'s run (the
+    ``(FED_LM_RUN["cohort"], P)`` plane of ``FED_LM_FULL``, a batch of
+    ``FED_LM_FULL_BATCH`` tokens a client): the gradient plane (the
+    engine's ``_value_and_grad``), ``g ← wd·x + g``, one ``fed_direction``.
+    The gradient is taken two ways on the same x and batch: ``views``, the
+    engine's (with respect to the leaf views, copied into one plane), and
+    ``plane`` (with respect to the whole plane, where each view's slice
+    backward writes a zero plane).  For each: the step's device ms (CUDA
+    events, median of 3 after a warm-up), its peak device memory above
+    what was allocated before it, the allocations of a plane's bytes or
+    more (the allocator's history), the slice / select backward calls and
+    the kernels with the most device time (torch.profiler); the two
+    gradient planes must be equal."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import FedConfig, get_config
+    from repro_torch.core.engine import FederatedEngine
+    from repro_torch.core.flat import FlatSpec
+    from repro_torch.kernels.fed_direction.ops import direction_operands, fed_direction
+    from repro_torch.launch import federated_llm
+    from repro_torch.models.model import build_model, cohort_loss_fn
+
+    cfg = get_config(FED_LM_FULL)
+    C, (B, S) = FED_LM_RUN["cohort"], FED_LM_FULL_BATCH
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = model.init(gen)
+    spec = FlatSpec.from_tree(params)
+    fed = FedConfig(algo="fedcm", num_clients=FED_LM_RUN["n_clients"], cohort_size=C,
+                    local_steps=FED_LM_RUN["local_steps"], alpha=federated_llm.ALPHA,
+                    eta_l=0.05, weight_decay=federated_llm.WEIGHT_DECAY)
+    eng = FederatedEngine(fed, cohort_loss_fn(model), spec, batch_size=B, device="cuda")
+    x = spec.ravel(params).expand(C, -1).contiguous()
+    del params
+    toks = torch.randint(0, 512, (C, B, S + 1), generator=gen, device="cuda")
+    batch = {"x": toks[..., :-1], "y": toks[..., 1:]}
+    auxes, coefs = direction_operands(eng.algo, fed, torch.zeros(spec.size, device="cuda"),
+                                      None, x[0], torch.full((), fed.eta_l, device="cuda"))
+    plane_bytes = x.numel() * x.element_size()
+
+    def plane_grad(xx, bb):
+        plane = xx.detach().requires_grad_(True)
+        with torch.enable_grad():
+            losses = eng.loss_fn(spec.unravel(plane), bb)
+            (g,) = torch.autograd.grad(losses.sum(), plane)
+        return losses.detach(), g
+
+    grads = {}
+    for route, grad in (("views", eng._value_and_grad), ("plane", plane_grad)):
+        def step():
+            _, g = grad(x, batch)
+            return fed_direction(x, fed.weight_decay * x + g, auxes, coefs)
+
+        step()
+        times = []
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            step()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.memory._record_memory_history(max_entries=100_000)
+        step()
+        torch.cuda.synchronize()
+        trace = torch.cuda.memory._snapshot()["device_traces"]
+        torch.cuda.memory._record_memory_history(enabled=None)
+        big = sum(1 for t in trace for e in t
+                  if e["action"] == "alloc" and e["size"] >= plane_bytes)
+        peak = torch.cuda.max_memory_allocated() - base
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            step()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        calls = {e.key: e.count for e in events}
+        kernels = sorted(((e.self_device_time_total, e.count, e.key) for e in events
+                          if e.device_type == DeviceType.CUDA), reverse=True)
+        row = {"route": route, "arch": FED_LM_FULL, "C": C, "P": spec.size,
+               "leaves": len(spec.leaves), "B": B, "S": S,
+               "step_ms": statistics.median(times), "step_ms_samples": times,
+               "peak_bytes_above_base": peak, "allocs_of_a_plane_or_more": big,
+               "kernels_device_ms": sum(k[0] for k in kernels) / 1e3,
+               "slice_backward_calls": calls.get("aten::slice_backward", 0),
+               "select_backward_calls": calls.get("aten::select_backward", 0),
+               "top_kernels_device_ms": [[k[:90], n, d / 1e3] for d, n, k in kernels[:10]],
+               "card": smi_line}
+        say(f"federated LM local step profile: {json.dumps(row)}")
+        grads[route] = grad(x, batch)[1]
+        torch.cuda.empty_cache()
+    if not torch.equal(grads["views"], grads["plane"]):
+        fail("federated LM local step profile: the two gradient planes differ")
+    say("federated LM local step profile: the gradient planes of both routes are equal")
+    del grads, x, eng
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------- phase 4b
 def other_algorithms(torch, np, bindings):
     """``run_federated`` for each of ``OTHER_ALGOS`` at the CLI defaults,
@@ -1703,6 +1991,8 @@ SHARD_RUNS = (("fedcm", "fedcm", None, None, None),
 SHARD_ROUNDS = 4
 SHARD_WORLDS = (2, 4)
 SHARD_TIMEOUT_S, SHARD_DEADLINE_S = 60.0, 150.0
+# phase 4f (d): rounds of each sharded fleet run and its snapshot interval
+SERVE_ROUNDS, SERVE_CKPT_EVERY = 10, 2
 
 
 def shard_fold_cases(torch, su_kernel, gen):
@@ -1892,7 +2182,73 @@ def sharded_worlds(torch, np, n_worlds, backend, plain):
         say(f"sharded world of {n} {backend} ranks: {wall:.1f} s wall (start-up included)")
 
 
-def cohort_sharding(torch, np, su_kernel, nccl_only: bool = False):
+def serve_rank(rank, device, work):
+    """A rank of phase 4f (d): ``run_federated`` at the CLI defaults with
+    ``cohort_shard`` 2 for ``SERVE_ROUNDS`` rounds, a snapshot every
+    ``SERVE_CKPT_EVERY``, once without and once with ``serve`` (rank 0 the
+    fleet)."""
+    import torch
+
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.launch.fed_train import run_federated
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = FedConfig(participation="bernoulli", rounds=SERVE_ROUNDS, cohort_shard=2)
+    out = {}
+    for serve in (False, True):
+        t0 = time.perf_counter()
+        acc, _ = run_federated(cfg, 0.6, eval_every=EVAL_EVERY, seed=0, echo=False,
+                               device=device, ckpt_every=SERVE_CKPT_EVERY,
+                               ckpt_dir=str(Path(work) / f"serve{serve:d}"), serve=serve)
+        out[serve] = {"acc": acc, "s": time.perf_counter() - t0}
+    return out
+
+
+def sharded_serve(torch, smi_line: str):
+    """Phase 4f (d): the fleet loop of a sharded run — ``serve_rank`` on 2
+    gloo ranks sharing cuda:0: the ``serve`` run's last snapshot equal
+    plane for plane and byte for byte to the plain sharded run's; versions
+    1-6 published (the params entering the run, then each snapshot's), the
+    serving thread ending on version 6, the in-run health probe 200,
+    ``fleet.check`` clean."""
+    import shutil
+
+    from repro_torch.fleet.check import check
+    from repro_torch.fleet.telemetry import events, replay
+    from repro_torch.launch.mesh import spawn_cohort
+
+    work = ROOT / "build" / "smoke_shard_serve"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    ranks = spawn_cohort(serve_rank, 2, args=(str(work),), device="cuda", backend="gloo",
+                         timeout_s=SHARD_TIMEOUT_S, deadline_s=SHARD_DEADLINE_S)
+    wall = time.perf_counter() - t0
+    planes = snapshots_equal(torch, work / "serve0" / f"step_{SERVE_ROUNDS}.msgpack",
+                             work / "serve1" / f"step_{SERVE_ROUNDS}.msgpack")
+    path = str(work / "serve1" / "telemetry.jsonl")
+    _, rows, _ = replay(path)
+    versions = [e["version"] for e in events(rows, "publish")]
+    summary = events(rows, "serve_summary")[-1]
+    probe = events(rows, "health_probe")[-1]
+    fails = check(path, min_rounds=SERVE_ROUNDS, require_health=True)
+    if (versions != list(range(1, SERVE_ROUNDS // SERVE_CKPT_EVERY + 2))
+            or summary["served_version"] != versions[-1]
+            or probe["status"] != 200 or fails or (work / "serve0" / "telemetry.jsonl").exists()):
+        fail(f"sharded fleet loop: versions {versions}, serve summary {summary}, health probe "
+             f"{probe}, check {fails}")
+    shutil.rmtree(work)
+    say(f"sharded fleet loop (2 gloo ranks sharing cuda:0, rank 0 the fleet): {len(planes)} "
+        f"planes of the --serve run's round-{SERVE_ROUNDS} snapshot bitwise equal to the plain "
+        f"sharded run's; versions {versions}, served version {summary['served_version']} "
+        f"({summary['swaps']} hot-swaps over {summary['steps']} steps); health "
+        f"{probe['status']}; fleet.check clean; s a run on rank 0 plain "
+        f"{ranks[0][False]['s']:.3f} / serve {ranks[0][True]['s']:.3f}; final test_acc "
+        f"{ranks[0][True]['acc']:.4f}; {wall:.1f} s wall; {smi_line}")
+
+
+def cohort_sharding(torch, np, su_kernel, smi_line: str, nccl_only: bool = False):
     """Phase 4f: (a) the fold on column shards, (b) whole sharded rounds on
     2 and 4 gloo ranks sharing cuda:0, (c) the same over NCCL on 2 and
     ``min(4, device_count)`` cards when there are two or more.
@@ -1907,6 +2263,7 @@ def cohort_sharding(torch, np, su_kernel, nccl_only: bool = False):
              for spec in SHARD_RUNS[:1] + SHARD_RUNS][1:]  # the first is a warm-up
     if not nccl_only:
         sharded_worlds(torch, np, SHARD_WORLDS, "gloo", plain)
+        sharded_serve(torch, smi_line)
     cards = torch.cuda.device_count()
     if cards >= 2:
         sharded_worlds(torch, np, sorted({2, min(4, cards)}), "nccl", plain)
@@ -2136,6 +2493,11 @@ def card_vs_cpu_ring(torch, np, algo):
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
+
+    def lap(phase: str) -> None:  # where the script's time goes, phase by phase
+        say(f"clock: phase {phase} ended at {time.perf_counter() - t_start:.1f} s")
+
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a CUDA card")
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
@@ -2201,10 +2563,11 @@ def main() -> int:
                 f"{len(bulk)} instantiations, {min(bulk, default=0)}-{max(bulk, default=0)} each")
             if not bulk or min(bulk) == 0:
                 fail(f"{name}: a fold kernel has no bulk-copy (UBLKCP) instruction: {bulk}")
+    lap("2")
 
     if "--nccl" in sys.argv[1:]:
         # phase 4f (c) alone, on a machine with several cards
-        cohort_sharding(torch, np, su_kernel, nccl_only=True)
+        cohort_sharding(torch, np, su_kernel, smi_line, nccl_only=True)
         for line in smi.stdout.strip().splitlines():
             say(line)
         say(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2247,6 +2610,9 @@ def main() -> int:
     su_cases += su_edge
     dq_cases += dq_edge
     gamma_cases = fold_gamma_cases(torch, su_kernel, su_ref, gen)
+    full = full_plane_cases(torch, fd_kernel, fd_ref, su_kernel, su_ref, gen, smi_line)
+    fd_cases.append(full["fed_direction"])
+    su_cases.append(full["server_update"])
     bad = [r for r in fd_cases + su_cases + dq_cases + gamma_cases if not r["ok"]]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
@@ -2311,6 +2677,7 @@ def main() -> int:
         f"(rtol, atol relative to the largest plain value)")
 
     say(f"device memory allocated after phase 3: {torch.cuda.memory_allocated()} B")
+    lap("3")
 
     # ---- 4. main path and the lossy-uplink paths, launch counts from each run only
     from repro_torch.configs.base import CompressionConfig, FaultConfig, FedConfig
@@ -2397,12 +2764,14 @@ def main() -> int:
             f"gaps) -> device busy share {busy:.4f}, idle share {1 - busy:.4f}")
     if "--profile" in sys.argv[1:]:
         profile_rounds(torch, eng, state, data)
+    lap("4")
 
     # ---- 4b. the other nine algorithms, launch counts from each run only
     algo_rows = other_algorithms(torch, np, bindings)
     say("other algorithms, steady ms/round: " + ", ".join(
         f"{r['algo']}{'' if r['uplink'] == 'f32' else ' ' + r['uplink']} "
         f"{r['steady_ms_per_round']:.3f}" for r in algo_rows))
+    lap("4b")
 
     # ---- 4c. the async ring, launch counts from each run only
     ring_rows = async_ring(torch, np, bindings)
@@ -2411,17 +2780,21 @@ def main() -> int:
                     f"D={r['D']} S={r['S']} {r['steady_ms_per_round']:.3f} (sync "
                     f"{r['sync_twin_ms_per_round'][0]:.3f} / {r['sync_twin_ms_per_round'][1]:.3f})"
                     for r in ring_rows))
+    lap("4c")
 
     # ---- 4d. the host store at fleet scale, and store pairs on the card
     host_store_fleet(torch, np, bindings)
     say(f"bitwise pairs on the card: {bitwise_pairs_on_card(torch, np)} (4 store vs resident, "
         f"2 store vs resident under int8 / topk, 1 ring D=1 vs sync for scaffold int8)")
+    lap("4d")
 
     # ---- 4e. checkpoint and fleet, launch counts from each run only
     checkpoint_and_fleet(torch, np, bindings)
+    lap("4e")
 
     # ---- 4f. cohort sharding, launch counts from each rank's runs only
-    cohort_sharding(torch, np, su_kernel)
+    cohort_sharding(torch, np, su_kernel, smi_line)
+    lap("4f")
 
     # ---- 5. card vs CPU
     diffs = card_vs_cpu(torch, np)
@@ -2431,18 +2804,21 @@ def main() -> int:
         say(f"card vs CPU, int8 + faults, hash draws: {json.dumps(row)}")
     say("card vs CPU, int8 + faults: draws bitwise equal on both devices; params and "
         "momentum within the tolerance plus one quantum per floor flip")
+    lap("5")
 
     # ---- 5b. card vs CPU, the other nine algorithms
     for algo in OTHER_ALGOS:
         say(f"card vs CPU, {algo}, 3 injected rounds: max |diff| "
             f"{json.dumps(card_vs_cpu(torch, np, algo))} (rtol {PARITY_RTOL}, "
             f"atol {PARITY_ATOL})")
+    lap("5b")
 
     # ---- 5c. card vs CPU under the async ring
     for algo in ("fedcm", "scaffold", "fedadam", "mimelite"):
         say(f"card vs CPU, ring D=2 S=1 gamma {RING_GAMMA}, {algo}, 6 injected launches: max "
             f"|diff| {json.dumps(card_vs_cpu_ring(torch, np, algo))} (rtol {PARITY_RTOL}, "
             f"atol {PARITY_ATOL})")
+    lap("5c")
 
     # ---- 6. serving at full width, launch counts from each run only
     serving = serve_full_width(torch, np, bindings)
@@ -2450,11 +2826,13 @@ def main() -> int:
         say(f"decode step: {json.dumps(decode_step_breakdown(torch, arch))}")
     for name in ("flash_attention", "ssd_scan"):  # summed over the serving runs
         launches[name] = sum(r["launches"][name] for r in serving.values())
+    lap("6")
 
     # ---- 7. card vs CPU, serving
     for arch, cut in CARD_VS_CPU:
         say(f"card vs CPU serving: {json.dumps(serve_card_vs_cpu(torch, np, arch, cut))}")
     say(f"card vs CPU serving: {json.dumps(encdec_card_vs_cpu(torch, np, *ENCDEC_VS_CPU))}")
+    lap("7")
 
     # ---- 8. training: card vs CPU, then at full width, launch counts from each run only
     t0 = time.perf_counter()
@@ -2462,7 +2840,17 @@ def main() -> int:
         row = train_card_vs_cpu(torch, np, bindings, arch, cut)
         say(f"card vs CPU training: {json.dumps(row)}")
     say(f"card vs CPU training: phase 8 (a) in {time.perf_counter() - t0:.1f} s")
+    lap("8 (a)")
     train_full_width(torch, np, bindings)
+    lap("8 (b)")
+    # (c) and (d): FedCM over an LM, card vs CPU, then at full width
+    by_path = {"main": launches}
+    by_path["fed_lm_vs_cpu"] = fed_lm_card_vs_cpu(torch, np, bindings, smi_line)
+    lap("8 (c)")
+    by_path["fed_lm_full"] = fed_lm_full_width(torch, np, bindings, smi_line)
+    if "--profile" in sys.argv[1:]:
+        fed_lm_step_profile(torch, smi_line)
+    lap("8 (d)")
 
     # ---- 9. summary
     def main_case(cases, **sel):
@@ -2493,6 +2881,10 @@ def main() -> int:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main.get("library_ms"),
         })
+        if name in full:  # the federated LM's paths and its cohort plane beside the main one
+            kernels[-1]["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
+            kernels[-1]["full_plane"] = {k: full[name][k] for k in (
+                "C", "P", "ms", "plain_ms", "bound_ms", "bound_by")}
     say(f"steady ms/round {s_per_round * 1e3:.3f}; eager ms/call fed_direction "
         f"{fd_main['eager_ms']:.4f}, server_update {su_main['eager_ms']:.4f}, "
         f"dequant_update {dq_main['eager_ms']:.4f}")

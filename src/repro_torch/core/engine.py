@@ -382,8 +382,9 @@ class FederatedEngine:
     ``loss_fn(params, batch)`` takes cohort-batched params — leaves with a
     leading client axis, views of a ``(C, P)`` plane — and a batch with
     leading ``(C, B)`` axes, and returns the ``(C,)`` per-client mean losses
-    (``repro_torch.models.small.classification_loss`` does).  ``spec`` is
-    the ``FlatSpec`` of the model's params.
+    (``repro_torch.models.small.classification_loss`` does; for an LM,
+    ``repro_torch.models.model.cohort_loss_fn`` over ``LMFederatedData``).
+    ``spec`` is the ``FlatSpec`` of the model's params.
 
     Usage::
 
@@ -395,8 +396,9 @@ class FederatedEngine:
         state, metrics = eng.round_step(state, batches, ids, mask,
                                         full_batches=full)  # full: MimeLite only
 
-    ``data`` is a ``FederatedData`` (device-resident shards) or, under
-    ``population_store="host"``, also a ``StreamingClientData``.
+    ``data`` is a ``FederatedData`` or an ``LMFederatedData``
+    (device-resident shards) or, under ``population_store="host"``, also a
+    ``StreamingClientData``.
 
     ``cohort_group`` (a process group this rank belongs to) or
     ``cfg.cohort_shard = n`` (the default group, which must have n ranks)
@@ -519,11 +521,28 @@ class FederatedEngine:
     def _value_and_grad(self, x: torch.Tensor, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """Per-client losses ``(C,)`` and gradient plane ``(C, P)`` of the
         cohort plane ``x`` in one backward (each client's loss depends only
-        on its own row, so the gradient of the sum is per-client)."""
+        on its own row, so the gradient of the sum is per-client).
+
+        The gradient is taken with respect to each leaf's view of the plane
+        and written into its columns of one ``(C, P)`` buffer.  Taken with
+        respect to the plane, each view's slice backward would write a zero
+        ``(C, P)`` plane and the planes would be summed: the same values
+        (every element has one nonzero term), but at an LM's width one
+        plane is gigabytes and the model has a dozen leaves."""
+        spec = self.spec
         plane = x.detach().requires_grad_(True)
         with torch.enable_grad():
-            losses = self.loss_fn(self.spec.unravel(plane), batch)
-            (g,) = torch.autograd.grad(losses.sum(), plane)
+            views = spec.views(plane)
+            losses = self.loss_fn(spec.unravel_views(views), batch)
+            grads = list(torch.autograd.grad(losses.sum(), views, allow_unused=True))
+        g = torch.empty_like(x)
+        for i, l in enumerate(spec.leaves):
+            cols = g[..., l.offset:l.offset + l.size]
+            if grads[i] is None:  # a leaf the loss does not read
+                cols.zero_()
+            else:
+                cols.copy_(grads[i].reshape(cols.shape))
+            grads[i] = None  # free each leaf's gradient once it is in the plane
         return losses.detach(), g
 
     def _flat_cohort_pass(self, x_t, m_t, batches, eta_l, cst=None, full_batches=None):

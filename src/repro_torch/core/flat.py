@@ -12,7 +12,7 @@ how the engine takes one cohort-wide gradient in a single backward.
 from __future__ import annotations
 
 import math
-from typing import Any, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -74,9 +74,20 @@ class FlatSpec:
         restored from the table unless ``dtype`` overrides them."""
         if flat.shape[-1] != self.size:
             raise ValueError(f"plane has {flat.shape[-1]} elements, spec {self.size}")
-        dtypes = [dtype or l.dtype for l in self.leaves]
-        casts = None if all(d == flat.dtype for d in dtypes) else dtypes
-        leaves = split_flat(flat, [l.shape for l in self.leaves], casts)
+        return self.unravel_views(self.views(flat), dtype)
+
+    def views(self, flat: torch.Tensor) -> List[torch.Tensor]:
+        """Buffer ``(*lead, P)`` → its ``(*lead, *shape)`` leaf views, in the
+        table's order and ``flat``'s dtype."""
+        return split_flat(flat, [l.shape for l in self.leaves])
+
+    def unravel_views(self, views: Sequence[torch.Tensor], dtype=None):
+        """Leaf views (``views``) → the tree, each leaf cast to its table
+        dtype (or ``dtype``) where it differs; otherwise the view itself."""
+        leaves = []
+        for v, l in zip(views, self.leaves):
+            d = dtype or l.dtype
+            leaves.append(v if v.dtype == d else v.to(d))
         return tree_unflatten(self.treedef, leaves)
 
     @property

@@ -11,7 +11,10 @@ minibatches are gathered in one indexing op per round:
 
 Minibatch indices are drawn with replacement from a ``torch.Generator`` on
 the data's device, or injected (``idx``) so that a test can hand both this
-package and the reference the same draws.  ``lm_batch_iterator`` feeds the
+package and the reference the same draws.  ``LMFederatedData`` holds
+per-client LM corpora in the same layout (``client_x`` the tokens,
+``client_y`` the next-token labels), so the engine draws a cohort's LM
+minibatches with the same gathers.  ``lm_batch_iterator`` feeds the
 centralized LM training loop (``repro_torch.launch.train``).
 """
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.data.dirichlet import dirichlet_partition
+from repro_torch.data.synthetic import CHAIN_VOCAB, make_markov_transition, make_synthetic_lm
 
 
 def gather_round_batches(
@@ -71,6 +75,41 @@ class FederatedData:
             np.stack([x[p[:n_per]] for p in parts]), device=device)  # (N, n, ...)
         self.client_y = torch.as_tensor(
             np.stack([y[p[:n_per]] for p in parts]), device=device)  # (N, n)
+
+
+def federated_lm_corpora(vocab_size: int, n_clients: int, seq_len: int, n_seqs: int = 256,
+                         temperature: float = 0.3) -> np.ndarray:
+    """Per-client corpora ``(n_clients, n_seqs, seq_len)`` int32, drawn as
+    the reference's ``examples/federated_llm.py`` draws them: client c's
+    chain is 0.6 × a shared base chain (seed 0) + 0.4 × its own (seed
+    100 + c), and its sequences come from ``make_synthetic_lm(..., seed=c)``.
+    The chains run over the first ``min(vocab_size, CHAIN_VOCAB)`` token ids
+    (a dense (V, V) chain does not fit at a full vocabulary); at the
+    reduced configs' vocabulary of 512 these are the example's corpora."""
+    v = min(vocab_size, CHAIN_VOCAB)
+    base = make_markov_transition(v, temperature=temperature, seed=0)
+    out = []
+    for c in range(n_clients):
+        pert = make_markov_transition(v, temperature=temperature, seed=100 + c)
+        out.append(make_synthetic_lm(v, seq_len, n_seqs, transition=0.6 * base + 0.4 * pert,
+                                     seed=c))
+    return np.stack(out)
+
+
+class LMFederatedData:
+    """Per-client LM corpora ``(N, n_seq, S + 1)`` on ``device`` in the
+    engine's data layout: ``client_x`` the tokens ``[..., :-1]`` and
+    ``client_y`` the labels ``[..., 1:]``, ``(N, n_seq, S)`` int64 each, so
+    ``gather_round_batches`` draws ``{"x": (C, K, B, S), "y": (C, K, B, S)}``
+    and ``FederatedEngine.run_round`` / ``run_rounds`` step an LM as they
+    step the MLP.  (The reference's example keeps only the tokens, which
+    its engine's ``run_round`` cannot read: ROADMAP queue C.)"""
+
+    def __init__(self, tokens: np.ndarray, device="cuda") -> None:
+        toks = torch.as_tensor(np.asarray(tokens), dtype=torch.int64, device=device)
+        self.num_clients, self.n_per_client = toks.shape[:2]
+        self.client_x = toks[..., :-1]
+        self.client_y = toks[..., 1:]
 
 
 def lm_batch_iterator(tokens: np.ndarray, batch_size: int, seed: int = 0, device="cpu",

@@ -1,9 +1,10 @@
 """Synthetic classification and language-model data.
 
-Numpy copies of ``repro.data.synthetic.make_synthetic_classification``
-and ``make_synthetic_lm``, kept draw for draw so both packages build the
-same data for the same seed; and the encoder-decoder's synthetic source
-frames (``source_frames``), drawn with a ``torch.Generator``.
+Numpy copies of ``repro.data.synthetic.make_synthetic_classification``,
+``make_synthetic_lm`` and ``make_markov_transition``, kept draw for draw so
+both packages build the same data for the same seed; and the
+encoder-decoder's synthetic source frames (``source_frames``), drawn with a
+``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -76,6 +77,14 @@ def make_synthetic_lm(
         state = np.minimum(state, vocab_size - 1)
         toks[:, t] = state
     return toks
+
+
+def make_markov_transition(vocab_size: int, temperature: float, seed: int) -> np.ndarray:
+    """A ``(vocab, vocab)`` f64 row-stochastic chain: softmax of
+    ``default_rng(seed)`` normals over ``temperature``."""
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(size=(vocab_size, vocab_size)) / max(temperature, 1e-3)
+    return _softmax(logits)
 
 
 def source_frames(batch: int, seq: int, d_model: int, seed: int, device) -> torch.Tensor:

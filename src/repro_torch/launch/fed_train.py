@@ -20,8 +20,9 @@ thread hot-swaps them, one telemetry row a round, and a health endpoint.
 ``--cohort-shard N`` spawns N ranks that shard each cohort between them
 (``repro_torch.launch.mesh``): NCCL on ``cuda:0`` … ``cuda:N−1``, or gloo
 with ``--device cpu``; rank 0 prints the log, line for line the unsharded
-run's.  Runs on ``cuda`` and raises when there is no GPU, unless ``--device
-cpu`` asks for the CPU (the kernels' plain versions).
+run's, and under ``--serve`` runs the fleet loop while the others step.
+Runs on ``cuda`` and raises when there is no GPU, unless ``--device cpu``
+asks for the CPU (the kernels' plain versions).
 
     PYTHONPATH=src python -m repro_torch.launch.fed_train --algo fedcm \
         --clients 100 --cohort 10 --rounds 100 --dirichlet 0.6
@@ -127,7 +128,9 @@ def run_federated(
     ``cfg.cohort_shard`` > 0: this process is one rank of a cohort world
     (``main`` spawns them; the state is replicated), and rank 0 alone
     writes the snapshots, every rank passing a barrier after each; a
-    resume reads the same file on every rank."""
+    resume reads the same file on every rank.  Under ``serve`` rank 0 is
+    also the fleet (the publisher, the serving thread, the telemetry and
+    the health endpoint); the other ranks only step."""
     dev = resolve_device(device)
     if cfg.population_store == "host":
         data = StreamingClientData(cfg.num_clients, dim=dim, n_classes=n_classes, seed=seed)
@@ -195,7 +198,7 @@ def run_federated(
     if resume:
         state, r = restore_run(eng, state, ckpt_dir, seed)
     fleet = None
-    if serve:
+    if serve and eng.cohort_rank == 0:
         from repro_torch.fleet.driver import FleetDriver
 
         fleet = FleetDriver(
@@ -509,10 +512,6 @@ def main(argv=None) -> int:
         return 0
     check_flags(ap, args)
     if args.cohort_shard > 0:
-        if args.serve:
-            raise NotImplementedError("--serve under --cohort-shard (the fleet loop of a "
-                                      "sharded run) is not ported to repro_torch yet "
-                                      "(ROADMAP A.14)")
         resolve_device(args.device)
         try:
             acc = spawn_cohort(_shard_main, args.cohort_shard,

@@ -7,6 +7,7 @@
     cache              = model.init_cache(params, batch, max_len)          # enc-dec: enc_out=
     logits, cache      = model.decode_step(params, token, cache, pos)
     batch              = model.dummy_batch(batch, seq_len)
+    loss_fn            = cohort_loss_fn(model)   # the federated engine's contract
 
 ``use_kernels``: serving's prefill (``apply``, and the encoder-decoder's
 ``encode``) defaults to the hand-written kernels (their plain versions on
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import encdec, transformer
+from repro_torch.utils.trees import tree_flatten_with_path, tree_unflatten
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, z_reg: float = 0.0
@@ -97,6 +99,32 @@ def _build_decoder_only(cfg) -> Model:
                 "labels": torch.as_tensor(labels, device=device)}
 
     return Model(cfg, init, apply, loss_fn, init_cache, decode_step, dummy_batch)
+
+
+def cohort_loss_fn(model: Model) -> Callable[..., torch.Tensor]:
+    """The federated engine's loss contract for a decoder-only LM:
+    ``loss(params, batch) -> (C,)``, with ``params`` leaves ``(C, …)`` (views
+    of the engine's ``(C, P)`` cohort plane) and ``batch`` = ``{"x", "y"}``
+    token ids ``(C, B, S)``.  Row c is ``model.loss_fn(row_c, {"tokens":
+    x[c], "labels": y[c]})[0]`` on the plain route; each leaf is unbound
+    into its C rows once, so the rows are disjoint and the gradient of the
+    losses' sum is each client's own gradient, stacked.  The
+    encoder-decoder's batch carries source frames, and the reference runs
+    no federated encoder-decoder, so it is refused."""
+    if model.cfg.is_encoder_decoder:
+        raise ValueError(f"{model.cfg.name}: the federated LM loss covers the decoder-only "
+                         f"families; the encoder-decoder's batch carries source frames")
+
+    def loss(params, batch) -> torch.Tensor:
+        leaves, treedef = tree_flatten_with_path(params)
+        rows = [leaf.unbind(0) for _, leaf in leaves]
+        out = []
+        for c in range(batch["x"].shape[0]):
+            row = tree_unflatten(treedef, [r[c] for r in rows])
+            out.append(model.loss_fn(row, {"tokens": batch["x"][c], "labels": batch["y"][c]})[0])
+        return torch.stack(out)
+
+    return loss
 
 
 def _build_encdec(cfg) -> Model:

@@ -11,8 +11,10 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.checkpoint import load_flat
 from repro_torch.configs.base import CompressionConfig, FaultConfig, FedConfig
 from repro_torch.core.registry import list_algorithms
+from repro_torch.fleet.telemetry import events, replay
 from repro_torch.launch import fed_train
 
 torch.set_num_threads(1)
@@ -310,9 +312,33 @@ def test_cli_refuses_bad_cohort_shard_flags(argv):
     assert e.value.code == 2
 
 
-def test_cli_cohort_shard_wires_the_config_and_defers_serve():
+def test_cli_cohort_shard_wires_the_config_and_defers_serve(tmp_path):
+    """``--cohort-shard`` sets the config, and ``--serve`` under
+    ``--cohort-shard 2`` (two gloo ranks) runs the fleet loop on rank 0:
+    its snapshots are bitwise those of the same sharded run without
+    ``--serve``, v1 (the params entering the run) and one version a snapshot
+    are published, and the serving thread ends on the last one."""
     args = fed_train.build_parser().parse_args(["--cohort-shard", "4"])
     assert fed_train.resolve_config(args).cohort_shard == 4
-    with pytest.raises(NotImplementedError, match="A.14"):
-        fed_train.main(["--cohort-shard", "2", "--serve", "--ckpt-every", "2", "--ckpt-dir",
-                        "/tmp/x", "--device", "cpu"])
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "repro_torch.launch.fed_train", *SMALL, "--ckpt-every", "2",
+           "--cohort-shard", "2", "--device", "cpu"]
+    runs = {name: subprocess.Popen(cmd + ["--ckpt-dir", str(tmp_path / name)] + extra,
+                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                   env=env)
+            for name, extra in (("plain", []), ("serve", ["--serve"]))}
+    out = {name: p.communicate(timeout=120) for name, p in runs.items()}
+    for name, p in runs.items():
+        assert p.returncode == 0, out[name][1]
+    assert "fleet: serving + health at" in out["serve"][0]
+    assert _log_lines(out["serve"][1]) == _log_lines(out["plain"][1])
+    for step in (2, 4):
+        plain, _ = load_flat(str(tmp_path / "plain"), step)
+        served, _ = load_flat(str(tmp_path / "serve"), step)
+        assert plain.keys() == served.keys()
+        for k in plain:
+            assert torch.equal(plain[k], served[k]), (step, k)
+    _, rows, _ = replay(str(tmp_path / "serve" / "telemetry.jsonl"))
+    assert [e["version"] for e in events(rows, "publish")] == [1, 2, 3]
+    assert events(rows, "serve_summary")[-1]["served_version"] == 3
+    assert not (tmp_path / "plain" / "telemetry.jsonl").exists()
