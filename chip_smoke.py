@@ -145,8 +145,14 @@ and ends with a ``clock:`` line (seconds since the script started):
    0 the publisher and the serving thread): the round-10 snapshots bitwise
    and byte-equal, versions 1-6 published, the served version the last
    one, health 200, ``fleet.check`` clean.  ``--nccl`` (not part of the
-   default run) runs phases 1–2 and then (c) alone, beside the unsharded
-   runs it is compared with, on a machine with several cards;
+   default run) runs phases 1–2, then (c) alone, beside the unsharded runs
+   it is compared with, then the model group on four cards over NCCL (the
+   ms of one ``all_reduce`` of a decode step's and a prefill's activation,
+   then ``MP_FULL``: ``serve.run`` of chameleon-34b whole and dbrx-132b at 16 of
+   40 layers, ``SERVE_ARGS``, one rank a card: tokens the same on every
+   rank and finite, one flash launch a layer a prefill on each rank,
+   prefill and decode ms a session, each rank's peak device memory), on a
+   machine with four cards;
 5. card vs CPU — three rounds from one converted state with the same
    injected ids, masks and minibatch indices on ``cuda`` and on ``cpu``;
    then three rounds under int8 + faults, each started on both devices
@@ -175,6 +181,20 @@ and ends with a ``clock:`` line (seconds since the script started):
    memory; prefill and decode ms and tok/s of each session; then one
    decode step of llama and mamba2 at that shape: its ms, and the device
    operations it runs with their summed device time (torch.profiler);
+6b. the model group on one card — ``MP_CASES`` (chameleon-34b at its
+   published widths cut to 2 layers, bf16 activations; dbrx at 1 layer and
+   maverick at one period with 16 experts, f32) on 2 and 4 gloo ranks that
+   share cuda:0 (``repro_torch.launch.mesh``; each rank draws its share of
+   the weights with ``init_params_sharded``), against the unsharded model
+   on the card from the same seed: one session of B = 2 × 128 prompt tokens
+   and 4 teacher-forced decode steps; every rank's logits byte for byte
+   rank 0's, rank 0's logits and every rank's cache (its kv heads of the
+   unsharded cache) within ``LM_REL_L2`` (bf16) or ``F32_REL_L2`` (f32), no
+   MoE route flipped, ``flash_attention`` launched once a layer in each
+   rank's prefill (the count set to 0 in the rank just before, read just
+   after), each rank's collective counts printed; then ``flash_attention``
+   against its plain version at the four-card runs' rank-local head counts
+   (``MP_FLASH``: 16 / 2, 32 / 4, 12 / 2 heads, hd 128, B 4 × 1024, bf16);
 7. card vs CPU, serving — each arch at full width cut to one period
    (``CARD_VS_CPU``), B=2, prompt 128, the same f32 weights on both
    devices: prefill logits and cache, then 4 teacher-forced decode steps,
@@ -214,7 +234,8 @@ and ends with a ``clock:`` line (seconds since the script started):
 9. summary — the ``nvidia-smi`` line, one JSON line ``{"kernels": [...]}``
    (``flash_attention`` / ``ssd_scan`` launches summed over phase 6's
    serving runs, the federated kernels' those of the main path; beside
-   them, for ``fed_direction`` and ``server_update``, ``launches_by_path``
+   flash's, ``launches_by_path``: phase 6's count and each rank's in phase
+   6b's worlds; for ``fed_direction`` and ``server_update``, ``launches_by_path``
    — the main path, phase 8 (c)'s card run and 8 (d), each its own count —
    and ``full_plane``, their times and bound at the federated LM's cohort
    plane) and, last, ``{"ok": true, "device": {...}}``.
@@ -302,6 +323,26 @@ CARD_VS_CPU = (
 )
 # phase 7: the encoder-decoder at its published widths cut to 2 + 2 layers
 ENCDEC_VS_CPU = ("seamless-m4t-large-v2", {"n_layers": 2, "n_encoder_layers": 2})
+# phase 6b: the model group on one card — each case at its published widths
+# cut as stated, served on MP_WORLDS gloo ranks sharing cuda:0 against the
+# unsharded model on the same card: one session of MP_B × MP_PROMPT prompt
+# tokens and MP_STEPS teacher-forced decode steps; chameleon with bf16
+# activations, the MoE archs in f32 (a one-ulp difference in bf16 may flip
+# a route, as phase 7 says), maverick's experts cut to 16 as phase 7 cuts
+# them.  Then flash_attention at the rank-local head counts of the four-card
+# runs (B=4, S=1024, hd 128, bf16, causal): chameleon's 64 / 8 heads on 4 and
+# on 2 ranks, dbrx's 48 / 8 on 4.
+MP_WORLDS = (2, 4)
+MP_CASES = (("chameleon-34b", {"n_layers": 2}),
+            ("dbrx-132b", {"n_layers": 1, "dtype": "float32"}),
+            ("llama4-maverick-400b-a17b", {"n_layers": 2, "n_experts": 16, "dtype": "float32"}))
+MP_B, MP_PROMPT, MP_STEPS, MP_SEED = 2, 128, 4, 7
+MP_FLASH = ((64 // 4, 8 // 4), (64 // 2, 8 // 2), (48 // 4, 8 // 4))
+MP_TIMEOUT_S, MP_DEADLINE_S = 300.0, 600.0
+# --nccl: ``serve.run`` on four cards, one rank a card (SERVE_ARGS): chameleon
+# whole, dbrx at 16 of its 40 layers (a rank's f32 share is then 53.4 GB)
+MP_FULL = (("chameleon-34b", {}), ("dbrx-132b", {"n_layers": 16}))
+MP_FULL_RANKS = 4
 # phase 8 (a): two train steps of each arch in f32 on the card and on the CPU
 # from the same weights and batch (TRAIN_B × TRAIN_S tokens), at the
 # published widths of every layer.  The CPU holds the params, gradients, both
@@ -966,6 +1007,283 @@ def decode_step_breakdown(torch, arch: str):
     torch.cuda.empty_cache()
     return {"arch": arch, "ms_per_step": host_ms, "device_ops_per_step": ops,
             "device_op_ms_per_step": dev_ms, "device_busy_share": dev_ms / host_ms}
+
+
+# ---------------------------------------------------------------------- phase 6b
+def mp_drive(torch, model, params, toks, parallel=None):
+    """A session of the model group's check: prefill ``toks[:, :MP_PROMPT]``,
+    then MP_STEPS decode steps fed the next tokens of ``toks``, recording
+    every router call's experts.  Returns numpy outputs: the prefill
+    logits, each step's logits, the cache leaves after the last step and
+    the routes."""
+    import numpy as np
+
+    from repro_torch.launch.serve import merge
+    from repro_torch.models import layers
+    from repro_torch.utils.trees import tree_leaves, tree_map
+
+    routes, router = [], layers._router
+
+    def recording_router(p, x, c):
+        got = router(p, x, c)
+        routes.append(got[1].cpu().numpy())
+        return got
+
+    layers._router = recording_router
+    try:
+        t = torch.as_tensor(toks, device=params["embed"].device)
+        logits, pre, _ = model.apply(params, t[:, :MP_PROMPT], return_cache=True,
+                                     parallel=parallel)
+        out = {"prefill": logits.float().cpu().numpy(), "decode": []}
+        cache = tree_map(merge, model.init_cache(params, MP_B, MP_PROMPT + MP_STEPS, parallel),
+                         pre)
+        for i in range(MP_STEPS):
+            lg, cache = model.decode_step(params, t[:, MP_PROMPT + i:MP_PROMPT + i + 1], cache,
+                                          MP_PROMPT + i, parallel)
+            out["decode"].append(lg.float().cpu().numpy())
+        out["cache"] = [x.float().cpu().numpy() for x in tree_leaves(cache)]
+    finally:
+        layers._router = router
+    out["routes"] = routes
+    out["finite"] = bool(np.isfinite(out["prefill"]).all()) and all(
+        np.isfinite(x).all() for x in out["decode"])
+    return out
+
+
+def mp_rank(rank, device, cases):
+    """A rank of phase 6b: for each case its share of the weights drawn on
+    the card (``init_params_sharded``, staged on the host) and
+    ``mp_drive`` on the model group, with the flash launch count set to 0
+    just before and read just after.  Rank 0 returns the logits; every
+    rank returns a digest of them, its cache leaves, routes, launches and
+    collective counts."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.engine import synchronize
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch.mesh import make_model_group
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.shard import init_params_sharded
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = []
+    for arch, cut in cases:
+        cfg = replace(get_config(arch), **cut)
+        parallel = make_model_group()
+        gen = torch.Generator(device=device)
+        gen.manual_seed(MP_SEED)
+        params = init_params_sharded(gen, cfg, parallel.rank, parallel.size, stage="cpu")
+        toks = np.random.default_rng(MP_SEED).integers(0, cfg.vocab_size,
+                                                       size=(MP_B, MP_PROMPT + MP_STEPS))
+        fa_kernel.KERNEL.launches = 0
+        got = mp_drive(torch, build_model(cfg), params, toks, parallel)
+        synchronize(device)
+        got["launches"] = fa_kernel.KERNEL.launches
+        got["counts"] = dict(parallel.counts)
+        got["digest"] = hashlib.sha1(b"".join(
+            x.tobytes() for x in [got["prefill"], *got["decode"]])).hexdigest()
+        if rank:
+            del got["prefill"], got["decode"]
+        out.append(got)
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def rel_l2_host(torch, a, b) -> float:
+    """``rel_l2`` of two numpy arrays."""
+    return rel_l2(torch, torch.from_numpy(a), torch.from_numpy(b))
+
+
+def model_group_one_card(torch, np, cases=MP_CASES, device="cuda"):
+    """Phase 6b: ``cases`` on ``MP_WORLDS`` gloo ranks sharing ``device``
+    (cuda:0) against the unsharded model there (the same seed's weights:
+    each rank's share is bitwise its slice of the unsharded draw).  Every
+    rank's logits must be rank 0's byte for byte; rank 0's logits and each
+    rank's cache (its kv heads of the unsharded cache) within
+    ``LM_REL_L2`` (bf16) or ``F32_REL_L2`` (f32), no MoE route flipped, and
+    ``flash_attention`` launched once a layer in each rank's prefill.
+    Returns the flash launches per rank by world."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import spawn_cohort
+    from repro_torch.models.layers import ParallelContext, kv_heads_of
+    from repro_torch.models.model import build_model
+
+    t0 = time.perf_counter()
+    plain = {}
+    for arch, cut in cases:
+        cfg = replace(get_config(arch), **cut)
+        model = build_model(cfg)
+        g = torch.Generator(device=device)
+        g.manual_seed(MP_SEED)
+        params = model.init(g)
+        toks = np.random.default_rng(MP_SEED).integers(0, cfg.vocab_size,
+                                                       size=(MP_B, MP_PROMPT + MP_STEPS))
+        plain[arch] = mp_drive(torch, model, params, toks)
+        del params
+        torch.cuda.empty_cache()
+    launches = {}
+    for n in MP_WORLDS:
+        tw = time.perf_counter()
+        ranks = spawn_cohort(mp_rank, n, args=(cases,), device=device, backend="gloo",
+                             timeout_s=MP_TIMEOUT_S, deadline_s=MP_DEADLINE_S)
+        wall = time.perf_counter() - tw
+        launches[n] = [sum(c["launches"] for c in r) for r in ranks]
+        for i, (arch, cut) in enumerate(cases):
+            cfg = replace(get_config(arch), **cut)
+            tol = F32_REL_L2 if cfg.dtype == "float32" else LM_REL_L2
+            want, got = plain[arch], ranks[0][i]
+            rel = {"prefill logits": rel_l2_host(torch, got["prefill"], want["prefill"])}
+            for s_, (a, b) in enumerate(zip(got["decode"], want["decode"])):
+                rel[f"decode {s_} logits"] = rel_l2_host(torch, a, b)
+            for r in range(n):
+                heads = kv_heads_of(cfg, ParallelContext(None, r, n))
+                for j, (a, b) in enumerate(zip(ranks[r][i]["cache"], want["cache"])):
+                    rel[f"rank {r} cache {j}"] = rel_l2_host(torch, a, b[..., heads, :])
+            worst = max(rel.values())
+            flips = sum(int((a != b).sum()) for a, b in zip(got["routes"], want["routes"]))
+            per_rank = [r[i]["launches"] for r in ranks]
+            row = {"arch": arch, "cut": cut, "ranks": n, "B": MP_B, "prompt": MP_PROMPT,
+                   "decode_steps": MP_STEPS, "max_rel_l2": worst, "rel_l2_limit": tol,
+                   "route_flips": flips, "router_calls": len(want["routes"]),
+                   "flash_launches_per_rank": per_rank,
+                   "collectives_rank0": got["counts"]}
+            say(f"model group on one card (gloo, ranks sharing cuda:0): {json.dumps(row)}")
+            if any(r[i]["digest"] != got["digest"] for r in ranks):
+                fail(f"model group {arch} on {n} ranks: a rank's logits differ from rank 0's")
+            if not all(r[i]["finite"] for r in ranks) or worst > tol:
+                fail(f"model group {arch} on {n} ranks vs unsharded: relative L2 {worst:.3e} "
+                     f"> {tol} or non-finite ({rel})")
+            if flips or len(got["routes"]) != len(want["routes"]):
+                fail(f"model group {arch} on {n} ranks: {flips} MoE routes differ")
+            if per_rank != [cfg.n_layers] * n:
+                fail(f"model group {arch} on {n} ranks: flash launches per rank {per_rank}, "
+                     f"expected {cfg.n_layers} (one a layer)")
+        say(f"model group of {n} gloo ranks sharing {device}: {wall:.1f} s wall (start-up "
+            f"included); flash launches per rank {launches[n]}")
+    say(f"model group on one card: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def model_group_flash(torch, fa_kernel, fa_ref, gen):
+    """Phase 6b: ``flash_attention`` against its plain version at the
+    four-card runs' rank-local head counts (``MP_FLASH``)."""
+    cases = []
+    for H, Hkv in MP_FLASH:
+        r = check_flash_attention(torch, fa_kernel, fa_ref, 4, 1024, 1024, H, Hkv, 128,
+                                  torch.bfloat16, True, None, 0, gen, library=True)
+        say(f"flash_attention (model group rank-local) {json.dumps(r)}")
+        if not r["ok"]:
+            fail(f"flash_attention disagrees with its plain version at {H} / {Hkv} heads")
+        cases.append(r)
+    return cases
+
+
+def mp_serve_rank(rank, device, arch, cut):
+    """A rank of the four-card runs: ``serve.run`` (``SERVE_ARGS``) on the
+    model group, with the flash launch count and the peak memory reset
+    just before and read just after."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_model_group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    args = serve.build_parser().parse_args(["--arch", arch, *SERVE_ARGS])
+    args.device = str(device)
+    parallel = make_model_group(MP_FULL_RANKS)
+    torch.cuda.reset_peak_memory_stats(device)
+    fa_kernel.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    res = serve.run(args, cfg=replace(get_config(arch), **cut), parallel=parallel)
+    torch.cuda.synchronize(device)
+    return {"wall_s": time.perf_counter() - t0, "launches": fa_kernel.KERNEL.launches,
+            "peak_bytes": torch.cuda.max_memory_allocated(device), "tokens": res.tokens,
+            "finite": res.finite, "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+            "counts": dict(parallel.counts)}
+
+
+def mp_collective_rank(rank, device, shapes):
+    """A rank of the four-card runs' collective probe: the ms of one
+    ``all_reduce`` of a bf16 tensor of each shape in ``shapes`` (a decode
+    step's and a prefill's activation), CUDA events around 50 calls after
+    5 warm-up calls, and the host's ms a call over the same loop."""
+    import torch
+    import torch.distributed as dist
+
+    out = []
+    for shape in shapes:
+        x = torch.ones(shape, dtype=torch.bfloat16, device=device)
+        for _ in range(5):
+            dist.all_reduce(x)
+        torch.cuda.synchronize(device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(50):
+            dist.all_reduce(x)
+        end.record()
+        host_ms = (time.perf_counter() - t0) / 50 * 1e3
+        end.synchronize()
+        out.append({"shape": list(shape), "bytes": x.numel() * 2,
+                    "device_ms": start.elapsed_time(end) / 50, "host_ms": host_ms})
+    return out
+
+
+def model_group_four_cards(torch, np, smi_line: str):
+    """``--nccl``: first the ms of one NCCL ``all_reduce`` of a decode
+    step's and of a prefill's activation (``mp_collective_rank``), then
+    ``MP_FULL`` served on ``MP_FULL_RANKS`` cards over NCCL through
+    ``serve.run``: tokens in range, finite and the same on every rank, 48 /
+    16 flash launches a prefill on each rank; prefill and decode ms of each
+    session, the peak device memory of each rank."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import spawn_cohort
+    from repro_torch.sharding.shard import share_bytes
+
+    d = get_config("chameleon-34b").d_model  # a decode step's and a prefill's activation
+    probe = spawn_cohort(mp_collective_rank, MP_FULL_RANKS, args=([(4, 1, d), (4, 1024, d)],),
+                         device="cuda", backend="nccl", timeout_s=120.0, deadline_s=300.0)
+    say(f"nccl all_reduce on {MP_FULL_RANKS} cards, bf16, ms a call (rank 0; 50 calls after 5 "
+        f"warm-up): {json.dumps(probe[0])}; {smi_line}")
+    for arch, cut in MP_FULL:
+        cfg = replace(get_config(arch), **cut)
+        t0 = time.perf_counter()
+        ranks = spawn_cohort(mp_serve_rank, MP_FULL_RANKS, args=(arch, cut), device="cuda",
+                             backend="nccl", timeout_s=600.0, deadline_s=1500.0)
+        wall = time.perf_counter() - t0
+        toks = ranks[0]["tokens"]
+        for r, got in enumerate(ranks):
+            if not np.array_equal(got["tokens"], toks):
+                fail(f"model group {arch} on {MP_FULL_RANKS} cards: rank {r}'s tokens differ")
+            if got["launches"] != cfg.n_layers * 2 or not got["finite"]:
+                fail(f"model group {arch} on {MP_FULL_RANKS} cards: rank {r} launched flash "
+                     f"{got['launches']} times (expected {cfg.n_layers * 2}) or non-finite")
+        if toks.shape != (4, 32) or not ((toks >= 0).all() and (toks < cfg.padded_vocab).all()):
+            fail(f"model group {arch}: tokens of shape {toks.shape} outside the vocabulary")
+        for s_ in range(2):
+            say(f"model group {arch} ({cfg.n_layers} of {get_config(arch).n_layers} layers, "
+                f"{MP_FULL_RANKS} cards, nccl): " + json.dumps({
+                    "session": s_, "prefill_ms": [g["prefill_s"][s_] * 1e3 for g in ranks],
+                    "decode_ms": [g["decode_s"][s_] * 1e3 for g in ranks],
+                    "prefill_tok_s": 4 * 1024 / ranks[0]["prefill_s"][s_],
+                    "decode_tok_s": 4 * 31 / ranks[0]["decode_s"][s_]}))
+        say(f"model group {arch} ({cfg.n_layers} of {get_config(arch).n_layers} layers) on "
+            f"{MP_FULL_RANKS} cards over nccl: " + json.dumps({
+                "share_bytes": share_bytes(cfg, MP_FULL_RANKS),
+                "peak_bytes_per_rank": [g["peak_bytes"] for g in ranks],
+                "flash_launches_per_rank": [g["launches"] for g in ranks],
+                "collectives_rank0": ranks[0]["counts"],
+                "run_s_per_rank": [g["wall_s"] for g in ranks], "wall_s": wall,
+                "first_tokens": toks[0, :8].tolist()}) + f"; {smi_line}")
 
 
 # ---------------------------------------------------------------------- phase 7
@@ -2566,8 +2884,14 @@ def main() -> int:
     lap("2")
 
     if "--nccl" in sys.argv[1:]:
-        # phase 4f (c) alone, on a machine with several cards
+        # phase 4f (c) alone, then the model group's full runs, on a machine with four cards
         cohort_sharding(torch, np, su_kernel, smi_line, nccl_only=True)
+        lap("4f (c)")
+        if torch.cuda.device_count() < MP_FULL_RANKS:
+            fail(f"--nccl serves the model group on {MP_FULL_RANKS} cards; "
+                 f"{torch.cuda.device_count()} visible")
+        model_group_four_cards(torch, np, smi_line)
+        lap("6b (nccl)")
         for line in smi.stdout.strip().splitlines():
             say(line)
         say(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2828,6 +3152,11 @@ def main() -> int:
         launches[name] = sum(r["launches"][name] for r in serving.values())
     lap("6")
 
+    # ---- 6b. the model group on one card, launch counts from each rank's runs only
+    mp_launches = model_group_one_card(torch, np)
+    fa_cases += model_group_flash(torch, fa_kernel, fa_ref, gen)
+    lap("6b")
+
     # ---- 7. card vs CPU, serving
     for arch, cut in CARD_VS_CPU:
         say(f"card vs CPU serving: {json.dumps(serve_card_vs_cpu(torch, np, arch, cut))}")
@@ -2881,6 +3210,10 @@ def main() -> int:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main.get("library_ms"),
         })
+        if name == "flash_attention":  # serving unsharded, and each model group's ranks
+            kernels[-1]["launches_by_path"] = {
+                "serve": launches[name],
+                **{f"model_group_{n}_ranks": per for n, per in mp_launches.items()}}
         if name in full:  # the federated LM's paths and its cohort plane beside the main one
             kernels[-1]["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
             kernels[-1]["full_plane"] = {k: full[name][k] for k in (

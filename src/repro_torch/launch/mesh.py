@@ -1,10 +1,12 @@
-"""The cohort group and the ranks behind it: one process a cohort shard.
+"""The cohort group, the model group and the ranks behind them: one process a shard.
 
-Counterpart of ``repro.launch.mesh.make_cohort_mesh``.  The reference runs
-the cohort-parallel round as one SPMD program over a ``("clients",)`` device
+Counterpart of ``repro.launch.mesh.make_cohort_mesh`` and of the model axis
+of its production mesh.  The reference runs the cohort-parallel round, and
+the model-parallel prefill and decode, as one SPMD program over a device
 mesh; the port runs one process a shard, joined by a ``torch.distributed``
-process group.  ``spawn_cohort`` starts the ranks and ``make_cohort_group``
-gives the engine the group inside each of them.
+process group.  ``spawn_cohort`` starts the ranks (of either kind of world),
+and ``make_cohort_group`` / ``make_model_group`` give the engine / the
+model the group inside each of them.
 
 Backends: NCCL when the ranks are on distinct cards (rank r on ``cuda:r``);
 gloo when the ranks run on the CPU, or when the caller asks for it, which
@@ -39,6 +41,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from repro_torch.launch.steps import make_parallel
 from repro_torch.sharding.rules import cohort_axis_size
 
 BACKENDS = ("nccl", "gloo")
@@ -111,6 +114,22 @@ def make_cohort_group(n_shards: int = 0):
     if n_shards and size != n_shards:
         raise ValueError(f"cohort_shard={n_shards} but the process group has {size} ranks")
     return group
+
+
+def make_model_group(n_ranks: int = 0):
+    """The model group of this rank's world (``steps.make_parallel`` of the
+    default group), whose size must be ``n_ranks`` (0: any size).
+    Raises when no world is up, naming how to start one."""
+    if not dist.is_initialized():
+        raise ValueError(
+            f"a model group of {n_ranks} ranks needs an initialized process group; start "
+            f"the ranks with repro_torch.launch.mesh.spawn_cohort (CLI: serve "
+            f"--model-parallel {n_ranks})")
+    ctx = make_parallel(dist.group.WORLD)
+    if n_ranks and ctx.size != n_ranks:
+        raise ValueError(f"model group of {n_ranks} ranks but the process group has "
+                         f"{ctx.size}")
+    return ctx
 
 
 def _rank_main(rank, n_shards, backend, device, init_method, timeout_s, fn, args, results):

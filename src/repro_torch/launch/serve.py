@@ -25,6 +25,18 @@ them; ``--follow`` keeps watching the directory and hot-swaps each new
 version between decode steps, so a decode step runs against exactly one
 complete version.
 
+``--model-parallel N`` serves a decoder-only model on N ranks of a model
+group (``repro_torch.launch.mesh``; the reference's mesh with a ``"model"``
+axis of N and data axes of 1): each rank draws its share of the weights
+(``repro_torch.sharding.shard.init_params_sharded``, bitwise its slice of
+the unsharded draw), runs ``run`` on the same prompts with its heads,
+hidden columns, experts and vocabulary rows, and every rank feeds the same
+token (at ``--temperature`` > 0 rank 0 draws it and broadcasts it); rank
+0's session lines are printed.  N ranks run on ``cuda:0`` … ``cuda:N−1``
+over NCCL, or on the CPU over gloo with ``--device cpu``.  The ssm and
+hybrid families, the encoder-decoder and ``--ckpt`` / ``--follow`` are
+refused under a group (ROADMAP A.16).
+
 Weights are random, drawn from ``--seed`` on the serving device (f32, the
 reference's ``param_dtype``; each use casts them to the activation dtype,
 bf16 at full width).  Prompts come from the
@@ -40,11 +52,14 @@ unless ``--device cpu`` asks for the CPU (the kernels' plain versions).
         --batch 4 --prompt-len 1024 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --ckpt runs/pub --follow \
         --sessions 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch chameleon-34b --full \
+        --model-parallel 4 --batch 4 --prompt-len 1024 --gen 32
 """
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 import threading
 import time
 from dataclasses import dataclass, field
@@ -52,13 +67,23 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ARCH_IDS, get_config, reduced
 from repro_torch.core.engine import resolve_device, synchronize
 from repro_torch.data.synthetic import CHAIN_VOCAB, make_synthetic_lm, source_frames
+from repro_torch.launch.mesh import make_model_group, spawn_cohort
+from repro_torch.launch.steps import build_prefill_step
 from repro_torch.models import encdec
+from repro_torch.models.layers import ParallelContext
 from repro_torch.models.model import build_model
+from repro_torch.sharding.rules import check_model_parallel
+from repro_torch.sharding.shard import init_params_sharded
 from repro_torch.utils.trees import tree_map
+
+# a model group's collectives wait this long for a rank (its weights may
+# still be drawing), and the whole world this long
+MP_TIMEOUT_S, MP_DEADLINE_S = 600.0, 3600.0
 
 
 @dataclass
@@ -234,14 +259,28 @@ def _serve_encdec(model, params, args, device, version: int,
                        bool(finite), encoder_decoder=True)
 
 
+def check_model_parallel_args(args: argparse.Namespace, cfg, world: int) -> None:
+    """Refuse what a model group of ``world`` > 1 ranks does not serve
+    (ROADMAP A.16): published params, and the families
+    ``check_model_parallel`` refuses."""
+    if world <= 1:
+        return
+    if args.ckpt or args.follow:
+        raise NotImplementedError("--ckpt / --follow under --model-parallel > 1 are not "
+                                  "ported (ROADMAP A.16)")
+    check_model_parallel(cfg, world)
+
+
 def run(args: argparse.Namespace, on_step: Optional[Callable[[ServeStats], None]] = None,
-        cfg=None, src_embeds: Optional[torch.Tensor] = None) -> ServeResult:
+        cfg=None, src_embeds: Optional[torch.Tensor] = None,
+        parallel: Optional[ParallelContext] = None) -> ServeResult:
     """Build the model and prompts for ``args`` and serve ``args.sessions``
     sessions of ``args.gen`` tokens; ``on_step`` is ``serve_loop``'s
     per-step callback.  ``cfg`` serves that config in place of ``--arch``'s
     (``--full`` / reduced): a published one cut in depth, say.  An
     encoder-decoder serves one session of ``src_embeds`` (default: the
-    seeded ``source_frames``)."""
+    seeded ``source_frames``).  ``parallel`` serves this rank's share of a
+    model group (every rank of the group calls ``run`` alike)."""
     device = resolve_device(args.device)
     if cfg is None:
         cfg = get_config(args.arch)
@@ -252,7 +291,13 @@ def run(args: argparse.Namespace, on_step: Optional[Callable[[ServeStats], None]
     model = build_model(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
-    params = model.init(gen)
+    if parallel is None:
+        params = model.init(gen)
+    else:
+        check_model_parallel_args(args, cfg, parallel.size)
+        # the kept slices wait on the host while whole leaves are drawn on the card
+        params = init_params_sharded(gen, cfg, parallel.rank, parallel.size,
+                                     stage="cpu" if device.type == "cuda" else None)
     version, provider = 0, None
     if args.ckpt:
         version, params, provider = load_ckpt_params(args.ckpt, params, follow=args.follow)
@@ -264,14 +309,20 @@ def run(args: argparse.Namespace, on_step: Optional[Callable[[ServeStats], None]
                           seed=args.seed), dtype=torch.long, device=device)
     max_len = args.prompt_len + args.gen
     finite = torch.ones((), dtype=torch.bool, device=device)  # read once, at the end
+    prefill = build_prefill_step(model, parallel)
 
-    def sample(lg, generator):
-        last = lg[:, -1].to(torch.float32)
+    def sample(last, generator):
+        """The next token from the last position's logits ``(B, V)``; over a
+        group rank 0 draws it and every rank takes rank 0's."""
+        last = last.to(torch.float32)
         finite.logical_and_(torch.isfinite(last).all())
         if args.temperature <= 0:
             return torch.argmax(last, dim=-1)[:, None]
         probs = torch.softmax(last / args.temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=generator)
+        tok = torch.multinomial(probs, 1, generator=generator)
+        if parallel is not None:
+            dist.broadcast(tok, src=0, group=parallel.group)
+        return tok
 
     prefill_s: List[float] = []
     decode_s: List[float] = []
@@ -280,10 +331,10 @@ def run(args: argparse.Namespace, on_step: Optional[Callable[[ServeStats], None]
     def begin_session(p, s):
         synchronize(device)
         t0 = time.perf_counter()
-        logits, pre_cache, _ = model.apply(p, prompts, return_cache=True)
+        logits, pre_cache = prefill(p, prompts)
         synchronize(device)
         prefill_s.append(time.perf_counter() - t0)
-        cache = tree_map(merge, model.init_cache(p, args.batch, max_len), pre_cache)
+        cache = tree_map(merge, model.init_cache(p, args.batch, max_len, parallel), pre_cache)
         generator = torch.Generator(device=device)
         generator.manual_seed(args.seed + 1 + s)
         tok = sample(logits, generator)
@@ -292,8 +343,9 @@ def run(args: argparse.Namespace, on_step: Optional[Callable[[ServeStats], None]
                 "t0": time.perf_counter()}
 
     def decode_step(p, st, i):
-        logits, cache = model.decode_step(p, st["tok"], st["cache"], args.prompt_len + i)
-        tok = sample(logits, st["gen"])
+        logits, cache = model.decode_step(p, st["tok"], st["cache"], args.prompt_len + i,
+                                          parallel)
+        tok = sample(logits[:, -1], st["gen"])
         st["out"].append(tok)
         return {**st, "tok": tok, "cache": cache}
 
@@ -307,6 +359,24 @@ def run(args: argparse.Namespace, on_step: Optional[Callable[[ServeStats], None]
                           steps_per_session=args.gen - 1, max_sessions=args.sessions,
                           on_step=on_step, version=version)
     return ServeResult(cfg.name, last["gen"], stats, prefill_s, decode_s, bool(finite))
+
+
+def run_model_parallel(args: argparse.Namespace, argv: List[str]) -> List[ServeResult]:
+    """``--model-parallel N``: ``run`` in N spawned ranks of a model group
+    (NCCL on N cards, gloo with ``--device cpu``); their results in rank
+    order.  ``argv`` is the command line each rank parses."""
+    cfg = get_config(args.arch)
+    check_model_parallel_args(args, cfg if args.full else reduced(cfg), args.model_parallel)
+    resolve_device(args.device)
+    return spawn_cohort(_model_parallel_rank, args.model_parallel, args=(argv,),
+                        device=args.device, timeout_s=MP_TIMEOUT_S, deadline_s=MP_DEADLINE_S)
+
+
+def _model_parallel_rank(rank: int, device, argv: List[str]) -> ServeResult:
+    """One rank of ``--model-parallel N``: ``run`` on this rank's device."""
+    args = build_parser().parse_args(argv)
+    args.device = str(device)
+    return run(args, parallel=make_model_group(args.model_parallel))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -332,6 +402,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="prefill→decode sessions to run")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--model-parallel", type=int, default=1, metavar="N",
+                    help="serve a decoder-only model on N ranks of a model group: one card a "
+                         "rank over NCCL, or gloo ranks with --device cpu (default 1: "
+                         "unsharded)")
     return ap
 
 
@@ -340,8 +414,13 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.follow and not args.ckpt:
         ap.error("--follow watches the --ckpt directory — add --ckpt DIR")
+    if args.model_parallel < 1:
+        ap.error(f"--model-parallel must be >= 1, got {args.model_parallel}")
     try:
-        res = run(args)
+        if args.model_parallel > 1:
+            res = run_model_parallel(args, sys.argv[1:] if argv is None else list(argv))[0]
+        else:
+            res = run(args)
     except ValueError as e:  # an option this arch does not serve
         ap.error(str(e))
     if res.encoder_decoder:

@@ -1,6 +1,7 @@
-"""The LM train step (counterpart of the train half of ``repro.launch.steps``):
-loss → grads (optionally accumulated over microbatches) → global-norm clip
-→ AdamW → new params.
+"""The LM train step and the serving steps (counterpart of
+``repro.launch.steps``): loss → grads (optionally accumulated over
+microbatches) → global-norm clip → AdamW → new params; and the prefill and
+decode steps of a decoder-only model, unsharded or on a model group.
 
 ``build_train_step(cfg, knobs).fn(params, opt_state, batch)`` returns
 ``(params, opt_state, {"loss", "grad_norm"})`` as new trees and leaves its
@@ -14,16 +15,23 @@ accumulate in f32 and the moments are f32 (``adamw``'s ``moment_dtype``
 default); the weights keep the dtype ``model.init`` gives them (the
 config's ``param_dtype``).  Left out are ``seq_shard_acts``,
 ``serve_params`` and ``scan_unroll`` (lowering and mesh knobs, ROADMAP
-A.16), and the prefill / serve step bundles (serving is
-``repro_torch.launch.serve``).
+A.16).
+
+``make_parallel`` / ``build_prefill_step`` / ``build_serve_step`` are the
+reference's step builders as plain functions (no jit bundles, no
+shardings): the group's ranks each call the step with their share of the
+params (``repro_torch.sharding.shard``) and the same tokens.  Training
+under a group (``mode="train"`` specs, FSDP) is ROADMAP A.16.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.models.layers import ParallelContext
 from repro_torch.models.model import Model, build_model
 from repro_torch.models.transformer import check_remat
 from repro_torch.optim.optimizers import Optimizer, adamw, clip_by_global_norm
@@ -100,3 +108,32 @@ def build_train_step(cfg, knobs: Knobs = Knobs()) -> TrainStep:
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     return TrainStep(train_step, opt, model)
+
+
+# ------------------------------------------------------------------ serving
+def make_parallel(group=None) -> Optional[ParallelContext]:
+    """The model group's context for this process, over the
+    ``torch.distributed`` process group ``group`` (None: unsharded)."""
+    if group is None:
+        return None
+    return ParallelContext(group, dist.get_rank(group), dist.get_world_size(group))
+
+
+def build_prefill_step(model: Model, parallel: Optional[ParallelContext] = None) -> Callable:
+    """``fn(params, tokens) -> (logits of the last position (B, V), cache)``
+    through the kernels, as the reference's prefill step."""
+    def prefill_step(params, tokens):
+        logits, cache, _ = model.apply(params, tokens, return_cache=True, parallel=parallel)
+        return logits[:, -1], cache
+
+    return prefill_step
+
+
+def build_serve_step(model: Model, parallel: Optional[ParallelContext] = None) -> Callable:
+    """``fn(params, token (B, 1), cache, pos) -> (next token (B, 1), cache)``:
+    one greedy decode step, the cache written in place."""
+    def serve_step(params, token, cache, pos):
+        logits, cache = model.decode_step(params, token, cache, pos, parallel=parallel)
+        return torch.argmax(logits[:, -1].to(F32), dim=-1)[:, None], cache
+
+    return serve_step

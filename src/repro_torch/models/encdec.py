@@ -44,12 +44,13 @@ from repro_torch.models.transformer import check_remat
 from repro_torch.utils.trees import tree_map
 
 
-def init_params(generator: torch.Generator, cfg) -> Dict[str, Any]:
-    """Random params from ``generator`` (on its device) in ``cfg.param_dtype``,
-    in the reference's tree layout: untied ``embed`` / ``unembed``, the
-    ``enc`` and ``dec`` stacks, ``enc_norm`` and ``dec_norm``."""
+def init_params(generator: torch.Generator, cfg, *, device=None) -> Dict[str, Any]:
+    """Random params from ``generator`` (on its device, or on ``device``:
+    ``"meta"`` gives the shapes alone) in ``cfg.param_dtype``, in the
+    reference's tree layout: untied ``embed`` / ``unembed``, the ``enc`` and
+    ``dec`` stacks, ``enc_norm`` and ``dec_norm``."""
     dtype = getattr(torch, cfg.param_dtype)
-    dev = generator.device
+    dev = device or generator.device
     D, V = cfg.d_model, cfg.padded_vocab
     le, ld = (cfg.n_encoder_layers,), (cfg.n_layers,)
     return {

@@ -13,16 +13,113 @@ without it, and always in training, it takes the reference's plain route:
 ``BLOCKED_ATTENTION_THRESHOLD`` tokens and ``attend_blocked`` (online
 softmax over blocks) at or above it.  Decode and cross-attention with one
 query attend with plain PyTorch ops, as the reference does.
+
+Every layer takes ``parallel`` (a ``ParallelContext`` or None), the
+reference's model-axis branches on a ``torch.distributed`` group: each rank
+holds its share of the weights (``repro_torch.sharding``) — its heads of
+attention, its columns of the MLP's hidden layer, its experts — and one
+``all_reduce`` of the layer's output sums the shares.  A leaf that the
+group's size does not divide stays whole on every rank, and its layer then
+runs whole, with no collective.  ``parallel=None`` is the unsharded model.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
+
+
+# ------------------------------------------------------------ parallel context
+@dataclass(frozen=True)
+class ParallelContext:
+    """The model group (the reference's mesh with its ``"model"`` axis): a
+    ``torch.distributed`` process group, this process's rank in it and its
+    size.  ``counts`` tallies the collectives the layers issue
+    (``all_reduce``, ``all_gather``) and the bytes each rank sends into
+    them."""
+
+    group: Any
+    rank: int
+    size: int
+    counts: Dict[str, int] = field(default_factory=lambda: {
+        "all_reduce": 0, "all_gather": 0, "bytes": 0}, compare=False)
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the group, in ``x``'s dtype, written into ``x``."""
+        self.counts["all_reduce"] += 1
+        self.counts["bytes"] += x.numel() * x.element_size()
+        dist.all_reduce(x, group=self.group)
+        return x
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``x`` joined along ``dim`` in rank order."""
+        self.counts["all_gather"] += 1
+        self.counts["bytes"] += x.numel() * x.element_size()
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(parts, x, group=self.group)
+        return torch.cat(parts, dim=dim)
+
+
+def split(parallel: Optional[ParallelContext], local: int, whole: int) -> bool:
+    """Whether a dimension of ``whole`` entries that this rank holds
+    ``local`` of is split over the group (else it is whole on every rank)."""
+    return parallel is not None and local != whole
+
+
+def kv_heads_used(cfg, parallel: Optional[ParallelContext]) -> Optional[List[int]]:
+    """The kv heads this rank's q heads read when the q heads are split
+    over the group but ``n_kv_heads`` is not (the divisibility guard keeps
+    ``wk`` / ``wv`` whole): q head h reads kv head h // (H / Hkv).  When
+    each of those kv heads serves as many local q heads as the next, they
+    are the local GQA groups; otherwise each local q head gets its own
+    copy of its kv head (MHA).  None when nothing needs picking."""
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    if parallel is None or H % parallel.size or Hkv % parallel.size == 0:
+        return None
+    h_loc = H // parallel.size
+    used = [(parallel.rank * h_loc + j) // (H // Hkv) for j in range(h_loc)]
+    uniq = sorted(set(used))
+    return uniq if h_loc % len(uniq) == 0 and all(
+        used.count(u) == h_loc // len(uniq) for u in uniq) else used
+
+
+def kv_heads_of(cfg, parallel: Optional[ParallelContext]) -> List[int]:
+    """The model's kv heads that this rank's attention (and its decode
+    cache) holds, in order: ``kv_heads_used``'s pick, the rank's block of
+    ``n_kv_heads / N`` when they split with the q heads, else all."""
+    used = kv_heads_used(cfg, parallel)
+    if used is not None:
+        return used
+    Hkv = cfg.n_kv_heads
+    if parallel is None or cfg.n_heads % parallel.size:
+        return list(range(Hkv))
+    n = Hkv // parallel.size
+    return list(range(parallel.rank * n, (parallel.rank + 1) * n))
+
+
+# A ``keep(path, leaf)`` callback of the initializers maps each leaf, the
+# moment it is drawn, to what is kept of it (a rank's share: see
+# ``repro_torch.sharding.shard``); ``path`` is the leaf's keys under the
+# initializer's tree.  The draws are the same whatever is kept.
+Keep = Callable[[Tuple[str, ...], torch.Tensor], torch.Tensor]
+
+
+def keep_whole(path: Tuple[str, ...], leaf: torch.Tensor) -> torch.Tensor:
+    return leaf
+
+
+def keep_under(keep: Keep, *keys: str) -> Keep:
+    """``keep`` for the sub-tree at ``keys``."""
+    if keep is keep_whole:
+        return keep
+    return lambda path, leaf: keep(keys + path, leaf)
 
 
 def dense_init(generator: torch.Generator, shape: Sequence[int],
@@ -74,16 +171,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 # ------------------------------------------------------------------ attention
 def init_attention(generator, cfg, dtype=torch.float32, lead: Sequence[int] = (),
-                   device=None) -> Dict[str, torch.Tensor]:
+                   device=None, keep: Keep = keep_whole) -> Dict[str, torch.Tensor]:
     D, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     p = {
-        "wq": dense_init(generator, (*lead, D, H, hd), in_axis_size=D, dtype=dtype, device=device),
-        "wk": dense_init(generator, (*lead, D, Hkv, hd), in_axis_size=D, dtype=dtype,
-                         device=device),
-        "wv": dense_init(generator, (*lead, D, Hkv, hd), in_axis_size=D, dtype=dtype,
-                         device=device),
-        "wo": dense_init(generator, (*lead, H, hd, D), in_axis_size=H * hd, dtype=dtype,
-                         device=device),
+        "wq": keep(("wq",), dense_init(generator, (*lead, D, H, hd), in_axis_size=D, dtype=dtype,
+                                       device=device)),
+        "wk": keep(("wk",), dense_init(generator, (*lead, D, Hkv, hd), in_axis_size=D,
+                                       dtype=dtype, device=device)),
+        "wv": keep(("wv",), dense_init(generator, (*lead, D, Hkv, hd), in_axis_size=D,
+                                       dtype=dtype, device=device)),
+        "wo": keep(("wo",), dense_init(generator, (*lead, H, hd, D), in_axis_size=H * hd,
+                                       dtype=dtype, device=device)),
     }
     if cfg.qk_norm:
         p["q_norm"] = init_rmsnorm(hd, dtype, lead, device)
@@ -220,6 +318,7 @@ def self_attention(
     cache_pos: Optional[int] = None,  # decode: write index
     return_kv: bool = False,  # prefill: emit this segment's K/V as a cache
     use_kernels: bool = True,  # prefill: the flash kernel, else the plain route
+    parallel: Optional[ParallelContext] = None,
 ):
     """Returns ``(out, new_cache)``; decode mode iff ``cache`` is given.
 
@@ -229,13 +328,27 @@ def self_attention(
     ``BLOCKED_ATTENTION_THRESHOLD`` tokens).  Decode writes the token's k/v
     into ``cache`` at ``cache_pos`` IN PLACE (the reference's serving loop
     donates the cache to the same end) and attends over the cache;
-    ``new_cache`` holds the same tensors."""
+    ``new_cache`` holds the same tensors.
+
+    Over a group each rank holds its q heads of ``wq`` and their rows of
+    ``wo``, and its kv heads of ``wk`` / ``wv`` (or, when ``n_kv_heads``
+    does not split, the whole of them, from which it picks the kv heads its
+    q heads read: ``kv_heads_used``); attention (the flash kernel in
+    prefill) runs on the local heads, whose GQA ratio is the model's, and
+    one ``all_reduce`` sums the partial outputs of ``wo``.  QK-norm, RoPE
+    and the window act per head.  The decode cache holds the local kv
+    heads (the reference splits its cache's sequence over ``"model"``
+    instead, a GSPMD layout choice: the values are the same)."""
     B, S, D = x.shape
     hd = cfg.resolved_head_dim
     scale = 1.0 / math.sqrt(hd)
     q = _project(x, params["wq"])
     k = _project(x, params["wk"])
     v = _project(x, params["wv"])
+    used = kv_heads_used(cfg, parallel)
+    if used is not None:
+        idx = torch.tensor(used, device=x.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
     if cfg.qk_norm:
         q = rmsnorm(q, params["q_norm"])
         k = rmsnorm(k, params["k_norm"])
@@ -270,6 +383,8 @@ def self_attention(
         new_cache = {"k": kc, "v": vc}
 
     o = torch.matmul(out.reshape(B, S, -1), params["wo"].to(x.dtype).reshape(-1, D))
+    if split(parallel, params["wo"].shape[-3], cfg.n_heads):
+        parallel.all_reduce(o)
     return o, new_cache
 
 
@@ -303,47 +418,57 @@ def encode_kv(params: Dict[str, torch.Tensor], enc_out: torch.Tensor, *, cfg
 
 # ------------------------------------------------------------------------ MLP
 def init_mlp(generator, cfg, d_ff: Optional[int] = None, dtype=torch.float32,
-             lead: Sequence[int] = (), device=None) -> Dict[str, torch.Tensor]:
+             lead: Sequence[int] = (), device=None, keep: Keep = keep_whole
+             ) -> Dict[str, torch.Tensor]:
     D = cfg.d_model
     Fd = d_ff if d_ff is not None else cfg.d_ff
     names = ("w_gate", "w_up") if cfg.mlp_type == "gated_silu" else ("w_up",)
-    p = {n: dense_init(generator, (*lead, D, Fd), in_axis_size=D, dtype=dtype, device=device)
+    p = {n: keep((n,), dense_init(generator, (*lead, D, Fd), in_axis_size=D, dtype=dtype,
+                                  device=device))
          for n in names}
-    p["w_down"] = dense_init(generator, (*lead, Fd, D), in_axis_size=Fd, dtype=dtype,
-                             device=device)
+    p["w_down"] = keep(("w_down",), dense_init(generator, (*lead, Fd, D), in_axis_size=Fd,
+                                               dtype=dtype, device=device))
     return p
 
 
-def mlp(params: Dict[str, Any], x: torch.Tensor, *, cfg) -> torch.Tensor:
+def mlp(params: Dict[str, Any], x: torch.Tensor, *, cfg,
+        parallel: Optional[ParallelContext] = None) -> torch.Tensor:
     """Gated SiLU, or (``mlp_type="gelu"``) GELU in the tanh approximation,
-    which is ``jax.nn.gelu``'s default."""
+    which is ``jax.nn.gelu``'s default.  Over a group each rank holds the
+    columns ``w_gate`` / ``w_up`` and the rows of ``w_down`` of its slice of
+    the hidden layer, and one ``all_reduce`` sums the partial outputs (the
+    reference's ``"model"``-sharded hidden layer)."""
     if cfg.mlp_type == "gated_silu":
         g = torch.matmul(x, params["w_gate"].to(x.dtype))
         u = torch.matmul(x, params["w_up"].to(x.dtype))
         h = F.silu(g) * u
     else:
         h = F.gelu(torch.matmul(x, params["w_up"].to(x.dtype)), approximate="tanh")
-    return torch.matmul(h, params["w_down"].to(x.dtype))
+    out = torch.matmul(h, params["w_down"].to(x.dtype))
+    if split(parallel, params["w_down"].shape[-2], cfg.d_ff):
+        parallel.all_reduce(out)
+    return out
 
 
 # ---------------------------------------------------------- mixture of experts
 def init_moe(generator, cfg, dtype=torch.float32, lead: Sequence[int] = (),
-             device=None) -> Dict[str, Any]:
+             device=None, keep: Keep = keep_whole) -> Dict[str, Any]:
     """Router (D, E), kept f32 whatever ``dtype`` is; experts (E, D, F) /
     (E, F, D); the shared expert an MLP."""
     D, Fd, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     p: Dict[str, Any] = {
-        "router": dense_init(generator, (*lead, D, E), in_axis_size=D, dtype=torch.float32,
-                             device=device),
-        "w_gate": dense_init(generator, (*lead, E, D, Fd), in_axis_size=D, dtype=dtype,
-                             device=device),
-        "w_up": dense_init(generator, (*lead, E, D, Fd), in_axis_size=D, dtype=dtype,
-                           device=device),
-        "w_down": dense_init(generator, (*lead, E, Fd, D), in_axis_size=Fd, dtype=dtype,
-                             device=device),
+        "router": keep(("router",), dense_init(generator, (*lead, D, E), in_axis_size=D,
+                                               dtype=torch.float32, device=device)),
+        "w_gate": keep(("w_gate",), dense_init(generator, (*lead, E, D, Fd), in_axis_size=D,
+                                               dtype=dtype, device=device)),
+        "w_up": keep(("w_up",), dense_init(generator, (*lead, E, D, Fd), in_axis_size=D,
+                                           dtype=dtype, device=device)),
+        "w_down": keep(("w_down",), dense_init(generator, (*lead, E, Fd, D), in_axis_size=Fd,
+                                               dtype=dtype, device=device)),
     }
     if cfg.shared_expert:
-        p["shared"] = init_mlp(generator, cfg, dtype=dtype, lead=lead, device=device)
+        p["shared"] = init_mlp(generator, cfg, dtype=dtype, lead=lead, device=device,
+                               keep=keep_under(keep, "shared"))
     return p
 
 
@@ -388,40 +513,59 @@ def moe_capacity(cfg, tokens: int) -> int:
     return max(8, -(-c // 8) * 8)
 
 
-def moe_dropping(params, x: torch.Tensor, *, cfg):
-    """Capacity-based MoE (the reference's unsharded branch): each (token,
+def moe_dropping(params, x: torch.Tensor, *, cfg, parallel: Optional[ParallelContext] = None):
+    """Capacity-based MoE (the reference's ``moe_dropping``): each (token,
     choice) takes the next slot of its expert's queue in token-major
     order, so a full expert drops the same choices as the reference;
-    expert GEMMs over ``(E, C, D)`` slot buffers.  Returns ``(out, aux)``."""
+    expert GEMMs over ``(E, C, D)`` slot buffers.  Returns ``(out, aux)``.
+
+    Over a group (the reference's ``shard_map`` branch) each rank holds
+    ``E / N`` experts ``[e_lo, e_lo + E / N)`` and runs the choices that
+    land there; the router stays whole and f32, so routing and the
+    capacity, computed over all E, drop the same choices as the unsharded
+    model.  ``out`` is summed by an ``all_reduce`` and ``aux`` (the same on
+    every rank) by an ``all_reduce`` over N; the shared expert is the
+    group's MLP."""
     B, S, D = x.shape
-    out, aux = _moe_local(params, x.reshape(-1, D), cfg=cfg)
+    e_loc = params["w_gate"].shape[-3]
+    sharded = split(parallel, e_loc, cfg.n_experts)
+    out, aux = _moe_local(params, x.reshape(-1, D), cfg=cfg,
+                          e_lo=parallel.rank * e_loc if sharded else 0)
     out = out.reshape(B, S, D)
+    if sharded:
+        parallel.all_reduce(out)
+        aux = parallel.all_reduce(aux) / parallel.size
     if cfg.shared_expert:
-        out = out + mlp(params["shared"], x, cfg=cfg)
+        out = out + mlp(params["shared"], x, cfg=cfg, parallel=parallel)
     return out, aux
 
 
-def _moe_local(params, xt: torch.Tensor, *, cfg):
-    """Tokens ``xt`` (T, D) through all E experts with capacity slots."""
+def _moe_local(params, xt: torch.Tensor, *, cfg, e_lo: int = 0):
+    """Tokens ``xt`` (T, D) through the experts ``params`` holds, ``[e_lo,
+    e_lo + E_local)``, with capacity slots; the choices routed elsewhere
+    read zeros."""
     T, D = xt.shape
     E, k = cfg.n_experts, cfg.top_k
+    E_loc = params["w_gate"].shape[0]
     C = moe_capacity(cfg, T)
     gates, experts, _, aux = _router(params, xt, cfg)
 
     flat_e = experts.reshape(-1)  # (T·k,), token-major
-    pos = torch.cumsum(F.one_hot(flat_e, E), dim=0) - 1  # queue position, per expert
+    # queue position per expert, over all E, so capacity drops as unsharded
+    pos = torch.cumsum(F.one_hot(flat_e, E), dim=0) - 1
     pos = torch.gather(pos, 1, flat_e[:, None])[:, 0]
-    slot = torch.where(pos < C, flat_e * C + pos, E * C)  # E·C: the drop row
+    local = (flat_e >= e_lo) & (flat_e < e_lo + E_loc) & (pos < C)
+    slot = torch.where(local, (flat_e - e_lo) * C + pos, E_loc * C)  # E_loc·C: the drop row
     tok_idx = torch.arange(T, device=xt.device).repeat_interleave(k)
     # every kept slot is written once (0 + x in the reference: x exactly);
     # the drop row takes many writes in no set order and is never read
-    buf = xt.new_zeros((E * C + 1, D))
+    buf = xt.new_zeros((E_loc * C + 1, D))
     buf[slot] = xt[tok_idx]
-    buf = buf[:-1].reshape(E, C, D)
+    buf = buf[:-1].reshape(E_loc, C, D)
 
     h = torch.bmm(buf, params["w_gate"].to(xt.dtype))
     u = torch.bmm(buf, params["w_up"].to(xt.dtype))
-    eout = torch.bmm(F.silu(h) * u, params["w_down"].to(xt.dtype)).reshape(E * C, D)
+    eout = torch.bmm(F.silu(h) * u, params["w_down"].to(xt.dtype)).reshape(E_loc * C, D)
     eout = torch.cat([eout, xt.new_zeros((1, D))])  # a dropped choice reads zeros
 
     gathered = (eout[slot] * gates.reshape(-1)[:, None].to(xt.dtype)).reshape(T, k, D)

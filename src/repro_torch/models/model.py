@@ -6,6 +6,8 @@
     logits, cache, aux = model.apply(params, tokens, return_cache=True)   # prefill
     cache              = model.init_cache(params, batch, max_len)          # enc-dec: enc_out=
     logits, cache      = model.decode_step(params, token, cache, pos)
+    # decoder-only over a model group: parallel=ParallelContext on apply,
+    # init_cache and decode_step, with each rank's share of the params
     batch              = model.dummy_batch(batch, seq_len)
     loss_fn            = cohort_loss_fn(model)   # the federated engine's contract
 
@@ -75,22 +77,25 @@ def _build_decoder_only(cfg) -> Model:
         return transformer.init_params(generator, cfg)
 
     def apply(params, tokens, *, cache=None, cache_pos=None, return_cache=False,
-              use_kernels=True, remat="none"):
-        """Returns ``(logits, cache, aux)``."""
+              use_kernels=True, remat="none", parallel=None):
+        """Returns ``(logits, cache, aux)``; ``parallel`` runs this rank's
+        share of the params on its model group."""
         return transformer.forward(params, tokens, cfg=cfg, cache=cache, cache_pos=cache_pos,
                                    return_cache=return_cache, use_kernels=use_kernels,
-                                   remat=remat)
+                                   remat=remat, parallel=parallel)
 
     def loss_fn(params, batch, *, remat="none", use_kernels=False):
         logits, _, aux = apply(params, batch["tokens"], remat=remat, use_kernels=use_kernels)
         xe = cross_entropy(logits, batch["labels"])
         return xe + aux, {"xent": xe, "aux": aux}
 
-    def init_cache(params, batch, max_len):
-        return transformer.init_cache(cfg, batch, max_len, device=params["embed"].device)
+    def init_cache(params, batch, max_len, parallel=None):
+        return transformer.init_cache(cfg, batch, max_len, device=params["embed"].device,
+                                      parallel=parallel)
 
-    def decode_step(params, token, cache, pos):
-        logits, new_cache, _ = apply(params, token, cache=cache, cache_pos=pos)
+    def decode_step(params, token, cache, pos, parallel=None):
+        logits, new_cache, _ = apply(params, token, cache=cache, cache_pos=pos,
+                                     parallel=parallel)
         return logits, new_cache
 
     def dummy_batch(batch, seq_len, device="cpu"):

@@ -13,6 +13,14 @@ Python loop here that indexes the stacked leaves (views, no copies), and
 ``remat="full"`` wraps each period in ``torch.utils.checkpoint`` as the
 reference wraps its scan body in ``jax.checkpoint``.  The encoder-decoder
 family lives in ``repro_torch.models.encdec``.
+
+``parallel`` (a ``layers.ParallelContext``) runs the model on a group of
+ranks that each hold their share of the weights
+(``repro_torch.sharding.shard``): the layers' branches, plus the
+vocabulary split over the group for the embedding (a masked local lookup,
+then an ``all_reduce``) and the logits (local columns, then an
+``all_gather`` along V).  The ssm and hybrid families stay unsharded
+(``repro_torch.sharding.rules.check_model_parallel``).
 """
 from __future__ import annotations
 
@@ -24,16 +32,23 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import mamba2 as m2
 from repro_torch.models.layers import (
+    Keep,
+    ParallelContext,
     embed_init,
     init_attention,
     init_mlp,
     init_moe,
     init_rmsnorm,
+    keep_under,
+    keep_whole,
+    kv_heads_of,
     mlp,
     moe_dropping,
     rmsnorm,
     self_attention,
+    split,
 )
+from repro_torch.sharding.rules import check_model_parallel
 from repro_torch.utils.trees import tree_map
 
 
@@ -76,45 +91,57 @@ def period_layout(cfg) -> Tuple[List[SlotSpec], int, List[SlotSpec]]:
 
 
 # ----------------------------------------------------------------------- init
-def _init_slot(generator, slot: SlotSpec, cfg, dtype, lead, device) -> Dict[str, Any]:
+def _init_slot(generator, slot: SlotSpec, cfg, dtype, lead, device,
+               keep: Keep = keep_whole) -> Dict[str, Any]:
     """One slot's params, every leaf with a leading ``lead`` axis (``(n,)``
     periods, or ``()`` for the shared block)."""
     p: Dict[str, Any] = {"norm1": init_rmsnorm(cfg.d_model, dtype, lead, device)}
     if slot.kind == "mamba":
         p["mamba"] = m2.init_mamba2(generator, cfg, dtype, lead, device)
         return p
-    p["attn"] = init_attention(generator, cfg, dtype, lead, device)
+    p["attn"] = init_attention(generator, cfg, dtype, lead, device, keep_under(keep, "attn"))
     p["norm2"] = init_rmsnorm(cfg.d_model, dtype, lead, device)
     if slot.is_moe:
-        p["moe"] = init_moe(generator, cfg, dtype, lead, device)
+        p["moe"] = init_moe(generator, cfg, dtype, lead, device, keep_under(keep, "moe"))
     elif cfg.d_ff > 0:
-        p["mlp"] = init_mlp(generator, cfg, dtype=dtype, lead=lead, device=device)
+        p["mlp"] = init_mlp(generator, cfg, dtype=dtype, lead=lead, device=device,
+                            keep=keep_under(keep, "mlp"))
     return p
 
 
-def _stack_init(generator, n: int, slots: List[SlotSpec], cfg, dtype, device):
+def _stack_init(generator, n: int, slots: List[SlotSpec], cfg, dtype, device, keep: Keep):
     """n periods of params stacked on a leading axis; shared slots have none."""
-    return {f"slot{i}": _init_slot(generator, s, cfg, dtype, (n,), device)
+    return {f"slot{i}": _init_slot(generator, s, cfg, dtype, (n,), device,
+                                   keep_under(keep, f"slot{i}"))
             for i, s in enumerate(slots) if not s.shared}
 
 
-def init_params(generator: torch.Generator, cfg) -> Dict[str, Any]:
-    """Random params from ``generator`` (drawn on its device), in
-    ``cfg.param_dtype`` (MoE routers f32), with the reference's tree layout."""
+def init_params(generator: torch.Generator, cfg, *, device=None,
+                keep: Keep = keep_whole) -> Dict[str, Any]:
+    """Random params from ``generator`` (drawn on its device, or on
+    ``device``: ``"meta"`` gives the tree's shapes and draws nothing), in
+    ``cfg.param_dtype`` (MoE routers f32), with the reference's tree
+    layout.  ``keep(path, leaf)`` maps each leaf as it is drawn to what is
+    kept of it (``layers.Keep``)."""
     dtype = getattr(torch, cfg.param_dtype)
-    device = generator.device
+    device = device or generator.device
     slots, n_periods, tail = period_layout(cfg)
     params: Dict[str, Any] = {
-        "embed": embed_init(generator, (cfg.padded_vocab, cfg.d_model), dtype, device),
+        "embed": keep(("embed",), embed_init(generator, (cfg.padded_vocab, cfg.d_model), dtype,
+                                             device)),
         "final_norm": init_rmsnorm(cfg.d_model, dtype, device=device),
-        "periods": _stack_init(generator, n_periods, slots, cfg, dtype, device),
+        "periods": _stack_init(generator, n_periods, slots, cfg, dtype, device,
+                               keep_under(keep, "periods")),
     }
     if not cfg.tie_embeddings:
-        params["unembed"] = embed_init(generator, (cfg.d_model, cfg.padded_vocab), dtype, device)
+        params["unembed"] = keep(("unembed",), embed_init(
+            generator, (cfg.d_model, cfg.padded_vocab), dtype, device))
     if tail:
-        params["tail"] = _stack_init(generator, len(tail), tail[:1], cfg, dtype, device)
+        params["tail"] = _stack_init(generator, len(tail), tail[:1], cfg, dtype, device,
+                                     keep_under(keep, "tail"))
     if any(s.shared for s in slots):
-        params["shared"] = _init_slot(generator, SlotSpec("attn"), cfg, dtype, (), device)
+        params["shared"] = _init_slot(generator, SlotSpec("attn"), cfg, dtype, (), device,
+                                      keep_under(keep, "shared"))
     return params
 
 
@@ -130,7 +157,7 @@ def check_remat(remat: str) -> None:
 
 
 def _apply_slot(slot: SlotSpec, p, h, *, cfg, positions, cache_slot, cache_pos,
-                emit_cache: bool, use_kernels: bool):
+                emit_cache: bool, use_kernels: bool, parallel: Optional[ParallelContext]):
     """One slot (attention + MLP / MoE, or mamba).  Returns ``(h,
     new_cache_slot, aux)``; aux is None but for an MoE slot."""
     if slot.kind == "mamba":
@@ -141,14 +168,14 @@ def _apply_slot(slot: SlotSpec, p, h, *, cfg, positions, cache_slot, cache_pos,
     attn_out, new_kv = self_attention(
         p["attn"], rmsnorm(h, p["norm1"]), cfg=cfg, positions=positions,
         is_global=slot.is_global, cache=cache_slot, cache_pos=cache_pos,
-        return_kv=emit_cache, use_kernels=use_kernels)
+        return_kv=emit_cache, use_kernels=use_kernels, parallel=parallel)
     h = h + attn_out
     aux = None
     if slot.is_moe:
-        y, aux = moe_dropping(p["moe"], rmsnorm(h, p["norm2"]), cfg=cfg)
+        y, aux = moe_dropping(p["moe"], rmsnorm(h, p["norm2"]), cfg=cfg, parallel=parallel)
         h = h + y
     elif "mlp" in p:
-        h = h + mlp(p["mlp"], rmsnorm(h, p["norm2"]), cfg=cfg)
+        h = h + mlp(p["mlp"], rmsnorm(h, p["norm2"]), cfg=cfg, parallel=parallel)
     return h, new_kv, aux
 
 
@@ -201,7 +228,8 @@ def _run_stack(slots, stacked, n: int, shared, h, aux, cache, emit: bool,
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor, *, cfg,
             cache: Optional[Dict[str, Any]] = None, cache_pos: Optional[int] = None,
-            return_cache: bool = False, use_kernels: bool = True, remat: str = "none"):
+            return_cache: bool = False, use_kernels: bool = True, remat: str = "none",
+            parallel: Optional[ParallelContext] = None):
     """Returns ``(logits (B, S, padded_vocab), new_cache, aux)``; ``aux`` is
     the reference's auxiliary loss (f32): the MoE slots' load-balance and
     router z-losses summed over slots in order, 0 without experts.
@@ -216,22 +244,25 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, *, cfg,
     ``use_kernels`` sends prefill attention and the SSD scan through the
     kernels (serving); training passes False, the reference's plain route,
     since the kernels have no backward.  ``remat`` is ``"none"`` or
-    ``"full"`` (each period under ``torch.utils.checkpoint``)."""
+    ``"full"`` (each period under ``torch.utils.checkpoint``).
+
+    With ``parallel`` every rank passes the same tokens and its share of
+    the params, and gets the whole logits and its share of the cache."""
     check_remat(remat)
+    if parallel is not None:
+        check_model_parallel(cfg, parallel.size)
     slots, n_periods, tail = period_layout(cfg)
     adtype = getattr(torch, cfg.dtype)
     dev = tokens.device
-    # the scale is cast to the activation dtype first, as JAX's weakly typed
-    # Python scalar is (a device fill: no host-to-device copy, no sync)
-    h = params["embed"][tokens].to(adtype) * torch.full((), cfg.d_model ** 0.5, dtype=adtype,
-                                                         device=dev)
+    h = _embed(params["embed"], tokens, cfg, adtype, parallel)
     B, S = tokens.shape
     if cache is None:
         positions = torch.arange(S, device=dev)
     else:
         positions = torch.full((1,), int(cache_pos), device=dev)
     emit = return_cache and cache is None
-    kw = dict(cfg=cfg, positions=positions, cache_pos=cache_pos, use_kernels=use_kernels)
+    kw = dict(cfg=cfg, positions=positions, cache_pos=cache_pos, use_kernels=use_kernels,
+              parallel=parallel)
     shared = params.get("shared")
 
     aux = torch.zeros((), dtype=torch.float32, device=dev)
@@ -250,13 +281,36 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, *, cfg,
 
     h = rmsnorm(h, params["final_norm"])
     unembed = (params["embed"].T if cfg.tie_embeddings else params["unembed"]).to(adtype)
-    return torch.matmul(h, unembed), new_cache, aux
+    logits = torch.matmul(h, unembed)
+    if split(parallel, unembed.shape[-1], cfg.padded_vocab):
+        logits = parallel.all_gather(logits, dim=-1)
+    return logits, new_cache, aux
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor, cfg, adtype,
+           parallel: Optional[ParallelContext]) -> torch.Tensor:
+    """The scaled embedding of ``tokens``.  A rank that holds rows ``[lo,
+    lo + V / N)`` of the table looks up the tokens that fall there, zeros
+    elsewhere, and an ``all_reduce`` adds the one nonzero row each token
+    has: the same values as the whole table's lookup."""
+    # the scale is cast to the activation dtype first, as JAX's weakly typed
+    # Python scalar is (a device fill: no host-to-device copy, no sync)
+    scale = torch.full((), cfg.d_model ** 0.5, dtype=adtype, device=tokens.device)
+    rows = table.shape[0]
+    if not split(parallel, rows, cfg.padded_vocab):
+        return table[tokens].to(adtype) * scale
+    local = tokens - parallel.rank * rows
+    mine = (local >= 0) & (local < rows)
+    h = torch.where(mine[..., None], table[local.clamp(0, rows - 1)].to(adtype), 0)
+    return parallel.all_reduce(h) * scale
 
 
 # ---------------------------------------------------------------------- cache
-def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None) -> Dict[str, Any]:
+def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None,
+               parallel: Optional[ParallelContext] = None) -> Dict[str, Any]:
     """Zero cache in the period layout: attention slots {"k","v"}
-    (n_periods, B, max_len, Hkv, hd); mamba slots {"ssm","conv"} stacked
+    (n_periods, B, max_len, Hkv, hd), Hkv this rank's kv heads over a
+    group (``layers.kv_heads_of``); mamba slots {"ssm","conv"} stacked
     likewise; the tail's mamba layers under ``"tail"``."""
     dtype = dtype or getattr(torch, cfg.dtype)
     slots, n_periods, tail = period_layout(cfg)
@@ -264,7 +318,7 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None) -> Dict[s
     def slot_cache(slot: SlotSpec, n: int):
         if slot.kind == "mamba":
             return m2.init_mamba2_state(cfg, batch, dtype, (n,), device)
-        shape = (n, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        shape = (n, batch, max_len, len(kv_heads_of(cfg, parallel)), cfg.resolved_head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
