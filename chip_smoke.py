@@ -148,11 +148,13 @@ and ends with a ``clock:`` line (seconds since the script started):
    default run) runs phases 1–2, then (c) alone, beside the unsharded runs
    it is compared with, then the model group on four cards over NCCL (the
    ms of one ``all_reduce`` of a decode step's and a prefill's activation,
-   then ``MP_FULL``: ``serve.run`` of chameleon-34b whole and dbrx-132b at 16 of
-   40 layers, ``SERVE_ARGS``, one rank a card: tokens the same on every
-   rank and finite, one flash launch a layer a prefill on each rank,
-   prefill and decode ms a session, each rank's peak device memory), on a
-   machine with four cards;
+   then ``MP_FULL``: ``serve.run`` of chameleon-34b whole, dbrx-132b at 16 of
+   40 layers, zamba2-7b whole and seamless-m4t-large-v2 whole,
+   ``SERVE_ARGS``, one rank a card: tokens the same on every rank and
+   finite, one flash launch an attention layer and one SSD launch a mamba
+   layer a prefill on each rank (seamless: one session, one flash launch an
+   encoder layer), prefill and decode ms a session, each rank's peak device
+   memory), on a machine with four cards;
 5. card vs CPU — three rounds from one converted state with the same
    injected ids, masks and minibatch indices on ``cuda`` and on ``cpu``;
    then three rounds under int8 + faults, each started on both devices
@@ -182,19 +184,31 @@ and ends with a ``clock:`` line (seconds since the script started):
    decode step of llama and mamba2 at that shape: its ms, and the device
    operations it runs with their summed device time (torch.profiler);
 6b. the model group on one card — ``MP_CASES`` (chameleon-34b at its
-   published widths cut to 2 layers, bf16 activations; dbrx at 1 layer and
-   maverick at one period with 16 experts, f32) on 2 and 4 gloo ranks that
-   share cuda:0 (``repro_torch.launch.mesh``; each rank draws its share of
-   the weights with ``init_params_sharded``), against the unsharded model
-   on the card from the same seed: one session of B = 2 × 128 prompt tokens
-   and 4 teacher-forced decode steps; every rank's logits byte for byte
-   rank 0's, rank 0's logits and every rank's cache (its kv heads of the
-   unsharded cache) within ``LM_REL_L2`` (bf16) or ``F32_REL_L2`` (f32), no
-   MoE route flipped, ``flash_attention`` launched once a layer in each
-   rank's prefill (the count set to 0 in the rank just before, read just
-   after), each rank's collective counts printed; then ``flash_attention``
-   against its plain version at the four-card runs' rank-local head counts
-   (``MP_FLASH``: 16 / 2, 32 / 4, 12 / 2 heads, hd 128, B 4 × 1024, bf16);
+   published widths cut to 2 layers, mamba2-1.3b at 2 layers, zamba2-7b as
+   one mamba layer and the shared block, seamless-m4t-large-v2 at 2 + 2
+   layers, all with bf16 activations; dbrx at 1 layer, maverick at one
+   period with 16 experts and zamba2's whole period plus a tail layer, f32)
+   on 2 and 4 gloo ranks that share cuda:0, the two worlds at once
+   (``repro_torch.launch.mesh``; each rank draws its share of the weights
+   with ``init_params_sharded``), against the unsharded model on the card
+   from the same seed: one session of B = 2 × 128 prompt tokens (seamless:
+   128 seeded source frames encoded) and 4 teacher-forced decode steps;
+   every rank's logits byte for byte rank 0's, rank 0's logits (seamless:
+   its encoder output in place of the prefill's) and every rank's cache
+   (its heads of the unsharded cache: kv heads of the self and cross K/V,
+   SSD heads of the SSM state, those heads' x channels and B's and C's of
+   the conv state) within ``LM_REL_L2`` (bf16) or ``F32_REL_L2`` (f32), no
+   MoE route flipped, ``flash_attention`` launched once an attention layer
+   (seamless: an encoder layer) and ``ssd_scan`` once a mamba layer in each
+   rank's prefill (the counts set to 0 in the rank just before, read just after;
+   a mamba case with no SSD launch fails), each rank's collective counts
+   printed; then the kernels against their plain versions at the rank-local
+   head counts, B 4 × 1024, bf16: ``flash_attention`` at the four-card runs'
+   (``MP_FLASH``: 16 / 2, 32 / 4, 12 / 2 heads, hd 128), zamba2's shared
+   block's 8 / 8 and 16 / 16 (hd 112) and seamless' encoder's 4 / 4 and 8 /
+   8 (hd 64, not causal), each beside SDPA; ``ssd_scan`` (``MP_SSD``, P 64,
+   chunk 64) at mamba2's 16 and 32 heads (N 128) and zamba2's 28 and 56 (N
+   64);
 7. card vs CPU, serving — each arch at full width cut to one period
    (``CARD_VS_CPU``), B=2, prompt 128, the same f32 weights on both
    devices: prefill logits and cache, then 4 teacher-forced decode steps,
@@ -234,8 +248,9 @@ and ends with a ``clock:`` line (seconds since the script started):
 9. summary — the ``nvidia-smi`` line, one JSON line ``{"kernels": [...]}``
    (``flash_attention`` / ``ssd_scan`` launches summed over phase 6's
    serving runs, the federated kernels' those of the main path; beside
-   flash's, ``launches_by_path``: phase 6's count and each rank's in phase
-   6b's worlds; for ``fed_direction`` and ``server_update``, ``launches_by_path``
+   flash's and the SSD scan's, ``launches_by_path``: phase 6's count and
+   each rank's in phase 6b's worlds; for ``fed_direction`` and
+   ``server_update``, ``launches_by_path``
    — the main path, phase 8 (c)'s card run and 8 (d), each its own count —
    and ``full_plane``, their times and bound at the federated LM's cohort
    plane) and, last, ``{"ok": true, "device": {...}}``.
@@ -324,24 +339,44 @@ CARD_VS_CPU = (
 # phase 7: the encoder-decoder at its published widths cut to 2 + 2 layers
 ENCDEC_VS_CPU = ("seamless-m4t-large-v2", {"n_layers": 2, "n_encoder_layers": 2})
 # phase 6b: the model group on one card — each case at its published widths
-# cut as stated, served on MP_WORLDS gloo ranks sharing cuda:0 against the
-# unsharded model on the same card: one session of MP_B × MP_PROMPT prompt
-# tokens and MP_STEPS teacher-forced decode steps; chameleon with bf16
-# activations, the MoE archs in f32 (a one-ulp difference in bf16 may flip
+# cut as stated, served on MP_WORLDS gloo ranks sharing cuda:0 (the worlds
+# run at once) against the unsharded model on the same card: one session of
+# MP_B × MP_PROMPT prompt tokens (seamless: as many source frames) and
+# MP_STEPS teacher-forced decode steps; chameleon, mamba2, zamba2's mamba
+# layer and shared block, and seamless at 2 + 2 layers with bf16
+# activations; the MoE archs in f32 (a one-ulp difference in bf16 may flip
 # a route, as phase 7 says), maverick's experts cut to 16 as phase 7 cuts
-# them.  Then flash_attention at the rank-local head counts of the four-card
-# runs (B=4, S=1024, hd 128, bf16, causal): chameleon's 64 / 8 heads on 4 and
-# on 2 ranks, dbrx's 48 / 8 on 4.
+# them, and zamba2's whole period plus a tail layer in f32 (phase 7's two
+# zamba2 forms).  Then the kernels at the rank-local head counts: flash
+# (B=4, S=1024, bf16) at the four-card runs' chameleon 64 / 8 heads on 4
+# and on 2 ranks and dbrx's 48 / 8 on 4 (hd 128, causal), zamba2's shared
+# block's 32 / 32 on 4 and 2 (hd 112, causal) and seamless' encoder's 16 /
+# 16 on 4 and 2 (hd 64, not causal); the SSD scan (B=4, S=1024, P=64,
+# chunk 64, bf16) at mamba2's 64 heads on 4 and 2 ranks (N 128) and
+# zamba2's 112 (N 64).
 MP_WORLDS = (2, 4)
 MP_CASES = (("chameleon-34b", {"n_layers": 2}),
             ("dbrx-132b", {"n_layers": 1, "dtype": "float32"}),
-            ("llama4-maverick-400b-a17b", {"n_layers": 2, "n_experts": 16, "dtype": "float32"}))
+            ("llama4-maverick-400b-a17b", {"n_layers": 2, "n_experts": 16, "dtype": "float32"}),
+            ("mamba2-1.3b", {"n_layers": 2}),
+            ("zamba2-7b", {"n_layers": 2, "attn_every": 2}),
+            ("zamba2-7b", {"n_layers": 7, "dtype": "float32"}),
+            ("seamless-m4t-large-v2", {"n_layers": 2, "n_encoder_layers": 2}))
 MP_B, MP_PROMPT, MP_STEPS, MP_SEED = 2, 128, 4, 7
-MP_FLASH = ((64 // 4, 8 // 4), (64 // 2, 8 // 2), (48 // 4, 8 // 4))
+# (H, Hkv, hd, causal) a rank
+MP_FLASH = ((64 // 4, 8 // 4, 128, True), (64 // 2, 8 // 2, 128, True),
+            (48 // 4, 8 // 4, 128, True), (32 // 4, 32 // 4, 112, True),
+            (32 // 2, 32 // 2, 112, True), (16 // 4, 16 // 4, 64, False),
+            (16 // 2, 16 // 2, 64, False))
+# (H, N) a rank
+MP_SSD = ((64 // 4, 128), (64 // 2, 128), (112 // 4, 64), (112 // 2, 64))
 MP_TIMEOUT_S, MP_DEADLINE_S = 300.0, 600.0
 # --nccl: ``serve.run`` on four cards, one rank a card (SERVE_ARGS): chameleon
-# whole, dbrx at 16 of its 40 layers (a rank's f32 share is then 53.4 GB)
-MP_FULL = (("chameleon-34b", {}), ("dbrx-132b", {"n_layers": 16}))
+# whole, dbrx at 16 of its 40 layers (a rank's f32 share is then 53.4 GB),
+# zamba2 whole (81 layers, 5.8 GB a rank) and seamless whole (24 + 24 layers,
+# one session, 1.6 GB a rank)
+MP_FULL = (("chameleon-34b", {}), ("dbrx-132b", {"n_layers": 16}), ("zamba2-7b", {}),
+           ("seamless-m4t-large-v2", {}))
 MP_FULL_RANKS = 4
 # phase 8 (a): two train steps of each arch in f32 on the card and on the CPU
 # from the same weights and batch (TRAIN_B × TRAIN_S tokens), at the
@@ -1011,17 +1046,22 @@ def decode_step_breakdown(torch, arch: str):
 
 # ---------------------------------------------------------------------- phase 6b
 def mp_drive(torch, model, params, toks, parallel=None):
-    """A session of the model group's check: prefill ``toks[:, :MP_PROMPT]``,
-    then MP_STEPS decode steps fed the next tokens of ``toks``, recording
-    every router call's experts.  Returns numpy outputs: the prefill
-    logits, each step's logits, the cache leaves after the last step and
-    the routes."""
+    """A session of the model group's check: prefill ``toks[:, :MP_PROMPT]``
+    (the encoder-decoder: encode MP_PROMPT seeded source frames), then
+    MP_STEPS decode steps fed the next tokens of ``toks`` (the
+    encoder-decoder: its first tokens, from position 0), recording every
+    router call's experts.  Returns numpy outputs: the prefill logits (the
+    encoder output), each step's logits, the cache leaves after the last
+    step with the last key of each leaf's path, and the routes."""
     import numpy as np
 
+    from repro_torch.data.synthetic import source_frames
     from repro_torch.launch.serve import merge
-    from repro_torch.models import layers
-    from repro_torch.utils.trees import tree_leaves, tree_map
+    from repro_torch.models import encdec, layers
+    from repro_torch.sharding.rules import _keys
+    from repro_torch.utils.trees import tree_flatten_with_path, tree_map
 
+    cfg = model.cfg
     routes, router = [], layers._router
 
     def recording_router(p, x, c):
@@ -1032,16 +1072,26 @@ def mp_drive(torch, model, params, toks, parallel=None):
     layers._router = recording_router
     try:
         t = torch.as_tensor(toks, device=params["embed"].device)
-        logits, pre, _ = model.apply(params, t[:, :MP_PROMPT], return_cache=True,
-                                     parallel=parallel)
-        out = {"prefill": logits.float().cpu().numpy(), "decode": []}
-        cache = tree_map(merge, model.init_cache(params, MP_B, MP_PROMPT + MP_STEPS, parallel),
-                         pre)
-        for i in range(MP_STEPS):
-            lg, cache = model.decode_step(params, t[:, MP_PROMPT + i:MP_PROMPT + i + 1], cache,
-                                          MP_PROMPT + i, parallel)
+        out = {"decode": []}
+        if cfg.is_encoder_decoder:
+            src = source_frames(MP_B, MP_PROMPT, cfg.d_model, MP_SEED, t.device)
+            enc = encdec.encode(params, src, cfg=cfg, use_kernels=True, parallel=parallel)
+            out["prefill"] = enc.float().cpu().numpy()
+            cache = model.init_cache(params, MP_B, MP_STEPS, enc_out=enc, parallel=parallel)
+            first = 0
+        else:
+            logits, pre, _ = model.apply(params, t[:, :MP_PROMPT], return_cache=True,
+                                         parallel=parallel)
+            out["prefill"] = logits.float().cpu().numpy()
+            cache = tree_map(merge, model.init_cache(params, MP_B, MP_PROMPT + MP_STEPS,
+                                                     parallel), pre)
+            first = MP_PROMPT
+        for i in range(first, first + MP_STEPS):
+            lg, cache = model.decode_step(params, t[:, i:i + 1], cache, i, parallel)
             out["decode"].append(lg.float().cpu().numpy())
-        out["cache"] = [x.float().cpu().numpy() for x in tree_leaves(cache)]
+        flat = tree_flatten_with_path(cache)[0]
+        out["cache"] = [x.float().cpu().numpy() for _, x in flat]
+        out["cache_keys"] = [_keys(p)[-1] for p, _ in flat]
     finally:
         layers._router = router
     out["routes"] = routes
@@ -1050,13 +1100,47 @@ def mp_drive(torch, model, params, toks, parallel=None):
     return out
 
 
+def mp_expected_launches(cfg) -> dict:
+    """The LM kernels' launches in one prefill of ``cfg``: flash once an
+    attention layer (the encoder-decoder: once an encoder layer), the SSD
+    scan once a mamba layer."""
+    from repro_torch.models.transformer import period_layout
+
+    if cfg.is_encoder_decoder:
+        return {"flash_attention": cfg.n_encoder_layers, "ssd_scan": 0}
+    slots, n_periods, tail = period_layout(cfg)
+    kinds = [s_.kind for s_ in slots] * n_periods + [s_.kind for s_ in tail]
+    return {"flash_attention": kinds.count("attn"), "ssd_scan": kinds.count("mamba")}
+
+
+def mp_cache_part(np, key: str, leaf, cfg, rank: int, n: int):
+    """Rank ``rank``'s part of an unsharded cache leaf: the kv heads
+    ``kv_heads_of`` names (self and cross K/V); the SSD heads of the SSM
+    state (…, B, H, P, N); of the conv state (…, B, k−1, d_inner + 2N)
+    those heads' x channels and B's and C's whole; the whole leaf when the
+    group does not divide the SSD heads."""
+    from repro_torch.models.layers import ParallelContext, kv_heads_of
+    from repro_torch.models.mamba2 import local_heads
+
+    ctx = ParallelContext(None, rank, n)
+    if key in ("k", "v", "cross_k", "cross_v"):
+        return leaf[..., kv_heads_of(cfg, ctx), :]
+    h = local_heads(cfg, ctx)
+    if h == cfg.ssm_heads:
+        return leaf
+    if key == "ssm":
+        return leaf[..., rank * h:(rank + 1) * h, :, :]
+    d, dl = cfg.ssm_expand * cfg.d_model, h * cfg.ssm_head_dim
+    return np.concatenate([leaf[..., rank * dl:(rank + 1) * dl], leaf[..., d:]], axis=-1)
+
+
 def mp_rank(rank, device, cases):
     """A rank of phase 6b: for each case its share of the weights drawn on
     the card (``init_params_sharded``, staged on the host) and
-    ``mp_drive`` on the model group, with the flash launch count set to 0
-    just before and read just after.  Rank 0 returns the logits; every
-    rank returns a digest of them, its cache leaves, routes, launches and
-    collective counts."""
+    ``mp_drive`` on the model group, with the flash and SSD launch counts
+    set to 0 just before and read just after.  Rank 0 returns the logits;
+    every rank returns a digest of them, its cache leaves, routes, launches
+    and collective counts."""
     import hashlib
 
     import numpy as np
@@ -1065,6 +1149,7 @@ def mp_rank(rank, device, cases):
     from repro_torch.configs.base import get_config
     from repro_torch.core.engine import synchronize
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.launch.mesh import make_model_group
     from repro_torch.models.model import build_model
     from repro_torch.sharding.shard import init_params_sharded
@@ -1081,9 +1166,11 @@ def mp_rank(rank, device, cases):
         toks = np.random.default_rng(MP_SEED).integers(0, cfg.vocab_size,
                                                        size=(MP_B, MP_PROMPT + MP_STEPS))
         fa_kernel.KERNEL.launches = 0
+        ssd_kernel.KERNEL.launches = 0
         got = mp_drive(torch, build_model(cfg), params, toks, parallel)
         synchronize(device)
-        got["launches"] = fa_kernel.KERNEL.launches
+        got["launches"] = {"flash_attention": fa_kernel.KERNEL.launches,
+                           "ssd_scan": ssd_kernel.KERNEL.launches}
         got["counts"] = dict(parallel.counts)
         got["digest"] = hashlib.sha1(b"".join(
             x.tobytes() for x in [got["prefill"], *got["decode"]])).hexdigest()
@@ -1102,21 +1189,24 @@ def rel_l2_host(torch, a, b) -> float:
 
 def model_group_one_card(torch, np, cases=MP_CASES, device="cuda"):
     """Phase 6b: ``cases`` on ``MP_WORLDS`` gloo ranks sharing ``device``
-    (cuda:0) against the unsharded model there (the same seed's weights:
-    each rank's share is bitwise its slice of the unsharded draw).  Every
-    rank's logits must be rank 0's byte for byte; rank 0's logits and each
-    rank's cache (its kv heads of the unsharded cache) within
-    ``LM_REL_L2`` (bf16) or ``F32_REL_L2`` (f32), no MoE route flipped, and
-    ``flash_attention`` launched once a layer in each rank's prefill.
-    Returns the flash launches per rank by world."""
+    (cuda:0; the worlds run at once) against the unsharded model there (the
+    same seed's weights: each rank's share is bitwise its slice of the
+    unsharded draw).  Every rank's logits must be rank 0's byte for byte;
+    rank 0's logits and each rank's cache (its heads of the unsharded
+    cache: ``mp_cache_part``) within ``LM_REL_L2`` (bf16) or ``F32_REL_L2``
+    (f32), no MoE route flipped, and ``flash_attention`` / ``ssd_scan``
+    launched in each rank's prefill as ``mp_expected_launches`` says (a
+    mamba case that launches no SSD scan fails).  Returns each kernel's
+    launches per rank by world."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.configs.base import get_config
     from repro_torch.launch.mesh import spawn_cohort
-    from repro_torch.models.layers import ParallelContext, kv_heads_of
     from repro_torch.models.model import build_model
 
     t0 = time.perf_counter()
     plain = {}
-    for arch, cut in cases:
+    for i, (arch, cut) in enumerate(cases):
         cfg = replace(get_config(arch), **cut)
         model = build_model(cfg)
         g = torch.Generator(device=device)
@@ -1124,35 +1214,51 @@ def model_group_one_card(torch, np, cases=MP_CASES, device="cuda"):
         params = model.init(g)
         toks = np.random.default_rng(MP_SEED).integers(0, cfg.vocab_size,
                                                        size=(MP_B, MP_PROMPT + MP_STEPS))
-        plain[arch] = mp_drive(torch, model, params, toks)
+        plain[i] = mp_drive(torch, model, params, toks)
         del params
         torch.cuda.empty_cache()
-    launches = {}
-    for n in MP_WORLDS:
+    say(f"model group on one card: the unsharded model's {len(cases)} cases in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def world(n):
         tw = time.perf_counter()
         ranks = spawn_cohort(mp_rank, n, args=(cases,), device=device, backend="gloo",
                              timeout_s=MP_TIMEOUT_S, deadline_s=MP_DEADLINE_S)
-        wall = time.perf_counter() - tw
-        launches[n] = [sum(c["launches"] for c in r) for r in ranks]
+        return ranks, time.perf_counter() - tw
+
+    with ThreadPoolExecutor(len(MP_WORLDS)) as pool:
+        worlds = dict(zip(MP_WORLDS, pool.map(world, MP_WORLDS)))
+    launches = {}
+    for n, (ranks, wall) in worlds.items():
+        launches[n] = {k: [sum(c["launches"][k] for c in r) for r in ranks]
+                       for k in ("flash_attention", "ssd_scan")}
         for i, (arch, cut) in enumerate(cases):
             cfg = replace(get_config(arch), **cut)
             tol = F32_REL_L2 if cfg.dtype == "float32" else LM_REL_L2
-            want, got = plain[arch], ranks[0][i]
+            want, got = plain[i], ranks[0][i]
             rel = {"prefill logits": rel_l2_host(torch, got["prefill"], want["prefill"])}
             for s_, (a, b) in enumerate(zip(got["decode"], want["decode"])):
                 rel[f"decode {s_} logits"] = rel_l2_host(torch, a, b)
             for r in range(n):
-                heads = kv_heads_of(cfg, ParallelContext(None, r, n))
-                for j, (a, b) in enumerate(zip(ranks[r][i]["cache"], want["cache"])):
-                    rel[f"rank {r} cache {j}"] = rel_l2_host(torch, a, b[..., heads, :])
+                if ranks[r][i]["cache_keys"] != want["cache_keys"]:
+                    fail(f"model group {arch} on {n} ranks: rank {r}'s cache leaves "
+                         f"{ranks[r][i]['cache_keys']} are not {want['cache_keys']}")
+                for j, (key, a, b) in enumerate(zip(want["cache_keys"], ranks[r][i]["cache"],
+                                                    want["cache"])):
+                    part = mp_cache_part(np, key, b, cfg, r, n)
+                    if a.shape != part.shape:
+                        fail(f"model group {arch} on {n} ranks: rank {r}'s cache {key} "
+                             f"{a.shape}, its part of the unsharded one {part.shape}")
+                    rel[f"rank {r} cache {j} ({key})"] = rel_l2_host(torch, a, part)
             worst = max(rel.values())
             flips = sum(int((a != b).sum()) for a, b in zip(got["routes"], want["routes"]))
-            per_rank = [r[i]["launches"] for r in ranks]
+            per_rank = {k: [r[i]["launches"][k] for r in ranks]
+                        for k in ("flash_attention", "ssd_scan")}
+            expected = {k: [v] * n for k, v in mp_expected_launches(cfg).items()}
             row = {"arch": arch, "cut": cut, "ranks": n, "B": MP_B, "prompt": MP_PROMPT,
                    "decode_steps": MP_STEPS, "max_rel_l2": worst, "rel_l2_limit": tol,
                    "route_flips": flips, "router_calls": len(want["routes"]),
-                   "flash_launches_per_rank": per_rank,
-                   "collectives_rank0": got["counts"]}
+                   "launches_per_rank": per_rank, "collectives_rank0": got["counts"]}
             say(f"model group on one card (gloo, ranks sharing cuda:0): {json.dumps(row)}")
             if any(r[i]["digest"] != got["digest"] for r in ranks):
                 fail(f"model group {arch} on {n} ranks: a rank's logits differ from rank 0's")
@@ -1161,37 +1267,48 @@ def model_group_one_card(torch, np, cases=MP_CASES, device="cuda"):
                      f"> {tol} or non-finite ({rel})")
             if flips or len(got["routes"]) != len(want["routes"]):
                 fail(f"model group {arch} on {n} ranks: {flips} MoE routes differ")
-            if per_rank != [cfg.n_layers] * n:
-                fail(f"model group {arch} on {n} ranks: flash launches per rank {per_rank}, "
-                     f"expected {cfg.n_layers} (one a layer)")
+            if per_rank != expected:
+                fail(f"model group {arch} on {n} ranks: kernel launches per rank {per_rank}, "
+                     f"expected {expected} (flash once an attention layer, the SSD scan "
+                     f"once a mamba layer)")
         say(f"model group of {n} gloo ranks sharing {device}: {wall:.1f} s wall (start-up "
-            f"included); flash launches per rank {launches[n]}")
+            f"included, the worlds at once); launches per rank {json.dumps(launches[n])}")
     say(f"model group on one card: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
-def model_group_flash(torch, fa_kernel, fa_ref, gen):
-    """Phase 6b: ``flash_attention`` against its plain version at the
-    four-card runs' rank-local head counts (``MP_FLASH``)."""
-    cases = []
-    for H, Hkv in MP_FLASH:
-        r = check_flash_attention(torch, fa_kernel, fa_ref, 4, 1024, 1024, H, Hkv, 128,
-                                  torch.bfloat16, True, None, 0, gen, library=True)
+def model_group_kernels(torch, fa_kernel, fa_ref, ssd_kernel, ssd_ref, gen):
+    """Phase 6b: ``flash_attention`` and ``ssd_scan`` against their plain
+    versions at the model groups' rank-local head counts (``MP_FLASH``,
+    ``MP_SSD``)."""
+    fa_cases, ssd_cases = [], []
+    for H, Hkv, hd, causal in MP_FLASH:
+        r = check_flash_attention(torch, fa_kernel, fa_ref, 4, 1024, 1024, H, Hkv, hd,
+                                  torch.bfloat16, causal, None, 0, gen, library=True)
         say(f"flash_attention (model group rank-local) {json.dumps(r)}")
         if not r["ok"]:
-            fail(f"flash_attention disagrees with its plain version at {H} / {Hkv} heads")
-        cases.append(r)
-    return cases
+            fail(f"flash_attention disagrees with its plain version at {H} / {Hkv} heads, "
+                 f"hd {hd}")
+        fa_cases.append(r)
+    for H, N in MP_SSD:
+        r = check_ssd_scan(torch, ssd_kernel, ssd_ref, 4, 1024, H, 64, N, 64, torch.bfloat16,
+                           gen)
+        say(f"ssd_scan (model group rank-local) {json.dumps(r)}")
+        if not r["ok"]:
+            fail(f"ssd_scan disagrees with its plain version at {H} heads, N {N}")
+        ssd_cases.append(r)
+    return fa_cases, ssd_cases
 
 
 def mp_serve_rank(rank, device, arch, cut):
     """A rank of the four-card runs: ``serve.run`` (``SERVE_ARGS``) on the
-    model group, with the flash launch count and the peak memory reset
-    just before and read just after."""
+    model group, with the flash and SSD launch counts and the peak memory
+    reset just before and read just after."""
     import torch
 
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.launch import serve
     from repro_torch.launch.mesh import make_model_group
 
@@ -1202,10 +1319,13 @@ def mp_serve_rank(rank, device, arch, cut):
     parallel = make_model_group(MP_FULL_RANKS)
     torch.cuda.reset_peak_memory_stats(device)
     fa_kernel.KERNEL.launches = 0
+    ssd_kernel.KERNEL.launches = 0
     t0 = time.perf_counter()
     res = serve.run(args, cfg=replace(get_config(arch), **cut), parallel=parallel)
     torch.cuda.synchronize(device)
-    return {"wall_s": time.perf_counter() - t0, "launches": fa_kernel.KERNEL.launches,
+    return {"wall_s": time.perf_counter() - t0,
+            "launches": {"flash_attention": fa_kernel.KERNEL.launches,
+                         "ssd_scan": ssd_kernel.KERNEL.launches},
             "peak_bytes": torch.cuda.max_memory_allocated(device), "tokens": res.tokens,
             "finite": res.finite, "prefill_s": res.prefill_s, "decode_s": res.decode_s,
             "counts": dict(parallel.counts)}
@@ -1242,9 +1362,10 @@ def model_group_four_cards(torch, np, smi_line: str):
     """``--nccl``: first the ms of one NCCL ``all_reduce`` of a decode
     step's and of a prefill's activation (``mp_collective_rank``), then
     ``MP_FULL`` served on ``MP_FULL_RANKS`` cards over NCCL through
-    ``serve.run``: tokens in range, finite and the same on every rank, 48 /
-    16 flash launches a prefill on each rank; prefill and decode ms of each
-    session, the peak device memory of each rank."""
+    ``serve.run``: tokens in range, finite and the same on every rank, the
+    flash and SSD launches of ``mp_expected_launches`` a prefill on each
+    rank (seamless serves one session); prefill (encode) and decode ms of
+    each session, the peak device memory of each rank."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch.mesh import spawn_cohort
     from repro_torch.sharding.shard import share_bytes
@@ -1261,26 +1382,29 @@ def model_group_four_cards(torch, np, smi_line: str):
                              backend="nccl", timeout_s=600.0, deadline_s=1500.0)
         wall = time.perf_counter() - t0
         toks = ranks[0]["tokens"]
+        sessions = 1 if cfg.is_encoder_decoder else 2
+        expected = {k: v * sessions for k, v in mp_expected_launches(cfg).items()}
         for r, got in enumerate(ranks):
             if not np.array_equal(got["tokens"], toks):
                 fail(f"model group {arch} on {MP_FULL_RANKS} cards: rank {r}'s tokens differ")
-            if got["launches"] != cfg.n_layers * 2 or not got["finite"]:
-                fail(f"model group {arch} on {MP_FULL_RANKS} cards: rank {r} launched flash "
-                     f"{got['launches']} times (expected {cfg.n_layers * 2}) or non-finite")
+            if got["launches"] != expected or not got["finite"]:
+                fail(f"model group {arch} on {MP_FULL_RANKS} cards: rank {r} launched "
+                     f"{got['launches']} (expected {expected}) or non-finite")
         if toks.shape != (4, 32) or not ((toks >= 0).all() and (toks < cfg.padded_vocab).all()):
             fail(f"model group {arch}: tokens of shape {toks.shape} outside the vocabulary")
-        for s_ in range(2):
+        steps = 32 if cfg.is_encoder_decoder else 31  # the first token comes from prefill
+        for s_ in range(sessions):
             say(f"model group {arch} ({cfg.n_layers} of {get_config(arch).n_layers} layers, "
                 f"{MP_FULL_RANKS} cards, nccl): " + json.dumps({
                     "session": s_, "prefill_ms": [g["prefill_s"][s_] * 1e3 for g in ranks],
                     "decode_ms": [g["decode_s"][s_] * 1e3 for g in ranks],
                     "prefill_tok_s": 4 * 1024 / ranks[0]["prefill_s"][s_],
-                    "decode_tok_s": 4 * 31 / ranks[0]["decode_s"][s_]}))
+                    "decode_tok_s": 4 * steps / ranks[0]["decode_s"][s_]}))
         say(f"model group {arch} ({cfg.n_layers} of {get_config(arch).n_layers} layers) on "
             f"{MP_FULL_RANKS} cards over nccl: " + json.dumps({
                 "share_bytes": share_bytes(cfg, MP_FULL_RANKS),
                 "peak_bytes_per_rank": [g["peak_bytes"] for g in ranks],
-                "flash_launches_per_rank": [g["launches"] for g in ranks],
+                "launches_per_rank": [g["launches"] for g in ranks],
                 "collectives_rank0": ranks[0]["counts"],
                 "run_s_per_rank": [g["wall_s"] for g in ranks], "wall_s": wall,
                 "first_tokens": toks[0, :8].tolist()}) + f"; {smi_line}")
@@ -3154,7 +3278,9 @@ def main() -> int:
 
     # ---- 6b. the model group on one card, launch counts from each rank's runs only
     mp_launches = model_group_one_card(torch, np)
-    fa_cases += model_group_flash(torch, fa_kernel, fa_ref, gen)
+    mp_fa, mp_ssd = model_group_kernels(torch, fa_kernel, fa_ref, ssd_kernel, ssd_ref, gen)
+    fa_cases += mp_fa
+    ssd_cases += mp_ssd
     lap("6b")
 
     # ---- 7. card vs CPU, serving
@@ -3210,10 +3336,10 @@ def main() -> int:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main.get("library_ms"),
         })
-        if name == "flash_attention":  # serving unsharded, and each model group's ranks
+        if name in ("flash_attention", "ssd_scan"):  # serving unsharded, and each group's ranks
             kernels[-1]["launches_by_path"] = {
                 "serve": launches[name],
-                **{f"model_group_{n}_ranks": per for n, per in mp_launches.items()}}
+                **{f"model_group_{n}_ranks": per[name] for n, per in mp_launches.items()}}
         if name in full:  # the federated LM's paths and its cohort plane beside the main one
             kernels[-1]["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
             kernels[-1]["full_plane"] = {k: full[name][k] for k in (

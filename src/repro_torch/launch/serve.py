@@ -25,17 +25,18 @@ them; ``--follow`` keeps watching the directory and hot-swaps each new
 version between decode steps, so a decode step runs against exactly one
 complete version.
 
-``--model-parallel N`` serves a decoder-only model on N ranks of a model
+``--model-parallel N`` serves any of the ten archs on N ranks of a model
 group (``repro_torch.launch.mesh``; the reference's mesh with a ``"model"``
 axis of N and data axes of 1): each rank draws its share of the weights
 (``repro_torch.sharding.shard.init_params_sharded``, bitwise its slice of
-the unsharded draw), runs ``run`` on the same prompts with its heads,
-hidden columns, experts and vocabulary rows, and every rank feeds the same
-token (at ``--temperature`` > 0 rank 0 draws it and broadcasts it); rank
-0's session lines are printed.  N ranks run on ``cuda:0`` … ``cuda:N−1``
-over NCCL, or on the CPU over gloo with ``--device cpu``.  The ssm and
-hybrid families, the encoder-decoder and ``--ckpt`` / ``--follow`` are
-refused under a group (ROADMAP A.16).
+the unsharded draw), runs ``run`` on the same prompts (the encoder-decoder:
+the same seeded source frames) with its heads, SSD heads, hidden columns,
+experts and vocabulary rows, and every rank feeds the same token (at
+``--temperature`` > 0 rank 0 draws it and broadcasts it; the
+encoder-decoder's greedy token is broadcast from rank 0 at every step);
+rank 0's session lines are printed.  N ranks run on ``cuda:0`` …
+``cuda:N−1`` over NCCL, or on the CPU over gloo with ``--device cpu``.
+``--ckpt`` / ``--follow`` are refused under a group (ROADMAP A.16).
 
 Weights are random, drawn from ``--seed`` on the serving device (f32, the
 reference's ``param_dtype``; each use casts them to the activation dtype,
@@ -229,28 +230,33 @@ def load_ckpt_params(path: str, template: Any, *, follow: bool = False):
 
 
 def _serve_encdec(model, params, args, device, version: int,
-                  src: Optional[torch.Tensor]) -> ServeResult:
+                  src: Optional[torch.Tensor],
+                  parallel: Optional[ParallelContext] = None) -> ServeResult:
     """One session: encode the source frames once, build the cross cache,
     decode ``args.gen`` greedy tokens from BOS 0.  The prefill time is the
-    encode time (the cross K/V included)."""
+    encode time (the cross K/V included).  Over a group every rank encodes
+    the same frames on its heads, and each step's token is rank 0's."""
     cfg = model.cfg
     if src is None:
         src = source_frames(args.batch, args.prompt_len, cfg.d_model, args.seed + 2, device)
     finite = torch.ones((), dtype=torch.bool, device=device)
     synchronize(device)
     t0 = time.perf_counter()
-    enc_out = encdec.encode(params, src.to(device), cfg=cfg, use_kernels=True)
-    cache = model.init_cache(params, args.batch, args.gen, enc_out=enc_out)
+    enc_out = encdec.encode(params, src.to(device), cfg=cfg, use_kernels=True,
+                            parallel=parallel)
+    cache = model.init_cache(params, args.batch, args.gen, enc_out=enc_out, parallel=parallel)
     synchronize(device)
     t_enc = time.perf_counter() - t0
     tok = torch.zeros((args.batch, 1), dtype=torch.long, device=device)  # BOS
     outs = []
     t0 = time.perf_counter()
     for i in range(args.gen):
-        logits, cache = model.decode_step(params, tok, cache, i)
+        logits, cache = model.decode_step(params, tok, cache, i, parallel)
         last = logits[:, -1].to(torch.float32)
         finite.logical_and_(torch.isfinite(last).all())
         tok = torch.argmax(last, dim=-1)[:, None]
+        if parallel is not None:
+            dist.broadcast(tok, src=0, group=parallel.group)
         outs.append(tok)
     synchronize(device)
     t_dec = time.perf_counter() - t0
@@ -260,9 +266,9 @@ def _serve_encdec(model, params, args, device, version: int,
 
 
 def check_model_parallel_args(args: argparse.Namespace, cfg, world: int) -> None:
-    """Refuse what a model group of ``world`` > 1 ranks does not serve
-    (ROADMAP A.16): published params, and the families
-    ``check_model_parallel`` refuses."""
+    """Refuse what a model group of ``world`` > 1 ranks does not serve:
+    published params (ROADMAP A.16), and an expert count the group does not
+    divide (``check_model_parallel``)."""
     if world <= 1:
         return
     if args.ckpt or args.follow:
@@ -303,7 +309,7 @@ def run(args: argparse.Namespace, on_step: Optional[Callable[[ServeStats], None]
         version, params, provider = load_ckpt_params(args.ckpt, params, follow=args.follow)
         print(f"serving published params: version {version} from {args.ckpt}")
     if cfg.is_encoder_decoder:
-        return _serve_encdec(model, params, args, device, version, src_embeds)
+        return _serve_encdec(model, params, args, device, version, src_embeds, parallel)
     prompts = torch.as_tensor(
         make_synthetic_lm(min(cfg.vocab_size, CHAIN_VOCAB), args.prompt_len, args.batch,
                           seed=args.seed), dtype=torch.long, device=device)
@@ -403,9 +409,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--model-parallel", type=int, default=1, metavar="N",
-                    help="serve a decoder-only model on N ranks of a model group: one card a "
-                         "rank over NCCL, or gloo ranks with --device cpu (default 1: "
-                         "unsharded)")
+                    help="serve the model on N ranks of a model group: one card a rank over "
+                         "NCCL, or gloo ranks with --device cpu (default 1: unsharded)")
     return ap
 
 

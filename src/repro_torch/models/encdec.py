@@ -15,10 +15,18 @@ layers is a Python loop over views.  ``encode`` with ``use_kernels`` sends
 the encoder's bidirectional attention through the flash-attention kernel
 (``causal=False``), as serving prefill does; training, ``decode_train`` and
 the decoder's attention take the reference's plain route.
+
+``parallel`` (a ``layers.ParallelContext``) runs the model on a group of
+ranks that each hold their share of the weights
+(``repro_torch.sharding.shard``), as the decoder-only model does: the
+encoder's and the decoder's attention on the rank's heads, the
+cross-attention's K/V of the rank's kv heads (computed once a layer, held
+so in the decode cache), the MLP's hidden columns, each with one
+``all_reduce``; the vocabulary-split embedding and logits.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -26,6 +34,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import (
     BLOCKED_ATTENTION_THRESHOLD,
+    Keep,
+    ParallelContext,
     _project,
     apply_rope,
     attend_blocked,
@@ -33,39 +43,51 @@ from repro_torch.models.layers import (
     cross_attention,
     embed_init,
     encode_kv,
+    heads_out,
     init_attention,
     init_mlp,
     init_rmsnorm,
+    keep_under,
+    keep_whole,
+    kv_heads_of,
     mlp,
+    pick_kv_heads,
     rmsnorm,
     self_attention,
 )
-from repro_torch.models.transformer import check_remat
+from repro_torch.models.transformer import check_remat, embed_tokens, unembed_logits
 from repro_torch.utils.trees import tree_map
 
 
-def init_params(generator: torch.Generator, cfg, *, device=None) -> Dict[str, Any]:
+def init_params(generator: torch.Generator, cfg, *, device=None,
+                keep: Keep = keep_whole) -> Dict[str, Any]:
     """Random params from ``generator`` (on its device, or on ``device``:
     ``"meta"`` gives the shapes alone) in ``cfg.param_dtype``, in the
     reference's tree layout: untied ``embed`` / ``unembed``, the ``enc`` and
-    ``dec`` stacks, ``enc_norm`` and ``dec_norm``."""
+    ``dec`` stacks, ``enc_norm`` and ``dec_norm``.  ``keep(path, leaf)``
+    maps each leaf as it is drawn to what is kept of it (``layers.Keep``)."""
     dtype = getattr(torch, cfg.param_dtype)
     dev = device or generator.device
     D, V = cfg.d_model, cfg.padded_vocab
     le, ld = (cfg.n_encoder_layers,), (cfg.n_layers,)
     return {
-        "embed": embed_init(generator, (V, D), dtype, dev),
-        "unembed": embed_init(generator, (D, V), dtype, dev),
+        "embed": keep(("embed",), embed_init(generator, (V, D), dtype, dev)),
+        "unembed": keep(("unembed",), embed_init(generator, (D, V), dtype, dev)),
         "enc": {"norm1": init_rmsnorm(D, dtype, le, dev),
-                "attn": init_attention(generator, cfg, dtype, le, dev),
+                "attn": init_attention(generator, cfg, dtype, le, dev,
+                                       keep_under(keep, "enc", "attn")),
                 "norm2": init_rmsnorm(D, dtype, le, dev),
-                "mlp": init_mlp(generator, cfg, dtype=dtype, lead=le, device=dev)},
+                "mlp": init_mlp(generator, cfg, dtype=dtype, lead=le, device=dev,
+                                keep=keep_under(keep, "enc", "mlp"))},
         "dec": {"norm1": init_rmsnorm(D, dtype, ld, dev),
-                "self_attn": init_attention(generator, cfg, dtype, ld, dev),
+                "self_attn": init_attention(generator, cfg, dtype, ld, dev,
+                                            keep_under(keep, "dec", "self_attn")),
                 "norm_x": init_rmsnorm(D, dtype, ld, dev),
-                "cross_attn": init_attention(generator, cfg, dtype, ld, dev),
+                "cross_attn": init_attention(generator, cfg, dtype, ld, dev,
+                                             keep_under(keep, "dec", "cross_attn")),
                 "norm2": init_rmsnorm(D, dtype, ld, dev),
-                "mlp": init_mlp(generator, cfg, dtype=dtype, lead=ld, device=dev)},
+                "mlp": init_mlp(generator, cfg, dtype=dtype, lead=ld, device=dev,
+                                keep=keep_under(keep, "dec", "mlp"))},
         "enc_norm": init_rmsnorm(D, dtype, device=dev),
         "dec_norm": init_rmsnorm(D, dtype, device=dev),
     }
@@ -80,28 +102,29 @@ def _maybe_remat(fn, remat: str, h):
     return checkpoint(fn, h, use_reentrant=False) if remat == "full" else fn(h)
 
 
-def _embed(params, tokens, cfg) -> torch.Tensor:
-    adtype = getattr(torch, cfg.dtype)
-    scale = torch.full((), cfg.d_model ** 0.5, dtype=adtype, device=tokens.device)
-    return params["embed"][tokens].to(adtype) * scale
+def _embed(params, tokens, cfg, parallel: Optional[ParallelContext]) -> torch.Tensor:
+    return embed_tokens(params["embed"], tokens, cfg, getattr(torch, cfg.dtype), parallel)
 
 
 def encode(params, src_embeds: torch.Tensor, *, cfg, use_kernels: bool = False,
-           remat: str = "none") -> torch.Tensor:
+           remat: str = "none", parallel: Optional[ParallelContext] = None) -> torch.Tensor:
     """src_embeds ``(B, S_src, D)`` from the (stubbed) frontend →
     ``(B, S_src, D)`` in the activation dtype.  Bidirectional attention:
     through the flash kernel with ``use_kernels``, else ``attend_direct``
-    (``attend_blocked`` from ``BLOCKED_ATTENTION_THRESHOLD`` frames)."""
+    (``attend_blocked`` from ``BLOCKED_ATTENTION_THRESHOLD`` frames); over a
+    group on the rank's heads, summed by one ``all_reduce`` after ``wo``."""
     check_remat(remat)
     h = src_embeds.to(getattr(torch, cfg.dtype))
-    B, S, D = h.shape
+    S = h.shape[1]
     positions = torch.arange(S, device=h.device)
     scale = cfg.resolved_head_dim ** -0.5
 
     def layer(lp, h):
         x = rmsnorm(h, lp["norm1"])
         p = lp["attn"]
-        q, k, v = _project(x, p["wq"]), _project(x, p["wk"]), _project(x, p["wv"])
+        q = _project(x, p["wq"])
+        k = pick_kv_heads(_project(x, p["wk"]), cfg, parallel)
+        v = pick_kv_heads(_project(x, p["wv"]), cfg, parallel)
         if cfg.use_rope:
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
@@ -114,8 +137,8 @@ def encode(params, src_embeds: torch.Tensor, *, cfg, use_kernels: bool = False,
         else:
             a = attend_direct(q, k, v, torch.ones((1, 1, S, S), dtype=torch.bool,
                                                   device=h.device), scale)
-        h = h + torch.matmul(a.reshape(B, S, -1), p["wo"].to(x.dtype).reshape(-1, D))
-        return h + mlp(lp["mlp"], rmsnorm(h, lp["norm2"]), cfg=cfg)
+        h = h + heads_out(a, p["wo"], cfg, parallel)
+        return h + mlp(lp["mlp"], rmsnorm(h, lp["norm2"]), cfg=cfg, parallel=parallel)
 
     for lp in _layers(params["enc"], cfg.n_encoder_layers):
         h = _maybe_remat(lambda h_, lp=lp: layer(lp, h_), remat, h)
@@ -123,35 +146,40 @@ def encode(params, src_embeds: torch.Tensor, *, cfg, use_kernels: bool = False,
 
 
 def decode_train(params, tgt_tokens: torch.Tensor, enc_out: torch.Tensor, *, cfg,
-                 remat: str = "none") -> torch.Tensor:
+                 remat: str = "none", parallel: Optional[ParallelContext] = None
+                 ) -> torch.Tensor:
     """Teacher-forced decoder on the plain route: tgt_tokens ``(B, S_tgt)`` →
     logits ``(B, S_tgt, padded_vocab)`` in the activation dtype."""
     check_remat(remat)
-    h = _embed(params, tgt_tokens, cfg)
+    h = _embed(params, tgt_tokens, cfg, parallel)
     positions = torch.arange(tgt_tokens.shape[1], device=h.device)
 
     def layer(lp, h):
         a, _ = self_attention(lp["self_attn"], rmsnorm(h, lp["norm1"]), cfg=cfg,
-                              positions=positions, is_global=True, use_kernels=False)
+                              positions=positions, is_global=True, use_kernels=False,
+                              parallel=parallel)
         h = h + a
-        kv = encode_kv(lp["cross_attn"], enc_out, cfg=cfg)
-        h = h + cross_attention(lp["cross_attn"], rmsnorm(h, lp["norm_x"]), kv, cfg=cfg)
-        return h + mlp(lp["mlp"], rmsnorm(h, lp["norm2"]), cfg=cfg)
+        kv = encode_kv(lp["cross_attn"], enc_out, cfg=cfg, parallel=parallel)
+        h = h + cross_attention(lp["cross_attn"], rmsnorm(h, lp["norm_x"]), kv, cfg=cfg,
+                                parallel=parallel)
+        return h + mlp(lp["mlp"], rmsnorm(h, lp["norm2"]), cfg=cfg, parallel=parallel)
 
     for lp in _layers(params["dec"], cfg.n_layers):
         h = _maybe_remat(lambda h_, lp=lp: layer(lp, h_), remat, h)
     h = rmsnorm(h, params["dec_norm"])
-    return torch.matmul(h, params["unembed"].to(h.dtype))
+    return unembed_logits(h, params["unembed"], cfg, parallel)
 
 
-def init_decode_cache(params, cfg, batch: int, max_len: int, enc_out: torch.Tensor
-                      ) -> Dict[str, torch.Tensor]:
+def init_decode_cache(params, cfg, batch: int, max_len: int, enc_out: torch.Tensor,
+                      parallel: Optional[ParallelContext] = None) -> Dict[str, torch.Tensor]:
     """Zero self-attention cache ``k`` / ``v`` ``(L, B, max_len, Hkv, hd)`` in
     the activation dtype, and each decoder layer's cross-attention K/V of
-    ``enc_out``, ``cross_k`` / ``cross_v`` ``(L, B, S_src, Hkv, hd)``."""
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    ``enc_out``, ``cross_k`` / ``cross_v`` ``(L, B, S_src, Hkv, hd)``; over a
+    group Hkv is the rank's kv heads (``layers.kv_heads_of``) in both."""
+    shape = (cfg.n_layers, batch, max_len, len(kv_heads_of(cfg, parallel)),
+             cfg.resolved_head_dim)
     dtype = getattr(torch, cfg.dtype)
-    cross = [encode_kv(lp["cross_attn"], enc_out, cfg=cfg)
+    cross = [encode_kv(lp["cross_attn"], enc_out, cfg=cfg, parallel=parallel)
              for lp in _layers(params["dec"], cfg.n_layers)]
     return {"k": torch.zeros(shape, dtype=dtype, device=enc_out.device),
             "v": torch.zeros(shape, dtype=dtype, device=enc_out.device),
@@ -160,19 +188,21 @@ def init_decode_cache(params, cfg, batch: int, max_len: int, enc_out: torch.Tens
 
 
 def decode_step(params, token: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int, *,
-                cfg):
+                cfg, parallel: Optional[ParallelContext] = None):
     """token ``(B, 1)`` at position ``pos`` → ``(logits (B, 1, V), cache)``;
     each layer writes its K/V into ``cache`` at ``pos`` in place, and the
     same dict is returned."""
-    h = _embed(params, token, cfg)
+    h = _embed(params, token, cfg, parallel)
     positions = torch.full((1,), int(pos), device=h.device)
     for i, lp in enumerate(_layers(params["dec"], cfg.n_layers)):
         a, _ = self_attention(lp["self_attn"], rmsnorm(h, lp["norm1"]), cfg=cfg,
                               positions=positions, is_global=True,
-                              cache={"k": cache["k"][i], "v": cache["v"][i]}, cache_pos=pos)
+                              cache={"k": cache["k"][i], "v": cache["v"][i]}, cache_pos=pos,
+                              parallel=parallel)
         h = h + a
         h = h + cross_attention(lp["cross_attn"], rmsnorm(h, lp["norm_x"]),
-                                {"k": cache["cross_k"][i], "v": cache["cross_v"][i]}, cfg=cfg)
-        h = h + mlp(lp["mlp"], rmsnorm(h, lp["norm2"]), cfg=cfg)
+                                {"k": cache["cross_k"][i], "v": cache["cross_v"][i]}, cfg=cfg,
+                                parallel=parallel)
+        h = h + mlp(lp["mlp"], rmsnorm(h, lp["norm2"]), cfg=cfg, parallel=parallel)
     h = rmsnorm(h, params["dec_norm"])
-    return torch.matmul(h, params["unembed"].to(h.dtype)), cache
+    return unembed_logits(h, params["unembed"], cfg, parallel), cache

@@ -41,14 +41,15 @@ class ParallelContext:
     """The model group (the reference's mesh with its ``"model"`` axis): a
     ``torch.distributed`` process group, this process's rank in it and its
     size.  ``counts`` tallies the collectives the layers issue
-    (``all_reduce``, ``all_gather``) and the bytes each rank sends into
-    them."""
+    (``all_reduce``, ``all_gather``), the bytes each rank sends into them,
+    and the mamba2 blocks that ran whole on every rank because the group's
+    size does not divide their heads (``mamba_whole``)."""
 
     group: Any
     rank: int
     size: int
     counts: Dict[str, int] = field(default_factory=lambda: {
-        "all_reduce": 0, "all_gather": 0, "bytes": 0}, compare=False)
+        "all_reduce": 0, "all_gather": 0, "bytes": 0, "mamba_whole": 0}, compare=False)
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """The sum over the group, in ``x``'s dtype, written into ``x``."""
@@ -102,6 +103,27 @@ def kv_heads_of(cfg, parallel: Optional[ParallelContext]) -> List[int]:
         return list(range(Hkv))
     n = Hkv // parallel.size
     return list(range(parallel.rank * n, (parallel.rank + 1) * n))
+
+
+def pick_kv_heads(t: torch.Tensor, cfg, parallel: Optional[ParallelContext]) -> torch.Tensor:
+    """K or V ``(B, S, Hkv, hd)`` at the kv heads this rank's q heads read
+    (``kv_heads_used``), or as it is when nothing needs picking."""
+    used = kv_heads_used(cfg, parallel)
+    if used is None:
+        return t
+    return t.index_select(2, torch.tensor(used, device=t.device))
+
+
+def heads_out(a: torch.Tensor, wo: torch.Tensor, cfg,
+              parallel: Optional[ParallelContext]) -> torch.Tensor:
+    """Attention heads ``a`` (B, S, H, hd) through ``wo`` (H, hd, D): over a
+    group the rank's heads through its rows of ``wo``, and one
+    ``all_reduce`` sums the partial outputs when the heads split."""
+    B, S = a.shape[:2]
+    o = torch.matmul(a.reshape(B, S, -1), wo.to(a.dtype).reshape(-1, wo.shape[-1]))
+    if split(parallel, wo.shape[-3], cfg.n_heads):
+        parallel.all_reduce(o)
+    return o
 
 
 # A ``keep(path, leaf)`` callback of the initializers maps each leaf, the
@@ -339,16 +361,12 @@ def self_attention(
     and the window act per head.  The decode cache holds the local kv
     heads (the reference splits its cache's sequence over ``"model"``
     instead, a GSPMD layout choice: the values are the same)."""
-    B, S, D = x.shape
+    S = x.shape[1]
     hd = cfg.resolved_head_dim
     scale = 1.0 / math.sqrt(hd)
     q = _project(x, params["wq"])
-    k = _project(x, params["wk"])
-    v = _project(x, params["wv"])
-    used = kv_heads_used(cfg, parallel)
-    if used is not None:
-        idx = torch.tensor(used, device=x.device)
-        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    k = pick_kv_heads(_project(x, params["wk"]), cfg, parallel)
+    v = pick_kv_heads(_project(x, params["wv"]), cfg, parallel)
     if cfg.qk_norm:
         q = rmsnorm(q, params["q_norm"])
         k = rmsnorm(k, params["k_norm"])
@@ -382,20 +400,21 @@ def self_attention(
         out = attend_direct(q, kc, vc, valid[None, None, None, :], scale)
         new_cache = {"k": kc, "v": vc}
 
-    o = torch.matmul(out.reshape(B, S, -1), params["wo"].to(x.dtype).reshape(-1, D))
-    if split(parallel, params["wo"].shape[-3], cfg.n_heads):
-        parallel.all_reduce(o)
-    return o, new_cache
+    return heads_out(out, params["wo"], cfg, parallel), new_cache
 
 
 # ------------------------------------------------- cross attention (encoder-decoder)
 def cross_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
-                    enc_kv: Dict[str, torch.Tensor], *, cfg) -> torch.Tensor:
+                    enc_kv: Dict[str, torch.Tensor], *, cfg,
+                    parallel: Optional[ParallelContext] = None) -> torch.Tensor:
     """x: (B, Sq, D) queries; enc_kv: {"k", "v"}: (B, S_src, Hkv, hd).  No
     mask and no positions; ``attend_blocked`` once either length reaches
-    ``BLOCKED_ATTENTION_THRESHOLD``, as in the reference."""
+    ``BLOCKED_ATTENTION_THRESHOLD``, as in the reference.  Over a group the
+    rank's q heads attend over the kv heads ``enc_kv`` holds (``encode_kv``
+    with ``parallel``), and one ``all_reduce`` sums the partial outputs of
+    ``wo``."""
     scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
-    B, Sq, D = x.shape
+    Sq = x.shape[1]
     q = _project(x, params["wq"])
     k = enc_kv["k"].to(x.dtype)
     v = enc_kv["v"].to(x.dtype)
@@ -407,13 +426,16 @@ def cross_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
     else:
         out = attend_direct(q, k, v, torch.ones((1, 1, Sq, S_src), dtype=torch.bool,
                                                 device=x.device), scale)
-    return torch.matmul(out.reshape(B, Sq, -1), params["wo"].to(x.dtype).reshape(-1, D))
+    return heads_out(out, params["wo"], cfg, parallel)
 
 
-def encode_kv(params: Dict[str, torch.Tensor], enc_out: torch.Tensor, *, cfg
-              ) -> Dict[str, torch.Tensor]:
-    """Cross-attention K/V of the encoder output (computed once a layer)."""
-    return {"k": _project(enc_out, params["wk"]), "v": _project(enc_out, params["wv"])}
+def encode_kv(params: Dict[str, torch.Tensor], enc_out: torch.Tensor, *, cfg,
+              parallel: Optional[ParallelContext] = None) -> Dict[str, torch.Tensor]:
+    """Cross-attention K/V of the encoder output (computed once a layer);
+    over a group the kv heads this rank's q heads read, from its share of
+    ``wk`` / ``wv`` (``kv_heads_of``)."""
+    return {"k": pick_kv_heads(_project(enc_out, params["wk"]), cfg, parallel),
+            "v": pick_kv_heads(_project(enc_out, params["wv"]), cfg, parallel)}
 
 
 # ------------------------------------------------------------------------ MLP

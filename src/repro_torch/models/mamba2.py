@@ -13,6 +13,13 @@ Shapes (single group, G=1, as in the released mamba2 configs):
   B,C    (B, S, N)                  N = ssm_state
   dt     (B, S, H)                  H = d_inner / head_dim
   state  (B, H, P, N)               P = head_dim
+
+Over a model group (``parallel``) each rank holds the SSD heads ``[r·H/N,
+(r+1)·H/N)`` (``repro_torch.sharding.rules.mamba_split``): its z, x and dt
+columns of ``w_in`` with B's and C's whole, its x channels of the conv with
+B's and C's whole, its d_inner rows of ``w_out`` and entries of ``norm_z``;
+``A_log``, ``D_skip`` and ``dt_bias`` stay whole and the block reads its
+heads' entries.  The shapes above then hold with H and d_inner the rank's.
 """
 from __future__ import annotations
 
@@ -24,11 +31,11 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan.ops import ssd
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import Keep, ParallelContext, dense_init, keep_whole, split
 
 
 def init_mamba2(generator, cfg, dtype=torch.float32, lead: Sequence[int] = (),
-                device=None) -> Dict[str, torch.Tensor]:
+                device=None, keep: Keep = keep_whole) -> Dict[str, torch.Tensor]:
     D = cfg.d_model
     d_inner = cfg.ssm_expand * D
     N = cfg.ssm_state
@@ -40,7 +47,7 @@ def init_mamba2(generator, cfg, dtype=torch.float32, lead: Sequence[int] = (),
     u = torch.rand((*lead, H), generator=generator, dtype=f32, device=device)
     log_dt = math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3))
     dt_bias = torch.log(torch.expm1(torch.exp(log_dt)))
-    return {
+    p = {
         # in_proj packs [z, x, B, C, dt]
         "w_in": dense_init(generator, (*lead, D, 2 * d_inner + 2 * N + H), in_axis_size=D,
                            dtype=dtype, device=device),
@@ -55,15 +62,24 @@ def init_mamba2(generator, cfg, dtype=torch.float32, lead: Sequence[int] = (),
                             device=device),
         "norm_z": torch.zeros((*lead, d_inner), dtype=dtype, device=device),  # gated RMSNorm
     }
+    return {name: keep((name,), leaf) for name, leaf in p.items()}
 
 
-def _split_proj(h: torch.Tensor, cfg):
-    d_inner = cfg.ssm_expand * cfg.d_model
-    N = cfg.ssm_state
+def local_heads(cfg, parallel: Optional[ParallelContext]) -> int:
+    """The SSD heads a rank holds: H / N when the group's size divides
+    them (the rule's guard), else all H."""
+    H = cfg.ssm_heads
+    if parallel is None or H % parallel.size or H < parallel.size:
+        return H
+    return H // parallel.size
+
+
+def _split_proj(h: torch.Tensor, d_inner: int, N: int, H: int):
+    """``[z | x, B, C | dt]`` of the in-projection (a rank's widths over a group)."""
     z = h[..., :d_inner]
     xBC = h[..., d_inner:2 * d_inner + 2 * N]
     dt = h[..., 2 * d_inner + 2 * N:]
-    if dt.shape[-1] != cfg.ssm_heads:
+    if dt.shape[-1] != H:
         raise ValueError(f"in_proj width {h.shape[-1]} does not match the config")
     return z, xBC, dt
 
@@ -110,16 +126,31 @@ def mamba2_block(
     state: Optional[Dict[str, torch.Tensor]] = None,  # decode: {"ssm", "conv"}
     return_state: bool = False,  # prefill: emit the final recurrent state
     use_kernels: bool = True,  # prefill: the SSD kernel, else the plain scan
+    parallel: Optional[ParallelContext] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Returns (out (B,S,D), new_state or None)."""
+    """Returns (out (B,S,D), new_state or None).
+
+    Over a group the scan (the SSD kernel in prefill, the recurrent step in
+    decode) runs on the rank's heads; the gated RMSNorm's mean over the
+    whole d_inner joins the ranks' f32 sums of squares with one
+    ``all_reduce``, and one more sums the partial outputs of ``w_out``.  A
+    group whose size does not divide the heads holds the block whole: it
+    runs whole on every rank with no collective, counted in
+    ``parallel.counts["mamba_whole"]``."""
     Bsz, S, D = x.shape
-    d_inner = cfg.ssm_expand * D
-    H, Pd, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    d_whole = cfg.ssm_expand * D
+    d_inner = params["w_out"].shape[-2]  # this rank's channels
+    Pd, N = cfg.ssm_head_dim, cfg.ssm_state
+    H = d_inner // Pd
+    sharded = split(parallel, d_inner, d_whole)
+    heads = slice(parallel.rank * H, (parallel.rank + 1) * H) if sharded else slice(None)
+    if parallel is not None and not sharded:
+        parallel.counts["mamba_whole"] += 1
 
     h = torch.matmul(x, params["w_in"].to(x.dtype))
-    z, xBC, dt = _split_proj(h, cfg)
-    dt = _softplus(dt.to(torch.float32) + params["dt_bias"][None, None])
-    A = -torch.exp(params["A_log"])  # (H,)
+    z, xBC, dt = _split_proj(h, d_inner, N, H)
+    dt = _softplus(dt.to(torch.float32) + params["dt_bias"][heads][None, None])
+    A = -torch.exp(params["A_log"][heads])  # (H,)
 
     if state is None:
         xBC_raw = xBC
@@ -149,22 +180,32 @@ def mamba2_block(
         y = y[:, None]  # (B,1,H,P)
         new_state = {"ssm": ssm_state, "conv": conv_state}
 
-    y = y.to(x.dtype) + params["D_skip"][None, None, :, None].to(x.dtype) * xs
+    y = y.to(x.dtype) + params["D_skip"][heads][None, None, :, None].to(x.dtype) * xs
     y = y.reshape(Bsz, S, d_inner)
-    # gated RMSNorm: norm(y * silu(z))
+    # gated RMSNorm: norm(y * silu(z)), its mean over the whole d_inner
     g = y * F.silu(z)
     gf = g.to(torch.float32)
-    var = gf.square().mean(dim=-1, keepdim=True)
+    if sharded:
+        var = parallel.all_reduce(gf.square().sum(dim=-1, keepdim=True)) / d_whole
+    else:
+        var = gf.square().mean(dim=-1, keepdim=True)
     g = (gf * torch.rsqrt(var + 1e-6) * (1.0 + params["norm_z"].to(torch.float32))).to(x.dtype)
-    return torch.matmul(g, params["w_out"].to(x.dtype)), new_state
+    out = torch.matmul(g, params["w_out"].to(x.dtype))
+    if sharded:
+        parallel.all_reduce(out)
+    return out, new_state
 
 
 def init_mamba2_state(cfg, batch: int, dtype=torch.float32, lead: Sequence[int] = (),
-                      device=None) -> Dict[str, torch.Tensor]:
-    d_inner = cfg.ssm_expand * cfg.d_model
-    conv_ch = d_inner + 2 * cfg.ssm_state
+                      device=None, parallel: Optional[ParallelContext] = None
+                      ) -> Dict[str, torch.Tensor]:
+    """Zero SSM state ``(…, B, H, P, N)`` and conv state ``(…, B, k−1,
+    d_inner + 2N)``; over a group H and d_inner are the rank's
+    (``local_heads``), B's and C's conv channels whole."""
+    H = local_heads(cfg, parallel)
+    conv_ch = cfg.ssm_expand * cfg.d_model * H // cfg.ssm_heads + 2 * cfg.ssm_state
     return {
-        "ssm": torch.zeros((*lead, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+        "ssm": torch.zeros((*lead, batch, H, cfg.ssm_head_dim, cfg.ssm_state),
                            dtype=torch.float32, device=device),
         "conv": torch.zeros((*lead, batch, cfg.ssm_conv - 1, conv_ch), dtype=dtype,
                             device=device),

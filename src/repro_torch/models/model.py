@@ -6,8 +6,8 @@
     logits, cache, aux = model.apply(params, tokens, return_cache=True)   # prefill
     cache              = model.init_cache(params, batch, max_len)          # enc-dec: enc_out=
     logits, cache      = model.decode_step(params, token, cache, pos)
-    # decoder-only over a model group: parallel=ParallelContext on apply,
-    # init_cache and decode_step, with each rank's share of the params
+    # over a model group: parallel=ParallelContext on apply, init_cache and
+    # decode_step, with each rank's share of the params
     batch              = model.dummy_batch(batch, seq_len)
     loss_fn            = cohort_loss_fn(model)   # the federated engine's contract
 
@@ -136,12 +136,13 @@ def _build_encdec(cfg) -> Model:
     def init(generator):
         return encdec.init_params(generator, cfg)
 
-    def apply(params, batch, *, use_kernels=False, remat="none"):
+    def apply(params, batch, *, use_kernels=False, remat="none", parallel=None):
         """``batch`` holds ``src_embeds`` and ``tgt_tokens``; returns
         ``(logits, None, aux = 0)``."""
         enc_out = encdec.encode(params, batch["src_embeds"], cfg=cfg, use_kernels=use_kernels,
-                                remat=remat)
-        logits = encdec.decode_train(params, batch["tgt_tokens"], enc_out, cfg=cfg, remat=remat)
+                                remat=remat, parallel=parallel)
+        logits = encdec.decode_train(params, batch["tgt_tokens"], enc_out, cfg=cfg, remat=remat,
+                                     parallel=parallel)
         return logits, None, logits.new_zeros((), dtype=torch.float32)
 
     def loss_fn(params, batch, *, remat="none", use_kernels=False):
@@ -149,13 +150,13 @@ def _build_encdec(cfg) -> Model:
         xe = cross_entropy(logits, batch["labels"])
         return xe, {"xent": xe, "aux": aux}
 
-    def init_cache(params, batch, max_len, enc_out=None):
+    def init_cache(params, batch, max_len, enc_out=None, parallel=None):
         if enc_out is None:
             raise ValueError("the encoder-decoder cache needs enc_out")
-        return encdec.init_decode_cache(params, cfg, batch, max_len, enc_out)
+        return encdec.init_decode_cache(params, cfg, batch, max_len, enc_out, parallel)
 
-    def decode_step(params, token, cache, pos):
-        return encdec.decode_step(params, token, cache, pos, cfg=cfg)
+    def decode_step(params, token, cache, pos, parallel=None):
+        return encdec.decode_step(params, token, cache, pos, cfg=cfg, parallel=parallel)
 
     def dummy_batch(batch, seq_len, device="cpu"):
         rng, toks, labels = _dummy_tokens(cfg, batch, seq_len)

@@ -16,11 +16,11 @@ family lives in ``repro_torch.models.encdec``.
 
 ``parallel`` (a ``layers.ParallelContext``) runs the model on a group of
 ranks that each hold their share of the weights
-(``repro_torch.sharding.shard``): the layers' branches, plus the
-vocabulary split over the group for the embedding (a masked local lookup,
-then an ``all_reduce``) and the logits (local columns, then an
-``all_gather`` along V).  The ssm and hybrid families stay unsharded
-(``repro_torch.sharding.rules.check_model_parallel``).
+(``repro_torch.sharding.shard``): the layers' branches (the mamba2 block's
+too, on the rank's SSD heads; zamba2's shared block as any attention and
+MLP), plus the vocabulary split over the group for the embedding (a masked
+local lookup, then an ``all_reduce``) and the logits (local columns, then
+an ``all_gather`` along V).
 """
 from __future__ import annotations
 
@@ -97,7 +97,8 @@ def _init_slot(generator, slot: SlotSpec, cfg, dtype, lead, device,
     periods, or ``()`` for the shared block)."""
     p: Dict[str, Any] = {"norm1": init_rmsnorm(cfg.d_model, dtype, lead, device)}
     if slot.kind == "mamba":
-        p["mamba"] = m2.init_mamba2(generator, cfg, dtype, lead, device)
+        p["mamba"] = m2.init_mamba2(generator, cfg, dtype, lead, device,
+                                    keep_under(keep, "mamba"))
         return p
     p["attn"] = init_attention(generator, cfg, dtype, lead, device, keep_under(keep, "attn"))
     p["norm2"] = init_rmsnorm(cfg.d_model, dtype, lead, device)
@@ -163,7 +164,7 @@ def _apply_slot(slot: SlotSpec, p, h, *, cfg, positions, cache_slot, cache_pos,
     if slot.kind == "mamba":
         y, new_state = m2.mamba2_block(p["mamba"], rmsnorm(h, p["norm1"]), cfg=cfg,
                                        state=cache_slot, return_state=emit_cache,
-                                       use_kernels=use_kernels)
+                                       use_kernels=use_kernels, parallel=parallel)
         return h + y, new_state, None
     attn_out, new_kv = self_attention(
         p["attn"], rmsnorm(h, p["norm1"]), cfg=cfg, positions=positions,
@@ -254,7 +255,7 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, *, cfg,
     slots, n_periods, tail = period_layout(cfg)
     adtype = getattr(torch, cfg.dtype)
     dev = tokens.device
-    h = _embed(params["embed"], tokens, cfg, adtype, parallel)
+    h = embed_tokens(params["embed"], tokens, cfg, adtype, parallel)
     B, S = tokens.shape
     if cache is None:
         positions = torch.arange(S, device=dev)
@@ -280,15 +281,22 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, *, cfg,
             new_cache["tail"] = out_tail
 
     h = rmsnorm(h, params["final_norm"])
-    unembed = (params["embed"].T if cfg.tie_embeddings else params["unembed"]).to(adtype)
-    logits = torch.matmul(h, unembed)
+    unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return unembed_logits(h, unembed, cfg, parallel), new_cache, aux
+
+
+def unembed_logits(h: torch.Tensor, unembed: torch.Tensor, cfg,
+                   parallel: Optional[ParallelContext]) -> torch.Tensor:
+    """``h @ unembed`` in ``h``'s dtype; over a group the rank's vocabulary
+    columns, joined along V by an ``all_gather`` when they split."""
+    logits = torch.matmul(h, unembed.to(h.dtype))
     if split(parallel, unembed.shape[-1], cfg.padded_vocab):
         logits = parallel.all_gather(logits, dim=-1)
-    return logits, new_cache, aux
+    return logits
 
 
-def _embed(table: torch.Tensor, tokens: torch.Tensor, cfg, adtype,
-           parallel: Optional[ParallelContext]) -> torch.Tensor:
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor, cfg, adtype,
+                 parallel: Optional[ParallelContext]) -> torch.Tensor:
     """The scaled embedding of ``tokens``.  A rank that holds rows ``[lo,
     lo + V / N)`` of the table looks up the tokens that fall there, zeros
     elsewhere, and an ``all_reduce`` adds the one nonzero row each token
@@ -311,13 +319,15 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None,
     """Zero cache in the period layout: attention slots {"k","v"}
     (n_periods, B, max_len, Hkv, hd), Hkv this rank's kv heads over a
     group (``layers.kv_heads_of``); mamba slots {"ssm","conv"} stacked
-    likewise; the tail's mamba layers under ``"tail"``."""
+    likewise, over a group on the rank's SSD heads
+    (``mamba2.init_mamba2_state``); the tail's mamba layers under
+    ``"tail"``."""
     dtype = dtype or getattr(torch, cfg.dtype)
     slots, n_periods, tail = period_layout(cfg)
 
     def slot_cache(slot: SlotSpec, n: int):
         if slot.kind == "mamba":
-            return m2.init_mamba2_state(cfg, batch, dtype, (n,), device)
+            return m2.init_mamba2_state(cfg, batch, dtype, (n,), device, parallel)
         shape = (n, batch, max_len, len(kv_heads_of(cfg, parallel)), cfg.resolved_head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -10,13 +10,17 @@ The model part (``param_specs``, ``split_dim``): the ``"model"``-axis half
 of the reference's ``param_specs(..., mode="serve")``.  Each leaf is split
 along at most one dimension over the ranks of a model group, rank r holding
 the r-th of N equal slices, under the reference's divisibility guard (a
-dimension that N does not divide stays whole).  A model group replicates
-the batch: there is no data axis, so the serve mode's replication outside
-the expert banks is all there is of it.  The reference's training specs
-(FSDP), its data axes and its cache specs are ROADMAP A.16.
+dimension that N does not divide stays whole).  The mamba2 leaves whose
+last dimension packs several parts (``w_in``: z, x, B, C, dt; ``conv_w`` /
+``conv_b``: x, B, C) are split part by part (``Pieces``), so that a rank
+holds whole SSD heads.  A model group replicates the batch: there is no
+data axis, so the serve mode's replication outside the expert banks is all
+there is of it.  The reference's training specs (FSDP), its data axes and
+its cache specs are ROADMAP A.16.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Optional, Sequence, Tuple, Union
 
 import torch.distributed as dist
@@ -45,12 +49,27 @@ def padded_cohort(capacity: int, n_shards: int) -> int:
 
 
 # ------------------------------------------------------------- the model group
-# The mamba2 leaves the reference splits over "model" (its heads): w_in's
-# output concatenates z, x, B, C and dt, so a plain column split does not
-# give a rank whole heads; they are refused here (ROADMAP A.16).
+@dataclass(frozen=True)
+class Pieces:
+    """A leaf split part by part along ``dim``: ``parts`` are ``(offset,
+    width, split)`` ranges of that dimension, in order and back to back.
+    Rank r of N holds, of each part, the r-th of N slices when ``split``,
+    else the whole part, joined in the parts' order."""
+
+    dim: int
+    parts: Tuple[Tuple[int, int, bool], ...]
+
+    def width(self, world: int) -> int:
+        """The joined width of one rank's ranges."""
+        return sum(w // world if sp else w for _, w, sp in self.parts)
+
+
+# The mamba2 leaves the reference splits over "model".  w_out (…, d_inner,
+# D) and norm_z (…, d_inner) split over d_inner as there; w_in's output packs
+# [z | x | B | C | dt] and the conv runs over [x | B | C], so those are split
+# by parts (``mamba_split``), where the reference splits plain columns.
 MAMBA_SPLIT_KEYS = ("w_in", "w_out", "conv_w", "conv_b", "norm_z")
-REFUSED = "refused: mamba2 heads over the model group (ROADMAP A.16)"
-Split = Union[int, None, str]
+Split = Union[int, None, Pieces]
 
 
 def _ok(dim: int, size: int) -> bool:
@@ -58,15 +77,18 @@ def _ok(dim: int, size: int) -> bool:
     return dim % size == 0 and dim >= size
 
 
-def split_dim(path: Sequence[str], shape: Sequence[int], world: int) -> Split:
+def split_dim(path: Sequence[str], shape: Sequence[int], world: int, cfg=None) -> Split:
     """The dimension of the leaf at ``path`` (its dict keys) and of
     ``shape`` that a model group of ``world`` ranks splits, None when the
-    leaf stays whole, or ``REFUSED`` for a mamba2 leaf the reference splits.
+    leaf stays whole, or the ``Pieces`` of a packed mamba2 leaf (whose
+    split reads ``cfg``: ``mamba_split``).
     The rule is the reference's, key by key: ``embed`` (V, D) and
     ``unembed`` (D, V) over V; ``wq`` / ``wk`` / ``wv`` (…, D, H, hd) and
     ``wo`` (…, H, hd, D) over their heads; a dense MLP's ``w_gate`` /
     ``w_up`` (…, D, F) and ``w_down`` (…, F, D) over F; an expert bank's
-    ``w_*`` (…, E, ·, ·) over E; the router and everything else whole.
+    ``w_*`` (…, E, ·, ·) over E; the mamba2 leaves over the SSD heads; the
+    router and everything else whole (mamba2's ``A_log``, ``D_skip`` and
+    ``dt_bias`` too: the block reads its heads' entries).
 
     One leaf differs from the reference on purpose: the shared expert's MLP
     under ``moe`` (maverick).  The reference's rule catches it with the
@@ -81,7 +103,7 @@ def split_dim(path: Sequence[str], shape: Sequence[int], world: int) -> Split:
         return i if _ok(shape[i], world) else None
 
     if key in MAMBA_SPLIT_KEYS:
-        return REFUSED
+        return mamba_split(key, nd, world, cfg)
     if key == "embed":
         return m(0)
     if key == "unembed":
@@ -98,6 +120,39 @@ def split_dim(path: Sequence[str], shape: Sequence[int], world: int) -> Split:
     return None
 
 
+def mamba_split(key: str, nd: int, world: int, cfg) -> Split:
+    """The split of the mamba2 leaf ``key`` (``nd`` dimensions) over
+    ``world`` ranks: none when ``world`` does not divide ``cfg.ssm_heads``
+    (the block then runs whole on every rank); else rank r takes heads
+    ``[r·H/N, (r+1)·H/N)``: their d_inner rows of ``w_out`` and entries of
+    ``norm_z``, their z, x and dt columns of ``w_in`` and x channels of
+    ``conv_w`` / ``conv_b``, with B's and C's N columns each whole."""
+    if cfg is None:
+        raise ValueError(f"the split of mamba2's {key} reads the config's widths: pass cfg")
+    if not _ok(cfg.ssm_heads, world):
+        return None
+    if key == "w_out":
+        return nd - 2
+    if key == "norm_z":
+        return nd - 1
+    d_inner, N = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+    if key == "w_in":  # [z | x | B, C | dt]
+        return Pieces(nd - 1, ((0, d_inner, True), (d_inner, d_inner, True),
+                               (2 * d_inner, 2 * N, False),
+                               (2 * d_inner + 2 * N, cfg.ssm_heads, True)))
+    return Pieces(nd - 1, ((0, d_inner, True), (d_inner, 2 * N, False)))  # [x | B, C]
+
+
+def local_shape(shape: Sequence[int], dim: Split, world: int) -> Tuple[int, ...]:
+    """The shape of one rank's share of a leaf of ``shape`` split by ``dim``."""
+    out = list(shape)
+    if isinstance(dim, Pieces):
+        out[dim.dim] = dim.width(world)
+    elif dim is not None:
+        out[dim] //= world
+    return tuple(out)
+
+
 def _keys(path: str) -> Tuple[str, ...]:
     """``['periods']['slot0']['attn']['wq']`` → ``("periods", "slot0", "attn", "wq")``."""
     return tuple(part.strip("'\"") for part in path[1:-1].split("][")) if path else ()
@@ -106,29 +161,16 @@ def _keys(path: str) -> Tuple[str, ...]:
 def param_specs(params: Any, cfg, world: int) -> Any:
     """The tree of ``split_dim`` for every leaf of ``params`` (tensors, or
     ``meta`` tensors of the shapes alone), for a model group of ``world``
-    ranks.  ``cfg`` is the config the tree was built from (kept for the
-    reference's signature: the rule reads the keys and shapes alone)."""
+    ranks.  ``cfg`` is the config the tree was built from (the mamba2
+    leaves' split reads its widths)."""
     leaves, treedef = tree_flatten_with_path(params)
-    return tree_unflatten(treedef, [split_dim(_keys(p), tuple(leaf.shape), world)
+    return tree_unflatten(treedef, [split_dim(_keys(p), tuple(leaf.shape), world, cfg)
                                     for p, leaf in leaves])
 
 
 def check_model_parallel(cfg, world: int) -> None:
-    """Refuse what a model group of ``world`` > 1 ranks does not run: the
-    ssm and hybrid families (mamba2 heads over the group) and the
-    encoder-decoder (its cross-attention under a group), both ROADMAP
-    A.16; and an expert count the group does not divide (the reference's
-    expert-parallel MoE asserts the same)."""
-    if world <= 1:
-        return
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder under a model group is not ported "
-            f"(ROADMAP A.16); serve it with --model-parallel 1")
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: mamba2 heads over the model group are not ported (ROADMAP A.16; "
-            f"the {cfg.family} family serves with --model-parallel 1)")
-    if cfg.n_experts and cfg.n_experts % world:
+    """Refuse an expert count that a model group of ``world`` > 1 ranks does
+    not divide (the reference's expert-parallel MoE asserts the same)."""
+    if world > 1 and cfg.n_experts and cfg.n_experts % world:
         raise ValueError(f"{cfg.name}: {cfg.n_experts} experts do not split over a model "
                          f"group of {world}")

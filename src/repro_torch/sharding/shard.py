@@ -1,13 +1,16 @@
-"""Each rank's share of a decoder-only LM's weights over a model group.
+"""Each rank's share of an LM's weights over a model group.
 
 The rule of which dimension of which leaf a group splits is
 ``rules.split_dim`` (the reference's ``param_specs(..., mode="serve")``
-along ``"model"``); rank r of N holds the r-th of N equal slices of it.
+along ``"model"``); rank r of N holds the r-th of N equal slices of it, or,
+of a mamba2 leaf split by parts (``rules.Pieces``), its ranges of each part
+joined.
 
 ``shard_params`` slices a whole tree (the port's own, or the reference's
 parameters carried across by ``core.convert.params_from_numpy``).
 ``init_params_sharded`` draws a rank's share without the whole model: it
-makes the same draws as ``transformer.init_params`` from the same generator,
+makes the same draws as ``transformer.init_params`` (``encdec.init_params``
+for the encoder-decoder) from the same generator,
 leaf by leaf, and keeps the rank's slice of each leaf as it is drawn, so the
 share is bitwise that rank's slice of the unsharded draw while the rank
 holds its share and at most one whole leaf.
@@ -16,40 +19,58 @@ holds its share and at most one whole leaf.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Optional, Tuple
 
 import torch
 
 from repro_torch.models import encdec, transformer
-from repro_torch.sharding.rules import REFUSED, Split, check_model_parallel, param_specs, split_dim
+from repro_torch.sharding.rules import (
+    Pieces, Split, check_model_parallel, local_shape, param_specs, split_dim,
+)
 from repro_torch.utils.trees import tree_leaves, tree_map
 
 
 def param_shapes(cfg) -> Any:
     """The params tree of ``cfg`` as ``meta`` tensors: the shapes and
     dtypes, nothing drawn and nothing allocated."""
-    init = encdec.init_params if cfg.is_encoder_decoder else transformer.init_params
-    return init(torch.Generator(), cfg, device="meta")
+    return _init(cfg)(torch.Generator(), cfg, device="meta")
+
+
+def _init(cfg):
+    return encdec.init_params if cfg.is_encoder_decoder else transformer.init_params
 
 
 def take(leaf: torch.Tensor, dim: Split, rank: int, world: int, device=None) -> torch.Tensor:
     """Rank ``rank``'s slice of ``leaf`` along ``dim`` (the whole leaf when
-    ``dim`` is None), as a tensor of its own on ``device`` (default: the
-    leaf's; a whole leaf already there is returned as it is).  A slice
-    along a later dimension is copied a leading index at a time, so copying
-    it to another device needs no whole-slice buffer beside the leaf."""
-    if dim == REFUSED:
-        raise NotImplementedError(REFUSED)
+    ``dim`` is None; its ranges of each part joined when ``dim`` is
+    ``Pieces``), as a tensor of its own on ``device`` (default: the leaf's;
+    a whole leaf already there is returned as it is).  A slice along a
+    later dimension is copied a leading index at a time, so copying it to
+    another device needs no whole-slice buffer beside the leaf.  Any other
+    ``dim`` raises."""
     device = leaf.device if device is None else torch.device(device)
     if dim is None:
         return leaf.to(device)
-    n = leaf.shape[dim] // world
-    part = leaf.narrow(dim, rank * n, n)
-    out = torch.empty(part.shape, dtype=leaf.dtype, device=device)
-    if dim == 0 or part.is_contiguous():
-        return out.copy_(part)
-    for i in range(part.shape[0]):
-        out[i].copy_(part[i])
+    if isinstance(dim, Pieces):
+        ranges = [(off + rank * (w // world), w // world) if sp else (off, w)
+                  for off, w, sp in dim.parts]
+        d = dim.dim
+    elif isinstance(dim, int) and not isinstance(dim, bool):
+        n = leaf.shape[dim] // world
+        ranges, d = [(rank * n, n)], dim
+    else:
+        raise TypeError(f"no split rule of kind {dim!r}")
+    out = torch.empty(local_shape(leaf.shape, dim, world), dtype=leaf.dtype, device=device)
+    at = 0
+    for off, w in ranges:
+        part, dst = leaf.narrow(d, off, w), out.narrow(d, at, w)
+        at += w
+        if d == 0 or (part.is_contiguous() and dst.is_contiguous()):
+            dst.copy_(part)
+            continue
+        for i in range(part.shape[0]):
+            dst[i].copy_(part[i])
     return out
 
 
@@ -61,19 +82,20 @@ def shard_params(params: Any, specs: Any, rank: int, world: int) -> Any:
 
 def init_params_sharded(generator: torch.Generator, cfg, rank: int, world: int,
                         stage: Optional[str] = None) -> Any:
-    """Rank ``rank``'s share of ``transformer.init_params(generator, cfg)``,
-    bitwise, drawn on the generator's device leaf by leaf.  ``stage`` is a
+    """Rank ``rank``'s share of ``transformer.init_params(generator, cfg)``
+    (``encdec.init_params`` for the encoder-decoder), bitwise, drawn on the
+    generator's device leaf by leaf.  ``stage`` is a
     device where the kept slices wait until the last leaf is drawn (the
     host, so that a card holds one whole leaf at a time and never that
     leaf beside the share); the share is then moved to the generator's
-    device.  Refuses what a model group does not run
+    device.  Refuses an expert count the group does not divide
     (``rules.check_model_parallel``)."""
     check_model_parallel(cfg, world)
 
     def keep(path: Tuple[str, ...], leaf: torch.Tensor) -> torch.Tensor:
-        return take(leaf, split_dim(path, tuple(leaf.shape), world), rank, world, stage)
+        return take(leaf, split_dim(path, tuple(leaf.shape), world, cfg), rank, world, stage)
 
-    params = transformer.init_params(generator, cfg, keep=keep)
+    params = _init(cfg)(generator, cfg, keep=keep)
     if stage is not None:
         params = tree_map(lambda t: t.to(generator.device), params)
     return params
@@ -81,10 +103,8 @@ def init_params_sharded(generator: torch.Generator, cfg, rank: int, world: int,
 
 def share_bytes(cfg, world: int) -> int:
     """The bytes of one rank's share of ``cfg``'s params (every rank's share
-    is the same size)."""
+    is the same size; a mamba2 leaf's whole parts count on every rank)."""
     shapes = param_shapes(cfg)
-    total = 0
-    for leaf, dim in zip(tree_leaves(shapes), tree_leaves(param_specs(shapes, cfg, world))):
-        n = leaf.numel() * leaf.element_size()
-        total += n if dim is None or dim == REFUSED else n // world
-    return total
+    return sum(math.prod(local_shape(leaf.shape, dim, world)) * leaf.element_size()
+               for leaf, dim in zip(tree_leaves(shapes),
+                                    tree_leaves(param_specs(shapes, cfg, world))))

@@ -35,7 +35,7 @@ from _torch_parity import LM_ATOL, LM_RTOL, assert_close
 from repro.configs.base import get_config as ref_get_config
 from repro.configs.base import reduced as ref_reduced
 from repro.models import build_model as ref_build_model
-from repro_torch.configs.base import ModelConfig, get_config, reduced
+from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import spawn_cohort
 from repro_torch.launch import serve
 from repro_torch.models.layers import ParallelContext, kv_heads_of
@@ -254,27 +254,6 @@ def test_init_params_sharded_through_a_stage_device_is_the_same_share():
     got = init_params_sharded(torch.Generator().manual_seed(3), cfg, 1, 4, stage="cpu")
     for a, b in zip(tree_leaves(got), tree_leaves(want)):
         assert a.device == b.device and torch.equal(a, b)
-
-
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-7b", "seamless-m4t-large-v2"])
-def test_refused_families_raise_naming_a16(arch):
-    cfg = reduced(get_config(arch))
-    with pytest.raises(NotImplementedError, match="A.16"):
-        init_params_sharded(torch.Generator().manual_seed(0), cfg, 0, 2)
-    args = serve.build_parser().parse_args(["--arch", arch, "--device", "cpu",
-                                            "--model-parallel", "2"])
-    with pytest.raises(NotImplementedError, match="A.16"):
-        serve.run_model_parallel(args, [])
-
-
-def test_forward_refuses_a_group_for_the_ssm_family():
-    from repro_torch.models.model import build_model
-    cfg = reduced(get_config("mamba2-1.3b"))
-    model = build_model(cfg)
-    params = model.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="A.16"):
-        model.apply(params, torch.zeros((1, 4), dtype=torch.long),
-                    parallel=ParallelContext(None, 0, 2))
 
 
 @pytest.mark.parametrize("flags", [["--ckpt", "runs/pub"], ["--ckpt", "runs/pub", "--follow"]])

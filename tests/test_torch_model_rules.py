@@ -7,11 +7,14 @@ entry is that dimension.  Both run on shapes alone: the port's tree as
 ``meta`` tensors (``sharding.shard.param_shapes``), the reference's from
 ``jax.eval_shape`` on a shape-only mesh ``{"data": 1, "model": N}`` (as
 tests/test_sharding.py builds its meshes), for all ten archs at their
-published widths and N in {2, 4, 16}.  Two kinds of leaf are told apart:
-the mamba2 leaves the reference splits are refused here (ROADMAP A.16),
-and the shared expert's MLP under ``moe`` (maverick), which the reference's
-``"moe" in path`` rule splits along the stacked periods axis, is split over
-its hidden dimension like every MLP (ROADMAP queue C).
+published widths and N in {2, 4, 16}.  Two kinds of leaf are told apart
+(ROADMAP queue C's route differences): the packed mamba2 leaves ``w_in``,
+``conv_w`` and ``conv_b``, which the reference splits as plain columns,
+are split part by part along the same dimension (``rules.Pieces``: a rank's
+z, x and dt columns, B's and C's whole), and the shared expert's MLP under
+``moe`` (maverick), which the reference's ``"moe" in path`` rule splits
+along the stacked periods axis, is split over its hidden dimension like
+every MLP.
 """
 import pytest
 import torch
@@ -25,7 +28,7 @@ from repro.sharding.rules import _path_str
 from repro.sharding.rules import param_specs as ref_param_specs
 from repro_torch.configs.base import ARCH_IDS, get_config
 from repro_torch.sharding.rules import (
-    MAMBA_SPLIT_KEYS, REFUSED, check_model_parallel, param_specs, split_dim,
+    MAMBA_SPLIT_KEYS, Pieces, check_model_parallel, local_shape, param_specs, split_dim,
 )
 from repro_torch.sharding.shard import param_shapes, share_bytes, take
 from repro_torch.utils.trees import tree_flatten_with_path
@@ -76,14 +79,44 @@ def test_param_specs_agree_with_the_reference_leaf_by_leaf(arch, world):
         ref_dim, ref_shape = ref[path]
         assert shape == ref_shape, path
         key = path.split("/")[-1]
-        if key in MAMBA_SPLIT_KEYS:
-            assert dim == REFUSED, path
+        if key in ("w_in", "conv_w", "conv_b"):
+            # split by parts along the dimension the reference splits by plain columns
+            assert isinstance(dim, Pieces) and dim.dim == ref_dim == len(shape) - 1, path
+            _check_mamba_pieces(cfg, key, dim, shape, world)
         elif "/moe/shared/" in path:
             # split over F, as the group's MLP; the reference splits the periods axis
             assert dim == len(shape) - (1 if key != "w_down" else 2), path
             assert ref_dim in (0, None), path
         else:
             assert dim == ref_dim, (path, dim, ref_dim)
+
+
+def _check_mamba_pieces(cfg, key, dim, shape, world):
+    """The parts are [z | x | B, C | dt] (``w_in``) or [x | B, C] (the
+    conv), back to back over the whole leaf; on every rank they add up to
+    its share's width, and ``take`` gives the rank its heads' z, x and dt
+    columns with all of B's and C's."""
+    d, N, H = cfg.ssm_expand * cfg.d_model, cfg.ssm_state, cfg.ssm_heads
+    want = [(d, True), (d, True), (2 * N, False), (H, True)] if key == "w_in" else \
+        [(d, True), (2 * N, False)]
+    assert [(w, sp) for _, w, sp in dim.parts] == want, key
+    assert [off for off, _, _ in dim.parts] == [sum(w for w, _ in want[:i])
+                                                for i in range(len(want))], key
+    assert sum(w for w, _ in want) == shape[-1], key
+    cols = torch.arange(shape[-1])[None]
+    dealt = []
+    for r in range(world):
+        got = take(cols, Pieces(1, dim.parts), r, world)[0].tolist()
+        assert len(got) == local_shape(shape, dim, world)[-1] == \
+            sum(w // world if sp else w for w, sp in want), key
+        mine = []
+        for off, w, sp in dim.parts:
+            lo, n = (off + r * (w // world), w // world) if sp else (off, w)
+            mine += list(range(lo, lo + n))
+        assert got == mine, (key, r)
+        dealt += [c for c in got if any(sp and off <= c < off + w for off, w, sp in dim.parts)]
+    split_cols = [c for off, w, sp in dim.parts if sp for c in range(off, off + w)]
+    assert sorted(dealt) == split_cols, key  # each head's column on exactly one rank
 
 
 def test_the_divisibility_guard_keeps_a_dimension_whole():
@@ -97,16 +130,20 @@ def test_the_divisibility_guard_keeps_a_dimension_whole():
     assert split_dim(("final_norm",), (256,), 2) is None
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-7b", "seamless-m4t-large-v2"])
-def test_refused_families_name_their_roadmap_item(arch):
-    cfg = get_config(arch)
-    with pytest.raises(NotImplementedError, match="A.16"):
-        check_model_parallel(cfg, 2)
-    check_model_parallel(cfg, 1)  # one rank is the unsharded model
-    if cfg.family in ("ssm", "hybrid"):
-        leaf = torch.zeros(2, 3)
-        with pytest.raises(NotImplementedError, match="A.16"):
-            take(leaf, REFUSED, 0, 2)
+@pytest.mark.parametrize("dim", ["model", 1.0, True])
+def test_take_refuses_a_split_it_has_no_rule_for(dim):
+    with pytest.raises(TypeError, match="no split rule"):
+        take(torch.zeros(2, 4), dim, 0, 2)
+
+
+def test_mamba_leaves_stay_whole_when_the_group_does_not_divide_the_heads():
+    from dataclasses import replace
+    cfg = replace(get_config("mamba2-1.3b"), d_model=96, ssm_head_dim=32)  # 6 SSD heads
+    for key in MAMBA_SPLIT_KEYS:
+        assert split_dim(("periods", "slot0", "mamba", key), (2, 8, 8), 4, cfg) is None
+        assert split_dim(("periods", "slot0", "mamba", key), (2, 8, 8), 2, cfg) is not None
+    with pytest.raises(ValueError, match="cfg"):
+        split_dim(("periods", "slot0", "mamba", "w_in"), (2, 8, 8), 2)
 
 
 def test_an_expert_count_the_group_does_not_divide_is_refused():
@@ -115,8 +152,48 @@ def test_an_expert_count_the_group_does_not_divide_is_refused():
         check_model_parallel(replace(get_config("dbrx-132b"), n_experts=6), 4)
 
 
-@pytest.mark.parametrize("arch, world, gb", [("chameleon-34b", 4, 34.3), ("dbrx-132b", 4, 132.6)])
+def _share_by_hand(cfg, world):
+    """A rank's f32 share counted from the config, layer by layer: the
+    vocabulary, the heads, the MLP's hidden layer and the SSD heads split
+    over ``world`` ranks; norms, ``A_log`` / ``D_skip`` / ``dt_bias`` and
+    B's and C's columns of ``w_in`` and the conv whole on every rank."""
+    D, V, hd = cfg.d_model, cfg.padded_vocab, cfg.resolved_head_dim if cfg.n_heads else 0
+    H, Hkv, Fd = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    n = world
+    emb = V * D // n * (1 if cfg.tie_embeddings else 2)
+    n_mats = 2 if cfg.mlp_type == "gelu" else 3
+    attn = 2 * D + D * H * hd // n + 2 * D * Hkv * hd // n + H * hd * D // n  # norms, wq, wk, wv, wo
+    mlp = n_mats * D * Fd // n
+    d, N, Hs, k = cfg.ssm_expand * D, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv
+    mamba = (D + D * (2 * d // n + 2 * N + Hs // n) + (k + 1) * (d // n + 2 * N)
+             + 3 * Hs + d // n * D + d // n)
+    if cfg.is_encoder_decoder:
+        total = emb + 2 * D + cfg.n_encoder_layers * (attn + mlp) + \
+            cfg.n_layers * (attn + D + attn - 2 * D + mlp)  # self, norm_x, cross (no norms)
+    elif cfg.family == "hybrid":
+        n_attn = cfg.n_layers // cfg.attn_every
+        total = emb + D + (cfg.n_layers - n_attn) * mamba + attn + mlp  # one shared block
+    else:
+        total = emb + D + cfg.n_layers * mamba
+    return 4 * total
+
+
+@pytest.mark.parametrize("arch, world, gb", [("chameleon-34b", 4, 34.3), ("dbrx-132b", 4, 132.6),
+                                             ("zamba2-7b", 4, 5.83),
+                                             ("seamless-m4t-large-v2", 4, 1.63)])
 def test_share_bytes_of_the_full_width_runs(arch, world, gb):
     """A rank's f32 share: chameleon-34b is split whole over four cards; so
-    is every dbrx-132b layer (the four-card run serves 16 of its 40)."""
-    assert share_bytes(get_config(arch), world) / 1e9 == pytest.approx(gb, rel=0.01)
+    is every dbrx-132b layer (the four-card run serves 16 of its 40), and
+    zamba2-7b's and seamless-m4t's every layer, counted from the config
+    with B's and C's columns on every rank."""
+    cfg = get_config(arch)
+    assert share_bytes(cfg, world) / 1e9 == pytest.approx(gb, rel=0.01)
+    if cfg.family in ("hybrid", "ssm", "audio"):
+        assert share_bytes(cfg, world) == _share_by_hand(cfg, world)
+
+
+@pytest.mark.parametrize("world", [1, 2, 4, 16])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-7b", "seamless-m4t-large-v2"])
+def test_share_bytes_count_b_and_c_whole_on_every_rank(arch, world):
+    """The share of the new families at every group size, counted by hand."""
+    assert share_bytes(get_config(arch), world) == _share_by_hand(get_config(arch), world)
