@@ -130,7 +130,9 @@ and ends with a ``clock:`` line (seconds since the script started):
    launch, each shard's time beside the whole launch's and the shard's
    bound; (b) whole sharded rounds: ``SHARD_RUNS`` (fedcm, scaffold int8,
    mimelite, fedcm with drops and NaN corruption, the fedcm ring at D=2
-   S=1), ``SHARD_ROUNDS`` rounds each at the CLI defaults, on worlds of 2
+   S=1, and phase 4g's ``_test_mixed``, an affine direction with a
+   ``server_fn``, registered at runtime in every rank), ``SHARD_ROUNDS``
+   rounds each at the CLI defaults, on worlds of 2
    and 4 ranks that share cuda:0 over gloo (``repro_torch.launch.mesh``;
    collectives staged through the host, so their ms/round is not a
    multi-card time), after a warm-up run: each rank's launch counts (K
@@ -155,6 +157,31 @@ and ends with a ``clock:`` line (seconds since the script started):
    layer a prefill on each rank (seamless: one session, one flash launch an
    encoder layer), prefill and decode ms a session, each rank's peak device
    memory), on a machine with four cards;
+4g. the public API — (a) three specs registered at runtime
+   (``user_specs``: the reference's affine ``_test_damped``; ``_test_escape``
+   with a normalized-gradient ``direction_fn`` and an averaging
+   ``server_fn``; ``_test_mixed``, an affine direction with that
+   ``server_fn``), each through ``run_federated`` at the CLI defaults for
+   20 rounds with the launch counts set to 0 just before and read just
+   after (``USER_SPEC_LAUNCHES``: no ``fed_direction`` for a
+   ``direction_fn``, one mean-only ``server_update`` a round for a
+   ``server_fn``), a finite loss and its accuracy, card vs CPU over 3
+   injected rounds within ``PARITY_RTOL`` / ``PARITY_ATOL`` and the ring at
+   D = 1, S = 0 bitwise the sync loop on the card; then unregistered;
+   (b) FedCM over ``cnn_classifier`` (GroupNorm, P = 22,058) on
+   ``make_synthetic_images`` at its defaults (10 classes, 8 × 8 × 3, 20,000 /
+   4,000), Dirichlet 0.6, N 100, Bernoulli 10 % (capacity 25), K 10, B 50,
+   20 rounds: 200 ``fed_direction`` and 20 ``server_update`` launches, a
+   finite loss whose last round is below its first, the test accuracy
+   beside the partition's ``heterogeneity_score``, the steady ms a round of
+   20 more rounds, card vs CPU over 3 injected rounds; (c)
+   ``fed_direction``'s kernel at FedCM's coefficients against the blend
+   oracle ``fedcm_step_ref`` (``BLEND_SIZES`` in f32 and bf16,
+   ``BLEND_EDGES``, bf16 x with f32 g and Δ bit for bit, the main plane);
+   (d) the four ``examples/torch`` scripts as subprocesses on the card, all
+   at once (``EXAMPLES``: quickstart and fed_comparison at their defaults,
+   serve_model with mamba2-1.3b and with gemma3-12b --gen 48, lm_pretrain
+   --tiny), each exiting 0, their last lines printed;
 5. card vs CPU — three rounds from one converted state with the same
    injected ids, masks and minibatch indices on ``cuda`` and on ``cpu``;
    then three rounds under int8 + faults, each started on both devices
@@ -251,8 +278,8 @@ and ends with a ``clock:`` line (seconds since the script started):
    flash's and the SSD scan's, ``launches_by_path``: phase 6's count and
    each rank's in phase 6b's worlds; for ``fed_direction`` and
    ``server_update``, ``launches_by_path``
-   — the main path, phase 8 (c)'s card run and 8 (d), each its own count —
-   and ``full_plane``, their times and bound at the federated LM's cohort
+   — the main path, phase 4g's runs (each user spec, the CNN), phase 8
+   (c)'s card run and 8 (d), each its own count — and ``full_plane``, their times and bound at the federated LM's cohort
    plane) and, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2429,7 +2456,10 @@ SHARD_RUNS = (("fedcm", "fedcm", None, None, None),
               ("mimelite", "mimelite", None, None, None),
               ("fedcm faults", "fedcm", None, {"drop_rate": 0.1, "corrupt_rate": 0.1,
                                                "corrupt_mode": "nan"}, None),
-              ("fedcm ring D=2 S=1", "fedcm", None, None, (2, 1)))
+              ("fedcm ring D=2 S=1", "fedcm", None, None, (2, 1)),
+              # registered at runtime (phase 4g's): an affine direction and a
+              # server_fn, whose means come from scatter_means
+              ("_test_mixed", "_test_mixed", None, None, None))
 SHARD_ROUNDS = 4
 SHARD_WORLDS = (2, 4)
 SHARD_TIMEOUT_S, SHARD_DEADLINE_S = 60.0, 150.0
@@ -2558,6 +2588,7 @@ def shard_rank(rank, device, runs):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    register_user_specs()
     shard_run(torch, runs[0], device, dist.group.WORLD)
     return [shard_run(torch, spec, device, dist.group.WORLD) for spec in runs]
 
@@ -2697,6 +2728,7 @@ def cohort_sharding(torch, np, su_kernel, smi_line: str, nccl_only: bool = False
     ``nccl_only`` (``--nccl``) runs (c) and the unsharded runs it is
     compared with, nothing else."""
     t0 = time.perf_counter()
+    register_user_specs()  # SHARD_RUNS holds one
     if not nccl_only:
         gen = torch.Generator(device="cuda")
         gen.manual_seed(19)
@@ -2713,27 +2745,289 @@ def cohort_sharding(torch, np, su_kernel, smi_line: str, nccl_only: bool = False
         fail(f"--nccl needs two or more cards; {cards} visible")
     else:
         say(f"nccl: not run ({cards} card visible)")
+    unregister_user_specs()
     say(f"cohort sharding: phase 4f in {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------- phase 4g
+# the specs registered at runtime (``user_specs``) with their (fed_direction,
+# server_update) launches a round: K local steps through the kernel for an
+# affine direction row, none for a direction_fn; one fold row, or one
+# mean-only fold launch a plane for a server_fn
+USER_SPEC_LAUNCHES = {"_test_damped": (K, 1), "_test_escape": (0, 1), "_test_mixed": (K, 1)}
+# the FedCM blend oracle's cases (the reference's tests/test_kernels.py):
+# sizes, the hyper-parameter edges at n = 333, and the bf16-x case (bitwise)
+BLEND_SIZES = (5, 1023, 64 * 1024 + 3)
+BLEND_EDGES = ((0.0, 0.1), (1.0, 0.1), (0.1, 0.0), (0.37, 1.3))
+BLEND_TOL = {"float32": (3e-5, 3e-5), "bfloat16": (2e-2, 2e-2), "edges": (1e-6, 1e-6)}
+# (script, arguments) of examples/torch, run on the card as subprocesses at
+# the reference's defaults (serve_model: its docstring's two calls)
+EXAMPLES = (("quickstart", []), ("fed_comparison", []),
+            ("serve_model", ["--arch", "mamba2-1.3b"]),
+            ("serve_model", ["--arch", "gemma3-12b", "--gen", "48"]),
+            ("lm_pretrain", ["--tiny"]))
+
+
+def user_specs():
+    """Three specs as a user registers them: the reference's affine
+    ``_test_damped`` (tests/test_registry.py: damped SGD with a proximal
+    pull), ``_test_escape`` with both escape hatches (each client's
+    normalized gradient, not elementwise, and an averaging ``server_fn``),
+    and ``_test_mixed``: an affine direction with that ``server_fn``
+    (tests/test_cohort_shard.py)."""
+    import torch
+
+    from repro_torch.core.registry import AlgorithmSpec, DirectionRow, FoldPass
+
+    def normalized(cfg, m, cst, x, x0, g):
+        return g / (torch.sqrt(torch.sum(g * g)) + 1e-12)
+
+    def averaging(cfg, params, server, mean_delta, mean_sd, mean_extra, n_active, eta_l):
+        return params + cfg.eta_g * mean_delta, server._replace(round=server.round + 1)
+
+    return (
+        AlgorithmSpec(name="_test_damped", direction_row=DirectionRow(c_g=0.7, c_x=0.05),
+                      fold=(FoldPass("delta", c_mm=0.0,
+                                     c_md=lambda cfg, e, n: -1.0 / (e * cfg.local_steps),
+                                     c_xd=lambda cfg, e, n: cfg.eta_g),)),
+        AlgorithmSpec(name="_test_escape", direction_row=None, direction_fn=normalized,
+                      fold=(), server_fn=averaging),
+        AlgorithmSpec(name="_test_mixed", direction_row=DirectionRow(), server_fn=averaging),
+    )
+
+
+def register_user_specs() -> None:
+    from repro_torch.core.registry import register_algorithm
+
+    for spec in user_specs():
+        register_algorithm(spec, override=True)
+
+
+def unregister_user_specs() -> None:
+    from repro_torch.core.registry import unregister_algorithm
+
+    for spec in user_specs():
+        unregister_algorithm(spec.name)
+
+
+def ring_d1_is_sync(torch, np, cfg) -> None:
+    """``PAIR_ROUNDS`` rounds of the ring at D = 1, S = 0 against the sync
+    loop on the card: params, momentum and every metric bit for bit."""
+    from repro_torch.core.engine import metrics_to_host
+
+    outs = []
+    for ring in (None, (1, 0)):
+        eng, state, data = fresh_engine(torch, cfg)
+        state, ms = run_engine(eng, state, data, PAIR_ROUNDS, ring)
+        outs.append((state, metrics_to_host(ms)))
+    (sa, ma), (sb, mb) = outs
+    if not (torch.equal(sa.params, sb.params) and torch.equal(sa.server.momentum,
+                                                              sb.server.momentum)
+            and all(np.array_equal(ma[f], mb[f]) for f in ma if f in mb)):
+        fail(f"{cfg.algo}: the ring at D=1 S=0 is not the sync loop bit for bit on the card")
+
+
+def user_spec_runs(torch, np, bindings):
+    """(a) Each of ``user_specs`` registered, then ``run_federated`` at the
+    CLI defaults for ``ROUNDS`` rounds with the launch counts set to 0 just
+    before and read just after (``USER_SPEC_LAUNCHES``), a finite loss and
+    its accuracy; card vs CPU over 3 injected rounds; the ring at D = 1,
+    S = 0 ≡ sync.  Unregistered after.  Returns each run's launches."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.launch.fed_train import run_federated
+
+    register_user_specs()
+    paths = {}
+    for name, (fd, su) in USER_SPEC_LAUNCHES.items():
+        cfg = FedConfig(algo=name, participation="bernoulli", rounds=ROUNDS)
+        expected = {"fed_direction": ROUNDS * fd, "server_update": ROUNDS * su,
+                    "dequant_update": 0, "flash_attention": 0, "ssd_scan": 0}
+        for b in bindings.values():
+            b.launches = 0
+        t0 = time.perf_counter()
+        acc, log = run_federated(cfg, 0.6, eval_every=EVAL_EVERY, seed=0, echo=False,
+                                 device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: b.launches for k, b in bindings.items()}
+        losses = log.column("loss")
+        if not all(np.isfinite(losses)):
+            fail(f"{name}: non-finite loss {losses}")
+        if launches != expected:
+            fail(f"{name}: launch counts {launches}, expected {expected}")
+        diffs = card_vs_cpu(torch, np, name)
+        ring_d1_is_sync(torch, np, cfg)
+        row = {"spec": name, "rounds": ROUNDS, "launches": launches, "losses": losses,
+               "final_test_acc": acc, "wall_s": wall, "card_vs_cpu_max_abs": diffs,
+               "ring_d1_s0": "bitwise the sync loop"}
+        say(f"user spec {json.dumps(row)}")
+        paths[f"user_spec{name}"] = launches
+    unregister_user_specs()
+    return paths
+
+
+def fedcm_over_cnn(torch, np, bindings, smi_line: str):
+    """(b) FedCM over ``cnn_classifier`` (GroupNorm, P = 22,058) on
+    ``make_synthetic_images`` at its defaults, Dirichlet 0.6, the CLI's
+    federated defaults (N 100, Bernoulli 10 %, K 10, B 50) for ``ROUNDS``
+    rounds with the launch counts set to 0 just before and read just after;
+    a finite loss whose last round is below its first, the test accuracy
+    beside the partition's ``heterogeneity_score``, the steady ms a round of
+    ``ROUNDS`` more; card vs CPU over 3 injected rounds.  Returns the
+    launches."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core import FederatedEngine, FlatSpec, make_eval_fn
+    from repro_torch.core.engine import metrics_to_host
+    from repro_torch.data import (
+        FederatedData, dirichlet_partition, heterogeneity_score, make_synthetic_images,
+    )
+    from repro_torch.models.small import classification_loss, cnn_classifier
+
+    cfg = FedConfig(participation="bernoulli", rounds=ROUNDS)
+    x_tr, y_tr, x_te, y_te = make_synthetic_images(seed=0)
+    hetero = heterogeneity_score(y_tr, dirichlet_partition(y_tr, cfg.num_clients, 0.6, seed=0),
+                                 10)
+    data = FederatedData(x_tr, y_tr, cfg.num_clients, dirichlet_alpha=0.6, seed=0, device="cuda")
+    model = cnn_classifier()
+    params = model.init(torch.Generator().manual_seed(0))
+    eng = FederatedEngine(cfg, classification_loss(model.apply), FlatSpec.from_tree(params),
+                          device="cuda")
+    state = eng.init(params, torch.Generator(device="cuda").manual_seed(1))
+    for b in bindings.values():
+        b.launches = 0
+    t0 = time.perf_counter()
+    state, ms = eng.run_rounds(state, data, ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: b.launches for k, b in bindings.items()}
+    expected = {"fed_direction": ROUNDS * K, "server_update": ROUNDS, "dequant_update": 0,
+                "flash_attention": 0, "ssd_scan": 0}
+    losses = metrics_to_host(ms)["loss"]
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        fail(f"FedCM over the CNN: losses {losses.tolist()} (finite, the last below the first)")
+    if launches != expected:
+        fail(f"FedCM over the CNN: launch counts {launches}, expected {expected}")
+    acc = make_eval_fn(model.apply)(eng.spec.unravel(state.params),
+                                    torch.as_tensor(x_te, device="cuda"),
+                                    torch.as_tensor(y_te, device="cuda"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = eng.run_rounds(state, data, ROUNDS)
+    torch.cuda.synchronize()
+    steady_ms = (time.perf_counter() - t0) / ROUNDS * 1e3
+    diffs = card_vs_cpu(torch, np, "fedcm", cnn=True)
+    row = {"model": "cnn_classifier (32, 64), GroupNorm 8", "P": eng.spec.size,
+           "rounds": ROUNDS, "launches": launches, "first_loss": float(losses[0]),
+           "last_loss": float(losses[-1]), "final_test_acc": acc,
+           "heterogeneity_score": hetero, "wall_s": wall, "steady_ms_per_round": steady_ms,
+           "card_vs_cpu_max_abs": diffs}
+    say(f"FedCM over the CNN: {json.dumps(row)}; {smi_line}")
+    return launches
+
+
+def fedcm_blend_on_card(torch, fd_kernel):
+    """(c) ``fed_direction``'s kernel at FedCM's coefficients ``(η_l, α, 0,
+    1−α)`` against the blend oracle ``fedcm_step_ref``: the reference
+    test's sizes in f32 and bf16 and its hyper-parameter edges within
+    ``BLEND_TOL``, bf16 x with f32 g and Δ bit for bit, and the main plane
+    (a (25, 22026) cohort, Δ broadcast) within the f32 tolerance."""
+    from repro_torch.kernels.fedcm_update import fedcm_step_ref
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(25)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    def case(label, x, g, d, alpha, eta, tol):
+        coefs = torch.tensor([eta, alpha, 0.0, 1.0 - alpha], device="cuda")
+        out = fd_kernel.fed_direction_flat(x, g, [d], coefs)
+        ref = fedcm_step_ref(x, g, d, alpha, eta)
+        err = float((out.float() - ref.float()).abs().max())
+        ok = out.dtype == x.dtype and (torch.equal(out, ref) if tol is None else
+                                       torch.allclose(out.float(), ref.float(), rtol=tol[0],
+                                                      atol=tol[1]))
+        return {"case": label, "shape": list(x.shape), "x": str(x.dtype).split(".")[-1],
+                "max_abs_err": err, "bitwise": torch.equal(out, ref), "ok": ok}
+
+    rows = []
+    for n in BLEND_SIZES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            rows.append(case(f"n={n}", randn(n, dtype=dtype), randn(n, dtype=dtype),
+                             randn(n, dtype=dtype), 0.1, 0.05, BLEND_TOL[name]))
+    for alpha, eta in BLEND_EDGES:
+        rows.append(case(f"alpha={alpha} eta={eta}", randn(333), randn(333), randn(333), alpha,
+                         eta, BLEND_TOL["edges"]))
+    rows.append(case("bf16 x, f32 g and delta", randn(4097, dtype=torch.bfloat16), randn(4097),
+                     randn(4097, scale=1e-3), 0.1, 0.05, None))
+    rows.append(case("main plane, delta broadcast", randn(MAIN_C, MAIN_P), randn(MAIN_C, MAIN_P),
+                     randn(MAIN_P), 0.1, 0.1, BLEND_TOL["float32"]))
+    for r in rows:
+        say(f"fedcm blend {json.dumps(r)}")
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        fail(f"fed_direction at FedCM's coefficients disagrees with fedcm_step_ref: {bad}")
+    say(f"fedcm blend: the fed_direction kernel meets fedcm_step_ref in all {len(rows)} cases "
+        f"({sum(r['bitwise'] for r in rows)} bitwise)")
+
+
+def examples_on_card() -> None:
+    """(d) ``EXAMPLES`` as subprocesses on the card, all at once: each must
+    exit 0; its last lines are printed."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmds = [[sys.executable, str(ROOT / "examples" / "torch" / f"{name}.py"), *args]
+            for name, args in EXAMPLES]
+    t0 = time.perf_counter()
+    outs = run_all(cmds, env, 600)
+    wall = time.perf_counter() - t0
+    for (name, args), (rc, out, err) in zip(EXAMPLES, outs):
+        if rc != 0:
+            fail(f"example {name} {' '.join(args)} exited {rc}: {out[-1500:]} {err[-3000:]}")
+        tail = [l for l in out.strip().splitlines() if l.strip()][-4:]
+        say(f"example {name} {' '.join(args)}: exit 0; last lines: " + " | ".join(tail))
+    say(f"examples: {len(EXAMPLES)} subprocesses on the card at once, {wall:.1f} s wall")
+
+
+def public_api(torch, np, bindings, fd_kernel, smi_line: str):
+    """Phase 4g: (a) the specs registered at runtime, (b) FedCM over the
+    CNN, (c) the FedCM blend oracle, (d) the examples.  Returns each
+    path's launches for the kernels line's ``launches_by_path``."""
+    t0 = time.perf_counter()
+    paths = user_spec_runs(torch, np, bindings)
+    paths["cnn"] = fedcm_over_cnn(torch, np, bindings, smi_line)
+    fedcm_blend_on_card(torch, fd_kernel)
+    examples_on_card()
+    say(f"public API: phase 4g in {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 # ---------------------------------------------------------------------- phase 5
-def card_vs_cpu(torch, np, algo="fedcm"):
+def card_vs_cpu(torch, np, algo="fedcm", cnn=False):
     """Three rounds of ``algo`` from one converted state on the card and on
     the CPU, with the same ids, masks, minibatch indices and full batches;
-    every state plane the spec has within the parity tolerance."""
+    every state plane the spec has within the parity tolerance.  The MLP on
+    the CLI's task, or with ``cnn`` the GroupNorm CNN on synthetic images
+    (phase 4g)."""
     from repro_torch.configs.base import FedConfig
     from repro_torch.core.convert import params_to_numpy, state_from_numpy, state_to_numpy
     from repro_torch.core.engine import FederatedEngine, cohort_capacity
     from repro_torch.data import (
         FederatedData, gather_full_client_batch, gather_round_batches,
-        make_synthetic_classification,
+        make_synthetic_classification, make_synthetic_images,
     )
-    from repro_torch.models.small import classification_loss, mlp_classifier
+    from repro_torch.models.small import classification_loss, cnn_classifier, mlp_classifier
 
     cfg = FedConfig(algo=algo, participation="bernoulli", **ALGO_SETTINGS.get(algo, {}))
     cap = cohort_capacity(cfg)
-    x_tr, y_tr, _, _ = make_synthetic_classification(n_train=20_000, n_test=10, seed=3)
-    model = mlp_classifier((32, 128, 128, 10))
+    if cnn:
+        x_tr, y_tr, _, _ = make_synthetic_images(n_train=20_000, n_test=10, seed=3)
+        model = cnn_classifier()
+    else:
+        x_tr, y_tr, _, _ = make_synthetic_classification(n_train=20_000, n_test=10, seed=3)
+        model = mlp_classifier((32, 128, 128, 10))
     params = params_to_numpy(model.init(torch.Generator().manual_seed(3)))
     rng = np.random.default_rng(3)
     draws = []
@@ -3244,6 +3538,10 @@ def main() -> int:
     cohort_sharding(torch, np, su_kernel, smi_line)
     lap("4f")
 
+    # ---- 4g. the public API on the card, launch counts from each run only
+    api_paths = public_api(torch, np, bindings, fd_kernel, smi_line)
+    lap("4g")
+
     # ---- 5. card vs CPU
     diffs = card_vs_cpu(torch, np)
     say(f"card vs CPU over 3 injected rounds: max |diff| params {diffs['params']:.3e}, "
@@ -3299,7 +3597,7 @@ def main() -> int:
     train_full_width(torch, np, bindings)
     lap("8 (b)")
     # (c) and (d): FedCM over an LM, card vs CPU, then at full width
-    by_path = {"main": launches}
+    by_path = {"main": launches, **api_paths}
     by_path["fed_lm_vs_cpu"] = fed_lm_card_vs_cpu(torch, np, bindings, smi_line)
     lap("8 (c)")
     by_path["fed_lm_full"] = fed_lm_full_width(torch, np, bindings, smi_line)

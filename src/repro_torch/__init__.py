@@ -16,9 +16,16 @@ plain route, AdamW from ``repro_torch.optim``); whole-run
 snapshots with kill and resume
 (``repro_torch.checkpoint``, the reference's msgpack layout); and the
 fleet loop (``repro_torch.fleet``): publication of each snapshot's params,
-hot-swap serving, per-round telemetry and a health endpoint.  Entry points
-run on ``cuda`` unless the caller passes ``device="cpu"``; on the CPU every
-kernel wrapper uses its plain PyTorch version.
+hot-swap serving, per-round telemetry and a health endpoint; cohort
+sharding and model-parallel serving on ``torch.distributed`` groups
+(``repro_torch.launch.mesh``); and the public API (``repro_torch.core``,
+``repro_torch.models``, ``repro_torch.data``): algorithms registered at
+runtime, affine or with ``direction_fn`` / ``server_fn`` escape hatches,
+the GroupNorm CNN (``models.small.cnn_classifier``) and the counterparts
+of the reference's examples (``examples/torch/``).  Entry points run on
+``cuda`` unless the caller passes ``device="cpu"`` (``spawn_cohort``
+takes no default device); on the CPU every kernel wrapper uses its plain
+PyTorch version.
 """
 from repro_torch import checkpoint, fleet
 

@@ -28,8 +28,36 @@ from repro_torch.core.registry import (
     AlgorithmSpec,
     DirectionRow,
     FoldPass,
+    get_algorithm,
+    list_algorithms,
     register_algorithm,
 )
+
+
+class _AlgorithmsView:
+    """Read-only dict-like view of the registry (the reference's
+    ``ALGORITHMS``): a spec registered at runtime shows here too."""
+
+    def __getitem__(self, name: str) -> AlgorithmSpec:
+        return get_algorithm(name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in list_algorithms()
+
+    def __iter__(self):
+        return iter(list_algorithms())
+
+    def __len__(self) -> int:
+        return len(list_algorithms())
+
+    def keys(self):
+        return list_algorithms()
+
+    def items(self):
+        return [(n, get_algorithm(n)) for n in list_algorithms()]
+
+
+ALGORITHMS = _AlgorithmsView()
 
 # ----------------------------------------------------------------------
 # shared coefficient / post-step pieces

@@ -24,6 +24,14 @@ one ``dequant_update`` launch instead — then the spec's post-step (plain
 PyTorch on ``(P,)`` planes).  All C = capacity rows compute; inactive rows
 carry weight 0 in the fold, in the loss metric and in the scatter.
 
+A spec's escape hatches (``repro_torch.core.registry``) change the two
+steps, never the schedules: a ``direction_fn`` runs in plain PyTorch once
+per client row of each local step (the callable sees one client's ``(P,)``
+planes, as under the reference's vmap) and launches no ``fed_direction``;
+a ``server_fn`` gets the masked cohort mean of each uplink plane, taken
+by the fold kernel with neither x nor m written (one launch a plane), in
+place of the fold rows and the post-step.
+
 Three schedules drive these two steps, all plain Python loops:
 
 * ``round_step`` / ``run_round`` / ``run_rounds`` — the sync round: launch,
@@ -122,8 +130,17 @@ from repro_torch.data.population import (
     availability_log_weights,
     make_population_store,
 )
-from repro_torch.kernels.fed_direction.ops import direction_operands, fed_direction
-from repro_torch.kernels.server_update.ops import fused_fold, scatter_fold
+from repro_torch.kernels.fed_direction.ops import (
+    direction_operands,
+    fed_direction,
+    flat_direction_step,
+)
+from repro_torch.kernels.server_update.ops import (
+    fold_means,
+    fused_fold,
+    scatter_fold,
+    scatter_means,
+)
 from repro_torch.launch.mesh import make_cohort_group
 from repro_torch.sharding.rules import cohort_axis_size, padded_cohort
 from repro_torch.utils.draws import uniform as hash_uniform
@@ -354,6 +371,13 @@ def sample_cohort_ex(generator: torch.Generator, cfg: FedConfig, device, t=None)
     return ids, mask, n_clipped
 
 
+def sample_cohort(generator: torch.Generator, cfg: FedConfig, device, t=None):
+    """``(client_ids (C,), active_mask (C,))``: ``sample_cohort_ex`` without
+    the overflow count."""
+    ids, mask, _ = sample_cohort_ex(generator, cfg, device, t)
+    return ids, mask
+
+
 def local_learning_rate(cfg: FedConfig, t: torch.Tensor) -> torch.Tensor:
     """Appendix C.2: exponential per-round decay of η_l, as an f32 device
     tensor computed from the device round counter."""
@@ -547,7 +571,8 @@ class FederatedEngine:
 
     def _flat_cohort_pass(self, x_t, m_t, batches, eta_l, cst=None, full_batches=None):
         """K local steps of the whole cohort on the ``(C, P)`` plane: one
-        batched value-and-grad and ONE ``fed_direction`` launch per step.
+        batched value-and-grad and ONE ``fed_direction`` launch per step
+        (a ``direction_fn`` spec: its callable on each client row instead).
         ``m_t`` is the broadcast plane the clients descend against (the
         current momentum, or an S-rounds-stale one on the async ring),
         ``cst`` the cohort's ``(C, P)`` client-state rows (the
@@ -557,7 +582,19 @@ class FederatedEngine:
         losses ``(C,)`` the per-client mean over the K steps."""
         cfg, algo = self.cfg, self.algo
         C = batches["y"].shape[0]
-        auxes, coefs = direction_operands(algo, cfg, m_t, cst, x_t, eta_l)
+        if algo.direction_fn is None:
+            auxes, coefs = direction_operands(algo, cfg, m_t, cst, x_t, eta_l)
+
+            def step(x, g):
+                return fed_direction(x, g, auxes, coefs)
+        else:
+            # an escape hatch sees one client's (P,) planes: a direction such
+            # as g / ‖g‖ means something else over the whole (C, P) plane
+            def step(x, g):
+                return torch.stack([
+                    flat_direction_step(algo, cfg, x[c], g[c], m_t,
+                                        None if cst is None else cst[c], x_t, eta_l)
+                    for c in range(C)])
         x0 = x_t.expand(C, -1).contiguous()
         x = x0
         losses = []
@@ -566,7 +603,7 @@ class FederatedEngine:
             loss, g = self._value_and_grad(x, batch_k)
             if cfg.weight_decay:
                 g = cfg.weight_decay * x + g
-            x = fed_direction(x, g, auxes, coefs)
+            x = step(x, g)
             losses.append(loss)
         full_grad = None
         if algo.needs_full_grad:
@@ -734,17 +771,20 @@ class FederatedEngine:
               fold_rows=None, emit_rows: bool = False):
         """Server phase: fold ONE entry into the state — the spec's fold
         rows with the entry's launch-time η_l and the staleness discount
-        ``discount`` on the coefficient row, the post-step, the quorum
-        (enforced here: the surviving weights are final only now), and the
-        client-state scatter, whose base rows are gathered at fold time
-        (``fold_rows`` from a host store, else the resident plane).  A
+        ``discount`` on the coefficient row and the post-step (a
+        ``server_fn`` spec: the cohort means, and ``server_fn`` on
+        γ·mean), the quorum (enforced here: the surviving weights are
+        final only now), and the client-state scatter, whose base rows are
+        gathered at fold time (``fold_rows`` from a host store, else the
+        resident plane).  A
         compressed state delta is decoded for the scatter; with
         ``emit_rows`` the updated ``(C, P)`` rows come back instead of being
         scattered.  Leaves the round counter alone.  Returns ``(state,
         ‖mean Δ‖, quorum_skipped, rows)``.
 
         Under cohort sharding the entry's planes are this rank's rows: the
-        fold rows run through ``scatter_fold`` and the updated client-state
+        fold rows run through ``scatter_fold`` (the means through
+        ``scatter_means``) and the updated client-state
         rows are all-gathered before the scatter, which writes the C real
         rows only (pad ids repeat the last id)."""
         cfg, algo = self.cfg, self.algo
@@ -756,16 +796,30 @@ class FederatedEngine:
         x_t, fsrv = state.params, state.server
         planes = {"delta": delta, "state_delta": entry.state_delta, "extra": entry.extra}
         wn = w / n_active.clamp(min=1.0)
-        if self._rows is None:
-            new_x, new_m, mean_delta = fused_fold(algo, cfg, planes, wn, n_active, x_t,
-                                                  fsrv.momentum, entry.eta_l, discount=discount)
+        if algo.server_fn is not None:
+            if self._rows is None:
+                means = fold_means(algo, cfg, planes, wn, x_t, fsrv.momentum)
+            else:
+                means = scatter_means(algo, cfg, planes, self._padded(wn, "zero"), x_t,
+                                      fsrv.momentum, group=self.cohort_group,
+                                      rank=self._rank, n_shards=self._shards)
+            mean_delta = means["delta"]
+            new_x, new_server = algo.server_update(
+                cfg, x_t, fsrv, mean_delta, means.get("state_delta"), means.get("extra"),
+                n_active, entry.eta_l, discount)
+            new_server = new_server._replace(round=fsrv.round)  # the loops advance it
         else:
-            new_x, new_m, mean_delta = scatter_fold(
-                algo, cfg, planes, self._padded(wn, "zero"), n_active, x_t, fsrv.momentum,
-                entry.eta_l, discount=discount, group=self.cohort_group, rank=self._rank,
-                n_shards=self._shards)
-        new_x, new_server = self._close_post(fsrv, new_x, new_m, mean_delta, n_active,
-                                             entry.eta_l, discount)
+            if self._rows is None:
+                new_x, new_m, mean_delta = fused_fold(algo, cfg, planes, wn, n_active, x_t,
+                                                      fsrv.momentum, entry.eta_l,
+                                                      discount=discount)
+            else:
+                new_x, new_m, mean_delta = scatter_fold(
+                    algo, cfg, planes, self._padded(wn, "zero"), n_active, x_t,
+                    fsrv.momentum, entry.eta_l, discount=discount, group=self.cohort_group,
+                    rank=self._rank, n_shards=self._shards)
+            new_x, new_server = self._close_post(fsrv, new_x, new_m, mean_delta, n_active,
+                                                 entry.eta_l, discount)
         # a below-quorum (or empty) cohort carries the server planes through
         ok = n_active >= float(max(1, cfg.min_quorum))
         new_x = torch.where(ok, new_x, x_t)

@@ -12,7 +12,7 @@ how the engine takes one cohort-wide gradient in a single backward.
 from __future__ import annotations
 
 import math
-from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -89,6 +89,19 @@ class FlatSpec:
             d = dtype or l.dtype
             leaves.append(v if v.dtype == d else v.to(d))
         return tree_unflatten(self.treedef, leaves)
+
+    def view_leaf(self, flat: torch.Tensor, key: Union[int, str], dtype=None) -> torch.Tensor:
+        """One leaf of the plane ``(*lead, P)`` as ``(*lead, *shape)``, by
+        index or by key path (``LeafSpec.path``), in its table dtype (or
+        ``dtype``), without the tree: a view where no cast is needed."""
+        if isinstance(key, str):
+            matches = [i for i, l in enumerate(self.leaves) if l.path == key]
+            if not matches:
+                raise KeyError(f"no leaf {key!r}; paths: {[l.path for l in self.leaves]}")
+            key = matches[0]
+        spec = self.leaves[key]
+        seg = flat[..., spec.offset:spec.offset + spec.size]
+        return seg.reshape(*flat.shape[:-1], *spec.shape).to(dtype or spec.dtype)
 
     @property
     def nbytes(self) -> int:
@@ -204,6 +217,34 @@ def gather_plane(chunk: torch.Tensor, group, n_shards: int, size: int) -> torch.
     """Inverse of ``plane_chunk``: all-gather the ranks' column chunks into
     the replicated ``(size,)`` plane (pad columns dropped)."""
     return gather_rows(chunk, group, n_shards)[:size]
+
+
+def masked_mean(plane: torch.Tensor, w: torch.Tensor, n_active: torch.Tensor,
+                agg_dtype=torch.float32) -> torch.Tensor:
+    """Masked cohort mean ``(Σ_c w_c·plane_c) / max(n_active, 1)`` of a
+    ``(C, P)`` plane as an f32 ``(P,)``, the reference's
+    ``_masked_pmean``: plane and weights quantized to ``agg_dtype``, the
+    products summed in f32 in ascending c, the sum rounded to
+    ``agg_dtype``.  Each column's sum is its own, so a column block gives
+    the same bits as the whole plane."""
+    w = w.to(agg_dtype).to(torch.float32)
+    acc = torch.zeros(plane.shape[-1], dtype=torch.float32, device=plane.device)
+    for c in range(plane.shape[0]):
+        acc = acc + w[c] * plane[c].to(agg_dtype).to(torch.float32)
+    return acc.to(agg_dtype).to(torch.float32) / n_active.clamp(min=1.0)
+
+
+def cohort_mean_scatter(plane: torch.Tensor, w: torch.Tensor, n_active: torch.Tensor, group,
+                        n_shards: int, agg_dtype=torch.float32) -> torch.Tensor:
+    """``masked_mean`` under cohort sharding, in each rank of ``group``:
+    ``plane`` is this rank's ``(C_loc, P)`` rows, ``w`` the padded ``(C_pad,)``
+    weights (zeros on pad rows).  ``cohort_to_columns`` gives the rank the
+    whole cohort for its columns, the contraction runs there in the
+    unsharded order, and ``gather_plane`` rebuilds the replicated ``(P,)``
+    mean: bit for bit ``masked_mean`` of the whole padded plane."""
+    cols = cohort_to_columns(plane, group, n_shards)
+    return gather_plane(masked_mean(cols, w, n_active, agg_dtype), group, n_shards,
+                        plane.shape[-1])
 
 
 def ring_push(pending: Sequence[CohortUplink], entry: CohortUplink):

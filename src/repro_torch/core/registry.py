@@ -30,10 +30,40 @@ Counterpart of ``repro.core.registry``.  An algorithm is data:
     in.  ``FedState`` allocation and the payload accounting derive from
     them, never from algorithm names.
 
+Two escape hatches replace a row where an algorithm is not affine, as in
+the reference.  ``direction_fn(cfg, m, cst, x, x0, g) -> v`` replaces the
+direction row: it runs in plain PyTorch, once per client row, on ``(P,)``
+planes (``m`` the broadcast plane, ``cst`` the client's state row or
+None, ``x0`` the round's anchor x_t), as the reference's vmapped client
+sees them, and no ``fed_direction`` launch happens; the step is ``x ←
+x − η_l·v`` in x's dtype.  ``server_fn(cfg, params, server, mean_delta,
+mean_sd, mean_extra, n_active, eta_l) -> (params, server)`` replaces the
+fold rows and the post-step: the engine takes the masked cohort mean of
+each uplink plane (``uplink_planes``; None for a plane the spec does not
+produce) from the fold kernel with neither x nor m written, one launch a
+plane, and hands them over on the ``(P,)`` planes, γ·mean on the async
+ring.  The engine owns the round counter: it advances it after every
+round whatever ``server_fn`` returns for it.
+
 The uplink's wire format is not part of a spec: ``cfg.compression`` alone
 selects it (``repro_torch.core.compress``); no builtin spec declares one.
-The reference's ``direction_fn`` / ``server_fn`` escape hatches are not
-ported: no builtin spec uses them.
+
+A spec is registered with ``register_algorithm`` — called, or as a
+decorator on a zero-argument builder — and runs on every engine path (the
+sync round, the async ring, the host store, cohort sharding) with no
+engine change::
+
+    @register_algorithm
+    def _fedavgm():
+        return AlgorithmSpec(
+            name="fedavgm",
+            fold=(FoldPass("delta", c_mm=lambda cfg, e, n: 1.0 - cfg.alpha,
+                           c_md=_c_pseudo_grad, c_xd=0.0),),
+            server_post_fn=_fedavgm_post,
+        )
+
+``python -m repro_torch.core.registry [--write]`` prints the routing table
+of the registered specs (and writes it into ``kernels/README.md``).
 
 Coefficients are floats or callables: ``cfg -> float`` for direction rows,
 ``(cfg, eta_l, n_active) -> scalar`` for fold rows, where ``eta_l`` and
@@ -106,6 +136,7 @@ class AlgorithmSpec(NamedTuple):
     name: str
     # --- (a) client direction ---
     direction_row: Optional[DirectionRow] = DirectionRow()
+    direction_fn: Optional[Callable] = None  # (cfg, m, cst, x, x0, g) -> v
     # round-close per-client state update, or None (stateless):
     #   (cfg, x0, xK, cst, m, delta, eta_l) -> state_delta
     state_update_fn: Optional[Callable] = None
@@ -113,6 +144,9 @@ class AlgorithmSpec(NamedTuple):
     fold: Tuple[FoldPass, ...] = (FoldPass("delta"),)
     # (cfg, x, server, dmean, n_active, eta_l) -> (x, server)
     server_post_fn: Optional[Callable] = None
+    # escape hatch replacing fold + post: (cfg, params, server, mean_delta,
+    # mean_sd, mean_extra, n_active, eta_l) -> (params, server)
+    server_fn: Optional[Callable] = None
     # --- (c) state-plane requirements ---
     needs_client_state: bool = False
     needs_momentum_broadcast: bool = False
@@ -122,6 +156,19 @@ class AlgorithmSpec(NamedTuple):
     # stored-momentum dtype policy: "float32", or "momentum_dtype" to honor
     # cfg.momentum_dtype (FedCM's broadcastable Δ_t)
     momentum_store: str = "float32"
+
+    @property
+    def uplink_planes(self) -> Tuple[str, ...]:
+        """The ``(C, P)`` uplink planes a cohort produces: ``delta`` always,
+        ``state_delta`` iff the spec keeps per-client state, ``extra`` iff
+        it sends a full-batch gradient.  The ring's entries and the cohort
+        shards carry these."""
+        names = ["delta"]
+        if self.needs_client_state and self.state_update_fn is not None:
+            names.append("state_delta")
+        if self.needs_full_grad:
+            names.append("extra")
+        return tuple(names)
 
     @property
     def wire_uplink_planes(self) -> Tuple[str, ...]:
@@ -137,41 +184,89 @@ class AlgorithmSpec(NamedTuple):
             names.append("extra")
         return tuple(names)
 
+    @property
+    def fold_planes(self) -> Tuple[str, ...]:
+        """The uplink planes the round close reads, in first-use order: those
+        the fold rows name, or every uplink plane for a ``server_fn`` spec
+        (it reads the mean of each).  Under cohort sharding these are the
+        planes moved to column blocks."""
+        if self.server_fn is not None:
+            return self.uplink_planes
+        return tuple(dict.fromkeys(p.plane for p in self.fold))
+
     def momentum_dtype(self, cfg) -> torch.dtype:
         """The dtype the server momentum plane is stored in."""
         if self.momentum_store == "momentum_dtype":
             return getattr(torch, cfg.momentum_dtype)
         return torch.float32
 
+    def direction(self, cfg, m, cst, x, x0, g):
+        """The escape hatch's local direction v on one client's ``(P,)``
+        planes.  An affine row has no interpreter here: it runs in the
+        ``fed_direction`` kernel (``kernels.fed_direction.ops``)."""
+        if self.direction_fn is None:
+            raise ValueError(f"{self.name}: an affine direction row runs in the "
+                             f"fed_direction kernel (kernels.fed_direction.ops)")
+        return self.direction_fn(cfg, m, cst, x, x0, g)
+
+    def server_update(self, cfg, params, server, mean_delta, mean_sd, mean_extra, n_active,
+                      eta_l, discount=1.0):
+        """The ``server_fn`` escape hatch's round close on the cohort means
+        (``(P,)`` f32, None for a plane the spec does not produce), each
+        discounted by the async staleness weight γ (``discount``; the sync
+        round's 1.0 multiplies nothing).  Fold rows have no interpreter
+        here: they run in the ``server_update`` kernel
+        (``kernels.server_update.ops.fused_fold``)."""
+        if self.server_fn is None:
+            raise ValueError(f"{self.name}: fold rows run in the server_update kernel "
+                             f"(kernels.server_update.ops.fused_fold)")
+        if not _is_static_one(discount):
+            mean_delta, mean_sd, mean_extra = (None if a is None else discount * a
+                                               for a in (mean_delta, mean_sd, mean_extra))
+        return self.server_fn(cfg, params, server, mean_delta, mean_sd, mean_extra,
+                              n_active, eta_l)
+
+
+#: the reference's other name for the spec
+Algorithm = AlgorithmSpec
 
 _REGISTRY: Dict[str, AlgorithmSpec] = {}
 
 
 def _validate(spec: AlgorithmSpec) -> None:
-    """The reference's rules, minus those of the fields the port does not
-    carry (escape hatches, wire-format declarations)."""
+    """The reference's rules, minus those of the wire-format fields the port
+    does not carry (``uplink_compression``, ``needs_residual``)."""
     if not spec.name or not isinstance(spec.name, str):
         raise ValueError(f"AlgorithmSpec needs a non-empty string name, got {spec.name!r}")
     if spec.momentum_store not in ("float32", "momentum_dtype"):
         raise ValueError(f"{spec.name}: momentum_store must be 'float32' or 'momentum_dtype'")
-    if spec.direction_row is None:
-        raise ValueError(f"{spec.name}: a direction_row is required")
-    for stream, _ in spec.direction_row.aux:
-        if stream not in DIRECTION_STREAMS:
-            raise ValueError(f"{spec.name}: unknown direction stream {stream!r}; "
-                             f"known: {DIRECTION_STREAMS}")
-        if stream == "client_state" and not spec.needs_client_state:
-            raise ValueError(f"{spec.name}: direction consumes 'client_state' but "
-                             f"needs_client_state is False")
-        if stream == "momentum" and not spec.needs_momentum_broadcast:
-            raise ValueError(f"{spec.name}: direction consumes 'momentum' but "
-                             f"needs_momentum_broadcast is False")
+    if (spec.direction_row is None) == (spec.direction_fn is None):
+        raise ValueError(f"{spec.name}: exactly one of direction_row / direction_fn required")
+    if spec.direction_row is not None:
+        for stream, _ in spec.direction_row.aux:
+            if stream not in DIRECTION_STREAMS:
+                raise ValueError(f"{spec.name}: unknown direction stream {stream!r}; "
+                                 f"known: {DIRECTION_STREAMS}")
+            if stream == "client_state" and not spec.needs_client_state:
+                raise ValueError(f"{spec.name}: direction consumes 'client_state' but "
+                                 f"needs_client_state is False — no plane would be "
+                                 f"allocated")
+            if stream == "momentum" and not spec.needs_momentum_broadcast:
+                raise ValueError(f"{spec.name}: direction consumes 'momentum' but "
+                                 f"needs_momentum_broadcast is False — payload accounting "
+                                 f"would undercharge the downlink")
     if spec.needs_client_state and spec.state_update_fn is None:
-        raise ValueError(f"{spec.name}: needs_client_state requires state_update_fn")
+        raise ValueError(f"{spec.name}: needs_client_state requires state_update_fn "
+                         f"(how does the per-client plane evolve?)")
     if spec.client_state_uplink and not spec.needs_client_state:
         raise ValueError(f"{spec.name}: client_state_uplink without client state")
+    if spec.server_fn is not None:
+        if spec.server_post_fn is not None:
+            raise ValueError(f"{spec.name}: server_fn replaces fold+post — drop "
+                             f"server_post_fn")
+        return
     if not spec.fold:
-        raise ValueError(f"{spec.name}: empty fold")
+        raise ValueError(f"{spec.name}: empty fold and no server_fn escape hatch")
     for p in spec.fold:
         if p.plane not in FOLD_PLANES:
             raise ValueError(f"{spec.name}: unknown fold plane {p.plane!r}; "
@@ -190,24 +285,44 @@ def _validate(spec: AlgorithmSpec) -> None:
 
     if spec.server_post_fn is None and all(identity(p) for p in spec.fold):
         raise ValueError(f"{spec.name}: every fold pass is the identity (c_mm=1, c_md=0, "
-                         f"c_xd=0) and there is no server_post_fn")
+                         f"c_xd=0) and there is no server_post_fn — the server would "
+                         f"never move; give a pass real coefficients, or add "
+                         f"server_post_fn / server_fn")
 
 
-def register_algorithm(spec: AlgorithmSpec) -> AlgorithmSpec:
-    """Validate and register ``spec``; duplicate names raise."""
+def register_algorithm(spec_or_builder=None, *, override: bool = False):
+    """Validate and register an ``AlgorithmSpec``; returns it.  Three forms::
+
+        register_algorithm(spec)                  # direct
+        @register_algorithm                       # decorator on a zero-argument
+        def _myalgo(): return AlgorithmSpec(...)  #   builder
+        register_algorithm(spec, override=True)   # replace a registered name
+
+    (``@register_algorithm(override=True)`` decorates too.)  A name already
+    registered raises unless ``override=True``."""
+    if spec_or_builder is None:
+        return lambda sb: register_algorithm(sb, override=override)
+    spec = spec_or_builder() if callable(spec_or_builder) else spec_or_builder
     if not isinstance(spec, AlgorithmSpec):
         raise TypeError(f"expected AlgorithmSpec, got {type(spec).__name__}")
     _validate(spec)
-    if spec.name in _REGISTRY:
-        raise ValueError(f"algorithm {spec.name!r} already registered")
+    if spec.name in _REGISTRY and not override:
+        raise ValueError(f"algorithm {spec.name!r} already registered "
+                         f"(pass override=True to replace)")
     _REGISTRY[spec.name] = spec
     return spec
+
+
+def unregister_algorithm(name: str) -> None:
+    """Remove a registered algorithm (a name not registered is ignored)."""
+    _REGISTRY.pop(name, None)
 
 
 def get_algorithm(name: str) -> AlgorithmSpec:
     if name not in _REGISTRY:
         raise KeyError(f"unknown federated algorithm {name!r}; registered: "
-                       f"{sorted(_REGISTRY)}")
+                       f"{sorted(_REGISTRY)} (see repro_torch.core.registry."
+                       f"register_algorithm)")
     return _REGISTRY[name]
 
 
@@ -237,16 +352,25 @@ def client_state_init(spec: AlgorithmSpec, num_clients: int, size: int,
 
 
 def describe_algorithm(spec: AlgorithmSpec) -> Dict[str, str]:
-    """Human-readable routing summary of one spec, row for row the
-    reference's (``fed_train --list-algos`` renders it)."""
-    row = spec.direction_row
-    terms = ["g"]
-    if not _is_static_zero(row.c_x):
-        terms.append("(x−x₀)")
-    terms += [s for s, _ in row.aux]
-    server = f"`server_update` ×{len(spec.fold)}"
-    if spec.server_post_fn is not None:
-        server += " + post"
+    """Human-readable routing summary of one spec: row for row the
+    reference's for an affine spec; an escape hatch names what the port
+    runs for it (``fed_train --list-algos`` and the ``kernels/README.md``
+    table render it)."""
+    if spec.direction_fn is not None:
+        direction = "custom PyTorch (`direction_fn`, a client row at a time)"
+    else:
+        row = spec.direction_row
+        terms = ["g"]
+        if not _is_static_zero(row.c_x):
+            terms.append("(x−x₀)")
+        terms += [s for s, _ in row.aux]
+        direction = f"`fed_direction` affine: {' + '.join(terms)}"
+    if spec.server_fn is not None:
+        server = f"`server_update` mean ×{len(spec.fold_planes)} + custom (`server_fn`)"
+    else:
+        server = f"`server_update` ×{len(spec.fold)}"
+        if spec.server_post_fn is not None:
+            server += " + post"
     planes = [
         flag for flag, on in (
             ("client_state", spec.needs_client_state),
@@ -258,9 +382,76 @@ def describe_algorithm(spec: AlgorithmSpec) -> Dict[str, str]:
     wire = spec.wire_uplink_planes
     return {
         "algorithm": spec.name,
-        "local step": f"`fed_direction` affine: {' + '.join(terms)}",
+        "local step": direction,
         "server fold": server,
         "state planes": ", ".join(planes),
         "uplink": f"{len(wire)}×P ({'+'.join(wire)})",
         "wire": "f32",  # no spec declares a wire format; cfg.compression selects it
     }
+
+
+def routing_table_md() -> str:
+    """The registered specs' routing table as markdown, generated from the
+    registry (``kernels/README.md`` embeds it; regenerate with ``python -m
+    repro_torch.core.registry --write``)."""
+    rows = [describe_algorithm(get_algorithm(n)) for n in list_algorithms()]
+    cols = ["algorithm", "local step", "server fold", "state planes", "uplink", "wire"]
+    widths = {c: max(len(c), *(len(r[c]) for r in rows)) for c in cols}
+
+    def fmt(r):
+        return "| " + " | ".join(r[c].ljust(widths[c]) for c in cols) + " |"
+
+    sep = "|" + "|".join("-" * (widths[c] + 2) for c in cols) + "|"
+    return "\n".join([fmt({c: c for c in cols}), sep] + [fmt(r) for r in rows])
+
+
+README_BEGIN = "<!-- registry-routing:begin (generated by repro_torch.core.registry) -->"
+README_END = "<!-- registry-routing:end -->"
+
+
+def sync_readme(write: bool = False) -> bool:
+    """True if ``kernels/README.md`` embeds the current routing table; with
+    ``write=True`` rewrite the block between the markers in place."""
+    from pathlib import Path
+
+    import repro_torch.core.algorithms  # noqa: F401  (the builtin specs register on import)
+
+    readme = Path(__file__).resolve().parents[1] / "kernels" / "README.md"
+    text = readme.read_text()
+    block = f"{README_BEGIN}\n{routing_table_md()}\n{README_END}"
+    if README_BEGIN not in text or README_END not in text:
+        if not write:
+            return False
+        raise RuntimeError(f"{readme}: routing-table markers missing")
+    start = text.index(README_BEGIN)
+    end = text.index(README_END) + len(README_END)
+    if text[start:end] == block:
+        return True
+    if write:
+        readme.write_text(text[:start] + block + text[end:])
+        return True
+    return False
+
+
+def _main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="print (or sync into kernels/README.md) the registry's routing table")
+    ap.add_argument("--write", action="store_true",
+                    help="rewrite the README block between the markers")
+    args = ap.parse_args(argv)
+    # under ``python -m`` this file runs as __main__, a second module with
+    # an empty registry: the canonical import is the one the specs fill
+    import repro_torch.core.algorithms  # noqa: F401  (the builtin specs register on import)
+    from repro_torch.core import registry as canonical
+
+    print(canonical.routing_table_md())
+    if args.write:
+        canonical.sync_readme(write=True)
+        print("\n(README block synced)")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(_main())

@@ -1,7 +1,9 @@
 """Dirichlet non-IID client partitioner (paper appendix C.1).
 
-A numpy-only copy of ``repro.data.dirichlet.dirichlet_partition``, kept
-draw for draw so both packages partition identically for the same seed.
+Numpy-only copies of ``repro.data.dirichlet``: ``dirichlet_partition``,
+kept draw for draw so both packages partition identically for the same
+seed, and the partition's statistics ``label_distribution`` /
+``heterogeneity_score``.
 
 For each client draw q ~ Dir(alpha * 1) over classes, then fill the client's
 (balanced) quota by sampling training points class-by-class according to q.
@@ -60,3 +62,24 @@ def dirichlet_partition(
             idxs.extend(take)
         out.append(np.asarray(idxs, dtype=np.int64))
     return out
+
+
+def label_distribution(labels: np.ndarray, parts: List[np.ndarray], n_classes: int) -> np.ndarray:
+    """(num_clients, n_classes) empirical label distribution per client."""
+    dist = np.zeros((len(parts), n_classes))
+    for i, idx in enumerate(parts):
+        if len(idx) == 0:
+            continue
+        binc = np.bincount(labels[idx], minlength=n_classes).astype(np.float64)
+        dist[i] = binc / binc.sum()
+    return dist
+
+
+def heterogeneity_score(labels: np.ndarray, parts: List[np.ndarray], n_classes: int) -> float:
+    """Mean total-variation distance between each client's label
+    distribution and the global one: 0 for an IID split, towards 1 as the
+    clients become single-class."""
+    dist = label_distribution(labels, parts, n_classes)
+    global_dist = np.bincount(labels, minlength=n_classes).astype(np.float64)
+    global_dist /= global_dist.sum()
+    return float(0.5 * np.abs(dist - global_dist[None]).sum(axis=1).mean())

@@ -1,7 +1,8 @@
 """Synthetic classification and language-model data.
 
 Numpy copies of ``repro.data.synthetic.make_synthetic_classification``,
-``make_synthetic_lm`` and ``make_markov_transition``, kept draw for draw so
+``make_synthetic_images``, ``make_synthetic_lm`` and
+``make_markov_transition``, kept draw for draw so
 both packages build the same data for the same seed; and the
 encoder-decoder's synthetic source frames (``source_frames``), drawn with a
 ``torch.Generator``.
@@ -43,6 +44,39 @@ def make_synthetic_classification(
         eps = rng.normal(size=(n, dim)).astype(np.float32)
         x = means[y] + np.einsum("nij,nj->ni", maps[y], eps) + noise * rng.normal(size=(n, dim))
         return x.astype(np.float32), y
+
+    x_tr, y_tr = sample(n_train)
+    x_te, y_te = sample(n_test)
+    return x_tr, y_tr, x_te, y_te
+
+
+def make_synthetic_images(
+    n_classes: int = 10,
+    hw: int = 8,
+    channels: int = 3,
+    n_train: int = 20_000,
+    n_test: int = 4_000,
+    noise: float = 0.6,
+    seed: int = 0,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Tiny images: a class template (a smooth random field) plus noise.
+    Returns (x_train, y_train, x_test, y_test); x NHWC float32, y int32."""
+    rng = np.random.default_rng(seed)
+    # smooth templates: low-frequency random fields per class
+    freqs = rng.normal(size=(n_classes, channels, 3, 3))
+    yy, xx = np.meshgrid(np.linspace(0, 1, hw), np.linspace(0, 1, hw), indexing="ij")
+    basis = np.stack(
+        [np.ones_like(xx), np.sin(2 * np.pi * xx), np.sin(2 * np.pi * yy),
+         np.cos(2 * np.pi * xx), np.cos(2 * np.pi * yy), np.sin(4 * np.pi * xx),
+         np.sin(4 * np.pi * yy), np.sin(2 * np.pi * (xx + yy)), np.cos(2 * np.pi * (xx - yy))],
+        axis=-1,
+    )  # (hw, hw, 9)
+    templates = np.einsum("hwb,ncb->nchw", basis, freqs.reshape(n_classes, channels, 9))
+
+    def sample(n):
+        y = rng.integers(0, n_classes, size=n).astype(np.int32)
+        x = templates[y] + noise * rng.normal(size=(n, channels, hw, hw))
+        return np.transpose(x, (0, 2, 3, 1)).astype(np.float32), y  # NHWC
 
     x_tr, y_tr = sample(n_train)
     x_te, y_te = sample(n_test)

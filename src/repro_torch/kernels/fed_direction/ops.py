@@ -8,6 +8,11 @@ stream — FedCM at α = 1 launches the same zero-aux kernel as FedAvg — and a
 nonzero proximal ``c_x`` on ``(x − x_t)`` is distributed onto the kernel's
 ``c_x·x`` slot plus a ``−c_x·x_t`` aux, as in the reference.
 
+A spec with a ``direction_fn`` escape hatch (a non-affine direction)
+bypasses the kernel: ``flat_direction_step`` runs the callable on the
+``(P,)`` buffers in plain PyTorch and steps ``x ← x − η_l·v`` in x's dtype,
+and ``direction_operands`` refuses it.
+
 Routing is by device: tensors on the CPU take the plain version
 (``ref.py``); CUDA tensors take the kernel, which launches or raises.
 """
@@ -34,6 +39,9 @@ def direction_operands(algo, cfg, m, cst, x0, eta_l) -> Tuple[List[torch.Tensor]
     """The aux streams and the device coefficient vector of the spec's
     direction row, for one round (η_l is fixed within a round)."""
     spec = get_algorithm(algo) if isinstance(algo, str) else algo
+    if spec.direction_fn is not None:
+        raise ValueError(f"{spec.name}: a direction_fn spec launches no fed_direction "
+                         f"kernel (flat_direction_step runs its callable)")
     row = spec.direction_row
     c_g = _dir_coef(row.c_g, cfg)
     c_x = _dir_coef(row.c_x, cfg)
@@ -51,6 +59,11 @@ def direction_operands(algo, cfg, m, cst, x0, eta_l) -> Tuple[List[torch.Tensor]
 
 
 def flat_direction_step(algo, cfg, x, g, m, cst, x0, eta_l) -> torch.Tensor:
-    """One fused local step ``x ← x − η_l·v`` on flat buffers."""
-    auxes, coefs = direction_operands(algo, cfg, m, cst, x0, eta_l)
+    """One local step ``x ← x − η_l·v`` on flat buffers: the fused kernel for
+    an affine row, the spec's ``direction_fn`` in plain PyTorch for an escape
+    hatch (then on one client's ``(P,)`` planes)."""
+    spec = get_algorithm(algo) if isinstance(algo, str) else algo
+    if spec.direction_fn is not None:
+        return (x - eta_l * spec.direction(cfg, m, cst, x, x0, g)).to(x.dtype)
+    auxes, coefs = direction_operands(spec, cfg, m, cst, x0, eta_l)
     return fed_direction(x, g, auxes, coefs)

@@ -5,7 +5,10 @@ plane, ``dequant_server_step`` one over a compressed int8/bf16 plane;
 ``fused_fold`` runs all of an ``AlgorithmSpec``'s ``FoldPass`` rows against
 the cohort's uplink planes, a ``QPlane`` through the dequant fold, and
 ``scatter_fold`` runs them under cohort sharding on this rank's column
-block.  A statically-zero coefficient skips the matching output:
+block.  A spec with a ``server_fn`` escape hatch has no fold rows:
+``fold_means`` (``scatter_means`` under sharding) takes the masked cohort
+mean of each plane it reads from the same kernels, one launch a plane with
+neither x nor m written, and ``server_fn`` does the rest.  A statically-zero coefficient skips the matching output:
 a pass with ``c_xd == 0.0`` never rewrites params, one with ``c_md == 0.0,
 c_mm == 1.0`` never touches the momentum.  Coefficients go to the kernel
 as a device f32 vector (``coef_vector``), so the per-round
@@ -52,6 +55,19 @@ def dequant_server_step(q, scale, wn, x, m, c_mm, c_md, c_xd, m_dtype=None,
                                       write_x=write_x, write_m=write_m)
 
 
+def _fold_pass(pv, agg_dt, wn, x, m, c_mm, c_md, c_xd, m_dt, discount, write_x, write_m):
+    """One fold launch over the plane ``pv``: the dequant fold for a
+    ``QPlane``, else the dense fold over ``pv`` cast to ``agg_dt``."""
+    if isinstance(pv, TopKPlane):
+        raise TypeError("the fold takes a dense plane or a QPlane; densify a "
+                        "TopKPlane first (compress.decompress_plane)")
+    if isinstance(pv, QPlane):
+        return dequant_server_step(pv.q, pv.scale, wn, x, m, c_mm, c_md, c_xd, m_dtype=m_dt,
+                                   discount=discount, write_x=write_x, write_m=write_m)
+    return fused_server_step(pv.to(agg_dt), wn, x, m, c_mm, c_md, c_xd, m_dtype=m_dt,
+                             discount=discount, write_x=write_x, write_m=write_m)
+
+
 def fused_fold(spec, cfg, planes, wn, n_active, x, m, eta_l, discount=1.0):
     """Execute the spec's fold rows as fused kernel passes.
 
@@ -65,25 +81,13 @@ def fused_fold(spec, cfg, planes, wn, n_active, x, m, eta_l, discount=1.0):
     m_dt = spec.momentum_dtype(cfg)
     mean_delta = None
     for p in spec.fold:
-        pv = planes[p.plane]
-        if isinstance(pv, TopKPlane):
-            raise TypeError("the fold takes a dense plane or a QPlane; densify a "
-                            "TopKPlane first (compress.decompress_plane)")
         c_mm = _fold_coef(p.c_mm, cfg, eta_l, n_active)
         c_md = _fold_coef(p.c_md, cfg, eta_l, n_active)
         c_xd = _fold_coef(p.c_xd, cfg, eta_l, n_active)
         adopt_x = not _is_static_zero(p.c_xd)
         adopt_m = not (_is_static_zero(p.c_md) and _is_static_one(p.c_mm))
-        if isinstance(pv, QPlane):
-            new_x, new_m, mean = dequant_server_step(
-                pv.q, pv.scale, wn, x, m, c_mm, c_md, c_xd, m_dtype=m_dt,
-                discount=discount, write_x=adopt_x, write_m=adopt_m,
-            )
-        else:
-            new_x, new_m, mean = fused_server_step(
-                pv.to(agg_dt), wn, x, m, c_mm, c_md, c_xd, m_dtype=m_dt,
-                discount=discount, write_x=adopt_x, write_m=adopt_m,
-            )
+        new_x, new_m, mean = _fold_pass(planes[p.plane], agg_dt, wn, x, m, c_mm, c_md, c_xd,
+                                        m_dt, discount, adopt_x, adopt_m)
         if p.plane == "delta":
             mean_delta = mean
         if adopt_x:
@@ -91,6 +95,33 @@ def fused_fold(spec, cfg, planes, wn, n_active, x, m, eta_l, discount=1.0):
         if adopt_m:
             m = new_m
     return x, m, mean_delta
+
+
+def fold_means(spec, cfg, planes, wn, x, m):
+    """The masked cohort mean ``Σ_c wn_c·plane_c`` of every plane a
+    ``server_fn`` spec reads (``fold_planes``), each from one fold launch
+    that writes neither x nor m (x and m only give the plane's length).
+    The kernel sums the cohort in ascending c, so the means are bitwise
+    those of the fold rows' and do not depend on sharding.  Returns
+    ``{plane: (P,) f32 mean}``."""
+    agg_dt = getattr(torch, cfg.aggregate_dtype)
+    return {name: _fold_pass(planes[name], agg_dt, wn, x, m, 1.0, 0.0, 0.0, None, 1.0,
+                             False, False)[2]
+            for name in spec.fold_planes}
+
+
+def _to_columns(spec, planes, group, n_shards):
+    """This rank's rows of each plane the spec folds → its ``(C_pad,
+    ceil(P/n))`` column block (a ``QPlane`` moves its int8 / bf16 payload
+    so and all-gathers its ``(C_loc, 1)`` scales), in ``fold_planes``
+    order: every rank runs the same collectives in turn."""
+    def to_columns(v):
+        if isinstance(v, QPlane):
+            return QPlane(q=cohort_to_columns(v.q, group, n_shards),
+                          scale=gather_rows(v.scale, group, n_shards))
+        return cohort_to_columns(v, group, n_shards)
+
+    return {name: to_columns(planes[name]) for name in spec.fold_planes}
 
 
 def scatter_fold(spec, cfg, planes, wn, n_active, x, m, eta_l, discount=1.0, *, group,
@@ -104,26 +135,29 @@ def scatter_fold(spec, cfg, planes, wn, n_active, x, m, eta_l, discount=1.0, *, 
 
     1. ``cohort_to_columns``: an ``all_to_all`` turns each plane into the
        ``(C_pad, ceil(P/n))`` column block of this rank — the complete
-       cohort for its columns.  A ``QPlane`` moves its int8 / bf16 payload
-       so, and all-gathers its ``(C_loc, 1)`` f32 scales into ``(C_pad, 1)``;
+       cohort for its columns (``_to_columns``);
     2. ``fused_fold`` on the block, with ``plane_chunk`` views of x and m:
        each fold row's kernel sums the cohort in the unsharded order;
     3. ``gather_plane`` rebuilds the replicated planes.
 
     Returns ``(new_x, new_m, mean_delta)`` as ``fused_fold`` does, bit for
     bit the unsharded fold's."""
-    def to_columns(v):
-        if isinstance(v, QPlane):
-            return QPlane(q=cohort_to_columns(v.q, group, n_shards),
-                          scale=gather_rows(v.scale, group, n_shards))
-        return cohort_to_columns(v, group, n_shards)
-
     size = x.shape[-1]
-    # in the fold rows' order: every rank runs the same collectives in turn
-    cols = {name: to_columns(planes[name]) for name in dict.fromkeys(p.plane for p in spec.fold)}
+    cols = _to_columns(spec, planes, group, n_shards)
     new_x, new_m, mean = fused_fold(spec, cfg, cols, wn, n_active,
                                     plane_chunk(x, rank, n_shards),
                                     plane_chunk(m, rank, n_shards), eta_l, discount=discount)
     return (gather_plane(new_x, group, n_shards, size),
             gather_plane(new_m, group, n_shards, size),
             None if mean is None else gather_plane(mean, group, n_shards, size))
+
+
+def scatter_means(spec, cfg, planes, wn, x, m, *, group, rank: int, n_shards: int):
+    """``fold_means`` under cohort sharding: each plane to this rank's
+    column block, its mean-only fold there, and the replicated ``(P,)``
+    means gathered back; bit for bit the unsharded ``fold_means``."""
+    size = x.shape[-1]
+    cols = _to_columns(spec, planes, group, n_shards)
+    means = fold_means(spec, cfg, cols, wn, plane_chunk(x, rank, n_shards),
+                       plane_chunk(m, rank, n_shards))
+    return {k: gather_plane(v, group, n_shards, size) for k, v in means.items()}

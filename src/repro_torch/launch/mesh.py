@@ -22,6 +22,8 @@ rank that fails ends the world at once.
     results = spawn_cohort(fn, 2, device="cuda")              # NCCL, cuda:0-1
     results = spawn_cohort(fn, 4, device="cuda", backend="gloo")  # cuda:0 shared
 
+``device`` is required: no world starts on the CPU unless the caller asks.
+
 ``fn(rank, device, *args)`` runs in rank ``rank`` after the group is up, on
 ``device`` (a ``torch.device``); it must be importable by name (spawned
 ranks re-import its module) and return a picklable value, which
@@ -160,11 +162,11 @@ def _kill(procs) -> None:
         p.join(5)
 
 
-def spawn_cohort(fn: Callable, n_shards: int, args: Sequence[Any] = (), *, device="cpu",
+def spawn_cohort(fn: Callable, n_shards: int, args: Sequence[Any] = (), *, device,
                  backend: Optional[str] = None, timeout_s: float = 60.0,
                  deadline_s: float = 600.0) -> List[Any]:
-    """Run ``fn(rank, device, *args)`` in ``n_shards`` spawned ranks joined
-    by a process group (a ``file://`` store in a fresh temporary
+    """Run ``fn(rank, device, *args)`` in ``n_shards`` spawned ranks on
+    ``device`` ("cpu" or "cuda"; no default) joined by a process group (a ``file://`` store in a fresh temporary
     directory), and return their results in rank order.  ``timeout_s``
     bounds each collective, ``deadline_s`` the whole world.  Raises
     ``RankFailure`` when a rank raises or exits without a result (the

@@ -8,7 +8,9 @@ None), so one body gives both sides of a bitwise comparison.
 
 The shapes are the reference's tests/test_cohort_shard.py: 32 clients, a
 cohort of 16 (or a ragged 10, padded to 12 over 4 ranks), K = 2 local
-steps, batch 8, an MLP 8-16-4 on a 4-class synthetic task.
+steps, batch 8, an MLP 8-16-4 on a 4-class synthetic task.  The specs of
+tests/_torch_user_specs.py (runtime-registered, escape hatches) are
+registered in every rank.
 """
 from __future__ import annotations
 
@@ -22,9 +24,14 @@ import torch.distributed as dist
 from repro_torch.configs.base import CompressionConfig, FaultConfig, FedConfig
 from repro_torch.core.convert import state_from_numpy, state_to_numpy
 from repro_torch.core.engine import FederatedEngine, metrics_to_host
-from repro_torch.core.flat import FlatSpec, cohort_to_columns
+from repro_torch.core.flat import (
+    FlatSpec, cohort_mean_scatter, cohort_to_columns, masked_mean, pad_cohort,
+)
 from repro_torch.data import FederatedData, make_synthetic_classification
 from repro_torch.models.small import classification_loss, mlp_classifier
+from repro_torch.sharding.rules import padded_cohort
+
+from _torch_user_specs import registered
 
 DIMS = (8, 16, 4)
 N_CLIENTS, K, B = 32, 2, 8
@@ -118,22 +125,51 @@ def columns_block(dtype: str, rank: int, n_shards: int, C_pad: int = 12, P: int 
     return got.dtype == want.dtype and torch.equal(got, want)
 
 
+def mean_inputs(C: int = 10, P: int = 37):
+    """A seeded ``(C, P)`` plane, a 0/1 weight row with inactive rows, and
+    its count: the inputs of the ``cohort_mean_scatter`` jobs."""
+    g = torch.Generator().manual_seed(11)
+    plane = torch.randn(C, P, generator=g)
+    w = (torch.rand(C, generator=g) < 0.7).to(torch.float32)
+    return plane, w, w.sum()
+
+
+def mean_scatter(agg: str, rank: int, n_shards: int):
+    """``cohort_mean_scatter`` of this rank's rows of ``mean_inputs`` padded
+    to the sharded cohort (pad rows weigh 0), as numpy."""
+    plane, w, n_active = mean_inputs()
+    c_pad = padded_cohort(plane.shape[0], n_shards)
+    c_loc = c_pad // n_shards
+    rows = pad_cohort(plane, c_pad)[rank * c_loc:(rank + 1) * c_loc]
+    return cohort_mean_scatter(rows, pad_cohort(w, c_pad, "zero"), n_active, dist.group.WORLD,
+                               n_shards, getattr(torch, agg)).numpy()
+
+
+def unsharded_mean(agg: str):
+    """``masked_mean`` of the whole ``mean_inputs`` plane, as numpy."""
+    return masked_mean(*mean_inputs(), getattr(torch, agg)).numpy()
+
+
 def world(rank, device, jobs):
     """A rank's body: run every ``(kind, job)`` of ``jobs`` in order on the
-    cohort group and return the results in the same order."""
+    cohort group and return the results in the same order.  The specs of
+    tests/_torch_user_specs.py are registered throughout."""
     n = dist.get_world_size()
     out = []
-    for kind, job in jobs:
-        if kind == "case":
-            out.append(run_case(job, device, None if job["cohort_shard"] else _group()))
-        elif kind == "injected":
-            out.append(run_injected(job, device, _group()))
-        elif kind == "columns":
-            out.append(columns_block(job, rank, n))
-        elif kind == "refusal":
-            out.append(refusal(job, device))
-        else:
-            raise ValueError(f"unknown job kind {kind!r}")
+    with registered():
+        for kind, job in jobs:
+            if kind == "case":
+                out.append(run_case(job, device, None if job["cohort_shard"] else _group()))
+            elif kind == "injected":
+                out.append(run_injected(job, device, _group()))
+            elif kind == "columns":
+                out.append(columns_block(job, rank, n))
+            elif kind == "mean_scatter":
+                out.append(mean_scatter(job, rank, n))
+            elif kind == "refusal":
+                out.append(refusal(job, device))
+            else:
+                raise ValueError(f"unknown job kind {kind!r}")
     return out
 
 

@@ -9,7 +9,12 @@ give the unsharded engine's planes and per-round metrics bit for bit, for
 every registered algorithm, sync and on the ring, for ragged cohorts, under
 faults and under each wire format; every rank must end with rank 0's
 planes; and the sharded port meets the reference's unsharded round on the
-reference's draws at ``RTOL`` / ``ATOL`` (tests/_torch_parity.py).
+reference's draws at ``RTOL`` / ``ATOL`` (tests/_torch_parity.py).  The
+specs registered at runtime (tests/_torch_user_specs.py: the mixed
+affine-direction + ``server_fn`` spec of the reference's test, the escape
+hatches, a ``server_fn`` over client state) hold the same contract on 4 and
+on 2 ranks: their means come from ``scatter_means``.  ``cohort_mean_scatter``
+on 2 and 4 ranks is bitwise the unsharded ``masked_mean``.
 
 Bitwise on the CPU needs one thread on both sides: every rank and this
 process run ``torch.set_num_threads(1)``.  The ranks run the bodies of
@@ -29,7 +34,10 @@ from _torch_parity import (
     ATOL, RTOL, B as PARITY_B, DIMS as PARITY_DIMS, assert_close, client_data, jax_tree,
     np_params, port_cfg, ref_cfg, ref_draws, ref_engine, ref_state_numpy, ring_start,
 )
-from _torch_shard_ranks import case, hang, killed_rank, run_case, run_injected, world
+from _torch_shard_ranks import (
+    case, hang, killed_rank, run_case, run_injected, unsharded_mean, world,
+)
+from _torch_user_specs import registered
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.engine import FederatedEngine
 from repro_torch.core.flat import FlatSpec, pad_cohort, plane_chunk
@@ -58,6 +66,17 @@ CASES = (
        case("bf16-fedcm", "fedcm", compression="bf16"),
        case("topk-fedcm", "fedcm", compression="topk")]
 )
+# runtime-registered specs (registered in every rank and around the
+# unsharded runs); also run on a 2-rank world
+USER_CASES = [case("sync-_test_mixed", "_test_mixed"),
+              case("ring-_test_mixed", "_test_mixed", rounds=4, ring=(2, 1)),
+              case("ragged-_test_mixed", "_test_mixed", cohort=10, participation="bernoulli"),
+              case("int8-_test_mixed", "_test_mixed", compression="int8"),
+              case("sync-_test_escape", "_test_escape"),
+              case("sync-_test_escape_state", "_test_escape_state")]
+USER_NAMES = [c["name"] for c in USER_CASES]
+CASES = CASES + USER_CASES
+MEAN_AGGS = ("float32", "bfloat16")
 CASE_NAMES = [c["name"] for c in CASES]
 ONE_RANK = [case(f"one-rank-{a}", a, cohort_shard=1) for a in ("fedcm", "scaffold", "fedadam")]
 COLUMN_DTYPES = ("float32", "int8", "bfloat16")
@@ -120,11 +139,23 @@ def four_ranks(injected):
     three dtypes and the injected reference rounds.  Returns each rank's
     results by job."""
     jobs = ([("case", c) for c in CASES] + [("columns", d) for d in COLUMN_DTYPES]
-            + [("injected", injected[a][1]) for a in INJECTED])
+            + [("injected", injected[a][1]) for a in INJECTED]
+            + [("mean_scatter", a) for a in MEAN_AGGS])
     ranks = spawn_cohort(world, N_RANKS, args=(jobs,), device="cpu", timeout_s=WORLD_TIMEOUT_S,
                          deadline_s=WORLD_DEADLINE_S)
-    names = CASE_NAMES + [f"columns-{d}" for d in COLUMN_DTYPES] + [f"injected-{a}"
-                                                                    for a in INJECTED]
+    names = (CASE_NAMES + [f"columns-{d}" for d in COLUMN_DTYPES]
+             + [f"injected-{a}" for a in INJECTED] + [f"mean-{a}" for a in MEAN_AGGS])
+    return [dict(zip(names, r)) for r in ranks]
+
+
+@pytest.fixture(scope="module")
+def two_ranks():
+    """A 2-rank gloo world: the runtime-registered specs' cases and the
+    scattered mean."""
+    jobs = [("case", c) for c in USER_CASES] + [("mean_scatter", a) for a in MEAN_AGGS]
+    ranks = spawn_cohort(world, 2, args=(jobs,), device="cpu", timeout_s=WORLD_TIMEOUT_S,
+                         deadline_s=WORLD_DEADLINE_S)
+    names = USER_NAMES + [f"mean-{a}" for a in MEAN_AGGS]
     return [dict(zip(names, r)) for r in ranks]
 
 
@@ -142,7 +173,8 @@ def one_rank():
 @pytest.fixture(scope="module")
 def unsharded():
     """The unsharded engine on every case, in this process."""
-    return {c["name"]: run_case(dict(c, cohort_shard=0)) for c in CASES + ONE_RANK}
+    with registered():
+        return {c["name"]: run_case(dict(c, cohort_shard=0)) for c in CASES + ONE_RANK}
 
 
 # ---------------------------------------------------------------- sharded ≡ unsharded
@@ -172,6 +204,26 @@ def test_the_cases_exercise_padding_faults_and_the_ring(unsharded):
     np.testing.assert_array_equal(unsharded["ring-fedcm"]["metrics"]["folded"], [0, 1, 1, 1])
     np.testing.assert_array_equal(
         unsharded["ragged-scaffold-ring-d3"]["metrics"]["folded"], [0, 0, 1, 1, 1])
+
+
+@pytest.mark.parametrize("name", USER_NAMES)
+def test_two_ranks_match_the_unsharded_engine_bitwise(name, two_ranks, unsharded):
+    """The runtime-registered specs on 2 ranks: rank 0 the unsharded
+    engine's planes and metrics bit for bit, rank 1 rank 0's."""
+    assert two_ranks[0][name]["shards"] == 2
+    _assert_same(two_ranks[0][name], unsharded[name], name)
+    _assert_same(two_ranks[1][name], two_ranks[0][name], f"{name} rank 1")
+
+
+@pytest.mark.parametrize("agg", MEAN_AGGS)
+def test_cohort_mean_scatter_is_the_unsharded_masked_mean_bitwise(agg, two_ranks, four_ranks):
+    """``cohort_mean_scatter`` of each rank's rows (a ragged cohort of 10
+    with inactive rows, padded to 10 / 12) on 2 and 4 ranks: every rank
+    holds the whole-plane ``masked_mean``, bit for bit."""
+    want = unsharded_mean(agg)
+    for world_ranks in (two_ranks, four_ranks):
+        for r in world_ranks:
+            np.testing.assert_array_equal(r[f"mean-{agg}"], want)
 
 
 @pytest.mark.parametrize("name", [c["name"] for c in ONE_RANK])
