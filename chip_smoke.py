@@ -452,6 +452,28 @@ FED_LM_VS_CPU = ("llama3.2-1b", {"n_layers": 1, "vocab_size": TRAIN_VOCAB, "dtyp
 FED_LM_FULL = "llama3.2-1b"
 FED_LM_RUN = {"n_clients": 4, "cohort": 2, "local_steps": 2, "rounds": 3}
 FED_LM_VS_CPU_BATCH, FED_LM_FULL_BATCH = (2, 32), (4, 64)  # (B, S) a client a step
+# phase 8 (e): training on a model group on one card: GROUP_RANKS gloo ranks
+# sharing cuda:0, each arch of GROUP_TRAIN at one period of its published
+# widths, the vocabulary cut to TRAIN_VOCAB, f32, B TRAIN_B x TRAIN_S (phase 8
+# (a)'s cut; dbrx with the 4 experts its top-4 allows); then remat "dots"
+# against "none" on llama3.2-1b at REMAT_CASE's cut, B REMAT_B x REMAT_S: four
+# layers, so that what a period keeps adds up and the three policies' peaks
+# part.  (f): FedCM on the same ranks, phase 8 (c)'s shape and draws.
+GROUP_RANKS = 2
+GROUP_SEED = 9
+GROUP_TRAIN = (("llama3.2-1b", {"n_layers": 1}), ("dbrx-132b", {"n_layers": 1, "n_experts": 4}),
+               ("mamba2-1.3b", {"n_layers": 1}))
+REMAT_CASE = ("llama3.2-1b", {"n_layers": 4, "vocab_size": TRAIN_VOCAB, "dtype": "float32"})
+REMAT_B, REMAT_S = 4, 512
+# --nccl (g): ``launch/train.run`` of starcoder2-7b whole on MP_FULL_RANKS
+# cards (its f32 params, gradients and AdamW moments, ~115 GB, fit no one
+# card); (h) ``launch/federated_llm.run`` of llama3.2-1b as published, each
+# client a model group of MP_FULL_RANKS cards, a cohort of 8 (one card held 2)
+GROUP_TRAIN_FULL = ("starcoder2-7b", ["--full", "--batch", "8", "--seq", "512", "--remat", "dots",
+                                      "--steps", "10", "--warmup", "2", "--log-every", "1"])
+GROUP_TRAIN_WARM = 2  # steps left out of ms/step and tok/s
+GROUP_FED_RUN = {"n_clients": 16, "cohort": 8, "local_steps": 2, "batch": 4, "seq": 64,
+                 "rounds": 3}
 OTHER_ALGOS = ("fedprox", "fedavgm", "fedacg", "fedadam", "fedadagrad", "fedyogi", "mimelite",
                "scaffold", "feddyn")
 # the reference benchmark's per-algorithm settings (benchmarks/common.py: η_g
@@ -1833,6 +1855,439 @@ def fed_lm_full_width(torch, np, bindings, smi_line: str):
     del res
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------- phase 8 (e)-(h)
+def replicated_digest(torch, leaves, parts) -> str:
+    """A hash of the bytes of every part a model group replicates (whole
+    and partial, ``rules.group_parts``), in order: equal on every rank iff
+    those parts are bitwise equal."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t, (dim, pieces) in zip(leaves, parts):
+        for off, width, use in pieces:
+            if use != "split":
+                seg = t if dim is None else t.narrow(dim, off, width)
+                h.update(seg.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def group_train_case(torch, arch, cut, parallel, device):
+    """Phase 8 (e) in one rank: the unsharded step on the card (the ranks
+    take turns, so that one holds its whole train state at a time) and this
+    rank's slice of its params and moments; then two steps of this rank's
+    share (``init_params_sharded`` from the same seed: its slice of the same
+    draw), with the kernels' launch counts set just before and read just
+    after; every leaf against the unsharded slice."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.engine import synchronize
+    from repro_torch.kernels import launch_counts, launches_since
+    from repro_torch.launch.steps import Knobs, build_train_step
+    from repro_torch.sharding.rules import param_specs
+    from repro_torch.sharding.shard import init_params_sharded, share_parts, take
+    from repro_torch.utils.trees import tree_leaves
+
+    cfg = replace(get_config(arch), dtype="float32", vocab_size=TRAIN_VOCAB, **cut)
+    knobs = Knobs(remat="none", learning_rate=TRAIN_LR)
+    n, rank = parallel.size, parallel.rank
+    for r in range(n):
+        if r == rank:
+            step = build_train_step(cfg, knobs)
+            gen = torch.Generator(device=device)
+            gen.manual_seed(GROUP_SEED)
+            params = step.model.init(gen)
+            specs = tree_leaves(param_specs(params, cfg, n))
+            zero = [not bool(t.any()) for t in tree_leaves(params)]
+            batch = step.model.dummy_batch(TRAIN_B, TRAIN_S, device)
+            o, whole_metrics = step.opt.init(params), []
+            for _ in range(2):
+                params, o, m = step.fn(params, o, batch)
+                whole_metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            want = {name: [take(t, d, rank, n) for t, d in zip(tree_leaves(tree), specs)]
+                    for name, tree in (("params", params), ("m", o[1]), ("v", o[2]))}
+            del params, o, step
+            torch.cuda.empty_cache()
+        dist.barrier(group=parallel.group)
+    gstep = build_train_step(cfg, knobs, parallel)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(GROUP_SEED)
+    share = init_params_sharded(gen, cfg, rank, n)
+    for k in parallel.counts:
+        parallel.counts[k] = 0
+    before = launch_counts()
+    synchronize(device)
+    t0 = time.perf_counter()
+    p, o, metrics = share, gstep.opt.init(share), []
+    for _ in range(2):
+        p, o, m = gstep.fn(p, o, batch)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    s = time.perf_counter() - t0
+    launches = launches_since(before)
+    worst, bad = {}, []
+    for name, tree in (("params", p), ("m", o[1]), ("v", o[2])):
+        for i, (a, b, z) in enumerate(zip(tree_leaves(tree), want[name], zero)):
+            limit = UPDATE_REL_L2 if name == "params" and z else F32_REL_L2
+            rel = rel_l2(torch, a, b)
+            key = f"{name} {'from 0' if name == 'params' and z else ''}".strip()
+            worst[key] = max(worst.get(key, 0.0), rel)
+            if not (rel <= limit and bool(torch.isfinite(a).all())):
+                bad.append((name, i, rel, limit))
+    parts = share_parts(cfg, n)
+    return {"arch": arch, "metrics": metrics, "unsharded_metrics": whole_metrics,
+            "max_rel_l2": worst, "bad": bad, "launches": launches, "s_2_steps": s,
+            "counts": dict(parallel.counts),
+            "digest": [replicated_digest(torch, tree_leaves(t), parts) for t in (p, o[1], o[2])]}
+
+
+def group_fed_case(torch, parallel, device, draws):
+    """Phase 8 (f) in one rank: ``FED_LM_RUN`` rounds of FedCM over
+    ``FED_LM_VS_CPU`` through ``round_step`` on the injected ``draws`` (phase
+    8 (c)'s weights and draws), each client this rank's share of the model
+    group (``model_group``), the kernels' launch counts set just before and
+    read just after; then one round on the engine's own draws from a
+    generator seeded alike on every rank (the engine checks the ranks drew
+    alike).  Returns this rank's params and momentum planes, each round's
+    loss, a digest of the ids and minibatches it used, the launches."""
+    import hashlib
+
+    from repro_torch.configs.base import FedConfig, get_config
+    from repro_torch.core.engine import FederatedEngine, metrics_to_host
+    from repro_torch.core.flat import FlatSpec
+    from repro_torch.data import LMFederatedData, federated_lm_corpora, gather_round_batches
+    from repro_torch.kernels import launch_counts, launches_since
+    from repro_torch.launch import federated_llm
+    from repro_torch.models.model import build_model, cohort_loss_fn
+    from repro_torch.sharding.rules import param_specs
+    from repro_torch.sharding.shard import group_plane, shard_params
+    from repro_torch.utils.trees import tree_map
+
+    arch, cut = FED_LM_VS_CPU
+    cfg = replace(get_config(arch), **cut)
+    model = build_model(cfg)
+    B, S = FED_LM_VS_CPU_BATCH
+    n_cl, C, K = (FED_LM_RUN[k] for k in ("n_clients", "cohort", "local_steps"))
+    fed = FedConfig(algo="fedcm", num_clients=n_cl, cohort_size=C, local_steps=K,
+                    alpha=federated_llm.ALPHA, eta_l=0.05,
+                    weight_decay=federated_llm.WEIGHT_DECAY, participation="fixed")
+    if device.type == "cuda":  # this phase's peak, not (e)'s
+        torch.cuda.reset_peak_memory_stats(device)
+    whole = model.init(torch.Generator().manual_seed(8))  # phase 8 (c)'s weights
+    share = tree_map(lambda t: t.to(device), shard_params(
+        whole, param_specs(whole, cfg, parallel.size), parallel.rank, parallel.size))
+    del whole
+    spec = FlatSpec.from_tree(share)
+    eng = FederatedEngine(fed, cohort_loss_fn(model, parallel), spec, batch_size=B,
+                          device=device, model_group=group_plane(spec, cfg, parallel))
+    data = LMFederatedData(federated_lm_corpora(cfg.vocab_size, n_cl, S + 1, 64), device=device)
+    state = eng.init(share)
+    seen, losses = hashlib.sha256(), []
+    before = launch_counts()
+    for ids, idx in draws:
+        ids_t = torch.as_tensor(ids, device=device)
+        batches = gather_round_batches(data.client_x, data.client_y, None, ids_t, K, B,
+                                       idx=torch.as_tensor(idx))
+        seen.update(ids_t.cpu().numpy().tobytes())
+        seen.update(batches["x"].cpu().numpy().tobytes())
+        state, m = eng.round_step(state, batches, ids_t,
+                                  torch.ones(C, dtype=torch.bool, device=device))
+        losses.append(float(metrics_to_host(m)["loss"][0]))
+    launches = launches_since(before)
+    rng = torch.Generator(device=device)
+    rng.manual_seed(GROUP_SEED)
+    drawn, dm = eng.run_round(eng.init(share, rng), data)
+    return {"params": state.params.cpu().numpy(), "momentum": state.server.momentum.cpu().numpy(),
+            "losses": losses, "draws_digest": seen.hexdigest(), "launches": launches,
+            "share_params": spec.size, "drawn_round_loss": float(metrics_to_host(dm)["loss"][0]),
+            "peak_bytes": (torch.cuda.max_memory_allocated(device) if device.type == "cuda"
+                           else None)}
+
+
+def group_rank(rank, device, draws):
+    """A rank of phases 8 (e) and (f) on one card."""
+    import torch
+
+    from repro_torch.launch.mesh import make_model_group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parallel = make_model_group()
+    train = [group_train_case(torch, arch, cut, parallel, device) for arch, cut in GROUP_TRAIN]
+    torch.cuda.empty_cache()
+    return {"train": train, "fed": group_fed_case(torch, parallel, device, draws)}
+
+
+def remat_dots_on_card(torch, np, device="cuda"):
+    """Phase 8 (e), its last part: the loss and every gradient of
+    ``REMAT_CASE`` under ``remat="dots"`` against ``"none"`` within
+    ``F32_REL_L2``, and the peak device memory the loss and gradient add
+    under ``"none"``, ``"dots"`` and ``"full"``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.trees import tree_flatten_with_path, tree_leaves
+
+    arch, cut = REMAT_CASE
+    model = build_model(replace(get_config(arch), **cut))
+    cuda = device == "cuda"
+    gen = torch.Generator(device=device)
+    gen.manual_seed(GROUP_SEED)
+    params = model.init(gen)
+    batch = model.dummy_batch(REMAT_B, REMAT_S, device)
+    runs = {}
+    for remat in ("none", "dots", "full"):
+        base = 0
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        (loss, _), grads = value_and_grad(lambda p, b: model.loss_fn(p, b, remat=remat), params,
+                                          batch)
+        if cuda:
+            torch.cuda.synchronize()
+        runs[remat] = {"loss": loss, "grads": grads, "s": time.perf_counter() - t0,
+                       "peak": torch.cuda.max_memory_allocated() - base if cuda else 0}
+    loss_rel = abs(float(runs["dots"]["loss"]) - float(runs["none"]["loss"])) / abs(
+        float(runs["none"]["loss"]))
+    worst, where = 0.0, ""
+    for (path, a), b in zip(tree_flatten_with_path(runs["dots"]["grads"])[0],
+                            tree_leaves(runs["none"]["grads"])):
+        rel = rel_l2(torch, a, b)
+        if rel >= worst:
+            worst, where = rel, path
+    peaks = {k: runs[k]["peak"] for k in runs}
+    row = {"arch": arch, "cut": cut, "B": REMAT_B, "S": REMAT_S, "loss_rel": loss_rel,
+           "grad_max_rel_l2": worst, "worst_leaf": where, "limit": F32_REL_L2,
+           "peak_bytes": peaks, "dots_between": peaks["none"] >= peaks["dots"] >= peaks["full"],
+           "s": {k: runs[k]["s"] for k in runs}}
+    del runs, params
+    torch.cuda.empty_cache()
+    if not (loss_rel <= F32_REL_L2 and worst <= F32_REL_L2):
+        fail(f"remat dots vs none on the card: {json.dumps(row)}")
+    say(f"remat dots vs none on the card: {json.dumps(row)}")
+    return row
+
+
+def model_group_training_one_card(torch, np, smi_line: str, device="cuda"):
+    """Phases 8 (e) and (f): one world of ``GROUP_RANKS`` gloo ranks sharing
+    cuda:0 (``group_rank``), against the unsharded step (each rank runs it)
+    and the unsharded FedCM round on the card (here, phase 8 (c)'s weights
+    and draws).  (e): each rank's updated share and both moments within
+    ``F32_REL_L2`` of the unsharded slice (a leaf from 0 within
+    ``UPDATE_REL_L2``), the replicated parts bitwise equal across ranks, the
+    same loss and grad norm on every rank, no kernel launched; then
+    ``remat_dots_on_card``.  (f): the ranks' planes joined within
+    ``PARITY_RTOL`` / ``PARITY_ATOL`` (params) and ``F32_REL_L2``
+    (momentum, each round's loss) of the unsharded round's, the draws equal
+    on every rank, K ``fed_direction`` and one ``server_update`` a round on
+    each rank's share.  Returns each rank's (f) launches."""
+    from repro_torch.configs.base import FedConfig, get_config
+    from repro_torch.core.engine import FederatedEngine, metrics_to_host
+    from repro_torch.core.flat import FlatSpec
+    from repro_torch.data import LMFederatedData, federated_lm_corpora, gather_round_batches
+    from repro_torch.launch import federated_llm
+    from repro_torch.launch.mesh import spawn_cohort
+    from repro_torch.models.model import build_model, cohort_loss_fn
+    from repro_torch.sharding.rules import param_specs
+    from repro_torch.sharding.shard import join_shares, param_shapes, shard_params
+    from repro_torch.utils.trees import tree_leaves
+
+    arch, cut = FED_LM_VS_CPU
+    cfg = replace(get_config(arch), **cut)
+    B, S = FED_LM_VS_CPU_BATCH
+    n_cl, C, K, R = (FED_LM_RUN[k] for k in ("n_clients", "cohort", "local_steps", "rounds"))
+    toks = federated_lm_corpora(cfg.vocab_size, n_cl, S + 1, 64)
+    rng = np.random.default_rng(8)  # phase 8 (c)'s draws
+    draws = [(rng.permutation(n_cl)[:C], rng.integers(0, toks.shape[1], size=(C, K, B)))
+             for _ in range(R)]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_cohort(group_rank, GROUP_RANKS, args=(draws,), device=device, backend="gloo",
+                         timeout_s=600.0, deadline_s=900.0)
+    wall = time.perf_counter() - t0
+    # (e)
+    for i, (arch_i, cut_i) in enumerate(GROUP_TRAIN):
+        rows = [got["train"][i] for got in ranks]
+        first = rows[0]
+        for r, got in enumerate(rows):
+            if got["bad"] or any(got["launches"].values()):
+                fail(f"training on a model group, {arch_i}: rank {r}: leaves beyond their "
+                     f"bound {got['bad'][:5]}, launches {got['launches']}")
+            if got["digest"] != first["digest"] or got["metrics"] != first["metrics"]:
+                fail(f"training on a model group, {arch_i}: rank {r}'s replicated parts or "
+                     f"loss / grad norm differ from rank 0's")
+        worst_metric = max(abs(a - b) / max(abs(b), 1e-30)
+                           for got, want in zip(first["metrics"], first["unsharded_metrics"])
+                           for a, b in zip(got, want))
+        if not (np.isfinite(first["metrics"]).all() and worst_metric <= F32_REL_L2):
+            fail(f"training on a model group, {arch_i}: metrics {first['metrics']} against "
+                 f"{first['unsharded_metrics']}")
+        say(f"training on a model group ({GROUP_RANKS} gloo ranks sharing cuda:0): " + json.dumps({
+            "arch": arch_i, "cut": dict(cut_i, vocab_size=TRAIN_VOCAB), "B": TRAIN_B,
+            "S": TRAIN_S, "losses": [m[0] for m in first["metrics"]],
+            "loss_grad_norm_max_rel": worst_metric,
+            "max_rel_l2_per_rank": [got["max_rel_l2"] for got in rows],
+            "limits": [F32_REL_L2, UPDATE_REL_L2], "launches_per_rank": [
+                got["launches"] for got in rows], "collectives_rank0": first["counts"],
+            "s_2_steps_per_rank": [got["s_2_steps"] for got in rows]}))
+    remat = remat_dots_on_card(torch, np, device)
+    lap_e = time.perf_counter() - t0
+    # (f): the unsharded round on the card, phase 8 (c)'s
+    model = build_model(cfg)
+    fed = FedConfig(algo="fedcm", num_clients=n_cl, cohort_size=C, local_steps=K,
+                    alpha=federated_llm.ALPHA, eta_l=0.05,
+                    weight_decay=federated_llm.WEIGHT_DECAY, participation="fixed")
+    whole = model.init(torch.Generator().manual_seed(8))
+    spec = FlatSpec.from_tree(whole)
+    eng = FederatedEngine(fed, cohort_loss_fn(model), spec, batch_size=B, device=device)
+    data = LMFederatedData(toks, device=device)
+    state = eng.init(whole)
+    losses = []
+    for ids, idx in draws:
+        ids_t = torch.as_tensor(ids, device=device)
+        batches = gather_round_batches(data.client_x, data.client_y, None, ids_t, K, B,
+                                       idx=torch.as_tensor(idx))
+        state, m = eng.round_step(state, batches, ids_t,
+                                  torch.ones(C, dtype=torch.bool, device=device))
+        losses.append(float(metrics_to_host(m)["loss"][0]))
+    want = {"params": state.params.cpu().numpy(), "momentum": state.server.momentum.cpu().numpy()}
+    del state, eng, data
+    torch.cuda.empty_cache()
+    shapes = param_shapes(cfg)
+    n = GROUP_RANKS
+    views = [FlatSpec.from_tree(shard_params(shapes, param_specs(shapes, cfg, n), r, n))
+             for r in range(n)]
+    specs = tree_leaves(param_specs(shapes, cfg, n))
+
+    def joined(key):
+        per_rank = [views[r].views(torch.from_numpy(ranks[r]["fed"][key])) for r in range(n)]
+        return np.concatenate([join_shares([v[i] for v in per_rank], d, n).reshape(-1).numpy()
+                               for i, d in enumerate(specs)])
+
+    got = {k: joined(k) for k in ("params", "momentum")}
+    fed_rows = [r["fed"] for r in ranks]
+    expected = {"fed_direction": R * K, "server_update": R, "dequant_update": 0,
+                "flash_attention": 0, "ssd_scan": 0}
+    p_diff = float(np.max(np.abs(got["params"] - want["params"])))
+    m_rel = rel_l2_host(torch, got["momentum"], want["momentum"])
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(fed_rows[0]["losses"], losses))
+    row = {"arch": arch, "cut": cut, "ranks": n, "share_params": [f["share_params"] for f in fed_rows],
+           "params": int(want["params"].size), "N": n_cl, "cohort": C, "K": K, "B": B, "S": S,
+           "rounds": R, "losses": fed_rows[0]["losses"], "loss_max_rel": loss_rel,
+           "params_max_abs_diff": p_diff, "momentum_rel_l2": m_rel,
+           "launches_per_rank": [f["launches"] for f in fed_rows],
+           "draws_equal": len({f["draws_digest"] for f in fed_rows}) == 1,
+           "drawn_round_loss_per_rank": [f["drawn_round_loss"] for f in fed_rows],
+           "peak_bytes_per_rank": [f["peak_bytes"] for f in fed_rows], "card": smi_line,
+           "limits": {"params": [PARITY_RTOL, PARITY_ATOL], "momentum": F32_REL_L2}}
+    say(f"FedCM on a model group ({n} gloo ranks sharing cuda:0) vs the unsharded card round: "
+        f"{json.dumps(row)}")
+    if not (row["draws_equal"] and len(set(row["drawn_round_loss_per_rank"])) == 1):
+        fail("FedCM on a model group: the ranks' draws differ")
+    if any(f["launches"] != expected for f in fed_rows):
+        fail(f"FedCM on a model group: launches {row['launches_per_rank']}, expected {expected} "
+             f"on each rank")
+    if not (np.isfinite(fed_rows[0]["losses"]).all()
+            and np.allclose(got["params"], want["params"], rtol=PARITY_RTOL, atol=PARITY_ATOL)
+            and m_rel <= F32_REL_L2 and loss_rel <= F32_REL_L2
+            and all(f["losses"] == fed_rows[0]["losses"] for f in fed_rows)):
+        fail(f"FedCM on a model group: {json.dumps(row)}")
+    say(f"phases 8 (e)-(f): the world {wall:.1f} s, (e) with remat {lap_e:.1f} s, the whole "
+        f"{time.perf_counter() - t0:.1f} s; remat peaks {json.dumps(remat['peak_bytes'])}")
+    return {f"fed_lm_group_rank{r}": f["launches"] for r, f in enumerate(fed_rows)}
+
+
+def group_train_four_cards(torch, np, smi_line: str):
+    """``--nccl`` (g): ``launch/train.run`` of ``GROUP_TRAIN_FULL``
+    (starcoder2-7b whole, ``--model-parallel`` MP_FULL_RANKS over NCCL, B 8
+    x 512, ``remat="dots"``, 10 steps, warmup 2).  The per-rank train state
+    is reckoned and printed first; then a loss that falls and is the same
+    on every rank, ms a step and tok/s after ``GROUP_TRAIN_WARM`` steps, the
+    share of the cards' summed bf16 peak that the step's matmul FLOPs reach
+    (phase 8 (b)'s ``train_matmul_flops``), each rank's peak memory, no
+    kernel launched."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train
+    from repro_torch.sharding.shard import share_bytes
+
+    arch, argv = GROUP_TRAIN_FULL
+    n = MP_FULL_RANKS
+    cfg = get_config(arch)
+    share = share_bytes(cfg, n)
+    say(f"training {arch} whole on {n} cards, reckoned before the run: share {share / 1e9:.2f} "
+        f"GB a rank; params + gradients + two AdamW moments {4 * share / 1e9:.2f} GB a rank "
+        f"(whole: {4 * share_bytes(cfg, 1) / 1e9:.2f} GB)")
+    args = train.build_parser().parse_args(["--arch", arch, *argv, "--model-parallel", str(n)])
+    t0 = time.perf_counter()
+    res = train.run(args, echo=False)
+    wall = time.perf_counter() - t0
+    steady = res.step_s[GROUP_TRAIN_WARM:]
+    step_s = statistics.mean(steady)
+    tokens = args.batch * args.seq
+    flops = train_matmul_flops(cfg, res.param_counts, args.batch, args.seq)
+    row = {"arch": arch, "cut": "none (published config)", "cards": n,
+           "params": sum(res.param_counts.values()), "share_bytes": share, "B": args.batch,
+           "S": args.seq, "remat": args.remat, "losses": res.losses,
+           "grad_norms": res.grad_norms, "ms_per_step": step_s * 1e3,
+           "ms_per_step_median": statistics.median(steady) * 1e3, "tok_s": tokens / step_s,
+           "matmul_flops_per_step": flops,
+           "bf16_peak_share_of_the_cards": flops / step_s / (n * BF16_FLOPS_PER_S),
+           "peak_gb_per_rank": [r["peak_bytes"] / 1e9 for r in res.by_rank],
+           "launches_per_rank": [r["launches"] for r in res.by_rank],
+           "wall_s_with_init": wall, "card": smi_line}
+    say(f"training on a model group of {n} cards: {json.dumps(row)}")
+    if any(any(r["launches"].values()) for r in res.by_rank):
+        fail(f"training {arch} on {n} cards: kernels launched in training")
+    if any(r["losses"] != res.losses for r in res.by_rank):
+        fail(f"training {arch} on {n} cards: the ranks' losses differ")
+    if not (np.isfinite(res.losses).all() and res.losses[-1] < res.losses[0]):
+        fail(f"training {arch} on {n} cards: losses {res.losses} do not fall")
+
+
+def group_fed_four_cards(torch, np, smi_line: str):
+    """``--nccl`` (h): ``launch/federated_llm.run`` of ``FED_LM_FULL`` as
+    published, ``GROUP_FED_RUN`` (N 16, a fixed cohort of 8, K 2, B 4 x 64,
+    3 rounds), each client a model group of MP_FULL_RANKS cards over NCCL.
+    The per-rank planes are reckoned and printed first; then on each rank
+    K ``fed_direction`` and one ``server_update`` a round, finite losses,
+    the last round's below the first's, ms a round and each rank's peak
+    memory.  An out-of-memory error fails the phase: nothing is retried
+    smaller."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import federated_llm
+    from repro_torch.sharding.shard import share_bytes
+
+    cfg = get_config(FED_LM_FULL)
+    n = MP_FULL_RANKS
+    C, R, K = (GROUP_FED_RUN[k] for k in ("cohort", "rounds", "local_steps"))
+    p_r = share_bytes(cfg, n) // 4
+    plane = C * p_r * 4
+    say(f"federating {FED_LM_FULL} with a cohort of {C} on {n} cards, reckoned before the run: "
+        f"P_r = {p_r:,} f32 a rank, a (C, P_r) plane {plane / 1e9:.2f} GB; phase 8 (d)'s one-card "
+        f"peak (59.4-60.0 GB) held ~6 planes of that size, so ~{6 * plane / 1e9:.0f} GB a rank")
+    t0 = time.perf_counter()
+    res = federated_llm.run(cfg, **GROUP_FED_RUN, device="cuda", model_parallel=n)
+    wall = time.perf_counter() - t0
+    expected = {"fed_direction": R * K, "server_update": R, "dequant_update": 0,
+                "flash_attention": 0, "ssd_scan": 0}
+    losses = [r["loss"] for r in res.rounds]
+    row = {"arch": FED_LM_FULL, "cut": "none (published config)", "cards": n,
+           "params": res.n_params, "share_params": [r["share_params"] for r in res.by_rank],
+           **GROUP_FED_RUN, "losses": losses,
+           "momentum_norm": [r["momentum_norm"] for r in res.rounds],
+           "ms_per_round": res.round_ms,
+           "peak_gb_per_rank": [r["peak_bytes"] / 1e9 for r in res.by_rank],
+           "launches_per_rank": [r["launches"] for r in res.by_rank],
+           "wall_s_with_init": wall, "card": smi_line}
+    say(f"FedCM with each client a model group of {n} cards: {json.dumps(row)}")
+    if any(r["launches"] != expected for r in res.by_rank):
+        fail(f"FedCM on {n} cards: launches {row['launches_per_rank']}, expected {expected}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"FedCM on {n} cards: losses {losses} do not fall")
 
 
 def fed_lm_step_profile(torch, smi_line: str) -> None:
@@ -3302,14 +3757,21 @@ def main() -> int:
     lap("2")
 
     if "--nccl" in sys.argv[1:]:
-        # phase 4f (c) alone, then the model group's full runs, on a machine with four cards
-        cohort_sharding(torch, np, su_kernel, smi_line, nccl_only=True)
-        lap("4f (c)")
+        # phase 4f (c) alone, then the model group's full runs, on a machine with four cards;
+        # --groups-only: phases 8 (g) and (h) alone
         if torch.cuda.device_count() < MP_FULL_RANKS:
-            fail(f"--nccl serves the model group on {MP_FULL_RANKS} cards; "
+            fail(f"--nccl runs the model group on {MP_FULL_RANKS} cards; "
                  f"{torch.cuda.device_count()} visible")
-        model_group_four_cards(torch, np, smi_line)
-        lap("6b (nccl)")
+        if "--groups-only" not in sys.argv[1:]:
+            cohort_sharding(torch, np, su_kernel, smi_line, nccl_only=True)
+            lap("4f (c)")
+            model_group_four_cards(torch, np, smi_line)
+            lap("6b (nccl)")
+        torch.cuda.empty_cache()
+        group_train_four_cards(torch, np, smi_line)
+        lap("8 (g)")
+        group_fed_four_cards(torch, np, smi_line)
+        lap("8 (h)")
         for line in smi.stdout.strip().splitlines():
             say(line)
         say(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3604,6 +4066,9 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         fed_lm_step_profile(torch, smi_line)
     lap("8 (d)")
+    # (e) and (f): training and FedCM rounds on a model group, ranks sharing the card
+    by_path.update(model_group_training_one_card(torch, np, smi_line))
+    lap("8 (e)-(f)")
 
     # ---- 9. summary
     def main_case(cases, **sel):

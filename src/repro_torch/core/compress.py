@@ -33,6 +33,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.configs.base import CompressionConfig
+
 # plane name → stream index of its rounding draw
 PLANE_STREAMS = {"delta": 0, "state_delta": 1, "extra": 2}
 # the rounding streams sit above the fault streams (1–4), so a compression
@@ -65,6 +67,15 @@ def validate_compression(comp) -> None:
         raise ValueError(f"unknown compression kind {comp.kind!r} — expected one of {KINDS}")
     if comp.kind == "topk" and not (0.0 < comp.topk_frac <= 1.0):
         raise ValueError(f"topk_frac must be in (0, 1], got {comp.topk_frac}")
+
+
+def effective_compression(cfg, spec):
+    """The uplink's wire format: ``cfg.compression``, else the spec's own
+    ``uplink_compression`` (a ``CompressionConfig`` of that kind at its
+    defaults), else None (f32), as the reference's engine resolves it."""
+    if cfg.compression is not None or spec.uplink_compression is None:
+        return cfg.compression
+    return CompressionConfig(kind=spec.uplink_compression)
 
 
 def carries_residuals(comp) -> bool:

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FedConfig
-from repro_torch.core.compress import init_residuals
+from repro_torch.core.compress import effective_compression, init_residuals
 from repro_torch.core.engine import FedState
 from repro_torch.core.flat import FlatSpec
 from repro_torch.core.registry import ServerState, client_state_init, get_algorithm
@@ -97,7 +97,8 @@ def state_from_numpy(params, cfg: FedConfig, *, momentum=None, round: int = 0,
     if residuals is not None:
         res = to_tensor(residuals, device, torch.float32)
     else:
-        res = init_residuals(cfg.compression, cfg.num_clients, spec.size, device)
+        res = init_residuals(effective_compression(cfg, algo), cfg.num_clients, spec.size,
+                             device)
     state = FedState(
         params=spec.ravel(tree).to(device),
         server=ServerState(momentum=m.to(device),

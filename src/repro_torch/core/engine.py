@@ -75,6 +75,20 @@ rank's replicated ``(N, P)`` planes.  Sharded ≡ unsharded, bit for bit.
 Every per-round value — the round counter, η_l, the fold coefficients, the
 cohort mask and |S| — lives in device memory, and nothing in a resident
 round reads one back to the host.  The host store reads the cohort's ids.
+
+A model group (``model_group=``, a ``core.flat.GroupPlane``) runs a round
+whose clients are each a model tensor-sharded over the group's ranks (the
+reference's ``fed_dryrun`` layout): every rank holds its share's columns
+of every plane, ``(C, P_r)``, runs the same round on the same draws, and
+launches the same kernels on its share.  The gradient comes through the
+model's differentiable collectives (``cohort_loss_fn(model, parallel)``)
+with its partial parts summed over the group, and ``delta_norm`` /
+``momentum_norm`` are the whole plane's (``GroupPlane.norm``).  What reads
+a whole row or a client's whole plane raises ``NotImplementedError``
+naming ROADMAP A.16 (e): uplink compression, the fault layer, a
+``direction_fn`` / ``server_fn``, the async ring, the host store and
+cohort sharding.
+
 The per-leaf tree path (A.16) raises ``NotImplementedError`` naming its
 ROADMAP item (``check_supported``).
 """
@@ -100,6 +114,7 @@ from repro_torch.core.compress import (
     carries_residuals,
     compress_plane,
     decompress_plane,
+    effective_compression,
     error_feedback_topk,
     init_residuals,
     uplink_bytes_per_client,
@@ -114,7 +129,14 @@ from repro_torch.core.faults import (
     rows_sqnorm,
     zero_rows,
 )
-from repro_torch.core.flat import CohortUplink, FlatSpec, gather_rows, pad_cohort, ring_push
+from repro_torch.core.flat import (
+    CohortUplink,
+    FlatSpec,
+    GroupPlane,
+    gather_rows,
+    pad_cohort,
+    ring_push,
+)
 from repro_torch.core.registry import (
     ServerState,
     client_state_init,
@@ -310,6 +332,26 @@ def check_supported(cfg: FedConfig) -> None:
                          f"known: {AVAILABILITY_PROCESSES}")
 
 
+def check_model_group(cfg: FedConfig, algo, cohort_group=None) -> None:
+    """Refuse, naming ROADMAP A.16 (e), what a round over a model group does
+    not run yet: each reads a whole row or a client's whole plane, where a
+    rank holds its share's columns."""
+    for on, what in (
+            (effective_compression(cfg, algo) is not None,
+             "uplink compression (int8's per-row scales and top-k's selection run over the "
+             "whole row)"),
+            (cfg.fault is not None, "the fault layer (its quarantine norms and corruption draws "
+                                    "run over the whole row)"),
+            (algo.direction_fn is not None or algo.server_fn is not None,
+             f"{algo.name}'s direction_fn / server_fn (it would see one rank's share)"),
+            (cfg.population_store == "host", "population_store='host'"),
+            (cohort_group is not None or cfg.cohort_shard > 0,
+             "cohort sharding (the data axis, ROADMAP A.16 (d) 2)")):
+        if on:
+            raise NotImplementedError(f"{what} under a model group is not ported yet "
+                                      f"(ROADMAP A.16 (e))")
+
+
 def cohort_capacity(cfg: FedConfig) -> int:
     """Static cohort axis length. ``fixed``: exactly S. ``bernoulli``: a
     Binomial(N, p) tail bound, mean + ``bernoulli_capacity_sigma``·σ,
@@ -429,11 +471,22 @@ class FederatedEngine:
     shards the cohort over the group's ranks; each rank builds the same
     engine and calls the same methods, and every rank ends each call with
     the same state.
+
+    ``model_group`` (a ``GroupPlane``, ``sharding.shard.group_plane(spec,
+    model_cfg, parallel)``) makes each client a model group: ``spec`` is
+    this rank's share's, ``loss_fn`` runs on the group
+    (``cohort_loss_fn(model, parallel)``), and each rank builds the same
+    engine and calls the same methods with the same draws.
     """
 
     def __init__(self, cfg: FedConfig, loss_fn: Callable, spec: FlatSpec,
-                 batch_size: int = 50, device="cuda", cohort_group=None) -> None:
+                 batch_size: int = 50, device="cuda", cohort_group=None,
+                 model_group: Optional[GroupPlane] = None) -> None:
         check_supported(cfg)
+        if model_group is not None:
+            check_model_group(cfg, get_algorithm(cfg.algo), cohort_group)
+        self.model_group = model_group
+        self._draws_checked = False
         if cfg.population_store == "host" and (cohort_group is not None
                                                or cfg.cohort_shard > 0):
             raise ValueError("population_store='host' is host-loop execution and is not "
@@ -459,13 +512,20 @@ class FederatedEngine:
         self.spec = spec
         self.batch_size = batch_size
         self.device = resolve_device(device)
-        self.compression = cfg.compression
+        # cfg.compression, else the spec's declared wire format
+        self.compression = effective_compression(cfg, self.algo)
         if self.compression is not None:
             validate_compression(self.compression)
         # host stores of the client-state rows and the top-k residual rows
         # (population_store="host"), attached by init()
         self.population = None
         self.residual_population = None
+
+    def _plane_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """‖x‖ of a ``(P,)`` plane; over a model group, of the whole plane."""
+        if self.model_group is None:
+            return _norm(x)
+        return self.model_group.norm(self.spec, x)
 
     @property
     def _host(self) -> bool:
@@ -535,10 +595,12 @@ class FederatedEngine:
         plus Δ_t (or SCAFFOLD's c) when the spec broadcasts it; up, P per
         wire plane (``wire_uplink_planes``), or under compression the
         planes' bytes on the wire."""
-        nbytes = self.spec.nbytes
+        nbytes, size = self.spec.nbytes, self.spec.size
+        if self.model_group is not None:  # a client's whole model, not this rank's share
+            nbytes, size = self.model_group.whole_nbytes, self.model_group.whole_size
         down = nbytes * (2 if self.algo.needs_momentum_broadcast else 1)
         up = uplink_bytes_per_client(self.compression, self.algo.wire_uplink_planes,
-                                     self.spec.size, nbytes)
+                                     size, nbytes)
         return {"down_per_client": down, "up_per_client": up}
 
     # -------------------------------------------------- client phase
@@ -567,6 +629,8 @@ class FederatedEngine:
             else:
                 cols.copy_(grads[i].reshape(cols.shape))
             grads[i] = None  # free each leaf's gradient once it is in the plane
+        if self.model_group is not None:  # the parts each rank reads only in part
+            self.model_group.sum_partial(spec, g)
         return losses.detach(), g
 
     def _flat_cohort_pass(self, x_t, m_t, batches, eta_l, cst=None, full_batches=None):
@@ -842,7 +906,7 @@ class FederatedEngine:
                 new_cst = new_cst.index_copy(0, entry.ids.long(), rows)
                 rows = None
         state = state._replace(params=new_x, server=new_server, client_states=new_cst)
-        return state, _norm(mean_delta), 1.0 - ok.to(torch.float32), rows
+        return state, self._plane_norm(mean_delta), 1.0 - ok.to(torch.float32), rows
 
     @staticmethod
     def _adopt_residuals(state: FedState, ids, new_rows) -> FedState:
@@ -877,7 +941,7 @@ class FederatedEngine:
             loss=lau.loss,
             n_active=lau.n_active,
             delta_norm=norm,
-            momentum_norm=_norm(m_t),
+            momentum_norm=self._plane_norm(m_t),
             eta_l=entry.eta_l,
             bytes_down=lau.n_active * float(pay["down_per_client"]),
             bytes_up=lau.n_active * float(pay["up_per_client"]),
@@ -897,10 +961,25 @@ class FederatedEngine:
         ids, mask, n_clipped = sample_cohort_ex(generator, self.cfg, self.device, t)
         batches = gather_round_batches(data.client_x, data.client_y, generator, ids,
                                        self.cfg.local_steps, self.batch_size)
+        if self.model_group is not None and not self._draws_checked:
+            self._check_same_draws(ids, mask, batches)
         full = None
         if self.algo.needs_full_grad:
             full = gather_full_client_batch(data.client_x, data.client_y, ids)
         return RoundInputs(batches, ids, mask, n_clipped, full)
+
+    def _check_same_draws(self, ids, mask, batches) -> None:
+        """Over a model group every rank must draw the same cohort and
+        minibatches from its own generator; check the first round's draws
+        once (one ``all_gather`` of their ids and sums) rather than trust
+        it across devices."""
+        d = torch.stack([t.to(torch.float64).sum() for t in (ids, mask, *batches.values())])
+        d = torch.cat([d, ids.to(torch.float64)])
+        every = self.model_group.parallel.all_gather(d[None], dim=0)
+        if not bool((every == every[0]).all()):
+            raise RuntimeError("the ranks of the model group drew different cohorts or "
+                               "minibatches: seed every rank's generator alike")
+        self._draws_checked = True
 
     def _sample_round(self, state: FedState, data):
         inp = self._draw_round(state.rng, state.server.round, data)
@@ -931,6 +1010,9 @@ class FederatedEngine:
 
     # -------------------------------------------------- async ring
     def _async_args(self, n_rounds, pipeline_depth, staleness) -> Tuple[int, int]:
+        if self.model_group is not None:
+            raise NotImplementedError("the async ring under a model group is not ported yet "
+                                      "(ROADMAP A.16 (e))")
         D = self.cfg.pipeline_depth if pipeline_depth is None else pipeline_depth
         S = self.cfg.staleness if staleness is None else staleness
         if n_rounds < 1:

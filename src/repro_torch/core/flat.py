@@ -17,6 +17,7 @@ from typing import Any, List, NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from repro_torch.sharding.rules import group_sq_norm, sum_partial
 from repro_torch.utils.trees import (
     ravel_leaves,
     split_flat,
@@ -110,6 +111,32 @@ class FlatSpec:
 
     def __repr__(self) -> str:
         return f"FlatSpec(n_leaves={len(self.leaves)}, size={self.size})"
+
+
+class GroupPlane(NamedTuple):
+    """A flat plane over one rank's share of a model group's params (the
+    reference's ``fed_dryrun`` layout: each client's model tensor-sharded
+    over ``"model"``): the rank's plane is its share's leaves raveled, ``(C,
+    P_r)`` for a cohort, so every elementwise step (the local steps, the
+    fold, the post-steps) runs on the share as it is.  What reduces over P
+    reads ``parts`` (``sharding.rules.group_parts`` of each leaf, in the
+    plane's order): a gradient's partial parts are summed over the group,
+    and a norm counts each replicated part once.  Built by
+    ``sharding.shard.group_plane``."""
+
+    parallel: Any  # models.layers.ParallelContext
+    parts: Tuple  # rules.group_parts of each leaf of the FlatSpec
+    whole_size: int  # P of the unsharded plane
+    whole_nbytes: int  # bytes of the unsharded tree (per-leaf dtypes)
+
+    def sum_partial(self, spec: "FlatSpec", grads: torch.Tensor) -> None:
+        """Sum, in place, the partial parts of the gradient plane ``grads``
+        (``(..., P_r)``) over the group."""
+        sum_partial(spec.views(grads), self.parts, self.parallel, lead=grads.dim() - 1)
+
+    def norm(self, spec: "FlatSpec", plane: torch.Tensor) -> torch.Tensor:
+        """The L2 norm of the whole ``(P,)`` plane whose share ``plane`` is."""
+        return torch.sqrt(group_sq_norm(spec.views(plane), self.parts, self.parallel))
 
 
 class CohortUplink(NamedTuple):

@@ -45,8 +45,12 @@ plane, and hands them over on the ``(P,)`` planes, γ·mean on the async
 ring.  The engine owns the round counter: it advances it after every
 round whatever ``server_fn`` returns for it.
 
-The uplink's wire format is not part of a spec: ``cfg.compression`` alone
-selects it (``repro_torch.core.compress``); no builtin spec declares one.
+A spec may declare its uplink's wire format, as in the reference:
+``uplink_compression`` ("int8" / "bf16" / "topk") is the default the
+engine takes when ``cfg.compression`` is None
+(``repro_torch.core.compress.effective_compression``), and a top-k spec
+declares ``needs_residual``, its error-feedback stream.  No builtin spec
+declares one.
 
 A spec is registered with ``register_algorithm`` — called, or as a
 decorator on a zero-argument builder — and runs on every engine path (the
@@ -156,6 +160,13 @@ class AlgorithmSpec(NamedTuple):
     # stored-momentum dtype policy: "float32", or "momentum_dtype" to honor
     # cfg.momentum_dtype (FedCM's broadcastable Δ_t)
     momentum_store: str = "float32"
+    # --- (d) uplink wire format (repro_torch.core.compress) ---
+    # the spec's default compression kind ("int8" / "bf16" / "topk", None:
+    # f32); cfg.compression overrides it
+    uplink_compression: Optional[str] = None
+    # top-k's error-feedback residual rows, a per-client stream: a "topk"
+    # spec must declare it, and only a "topk" spec may
+    needs_residual: bool = False
 
     @property
     def uplink_planes(self) -> Tuple[str, ...]:
@@ -234,8 +245,7 @@ _REGISTRY: Dict[str, AlgorithmSpec] = {}
 
 
 def _validate(spec: AlgorithmSpec) -> None:
-    """The reference's rules, minus those of the wire-format fields the port
-    does not carry (``uplink_compression``, ``needs_residual``)."""
+    """The reference's rules, with its messages."""
     if not spec.name or not isinstance(spec.name, str):
         raise ValueError(f"AlgorithmSpec needs a non-empty string name, got {spec.name!r}")
     if spec.momentum_store not in ("float32", "momentum_dtype"):
@@ -260,6 +270,16 @@ def _validate(spec: AlgorithmSpec) -> None:
                          f"(how does the per-client plane evolve?)")
     if spec.client_state_uplink and not spec.needs_client_state:
         raise ValueError(f"{spec.name}: client_state_uplink without client state")
+    if spec.uplink_compression not in (None, "int8", "bf16", "topk"):
+        raise ValueError(f"{spec.name}: unknown uplink_compression "
+                         f"{spec.uplink_compression!r}; known: int8 | bf16 | topk")
+    if spec.uplink_compression == "topk" and not spec.needs_residual:
+        raise ValueError(f"{spec.name}: uplink_compression='topk' without needs_residual "
+                         f"— lossy sparsification needs the error-feedback residual "
+                         f"stream or every uplink is silently biased (repro.core.compress)")
+    if spec.needs_residual and spec.uplink_compression != "topk":
+        raise ValueError(f"{spec.name}: needs_residual declared but uplink_compression is "
+                         f"{spec.uplink_compression!r} — only 'topk' carries residuals")
     if spec.server_fn is not None:
         if spec.server_post_fn is not None:
             raise ValueError(f"{spec.name}: server_fn replaces fold+post — drop "
@@ -380,13 +400,16 @@ def describe_algorithm(spec: AlgorithmSpec) -> Dict[str, str]:
         ) if on
     ] or ["—"]
     wire = spec.wire_uplink_planes
+    comp = spec.uplink_compression or "f32"
+    if spec.needs_residual:
+        comp += " + residual"
     return {
         "algorithm": spec.name,
         "local step": direction,
         "server fold": server,
         "state planes": ", ".join(planes),
         "uplink": f"{len(wire)}×P ({'+'.join(wire)})",
-        "wire": "f32",  # no spec declares a wire format; cfg.compression selects it
+        "wire": comp,  # the spec's default wire format (cfg.compression overrides it)
     }
 
 

@@ -8,7 +8,7 @@ launches or raises, and never falls back.
 """
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Dict, Iterable
 
 import torch
 
@@ -25,3 +25,21 @@ def coef_vector(values: Iterable, device) -> torch.Tensor:
         for v in values
     ]
     return torch.stack(parts)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel's launch count in this process, by name: each wrapper
+    adds one where it launches its kernel (``build.NativeKernel``)."""
+    from repro_torch.kernels.fed_direction import kernel as fd
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.server_update import kernel as su
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+
+    return {"fed_direction": fd.KERNEL.launches, "server_update": su.KERNEL.launches,
+            "dequant_update": su.DEQUANT_KERNEL.launches,
+            "flash_attention": fa.KERNEL.launches, "ssd_scan": ssd.KERNEL.launches}
+
+
+def launches_since(before: Dict[str, int]) -> Dict[str, int]:
+    """The launches of each kernel since ``before`` (a ``launch_counts()``)."""
+    return {k: v - before[k] for k, v in launch_counts().items()}

@@ -52,7 +52,9 @@ import torch.distributed as dist
 
 from repro_torch.checkpoint import latest_step, load_fed_run, save_fed_run
 from repro_torch.configs.base import CompressionConfig, FaultConfig, FedConfig
-from repro_torch.core.compress import uplink_bytes_per_client, validate_compression
+from repro_torch.core.compress import (
+    effective_compression, uplink_bytes_per_client, validate_compression,
+)
 from repro_torch.core.engine import (
     FederatedEngine,
     make_eval_fn,
@@ -307,7 +309,8 @@ def list_algos_text(dim: int = 32, hidden: int = 128, n_classes: int = 10,
     for n in list_algorithms():
         spec = get_algorithm(n)
         r = describe_algorithm(spec)
-        up = uplink_bytes_per_client(compression, spec.wire_uplink_planes, P, P * 4)
+        comp = compression or effective_compression(FedConfig(), spec)
+        up = uplink_bytes_per_client(comp, spec.wire_uplink_planes, P, P * 4)
         r["uplink bytes/round"] = f"{_fmt_bytes(up)}/client"
         rows.append(r)
     cols = ["algorithm", "local step", "server fold", "state planes", "uplink",

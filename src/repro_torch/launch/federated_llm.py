@@ -17,15 +17,26 @@ and exits non-zero unless the loss has fallen.  Runs on ``cuda`` and
 raises when there is no GPU, unless ``--device cpu`` asks for the CPU (the
 kernels' plain versions).
 
+``--model-parallel N`` (``run(..., model_parallel=N)``) makes each client a
+model group of N ranks, the reference's ``fed_dryrun`` layout: each rank
+draws its share of the weights (``sharding.shard.init_params_sharded``),
+holds its share's columns of every ``(C, P)`` plane and runs the same round
+on the same draws (each rank's generator seeded alike), launching
+``fed_direction`` K times and ``server_update`` once a round on its share
+(``core.engine``'s ``model_group``).  N ranks run on ``cuda:0`` …
+``cuda:N−1`` over NCCL, or on the CPU over gloo with ``--device cpu``;
+rank 0 prints.
+
     PYTHONPATH=src python -m repro_torch.launch.federated_llm --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.federated_llm --device cpu --model-parallel 2
 """
 from __future__ import annotations
 
 import argparse
 import math
 import time
-from dataclasses import dataclass
-from typing import Dict, List, Optional
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -33,35 +44,55 @@ from repro_torch.configs.base import FedConfig, get_config, reduced
 from repro_torch.core.engine import FederatedEngine, metrics_to_host, resolve_device, synchronize
 from repro_torch.core.flat import FlatSpec
 from repro_torch.data.pipeline import LMFederatedData, federated_lm_corpora
+from repro_torch.kernels import launch_counts, launches_since
+from repro_torch.launch.mesh import make_model_group, spawn_cohort
+from repro_torch.models.layers import ParallelContext
 from repro_torch.models.model import build_model, cohort_loss_fn
+from repro_torch.sharding.rules import check_model_parallel
+from repro_torch.sharding.shard import group_plane, init_params_sharded
 
 N_SEQS = 256  # sequences in each client's corpus
 # the example's FedCM settings: momentum α, server step η_g, weight decay
 ALPHA, ETA_G, WEIGHT_DECAY = 0.1, 1.0, 1e-4
 METRICS = ("loss", "momentum_norm", "delta_norm", "n_active")
+# a model group's collectives wait this long for a rank (its share may still
+# be drawing), and the whole world this long
+MP_TIMEOUT_S, MP_DEADLINE_S = 600.0, 3600.0
 
 
 @dataclass
 class FedLMResult:
-    """One ``run``: the config's name, the flat plane's size P, each
-    round's metrics on the host (``METRICS``), each round's wall ms
-    (synchronized with the device at both ends), and the peak device memory
-    over the run in bytes (None on the CPU)."""
+    """One ``run``: the config's name, the flat plane's size P (the whole
+    model's under a group), each round's metrics on the host (``METRICS``),
+    each round's wall ms (synchronized with the device at both ends), and
+    the peak device memory over the run in bytes (None on the CPU).
+    ``by_rank`` has, for each rank of a model group (one entry unsharded),
+    its share's plane size, peak bytes, kernel launches over the rounds and
+    round metrics."""
 
     arch: str
     n_params: int
     rounds: List[Dict[str, float]]
     round_ms: List[float]
     peak_bytes: Optional[int]
+    by_rank: List[Dict[str, Any]] = field(default_factory=list)
 
 
 def run(cfg, *, n_clients: int = 8, cohort: int = 3, local_steps: int = 4, batch: int = 4,
         seq: int = 64, rounds: int = 20, eta_l: float = 0.05, seed: int = 0,
-        device="cuda") -> FedLMResult:
+        device="cuda", model_parallel: int = 1,
+        parallel: Optional[ParallelContext] = None) -> FedLMResult:
     """FedCM over the LM ``cfg`` for ``rounds`` rounds (a fixed cohort;
     ``ALPHA``, ``ETA_G`` and ``WEIGHT_DECAY``).
     The weights are drawn on ``device`` from ``seed``, the cohorts and
-    minibatches from a generator on ``device`` seeded with ``seed + 1``."""
+    minibatches from a generator on ``device`` seeded with ``seed + 1``.
+    ``model_parallel`` > 1 (and no ``parallel``) spawns the ranks of a model
+    group and returns rank 0's result with every rank's ``by_rank`` entry;
+    ``parallel`` runs this rank's share of that group."""
+    kw = dict(n_clients=n_clients, cohort=cohort, local_steps=local_steps, batch=batch,
+              seq=seq, rounds=rounds, eta_l=eta_l, seed=seed)
+    if parallel is None and model_parallel > 1:
+        return run_model_parallel(cfg, model_parallel, device, **kw)
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -73,13 +104,24 @@ def run(cfg, *, n_clients: int = 8, cohort: int = 3, local_steps: int = 4, batch
                            device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    params = model.init(gen)
-    spec = FlatSpec.from_tree(params)
-    eng = FederatedEngine(fed, cohort_loss_fn(model), spec, batch_size=batch, device=dev)
+    group = None
+    if parallel is None:
+        params = model.init(gen)
+        spec = FlatSpec.from_tree(params)
+    else:
+        check_model_parallel(cfg, parallel.size)
+        # the kept slices wait on the host while whole leaves are drawn on the card
+        params = init_params_sharded(gen, cfg, parallel.rank, parallel.size,
+                                     stage="cpu" if dev.type == "cuda" else None)
+        spec = FlatSpec.from_tree(params)
+        group = group_plane(spec, cfg, parallel)
+    eng = FederatedEngine(fed, cohort_loss_fn(model, parallel), spec, batch_size=batch,
+                          device=dev, model_group=group)
     rng = torch.Generator(device=dev)
-    rng.manual_seed(seed + 1)
+    rng.manual_seed(seed + 1)  # alike on every rank: the same cohorts and minibatches
     state = eng.init(params, rng)
     del params  # the engine holds the flat plane
+    before = launch_counts()
     per_round, round_ms = [], []
     for _ in range(rounds):
         synchronize(dev)
@@ -90,7 +132,30 @@ def run(cfg, *, n_clients: int = 8, cohort: int = 3, local_steps: int = 4, batch
         host = metrics_to_host(m)
         per_round.append({k: float(host[k][0]) for k in METRICS})
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
-    return FedLMResult(cfg.name, spec.size, per_round, round_ms, peak)
+    mine = {"share_params": spec.size, "peak_bytes": peak, "launches": launches_since(before),
+            "rounds": per_round}
+    return FedLMResult(cfg.name, spec.size if group is None else group.whole_size, per_round,
+                       round_ms, peak, [mine])
+
+
+def run_model_parallel(cfg, n: int, device, **kw) -> FedLMResult:
+    """``run`` in ``n`` spawned ranks of a model group (NCCL on n cards,
+    gloo on the CPU); rank 0's result with every rank's ``by_rank`` entry.
+    Raises unless every rank saw the same round metrics."""
+    check_model_parallel(cfg, n)
+    resolve_device(device)
+    results = spawn_cohort(_model_parallel_rank, n, args=(cfg, kw), device=device,
+                           timeout_s=MP_TIMEOUT_S, deadline_s=MP_DEADLINE_S)
+    for r, res in enumerate(results):
+        if res.rounds != results[0].rounds:
+            raise RuntimeError(f"rank {r} of the model group saw round metrics {res.rounds}, "
+                               f"rank 0 {results[0].rounds}")
+    results[0].by_rank = [res.by_rank[0] for res in results]
+    return results[0]
+
+
+def _model_parallel_rank(rank: int, device, cfg, kw) -> FedLMResult:
+    return run(cfg, device=str(device), parallel=make_model_group(), **kw)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -98,14 +163,20 @@ def build_parser() -> argparse.ArgumentParser:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--model-parallel", type=int, default=1, metavar="N",
+                    help="each client a model group of N ranks: one card a rank over NCCL, "
+                         "or gloo ranks with --device cpu (default 1: unsharded)")
     return ap
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.model_parallel < 1:
+        ap.error(f"--model-parallel must be >= 1, got {args.model_parallel}")
     cfg = reduced(get_config("llama3.2-1b"))
     n_clients = 8
-    res = run(cfg, n_clients=n_clients, device=args.device)
+    res = run(cfg, n_clients=n_clients, device=args.device, model_parallel=args.model_parallel)
     print(f"federated {res.arch} ({res.n_params / 1e6:.1f}M params) across {n_clients} "
           f"heterogeneous corpora with FedCM\n")
     for r, m in enumerate(res.rounds):

@@ -10,18 +10,29 @@ them).  Gradients come from ``torch.autograd`` through the model's plain
 route (``loss_fn(..., use_kernels=False)``): the hand-written kernels have
 no backward, as the reference's Pallas kernels have none.
 
-The ``Knobs`` fields keep the reference's names and defaults.  Gradients
-accumulate in f32 and the moments are f32 (``adamw``'s ``moment_dtype``
-default); the weights keep the dtype ``model.init`` gives them (the
-config's ``param_dtype``).  Left out are ``seq_shard_acts``,
-``serve_params`` and ``scan_unroll`` (lowering and mesh knobs, ROADMAP
-A.16).
+The ``Knobs`` fields keep the reference's names and defaults: gradients
+accumulate over microbatches in ``grad_accum_dtype`` and the AdamW moments
+are stored in ``moment_dtype`` (both f32 by default); the weights keep the
+dtype ``model.init`` gives them (the config's ``param_dtype``).  Left out
+are ``param_dtype``, ``seq_shard_acts``, ``serve_params`` and
+``scan_unroll`` (lowering and mesh knobs, ROADMAP A.16 (d) 6).
+
+``build_train_step(cfg, knobs, parallel)`` trains on a model group: every
+rank calls the step with its share of the params and of the AdamW state
+(``repro_torch.sharding.shard``) and the same batch.  The model's
+collectives carry the gradient (``models.layers``); the gradients of the
+leaves a rank reads only in part are summed over the group
+(``rules.sum_partial``); the clip takes the group's norm (the split parts
+summed over the ranks, each replicated part counted once,
+``rules.group_sq_norm``); AdamW and the f32 update run on the share.  Every
+rank gets the same loss and grad norm.  On a model-only group the
+reference's ``mode="train"`` specs are its serve specs (their FSDP runs over
+the data axes, of size 1); the data axis is ROADMAP A.16 (d) 2.
 
 ``make_parallel`` / ``build_prefill_step`` / ``build_serve_step`` are the
 reference's step builders as plain functions (no jit bundles, no
 shardings): the group's ranks each call the step with their share of the
-params (``repro_torch.sharding.shard``) and the same tokens.  Training
-under a group (``mode="train"`` specs, FSDP) is ROADMAP A.16.
+params (``repro_torch.sharding.shard``) and the same tokens.
 """
 from __future__ import annotations
 
@@ -35,18 +46,23 @@ from repro_torch.models.layers import ParallelContext
 from repro_torch.models.model import Model, build_model
 from repro_torch.models.transformer import check_remat
 from repro_torch.optim.optimizers import Optimizer, adamw, clip_by_global_norm
-from repro_torch.utils.trees import tree_flatten_with_path, tree_map, tree_unflatten
+from repro_torch.sharding.rules import group_sq_norm, sum_partial
+from repro_torch.sharding.shard import share_parts
+from repro_torch.utils.trees import tree_flatten_with_path, tree_leaves, tree_map, tree_unflatten
 
 F32 = torch.float32
+DTYPES = ("float32", "bfloat16")
 
 
 @dataclass(frozen=True)
 class Knobs:
     microbatches: int = 1  # grad-accumulation chunks of the global batch
-    remat: str = "full"  # "none" | "full" (each period under torch.utils.checkpoint)
+    remat: str = "full"  # "none" | "full" | "dots" (models.transformer.remat_call)
     learning_rate: Any = 3e-4  # a float or a schedule step -> lr
     grad_clip: float = 1.0
     use_kernels: bool = False  # only False: True raises, no kernel has a backward
+    moment_dtype: str = "float32"  # AdamW's moments; bf16 halves their memory
+    grad_accum_dtype: str = "float32"  # the microbatch gradient accumulator
 
 
 class TrainStep(NamedTuple):
@@ -68,18 +84,28 @@ def value_and_grad(loss_fn: Callable, params, batch):
     return (loss.detach(), tree_map(torch.Tensor.detach, metrics)), tree_unflatten(treedef, grads)
 
 
-def build_train_step(cfg, knobs: Knobs = Knobs()) -> TrainStep:
+def build_train_step(cfg, knobs: Knobs = Knobs(),
+                     parallel: Optional[ParallelContext] = None) -> TrainStep:
+    """The train step of ``cfg`` under ``knobs``; with ``parallel`` each
+    rank of that model group steps its share (see the module docstring)."""
     if knobs.use_kernels:
         raise NotImplementedError(
             "Knobs.use_kernels=True: the flash-attention and SSD kernels have no backward (nor "
             "have the JAX package's Pallas kernels); training takes the plain route")
     check_remat(knobs.remat)
+    for name in ("moment_dtype", "grad_accum_dtype"):
+        if getattr(knobs, name) not in DTYPES:
+            raise ValueError(f"Knobs.{name} must be one of {DTYPES}, got "
+                             f"{getattr(knobs, name)!r}")
     model = build_model(cfg)
-    opt = adamw(knobs.learning_rate)
+    opt = adamw(knobs.learning_rate, moment_dtype=getattr(torch, knobs.moment_dtype))
+    acc_dtype = getattr(torch, knobs.grad_accum_dtype)
     M = knobs.microbatches
+    parts = None if parallel is None else share_parts(cfg, parallel.size)
 
     def loss_fn(params, mb):
-        return model.loss_fn(params, mb, remat=knobs.remat, use_kernels=False)
+        return model.loss_fn(params, mb, parallel=parallel, remat=knobs.remat,
+                             use_kernels=False)
 
     def train_step(params, opt_state, batch: Dict[str, torch.Tensor]):
         if M == 1:
@@ -88,7 +114,7 @@ def build_train_step(cfg, knobs: Knobs = Knobs()) -> TrainStep:
             B = next(iter(batch.values())).shape[0]
             if B % M:
                 raise ValueError(f"batch {B} is not a multiple of {M} microbatches")
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=F32, device=p.device),
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dtype, device=p.device),
                              params)
             loss = torch.zeros((), dtype=F32, device=next(iter(batch.values())).device)
             for i in range(M):
@@ -99,7 +125,11 @@ def build_train_step(cfg, knobs: Knobs = Knobs()) -> TrainStep:
             grads = tree_map(lambda g: g / M, grads)
             loss = loss / M
         with torch.no_grad():
-            grads, gnorm = clip_by_global_norm(grads, knobs.grad_clip)
+            norm = None
+            if parallel is not None:
+                sum_partial(tree_leaves(grads), parts, parallel)
+                norm = torch.sqrt(group_sq_norm(tree_leaves(grads), parts, parallel))
+            grads, gnorm = clip_by_global_norm(grads, knobs.grad_clip, norm)
             updates, opt_state = opt.update(grads, opt_state, params)
             del grads
             # p + u in f32, written into the update (a fresh tensor) when it is f32

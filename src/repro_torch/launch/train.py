@@ -16,19 +16,35 @@ from a ``torch.Generator`` seeded from ``--seed`` and the step (the
 reference folds the step into its threefry key).  A resumed run skips the
 batches of the steps before its snapshot, so it continues the straight
 run's data.  Runs on ``cuda`` and raises when there is no GPU, unless
-``--device cpu`` asks for the CPU.
+``--device cpu`` asks for the CPU.  ``--remat`` is the period's
+rematerialisation (``none``, the default; ``full``; ``dots``: the weight
+products' outputs kept).
+
+``--model-parallel N`` trains on N ranks of a model group
+(``repro_torch.launch.mesh``; the reference's mesh with a ``"model"`` axis
+of N and a data axis of 1): each rank draws its share of the weights
+(``sharding.shard.init_params_sharded``, bitwise its slice of the
+unsharded draw), steps its share through ``build_train_step(cfg, knobs,
+parallel)`` on the same batches, and rank 0 logs; every rank's loss and
+grad norm are the same.  N ranks run on ``cuda:0`` … ``cuda:N−1`` over
+NCCL, or on the CPU over gloo with ``--device cpu``.  Snapshots under a
+group (``--ckpt-dir``) are refused (ROADMAP A.16 (d) 1).
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 20 \\
         --batch 4 --seq 32 --log-every 5
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b --full \\
         --batch 8 --seq 512 --steps 30 --warmup 5 --log-every 5
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --model-parallel 2 \\
+        --steps 10 --batch 4 --seq 32 --log-every 5
+    PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-7b --full \\
+        --model-parallel 4 --remat dots --batch 8 --seq 512 --steps 10 --warmup 2
 """
 from __future__ import annotations
 
 import argparse
 import time
-from dataclasses import dataclass
-from typing import Dict, List, Optional
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -37,21 +53,33 @@ from repro_torch.configs.base import ARCH_IDS, get_config, reduced
 from repro_torch.core.engine import resolve_device, synchronize
 from repro_torch.data.pipeline import lm_batch_iterator
 from repro_torch.data.synthetic import CHAIN_VOCAB, make_synthetic_lm, source_frames
+from repro_torch.kernels import launch_counts, launches_since
+from repro_torch.launch.mesh import make_model_group, spawn_cohort
 from repro_torch.launch.steps import Knobs, build_train_step
+from repro_torch.models.layers import ParallelContext
+from repro_torch.models.transformer import REMATS
 from repro_torch.optim.optimizers import warmup_cosine
+from repro_torch.sharding.rules import check_model_parallel
+from repro_torch.sharding.shard import init_params_sharded, param_shapes
 from repro_torch.utils.metrics import MetricLogger
 from repro_torch.utils.trees import tree_leaves
 
 N_SEQS = 2048
+# a model group's collectives wait this long for a rank (its share may still
+# be drawing), and the whole world this long
+MP_TIMEOUT_S, MP_DEADLINE_S = 600.0, 3600.0
 
 
 @dataclass
 class TrainResult:
     """One ``run``: the config's name, its parameter count by top-level key
-    of the params tree (``embed``, ``periods``, ``enc``, ...), the first
-    step run (> 0 after a resume), each step's loss and grad norm and wall
-    seconds (synchronized with the device at both ends), the logged rows,
-    and the peak device memory in bytes (None on the CPU)."""
+    of the params tree (``embed``, ``periods``, ``enc``, ...; the whole
+    model's under a group), the first step run (> 0 after a resume), each
+    step's loss and grad norm and wall seconds (synchronized with the
+    device at both ends), the logged rows, and the peak device memory in
+    bytes (None on the CPU).  ``by_rank`` has, for each rank of a model
+    group (one entry unsharded), its losses, grad norms, peak bytes and
+    kernel launches over the steps."""
 
     arch: str
     param_counts: Dict[str, int]
@@ -61,24 +89,53 @@ class TrainResult:
     step_s: List[float]
     rows: List[dict]
     peak_bytes: Optional[int]
+    by_rank: List[Dict[str, Any]] = field(default_factory=list)
 
 
-def run(args: argparse.Namespace, cfg=None, echo: bool = True) -> TrainResult:
+def _config(args: argparse.Namespace):
+    cfg = get_config(args.arch)
+    return cfg if args.full else reduced(cfg)
+
+
+def check_model_parallel_args(args: argparse.Namespace, cfg, world: int) -> None:
+    """Refuse what a model group of ``world`` > 1 ranks does not train:
+    snapshots (ROADMAP A.16 (d) 1), and an expert count the group does not
+    divide (``check_model_parallel``)."""
+    if world <= 1:
+        return
+    if args.ckpt_dir:
+        raise NotImplementedError("--ckpt-dir under --model-parallel > 1 is not ported "
+                                  "(ROADMAP A.16 (d) 1: each rank saving and loading its share)")
+    check_model_parallel(cfg, world)
+
+
+def run(args: argparse.Namespace, cfg=None, echo: bool = True,
+        parallel: Optional[ParallelContext] = None) -> TrainResult:
     """Train for ``args``; ``cfg`` trains that config in place of
-    ``--arch``'s (``--full`` / reduced)."""
+    ``--arch``'s (``--full`` / reduced).  With ``args.model_parallel`` > 1
+    (and no ``parallel``) the ranks of a model group are spawned and rank
+    0's result comes back, with every rank's in ``by_rank``; ``parallel``
+    trains this rank's share of that group."""
+    cfg = _config(args) if cfg is None else cfg
+    if parallel is None and getattr(args, "model_parallel", 1) > 1:
+        return run_model_parallel(args, cfg)
     device = resolve_device(args.device)
-    if cfg is None:
-        cfg = get_config(args.arch)
-        if not args.full:
-            cfg = reduced(cfg)
     if cfg.is_encoder_decoder and echo:
         print("(enc-dec arch: tokens drive the decoder; src embeds are synthetic, drawn from a "
               "torch.Generator seeded from --seed and the step)")
     sched = warmup_cosine(args.lr, args.warmup, args.steps)
-    step_fn = build_train_step(cfg, Knobs(remat="none", learning_rate=sched))
+    knobs = Knobs(remat=getattr(args, "remat", "none"), learning_rate=sched)
+    step_fn = (build_train_step(cfg, knobs) if parallel is None
+               else build_train_step(cfg, knobs, parallel))
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
-    params = step_fn.model.init(gen)
+    if parallel is None:
+        params = step_fn.model.init(gen)
+    else:
+        check_model_parallel_args(args, cfg, parallel.size)
+        # the kept slices wait on the host while whole leaves are drawn on the card
+        params = init_params_sharded(gen, cfg, parallel.rank, parallel.size,
+                                     stage="cpu" if device.type == "cuda" else None)
     opt_state = step_fn.opt.init(params)
 
     start_step = 0
@@ -97,6 +154,7 @@ def run(args: argparse.Namespace, cfg=None, echo: bool = True) -> TrainResult:
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    before = launch_counts()
     log = MetricLogger(["step", "loss", "grad_norm", "tok_per_s"], echo=echo)
     losses, norms, times = [], [], []
     toks_since, t_since = 0, 0.0
@@ -126,8 +184,38 @@ def run(args: argparse.Namespace, cfg=None, echo: bool = True) -> TrainResult:
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
     if echo and metrics is not None:
         print(f"final loss: {losses[-1]:.4f}")
-    counts = {k: sum(t.numel() for t in tree_leaves(v)) for k, v in params.items()}
-    return TrainResult(cfg.name, counts, start_step, losses, norms, times, log.rows, peak)
+    whole = params if parallel is None else param_shapes(cfg)
+    counts = {k: sum(t.numel() for t in tree_leaves(v)) for k, v in whole.items()}
+    mine = {"losses": losses, "grad_norms": norms, "peak_bytes": peak,
+            "launches": launches_since(before)}
+    return TrainResult(cfg.name, counts, start_step, losses, norms, times, log.rows, peak,
+                       [mine])
+
+
+def run_model_parallel(args: argparse.Namespace, cfg) -> TrainResult:
+    """``--model-parallel N``: ``run`` in N spawned ranks of a model group
+    (NCCL on N cards, gloo with ``--device cpu``); rank 0's result with
+    every rank's ``by_rank`` entry.  Raises unless every rank saw the same
+    losses and grad norms."""
+    check_model_parallel_args(args, cfg, args.model_parallel)
+    resolve_device(args.device)
+    results = spawn_cohort(_model_parallel_rank, args.model_parallel, args=(args, cfg),
+                           device=args.device, timeout_s=MP_TIMEOUT_S, deadline_s=MP_DEADLINE_S)
+    first = results[0]
+    for r, res in enumerate(results):
+        if (res.losses, res.grad_norms) != (first.losses, first.grad_norms):
+            raise RuntimeError(f"rank {r} of the model group saw losses {res.losses} / grad "
+                               f"norms {res.grad_norms}, rank 0 {first.losses} / "
+                               f"{first.grad_norms}")
+    first.by_rank = [res.by_rank[0] for res in results]
+    return first
+
+
+def _model_parallel_rank(rank: int, device, args: argparse.Namespace, cfg) -> TrainResult:
+    """One rank of ``--model-parallel N``: ``run`` on this rank's device;
+    rank 0 logs."""
+    args = argparse.Namespace(**{**vars(args), "device": str(device)})
+    return run(args, cfg, echo=rank == 0, parallel=make_model_group(args.model_parallel))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -146,11 +234,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--remat", default="none", choices=REMATS,
+                    help="each period's rematerialisation in backward (dots: the weight "
+                         "products' outputs kept)")
+    ap.add_argument("--model-parallel", type=int, default=1, metavar="N",
+                    help="train on N ranks of a model group: one card a rank over NCCL, or "
+                         "gloo ranks with --device cpu (default 1: unsharded)")
     return ap
 
 
 def main(argv=None) -> int:
-    run(build_parser().parse_args(argv))
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.model_parallel < 1:
+        ap.error(f"--model-parallel must be >= 1, got {args.model_parallel}")
+    run(args)
     return 0
 
 

@@ -47,6 +47,7 @@ from repro_torch.models.layers import (
     init_attention,
     init_mlp,
     init_rmsnorm,
+    into_heads,
     keep_under,
     keep_whole,
     kv_heads_of,
@@ -99,7 +100,9 @@ def _layers(stacked, n: int):
 
 
 def _maybe_remat(fn, remat: str, h):
-    return checkpoint(fn, h, use_reentrant=False) if remat == "full" else fn(h)
+    """A layer under ``remat``; ``"dots"`` is ``"full"`` here, as in the
+    reference's encoder-decoder."""
+    return checkpoint(fn, h, use_reentrant=False) if remat in ("full", "dots") else fn(h)
 
 
 def _embed(params, tokens, cfg, parallel: Optional[ParallelContext]) -> torch.Tensor:
@@ -120,8 +123,8 @@ def encode(params, src_embeds: torch.Tensor, *, cfg, use_kernels: bool = False,
     scale = cfg.resolved_head_dim ** -0.5
 
     def layer(lp, h):
-        x = rmsnorm(h, lp["norm1"])
         p = lp["attn"]
+        x = into_heads(rmsnorm(h, lp["norm1"]), p["wq"], cfg, parallel)
         q = _project(x, p["wq"])
         k = pick_kv_heads(_project(x, p["wk"]), cfg, parallel)
         v = pick_kv_heads(_project(x, p["wv"]), cfg, parallel)

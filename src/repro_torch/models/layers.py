@@ -21,6 +21,20 @@ attention, its columns of the MLP's hidden layer, its experts — and one
 ``all_reduce`` of the layer's output sums the shares.  A leaf that the
 group's size does not divide stays whole on every rank, and its layer then
 runs whole, with no collective.  ``parallel=None`` is the unsharded model.
+
+Training on a group: every rank computes the same loss from the same
+(replicated) activations.  Where grad is enabled the group's collectives
+are differentiable (``ParallelContext.sum`` / ``join`` / ``copy_in``): a
+layer's input enters its rank-split work through ``copy_in`` (identity
+forward; backward sums the ranks' partial input gradients) and leaves it
+through ``sum`` (the ``all_reduce``; backward identity), so each rank gets
+the whole gradient of every replicated activation and of every leaf it
+reads whole, and its own slice's gradient of every split leaf.  A leaf
+kept whole that a rank reads only in part (``sharding.rules.group_use``:
+"partial") gets a partial gradient on each rank, which the train step sums
+over the group.  ``torch.distributed.nn.functional.all_reduce`` is not
+used: its backward sums the gradient, which under a replicated loss
+multiplies every gradient upstream of it by the group's size.
 """
 from __future__ import annotations
 
@@ -67,11 +81,80 @@ class ParallelContext:
         dist.all_gather(parts, x, group=self.group)
         return torch.cat(parts, dim=dim)
 
+    # The differentiable forms, taken where ``x`` carries a gradient; with
+    # no gradient (serving) ``sum`` and ``join`` are the calls above and
+    # ``copy_in`` is nothing, so serving's collectives and counts are as
+    # they were.
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the group of the ranks' partial ``x`` (forward
+        ``all_reduce``, backward identity: the sum's gradient is each
+        part's).  Written into ``x`` when it carries no gradient."""
+        if _tracks(x):
+            return _SumOverGroup.apply(x, self)
+        return self.all_reduce(x)
+
+    def join(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``x`` joined along ``dim`` (forward ``all_gather``,
+        backward this rank's slice of the gradient)."""
+        if _tracks(x):
+            return _JoinOverGroup.apply(x, self, dim)
+        return self.all_gather(x, dim)
+
+    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
+        """A replicated ``x`` entering rank-split work (forward identity,
+        backward the ``all_reduce`` of the ranks' partial gradients)."""
+        if _tracks(x):
+            return _CopyIntoGroup.apply(x, self)
+        return x
+
+
+def _tracks(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _SumOverGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, parallel):
+        return parallel.all_reduce(x.clone(memory_format=torch.contiguous_format))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _JoinOverGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, parallel, dim):
+        ctx.rank, ctx.dim, ctx.width = parallel.rank, dim, x.shape[dim]
+        return parallel.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.width, ctx.width).contiguous(), None, None
+
+
+class _CopyIntoGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, parallel):
+        ctx.parallel = parallel
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.parallel.all_reduce(g.clone(memory_format=torch.contiguous_format)), None
+
 
 def split(parallel: Optional[ParallelContext], local: int, whole: int) -> bool:
     """Whether a dimension of ``whole`` entries that this rank holds
     ``local`` of is split over the group (else it is whole on every rank)."""
     return parallel is not None and local != whole
+
+
+def into_heads(x: torch.Tensor, wq: torch.Tensor, cfg,
+               parallel: Optional[ParallelContext]) -> torch.Tensor:
+    """``x`` as it enters an attention whose q heads (``wq`` (…, D, H, hd),
+    this rank's) may be split over the group: ``copy_in`` when they are."""
+    return parallel.copy_in(x) if split(parallel, wq.shape[-2], cfg.n_heads) else x
 
 
 def kv_heads_used(cfg, parallel: Optional[ParallelContext]) -> Optional[List[int]]:
@@ -122,7 +205,7 @@ def heads_out(a: torch.Tensor, wo: torch.Tensor, cfg,
     B, S = a.shape[:2]
     o = torch.matmul(a.reshape(B, S, -1), wo.to(a.dtype).reshape(-1, wo.shape[-1]))
     if split(parallel, wo.shape[-3], cfg.n_heads):
-        parallel.all_reduce(o)
+        o = parallel.sum(o)
     return o
 
 
@@ -364,6 +447,7 @@ def self_attention(
     S = x.shape[1]
     hd = cfg.resolved_head_dim
     scale = 1.0 / math.sqrt(hd)
+    x = into_heads(x, params["wq"], cfg, parallel)
     q = _project(x, params["wq"])
     k = pick_kv_heads(_project(x, params["wk"]), cfg, parallel)
     v = pick_kv_heads(_project(x, params["wv"]), cfg, parallel)
@@ -415,7 +499,7 @@ def cross_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
     ``wo``."""
     scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
     Sq = x.shape[1]
-    q = _project(x, params["wq"])
+    q = _project(into_heads(x, params["wq"], cfg, parallel), params["wq"])
     k = enc_kv["k"].to(x.dtype)
     v = enc_kv["v"].to(x.dtype)
     S_src = k.shape[1]
@@ -434,6 +518,7 @@ def encode_kv(params: Dict[str, torch.Tensor], enc_out: torch.Tensor, *, cfg,
     """Cross-attention K/V of the encoder output (computed once a layer);
     over a group the kv heads this rank's q heads read, from its share of
     ``wk`` / ``wv`` (``kv_heads_of``)."""
+    enc_out = into_heads(enc_out, params["wq"], cfg, parallel)
     return {"k": pick_kv_heads(_project(enc_out, params["wk"]), cfg, parallel),
             "v": pick_kv_heads(_project(enc_out, params["wv"]), cfg, parallel)}
 
@@ -460,6 +545,9 @@ def mlp(params: Dict[str, Any], x: torch.Tensor, *, cfg,
     columns ``w_gate`` / ``w_up`` and the rows of ``w_down`` of its slice of
     the hidden layer, and one ``all_reduce`` sums the partial outputs (the
     reference's ``"model"``-sharded hidden layer)."""
+    sharded = split(parallel, params["w_down"].shape[-2], cfg.d_ff)
+    if sharded:
+        x = parallel.copy_in(x)
     if cfg.mlp_type == "gated_silu":
         g = torch.matmul(x, params["w_gate"].to(x.dtype))
         u = torch.matmul(x, params["w_up"].to(x.dtype))
@@ -467,8 +555,8 @@ def mlp(params: Dict[str, Any], x: torch.Tensor, *, cfg,
     else:
         h = F.gelu(torch.matmul(x, params["w_up"].to(x.dtype)), approximate="tanh")
     out = torch.matmul(h, params["w_down"].to(x.dtype))
-    if split(parallel, params["w_down"].shape[-2], cfg.d_ff):
-        parallel.all_reduce(out)
+    if sharded:
+        out = parallel.sum(out)
     return out
 
 
@@ -551,12 +639,13 @@ def moe_dropping(params, x: torch.Tensor, *, cfg, parallel: Optional[ParallelCon
     B, S, D = x.shape
     e_loc = params["w_gate"].shape[-3]
     sharded = split(parallel, e_loc, cfg.n_experts)
-    out, aux = _moe_local(params, x.reshape(-1, D), cfg=cfg,
+    xs = parallel.copy_in(x) if sharded else x  # the shared expert takes x itself
+    out, aux = _moe_local(params, xs.reshape(-1, D), cfg=cfg,
                           e_lo=parallel.rank * e_loc if sharded else 0)
     out = out.reshape(B, S, D)
     if sharded:
-        parallel.all_reduce(out)
-        aux = parallel.all_reduce(aux) / parallel.size
+        out = parallel.sum(out)
+        aux = parallel.sum(aux) / parallel.size
     if cfg.shared_expert:
         out = out + mlp(params["shared"], x, cfg=cfg, parallel=parallel)
     return out, aux

@@ -146,6 +146,8 @@ def mamba2_block(
     heads = slice(parallel.rank * H, (parallel.rank + 1) * H) if sharded else slice(None)
     if parallel is not None and not sharded:
         parallel.counts["mamba_whole"] += 1
+    if sharded:
+        x = parallel.copy_in(x)
 
     h = torch.matmul(x, params["w_in"].to(x.dtype))
     z, xBC, dt = _split_proj(h, d_inner, N, H)
@@ -186,13 +188,15 @@ def mamba2_block(
     g = y * F.silu(z)
     gf = g.to(torch.float32)
     if sharded:
-        var = parallel.all_reduce(gf.square().sum(dim=-1, keepdim=True)) / d_whole
+        # the variance is replicated and scales each rank's own channels:
+        # its gradient is summed over the group (``copy_in``) like an input's
+        var = parallel.copy_in(parallel.sum(gf.square().sum(dim=-1, keepdim=True))) / d_whole
     else:
         var = gf.square().mean(dim=-1, keepdim=True)
     g = (gf * torch.rsqrt(var + 1e-6) * (1.0 + params["norm_z"].to(torch.float32))).to(x.dtype)
     out = torch.matmul(g, params["w_out"].to(x.dtype))
     if sharded:
-        parallel.all_reduce(out)
+        out = parallel.sum(out)
     return out, new_state
 
 

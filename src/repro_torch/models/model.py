@@ -6,8 +6,8 @@
     logits, cache, aux = model.apply(params, tokens, return_cache=True)   # prefill
     cache              = model.init_cache(params, batch, max_len)          # enc-dec: enc_out=
     logits, cache      = model.decode_step(params, token, cache, pos)
-    # over a model group: parallel=ParallelContext on apply, init_cache and
-    # decode_step, with each rank's share of the params
+    # over a model group: parallel=ParallelContext on apply, loss_fn,
+    # init_cache and decode_step, with each rank's share of the params
     batch              = model.dummy_batch(batch, seq_len)
     loss_fn            = cohort_loss_fn(model)   # the federated engine's contract
 
@@ -84,8 +84,11 @@ def _build_decoder_only(cfg) -> Model:
                                    return_cache=return_cache, use_kernels=use_kernels,
                                    remat=remat, parallel=parallel)
 
-    def loss_fn(params, batch, *, remat="none", use_kernels=False):
-        logits, _, aux = apply(params, batch["tokens"], remat=remat, use_kernels=use_kernels)
+    def loss_fn(params, batch, *, parallel=None, remat="none", use_kernels=False):
+        """``(loss, {"xent", "aux"})``; over a group (``parallel``) every
+        rank gets the same loss from its share of the params."""
+        logits, _, aux = apply(params, batch["tokens"], remat=remat, use_kernels=use_kernels,
+                               parallel=parallel)
         xe = cross_entropy(logits, batch["labels"])
         return xe + aux, {"xent": xe, "aux": aux}
 
@@ -106,7 +109,7 @@ def _build_decoder_only(cfg) -> Model:
     return Model(cfg, init, apply, loss_fn, init_cache, decode_step, dummy_batch)
 
 
-def cohort_loss_fn(model: Model) -> Callable[..., torch.Tensor]:
+def cohort_loss_fn(model: Model, parallel=None) -> Callable[..., torch.Tensor]:
     """The federated engine's loss contract for a decoder-only LM:
     ``loss(params, batch) -> (C,)``, with ``params`` leaves ``(C, …)`` (views
     of the engine's ``(C, P)`` cohort plane) and ``batch`` = ``{"x", "y"}``
@@ -115,7 +118,10 @@ def cohort_loss_fn(model: Model) -> Callable[..., torch.Tensor]:
     into its C rows once, so the rows are disjoint and the gradient of the
     losses' sum is each client's own gradient, stacked.  The
     encoder-decoder's batch carries source frames, and the reference runs
-    no federated encoder-decoder, so it is refused."""
+    no federated encoder-decoder, so it is refused.  ``parallel`` runs each
+    row on this rank's share of a model group (the reference's
+    ``fed_dryrun`` layout: each client's model tensor-sharded over
+    ``"model"``); every rank gets the same losses."""
     if model.cfg.is_encoder_decoder:
         raise ValueError(f"{model.cfg.name}: the federated LM loss covers the decoder-only "
                          f"families; the encoder-decoder's batch carries source frames")
@@ -126,7 +132,8 @@ def cohort_loss_fn(model: Model) -> Callable[..., torch.Tensor]:
         out = []
         for c in range(batch["x"].shape[0]):
             row = tree_unflatten(treedef, [r[c] for r in rows])
-            out.append(model.loss_fn(row, {"tokens": batch["x"][c], "labels": batch["y"][c]})[0])
+            out.append(model.loss_fn(row, {"tokens": batch["x"][c], "labels": batch["y"][c]},
+                                     parallel=parallel)[0])
         return torch.stack(out)
 
     return loss
@@ -145,8 +152,9 @@ def _build_encdec(cfg) -> Model:
                                      parallel=parallel)
         return logits, None, logits.new_zeros((), dtype=torch.float32)
 
-    def loss_fn(params, batch, *, remat="none", use_kernels=False):
-        logits, _, aux = apply(params, batch, use_kernels=use_kernels, remat=remat)
+    def loss_fn(params, batch, *, parallel=None, remat="none", use_kernels=False):
+        logits, _, aux = apply(params, batch, use_kernels=use_kernels, remat=remat,
+                               parallel=parallel)
         xe = cross_entropy(logits, batch["labels"])
         return xe, {"xent": xe, "aux": aux}
 

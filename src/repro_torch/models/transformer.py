@@ -11,7 +11,10 @@ parameter set in ``params["shared"]``, applied at every shared slot, with a
 KV cache per application.  The reference's ``lax.scan`` over periods is a
 Python loop here that indexes the stacked leaves (views, no copies), and
 ``remat="full"`` wraps each period in ``torch.utils.checkpoint`` as the
-reference wraps its scan body in ``jax.checkpoint``.  The encoder-decoder
+reference wraps its scan body in ``jax.checkpoint``; ``remat="dots"`` is
+the reference's ``checkpoint_dots_with_no_batch_dims`` policy as a
+selective checkpoint (``dots_policy``): the weight products' outputs are
+kept, everything else is recomputed in backward.  The encoder-decoder
 family lives in ``repro_torch.models.encdec``.
 
 ``parallel`` (a ``layers.ParallelContext``) runs the model on a group of
@@ -28,7 +31,11 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models import mamba2 as m2
 from repro_torch.models.layers import (
@@ -147,14 +154,39 @@ def init_params(generator: torch.Generator, cfg, *, device=None,
 
 
 # -------------------------------------------------------------------- forward
+REMATS = ("none", "full", "dots")
+# the products with no batch dimension: the weight products, which
+# ``torch.matmul`` folds to a 2-d ``mm`` however many leading dims the
+# activation has.  ``bmm`` / ``baddbmm`` (attention's scores and values, the
+# experts' banks, the SSD einsums) have a batch dimension and are recomputed.
+DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
 def check_remat(remat: str) -> None:
-    """``"none"`` or ``"full"``; the reference's ``"dots"`` policy (save the
-    matmuls' outputs, recompute the rest) is not ported (ROADMAP A.16)."""
-    if remat == "dots":
-        raise NotImplementedError('remat="dots" (jax.checkpoint_policies) is not ported '
-                                  '(ROADMAP A.16); use "none" or "full"')
-    if remat not in ("none", "full"):
-        raise ValueError(f"remat must be 'none' or 'full', got {remat!r}")
+    """``"none"``, ``"full"`` or ``"dots"``."""
+    if remat not in REMATS:
+        raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
+
+
+def dots_policy(ctx, op, *args, **kwargs):
+    """The selective checkpoint policy of ``remat="dots"`` (the reference's
+    ``checkpoint_dots_with_no_batch_dims``): keep the outputs of
+    ``DOTS_SAVED``, recompute every other operation in backward."""
+    if op in DOTS_SAVED:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(fn, remat: str, *args):
+    """``fn(*args)`` under ``remat``: as it is (``"none"``), recomputed
+    whole in backward (``"full"``), or recomputed but for the weight
+    products' outputs (``"dots"``, ``dots_policy``, read at call time)."""
+    if remat == "none":
+        return fn(*args)
+    if remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: create_selective_checkpoint_contexts(dots_policy))
 
 
 def _apply_slot(slot: SlotSpec, p, h, *, cfg, positions, cache_slot, cache_pos,
@@ -199,13 +231,14 @@ def _run_period(slots, pp, shared, h, aux, cache_i, emit: bool, kw):
     return h, aux, out_i
 
 
-def _remat_period(slots, pp, shared, h, aux, kw):
-    """A training period (no cache) under ``torch.utils.checkpoint``: its
-    activations are recomputed in backward instead of kept."""
+def _remat_period(slots, pp, shared, h, aux, remat: str, kw):
+    """A training period (no cache) under ``remat_call``: its activations
+    (``"full"``), or all but its weight products' outputs (``"dots"``), are
+    recomputed in backward instead of kept."""
     def body(h_, aux_):
         return _run_period(slots, pp, shared, h_, aux_, None, False, kw)[:2]
 
-    return checkpoint(body, h, aux, use_reentrant=False)
+    return remat_call(body, remat, h, aux)
 
 
 def _run_stack(slots, stacked, n: int, shared, h, aux, cache, emit: bool,
@@ -217,8 +250,8 @@ def _run_stack(slots, stacked, n: int, shared, h, aux, cache, emit: bool,
     emitted = []
     for i in range(n):
         pp = tree_map(lambda a: a[i], stacked)
-        if remat == "full" and cache is None and not emit:
-            h, aux = _remat_period(slots, pp, shared, h, aux, kw)
+        if remat != "none" and cache is None and not emit:
+            h, aux = _remat_period(slots, pp, shared, h, aux, remat, kw)
             continue
         cache_i = None if cache is None else tree_map(lambda a: a[i], cache)
         h, aux, out_i = _run_period(slots, pp, shared, h, aux, cache_i, emit, kw)
@@ -244,8 +277,8 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, *, cfg,
 
     ``use_kernels`` sends prefill attention and the SSD scan through the
     kernels (serving); training passes False, the reference's plain route,
-    since the kernels have no backward.  ``remat`` is ``"none"`` or
-    ``"full"`` (each period under ``torch.utils.checkpoint``).
+    since the kernels have no backward.  ``remat`` is ``"none"``, ``"full"``
+    or ``"dots"`` (each period under ``remat_call``).
 
     With ``parallel`` every rank passes the same tokens and its share of
     the params, and gets the whole logits and its share of the cache."""
@@ -289,10 +322,10 @@ def unembed_logits(h: torch.Tensor, unembed: torch.Tensor, cfg,
                    parallel: Optional[ParallelContext]) -> torch.Tensor:
     """``h @ unembed`` in ``h``'s dtype; over a group the rank's vocabulary
     columns, joined along V by an ``all_gather`` when they split."""
-    logits = torch.matmul(h, unembed.to(h.dtype))
-    if split(parallel, unembed.shape[-1], cfg.padded_vocab):
-        logits = parallel.all_gather(logits, dim=-1)
-    return logits
+    if not split(parallel, unembed.shape[-1], cfg.padded_vocab):
+        return torch.matmul(h, unembed.to(h.dtype))
+    logits = torch.matmul(parallel.copy_in(h), unembed.to(h.dtype))
+    return parallel.join(logits, dim=-1)
 
 
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor, cfg, adtype,
@@ -310,7 +343,7 @@ def embed_tokens(table: torch.Tensor, tokens: torch.Tensor, cfg, adtype,
     local = tokens - parallel.rank * rows
     mine = (local >= 0) & (local < rows)
     h = torch.where(mine[..., None], table[local.clamp(0, rows - 1)].to(adtype), 0)
-    return parallel.all_reduce(h) * scale
+    return parallel.sum(h) * scale
 
 
 # ---------------------------------------------------------------------- cache

@@ -138,9 +138,11 @@ def tree_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.to(F32))) for g in tree_leaves(tree)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """Returns ``(clipped grads, pre-clip norm)``."""
-    gnorm = tree_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, norm: Optional[torch.Tensor] = None):
+    """Returns ``(clipped grads, pre-clip norm)``; ``norm`` is the global
+    norm when the caller has it (over a model group, the group's:
+    ``sharding.rules.group_sq_norm``), else ``tree_norm(grads)``."""
+    gnorm = tree_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / (gnorm + 1e-12), max=1.0)
     return tree_map(lambda g: g * scale, grads), gnorm
 

@@ -15,14 +15,23 @@ last dimension packs several parts (``w_in``: z, x, B, C, dt; ``conv_w`` /
 ``conv_b``: x, B, C) are split part by part (``Pieces``), so that a rank
 holds whole SSD heads.  A model group replicates the batch: there is no
 data axis, so the serve mode's replication outside the expert banks is all
-there is of it.  The reference's training specs (FSDP), its data axes and
-its cache specs are ROADMAP A.16.
+there is of it.  The reference's data axes (and its training specs' FSDP
+over them) and its cache specs are ROADMAP A.16 (d).
+
+Training on a group reads one more answer a leaf (``group_use``,
+``group_parts``): split (each rank holds and reads its slice), whole
+(every rank holds and reads all of it: the whole gradient on every rank),
+or partial (every rank holds all of it but reads a part, so each rank's
+gradient is partial and the ranks' are summed).  On a model-only group the
+reference's ``mode="train"`` specs equal its serve specs: their FSDP runs
+over the data axes, of size 1 here.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Optional, Sequence, Tuple, Union
 
+import torch
 import torch.distributed as dist
 
 from repro_torch.utils.trees import tree_flatten_with_path, tree_unflatten
@@ -174,3 +183,93 @@ def check_model_parallel(cfg, world: int) -> None:
     if world > 1 and cfg.n_experts and cfg.n_experts % world:
         raise ValueError(f"{cfg.name}: {cfg.n_experts} experts do not split over a model "
                          f"group of {world}")
+
+
+# ------------------------------------------------------- training on a group
+GROUP_USES = ("split", "whole", "partial")
+# (offset, width, use) of a part of a rank's share along the part dimension
+GroupPart = Tuple[int, int, str]
+
+
+def group_use(path: Sequence[str], shape: Sequence[int], world: int, cfg) -> str:
+    """How the ranks of a model group of ``world`` use the leaf at ``path``
+    (its whole ``shape``): ``"split"`` when ``split_dim`` splits it (a
+    mamba2 leaf split by parts: its split parts; its whole parts are
+    ``"partial"``, ``group_parts``); of the leaves kept whole,
+    ``"partial"`` where a rank reads only its part — ``wk`` / ``wv`` (a
+    rank's q heads read some kv heads) and the QK-norms' scales (applied to
+    a rank's heads) when the heads split, mamba2's ``A_log`` / ``D_skip`` /
+    ``dt_bias`` (a rank's SSD heads' entries) when the SSD heads split, and
+    the MoE router (each rank's gates weigh its experts' outputs, and it
+    adds 1/N of the load-balance loss's gradient) when the experts split;
+    ``"whole"`` for every other leaf: norms, biases and the leaves of a
+    layer that runs whole on every rank."""
+    if split_dim(path, shape, world, cfg) is not None:
+        return "split"
+    key = path[-1] if path else ""
+    if key in ("wk", "wv", "q_norm", "k_norm"):
+        return "partial" if _ok(cfg.n_heads, world) else "whole"
+    if key in ("A_log", "D_skip", "dt_bias"):
+        return "partial" if cfg.ssm_heads and _ok(cfg.ssm_heads, world) else "whole"
+    if key == "router":
+        return "partial" if cfg.n_experts and _ok(cfg.n_experts, world) else "whole"
+    return "whole"
+
+
+def group_parts(path: Sequence[str], shape: Sequence[int], world: int, cfg
+                ) -> Tuple[Optional[int], Tuple[GroupPart, ...]]:
+    """A rank's share of the leaf at ``path`` (whole ``shape``) as ``(dim,
+    parts)``: a mamba2 leaf split by ``Pieces`` has one part a piece along
+    ``dim`` of its share, the split pieces ``"split"`` and the whole ones
+    (B's and C's columns, read by every rank's heads) ``"partial"``; any
+    other leaf is one part, the whole share (``dim`` None), of its
+    ``group_use``."""
+    dim = split_dim(path, shape, world, cfg)
+    if isinstance(dim, Pieces):
+        parts, at = [], 0
+        for _, w, sp in dim.parts:
+            width = w // world if sp else w
+            parts.append((at, width, "split" if sp else "partial"))
+            at += width
+        return dim.dim, tuple(parts)
+    return None, ((0, 0, group_use(path, shape, world, cfg)),)
+
+
+def _segments(t: torch.Tensor, parts, use: str, lead: int):
+    dim, pieces = parts
+    for off, width, u in pieces:
+        if u == use:
+            yield t if dim is None else t.narrow(lead + dim, off, width)
+
+
+def sum_partial(tensors, parts, parallel, lead: int = 0) -> None:
+    """Sum over the group, in place, the ``"partial"`` parts of each of
+    ``tensors`` (a rank's gradients, in the order of ``parts``; ``lead``
+    leading batch dims before each leaf's own), one ``all_reduce`` a
+    dtype."""
+    by_dtype = {}
+    for t, p in zip(tensors, parts):
+        for seg in _segments(t, p, "partial", lead):
+            by_dtype.setdefault(seg.dtype, []).append(seg)
+    for segs in by_dtype.values():
+        flat = torch.cat([seg.reshape(-1) for seg in segs])
+        parallel.all_reduce(flat)
+        at = 0
+        for seg in segs:
+            seg.copy_(flat[at:at + seg.numel()].view(seg.shape))
+            at += seg.numel()
+
+
+def group_sq_norm(tensors, parts, parallel) -> torch.Tensor:
+    """The f32 squared L2 norm of the whole tree whose shares ``tensors``
+    are (each rank passes its own, in the order of ``parts``): the split
+    parts summed over the group, every replicated part (whole or partial,
+    the same on every rank) counted once, on rank 0, so that no part is
+    counted N times and no 1/N enters."""
+    uses = ("split",) if parallel.rank else GROUP_USES
+    total = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
+    for t, p in zip(tensors, parts):
+        for use in uses:
+            for seg in _segments(t, p, use, 0):
+                total = total + torch.sum(torch.square(seg.to(torch.float32)))
+    return parallel.all_reduce(total)

@@ -16,19 +16,25 @@ share is bitwise that rank's slice of the unsharded draw while the rank
 holds its share and at most one whole leaf.
 
     params = init_params_sharded(gen, cfg, rank, world, stage="cpu")
+
+Training on a group (``rules.group_parts``): ``share_parts`` lists each
+leaf's parts and uses in tree order, ``group_plane`` the same for a flat
+plane over a rank's share (the federated engine's ``model_group``), and
+``join_shares`` rebuilds whole leaves from every rank's share.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Optional, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.models import encdec, transformer
 from repro_torch.sharding.rules import (
-    Pieces, Split, check_model_parallel, local_shape, param_specs, split_dim,
+    Pieces, Split, _keys, check_model_parallel, group_parts, local_shape, param_specs,
+    split_dim,
 )
-from repro_torch.utils.trees import tree_leaves, tree_map
+from repro_torch.utils.trees import tree_flatten_with_path, tree_leaves, tree_map
 
 
 def param_shapes(cfg) -> Any:
@@ -108,3 +114,42 @@ def share_bytes(cfg, world: int) -> int:
     return sum(math.prod(local_shape(leaf.shape, dim, world)) * leaf.element_size()
                for leaf, dim in zip(tree_leaves(shapes),
                                     tree_leaves(param_specs(shapes, cfg, world))))
+
+
+# ------------------------------------------------------- training on a group
+def share_parts(cfg, world: int) -> List:
+    """``rules.group_parts`` of every leaf of ``cfg``'s params tree, in the
+    tree's leaf order (the order of ``tree_leaves`` and of a ``FlatSpec``
+    over a rank's share)."""
+    return [group_parts(_keys(p), tuple(leaf.shape), world, cfg)
+            for p, leaf in tree_flatten_with_path(param_shapes(cfg))[0]]
+
+
+def group_plane(spec, cfg, parallel):
+    """The ``core.flat.GroupPlane`` of ``spec``, the ``FlatSpec`` of this
+    rank's share of ``cfg``'s params on the model group ``parallel``."""
+    from repro_torch.core.flat import GroupPlane
+
+    shapes = tree_leaves(param_shapes(cfg))
+    if len(shapes) != len(spec.leaves):
+        raise ValueError(f"the plane has {len(spec.leaves)} leaves, {cfg.name}'s params "
+                         f"{len(shapes)}")
+    return GroupPlane(parallel, tuple(share_parts(cfg, parallel.size)),
+                      sum(t.numel() for t in shapes),
+                      sum(t.numel() * t.element_size() for t in shapes))
+
+
+def join_shares(shares: Sequence[torch.Tensor], dim: Split, world: int) -> torch.Tensor:
+    """The whole leaf from every rank's share of it (rank order), split by
+    ``dim``: the inverse of ``take``.  A whole leaf is rank 0's."""
+    if dim is None:
+        return shares[0]
+    if not isinstance(dim, Pieces):
+        return torch.cat(list(shares), dim=dim)
+    pieces, at = [], 0
+    for _, w, sp in dim.parts:
+        width = w // world if sp else w
+        pieces += ([s.narrow(dim.dim, at, width) for s in shares] if sp
+                   else [shares[0].narrow(dim.dim, at, width)])
+        at += width
+    return torch.cat(pieces, dim=dim.dim)

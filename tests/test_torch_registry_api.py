@@ -485,3 +485,103 @@ def test_server_fn_launches_no_fold_row(user_specs, monkeypatch):
         eng.run_round(st, data)
         assert calls == [(False, False)] * planes, name
         assert len(steps) == launches, name
+
+
+# ---------------------------------------------------------------- the spec's wire format
+def _wire_cases(m):
+    """Specs the reference's wire-format rules refuse, each otherwise valid."""
+    base = dict(name="x", fold=(m.FoldPass("delta", c_xd=1.0),))
+    return [dict(base, uplink_compression="fp8"), dict(base, uplink_compression="topk"),
+            dict(base, needs_residual=True),
+            dict(base, uplink_compression="int8", needs_residual=True)]
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_wire_format_validation_messages_equal_the_references(case):
+    msgs = []
+    for m in (ref_registry, registry):
+        with pytest.raises(ValueError) as err:
+            m.register_algorithm(m.AlgorithmSpec(**_wire_cases(m)[case]))
+        msgs.append(str(err.value))
+    assert msgs[1] == msgs[0]
+    assert "x" not in list_algorithms()
+
+
+@pytest.mark.parametrize("wire", [dict(uplink_compression="int8"),
+                                  dict(uplink_compression="bf16"),
+                                  dict(uplink_compression="topk", needs_residual=True)],
+                         ids=["int8", "bf16", "topk"])
+def test_wire_column_equals_the_references(wire):
+    spec = get_algorithm("scaffold")._replace(name="_wire", **wire)
+    ref = ref_registry.get_algorithm("scaffold")._replace(name="_wire", **wire)
+    registry._validate(spec)
+    ref_registry._validate(ref)
+    assert describe_algorithm(spec) == ref_registry.describe_algorithm(ref)
+    assert describe_algorithm(spec)["wire"] == wire["uplink_compression"] + (
+        " + residual" if wire.get("needs_residual") else "")
+
+
+@contextlib.contextmanager
+def _int8_fedcm():
+    """``_wire_int8``: FedCM declaring an int8 uplink, in both registries."""
+    register_algorithm(get_algorithm("fedcm")._replace(name="_wire_int8",
+                                                       uplink_compression="int8"))
+    ref_registry.register_algorithm(ref_registry.get_algorithm("fedcm")._replace(
+        name="_wire_int8", uplink_compression="int8"), override=True)
+    try:
+        yield
+    finally:
+        unregister_algorithm("_wire_int8")
+        ref_registry.unregister_algorithm("_wire_int8")
+
+
+def test_a_declared_int8_uplink_is_cfg_compression_int8_bitwise():
+    """The spec's own wire format (cfg.compression None) runs as FedCM under
+    ``cfg.compression`` int8 at its defaults: three rounds bitwise, the
+    same uplink bytes; ``cfg.compression`` still overrides the spec's."""
+    from repro_torch.configs.base import CompressionConfig
+    with _int8_fedcm():
+        declared = small_cfg(algo="_wire_int8")
+        configured = small_cfg(algo="fedcm", compression=CompressionConfig(kind="int8"))
+        runs = []
+        for cfg in (declared, configured):
+            eng, state, data = data_setup(cfg)
+            assert eng.compression == CompressionConfig(kind="int8")
+            state, m = eng.run_rounds(state, data, 3)
+            runs.append((state, m, eng.payload_bytes()))
+        assert_states_equal(runs[0][0], runs[1][0])
+        assert torch.equal(runs[0][1].bytes_up, runs[1][1].bytes_up)
+        assert runs[0][2] == runs[1][2]
+        bf16 = replace(declared, compression=CompressionConfig(kind="bf16"))
+        assert data_setup(bf16)[0].compression.kind == "bf16"
+
+
+def test_a_declared_int8_uplink_matches_the_references_round_step():
+    """Three rounds of ``_wire_int8`` with no ``cfg.compression`` on the
+    reference's draws and int8 rounding draws: both engines take the spec's
+    wire format; each round from the reference's state, within
+    ``FLIP_MAX`` floor flips."""
+    with _int8_fedcm():
+        cfg = ref_cfg(algo="_wire_int8", use_fused_kernel=True)
+        draws_cfg = replace(cfg, compression=RefCompressionConfig(kind="int8"))
+        reng, _ = ref_engine(cfg)
+        assert reng.compression == RefCompressionConfig(kind="int8")
+        rst = _ref_state(reng, ring_start())
+        peng = port_engine(port_cfg(cfg))
+        assert peng.compression.kind == "int8"
+        cx, cy = client_data()
+        for t in range(3):
+            before = ref_state_numpy(rst)
+            pst, _ = state_from_numpy(np_params(), peng.cfg, momentum=before["momentum"],
+                                      round=t)
+            pst = pst._replace(params=torch.tensor(before["params"]))
+            batches, ids, mask = ref_draws(reng, cx, cy, jax.random.PRNGKey(400 + t), t)
+            rst, rm = reng.round_step(rst, jax.tree_util.tree_map(jnp.asarray, batches),
+                                      jnp.asarray(ids), jnp.asarray(mask))
+            nst, pm = peng.round_step(pst, torch_batches(batches), torch.tensor(ids),
+                                      torch.tensor(mask),
+                                      draws=ref_round_draws(draws_cfg, t, ids, peng.spec.size))
+            ref, got = ref_state_numpy(rst), state_to_numpy(nst)
+            for key in ("params", "momentum"):
+                count_flips(got[key], ref[key], before[key], f"round {t} {key}")
+            assert float(pm.bytes_up) == float(rm.bytes_up)

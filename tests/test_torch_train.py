@@ -270,18 +270,23 @@ def test_loss_decreases_over_a_few_steps(arch):
 
 
 def test_remat_full_gives_the_same_gradients_and_dots_refuses():
+    """``"full"`` and ``"dots"`` (ported: tests/test_torch_remat_dots.py) give
+    ``"none"``'s loss and gradients; a policy that is none of the three
+    refuses."""
     for arch in ("zamba2-7b", "seamless-m4t-large-v2"):
         _, rmodel, model, rparams = _setup(arch)
         params, batch = params_from_numpy(_np(rparams)), _batch(rmodel.dummy_batch(SHAPE))
         (l0, _), g0 = value_and_grad(model.loss_fn, params, batch)
-        (l1, _), g1 = value_and_grad(lambda p, b: model.loss_fn(p, b, remat="full"), params, batch)
-        assert torch.equal(l0, l1), arch
-        for a, b in zip(tree_leaves(g0), tree_leaves(g1)):
-            assert_close(a, b, rtol=LM_RTOL, atol=LM_ATOL, what=arch)
-        with pytest.raises(NotImplementedError, match="A.16"):
-            model.loss_fn(params, batch, remat="dots")
-    with pytest.raises(NotImplementedError, match="A.16"):
-        build_train_step(model.cfg, Knobs(remat="dots"))
+        for remat in ("full", "dots"):
+            (l1, _), g1 = value_and_grad(lambda p, b: model.loss_fn(p, b, remat=remat), params,
+                                         batch)
+            assert torch.equal(l0, l1), (arch, remat)
+            for a, b in zip(tree_leaves(g0), tree_leaves(g1)):
+                assert_close(a, b, rtol=LM_RTOL, atol=LM_ATOL, what=f"{arch} {remat}")
+        with pytest.raises(ValueError, match="remat must be one of"):
+            model.loss_fn(params, batch, remat="dotz")
+    with pytest.raises(ValueError, match="remat must be one of"):
+        build_train_step(model.cfg, Knobs(remat="dotz"))
 
 
 def test_use_kernels_knob_raises():
