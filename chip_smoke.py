@@ -271,7 +271,29 @@ and ends with a ``clock:`` line (seconds since the script started):
    error fails it (nothing is retried smaller).  ``--profile`` (not part
    of the default run) then profiles one local step of (d) with the
    engine's gradient route and with the whole-plane one
-   (``fed_lm_step_profile``);
+   (``fed_lm_step_profile``); (e)–(f) a model group of 2 gloo ranks
+   sharing cuda:0 (``model_group_training_one_card``), its world run at
+   once with (i)–(j)'s (``both_group_worlds_one_card``); (i) training on a
+   grid: 4 gloo ranks sharing cuda:0 as a 2 x 2 and a 4 x 1 grid (FSDP
+   over data, ``launch.mesh.make_grid``), llama3.2-1b and mamba2-1.3b at
+   one period of their published widths, vocabulary ``TRAIN_VOCAB``, f32,
+   B 4 x 32, two steps: each rank's share and moments within
+   ``F32_REL_L2`` of the unsharded share, the replicated parts bitwise
+   along each row and down each column, one loss and grad norm, no kernel
+   launched; mamba2's 2 x 2 snapshot after step 1 byte for byte the file
+   joined here from the shares, its 1 x 2 resume's step 2 within
+   ``F32_REL_L2`` of the straight step 2; (j) FedCM on the 2 x 2 grid (the
+   cohort over data, each client over model), phase 8 (c)'s shape and
+   draws, against the unsharded card round, 6 ``fed_direction`` and 3
+   ``server_update`` launches on each rank; 6c ``serve --ckpt --follow``
+   on the grid's first row (a model group of 2), llama3.2-1b at its
+   published widths cut to one layer, vocabulary ``TRAIN_VOCAB``: version
+   2 published after decode step 3, both ranks swap at the unsharded
+   server's step, with its tokens, one flash launch a rank (``--grid-only``
+   runs (i), (j) and 6c alone).  ``--nccl`` on four cards: (g) / (h) on
+   4-way model groups, then (k) starcoder2-7b trained whole on a 2 x 2
+   grid of cards (FSDP over data) and (l) llama3.2-1b federated at a
+   cohort of 8 on a 2 x 2 grid (``--groups-only``: (g)-(l) alone);
 9. summary — the ``nvidia-smi`` line, one JSON line ``{"kernels": [...]}``
    (``flash_attention`` / ``ssd_scan`` launches summed over phase 6's
    serving runs, the federated kernels' those of the main path; beside
@@ -285,6 +307,7 @@ and ends with a ``clock:`` line (seconds since the script started):
 from __future__ import annotations
 
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -474,6 +497,43 @@ GROUP_TRAIN_FULL = ("starcoder2-7b", ["--full", "--batch", "8", "--seq", "512", 
 GROUP_TRAIN_WARM = 2  # steps left out of ms/step and tok/s
 GROUP_FED_RUN = {"n_clients": 16, "cohort": 8, "local_steps": 2, "batch": 4, "seq": 64,
                  "rounds": 3}
+# phase 8 (i): training on a grid on one card: GRID_RANKS gloo ranks sharing
+# cuda:0, as each grid of GRID_SHAPES (data, model), each arch of GRID_TRAIN
+# at one period of its published widths, the vocabulary cut to TRAIN_VOCAB,
+# f32, B GRID_B x TRAIN_S; GRID_SNAPSHOT's 2 x 2 run snapshotted at step 1
+# and resumed on 1 x 2 (each model row of the grid): mamba2, whose packed
+# leaves (``rules.Pieces``) the join must undo, at half llama's bytes.  (j): FedCM on the 2 x
+# 2 grid (the cohort over data, each client over model), phase 8 (c)'s shape
+# and draws.  6c: ``serve --ckpt --follow`` on the grid's first model row (a
+# group of 2), llama3.2-1b at its published widths cut to GRID_SERVE_CUT,
+# version 2 published after decode step GRID_PUBLISH_AFTER.
+GRID_RANKS = 4
+GRID_SHAPES = ((2, 2), (4, 1))
+GRID_TRAIN = (("llama3.2-1b", {"n_layers": 1}), ("mamba2-1.3b", {"n_layers": 1}))
+GRID_B = 4
+GRID_SNAPSHOT = "mamba2-1.3b"
+GRID_SERVE_ARGS = ["--arch", "llama3.2-1b", "--full", "--batch", "2", "--prompt-len", "256",
+                   "--gen", "8", "--follow"]
+GRID_SERVE_CUT = {"n_layers": 1, "vocab_size": TRAIN_VOCAB}
+GRID_PUBLISH_AFTER = 3
+# --nccl (k): ``launch/train.run`` of starcoder2-7b whole on a 2 x 2 grid of
+# cards (FSDP over data), phase (g)'s flags and seed; (l)
+# ``launch/federated_llm.run`` of llama3.2-1b as published on a 2 x 2 grid,
+# (h)'s run
+GRID_FULL = (2, 2)  # (data, model)
+# (k) against (g) and (l) against (h), step by step: the same seed, batches
+# and draws; the grid sums each gradient in another order (NCCL's
+# reduce-scatter over data, half-width all-reduces over model), and bf16
+# training lets that grow over the steps.  About four times the largest
+# relative gaps of the first four-card run (NVIDIA H100 80GB HBM3, 700.00
+# W): losses 7.3e-4 and grad norms 1.01e-2 (k); round losses 3.4e-5 and
+# momentum norms 1.3e-5 (l)
+GRID_TRAIN_LOSS_REL, GRID_TRAIN_NORM_REL = 3e-3, 4e-2
+GRID_STEP1_REL = 1e-3  # step 1's loss, taken before any update
+GRID_FED_REL = 1.5e-4
+# (k)'s snapshot: starcoder2-7b at its published widths cut to two layers,
+# drawn on the 2 x 2 grid of cards and written with ``save_checkpoint_shares``
+GRID_SNAPSHOT_FULL = ("starcoder2-7b", {"n_layers": 2})
 OTHER_ALGOS = ("fedprox", "fedavgm", "fedacg", "fedadam", "fedadagrad", "fedyogi", "mimelite",
                "scaffold", "feddyn")
 # the reference benchmark's per-algorithm settings (benchmarks/common.py: η_g
@@ -1942,15 +2002,17 @@ def group_train_case(torch, arch, cut, parallel, device):
             "digest": [replicated_digest(torch, tree_leaves(t), parts) for t in (p, o[1], o[2])]}
 
 
-def group_fed_case(torch, parallel, device, draws):
+def group_fed_case(torch, parallel, device, draws, cohort_group=None):
     """Phase 8 (f) in one rank: ``FED_LM_RUN`` rounds of FedCM over
     ``FED_LM_VS_CPU`` through ``round_step`` on the injected ``draws`` (phase
     8 (c)'s weights and draws), each client this rank's share of the model
-    group (``model_group``), the kernels' launch counts set just before and
-    read just after; then one round on the engine's own draws from a
-    generator seeded alike on every rank (the engine checks the ranks drew
-    alike).  Returns this rank's params and momentum planes, each round's
-    loss, a digest of the ids and minibatches it used, the launches."""
+    group (``model_group``), the cohort over ``cohort_group`` when given (a
+    grid's data group, phase 8 (j)), the kernels' launch counts set just
+    before and read just after; then one round on the engine's own draws
+    from a generator seeded alike on every rank (the engine checks the
+    ranks drew alike).  Returns this rank's params and momentum planes, each
+    round's loss, a digest of the ids and minibatches it used, the
+    launches."""
     import hashlib
 
     from repro_torch.configs.base import FedConfig, get_config
@@ -1980,7 +2042,8 @@ def group_fed_case(torch, parallel, device, draws):
     del whole
     spec = FlatSpec.from_tree(share)
     eng = FederatedEngine(fed, cohort_loss_fn(model, parallel), spec, batch_size=B,
-                          device=device, model_group=group_plane(spec, cfg, parallel))
+                          device=device, cohort_group=cohort_group,
+                          model_group=group_plane(spec, cfg, parallel))
     data = LMFederatedData(federated_lm_corpora(cfg.vocab_size, n_cl, S + 1, 64), device=device)
     state = eng.init(share)
     seen, losses = hashlib.sha256(), []
@@ -2072,9 +2135,27 @@ def remat_dots_on_card(torch, np, device="cuda"):
     return row
 
 
-def model_group_training_one_card(torch, np, smi_line: str, device="cuda"):
+def fed_lm_draws(np):
+    """Phase 8 (c)'s FedCM config, corpora and injected draws: each round's
+    cohort ids and every client's minibatch indices."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import federated_lm_corpora
+
+    arch, cut = FED_LM_VS_CPU
+    cfg = replace(get_config(arch), **cut)
+    B, S = FED_LM_VS_CPU_BATCH
+    n_cl, C, K, R = (FED_LM_RUN[k] for k in ("n_clients", "cohort", "local_steps", "rounds"))
+    toks = federated_lm_corpora(cfg.vocab_size, n_cl, S + 1, 64)
+    rng = np.random.default_rng(8)
+    draws = [(rng.permutation(n_cl)[:C], rng.integers(0, toks.shape[1], size=(C, K, B)))
+             for _ in range(R)]
+    return cfg, toks, draws
+
+
+def model_group_training_one_card(torch, np, smi_line: str, device="cuda", world=None):
     """Phases 8 (e) and (f): one world of ``GROUP_RANKS`` gloo ranks sharing
-    cuda:0 (``group_rank``), against the unsharded step (each rank runs it)
+    cuda:0 (``group_rank``; ``world``: its ranks' results and wall seconds
+    when the caller ran it), against the unsharded step (each rank runs it)
     and the unsharded FedCM round on the card (here, phase 8 (c)'s weights
     and draws).  (e): each rank's updated share and both moments within
     ``F32_REL_L2`` of the unsharded slice (a leaf from 0 within
@@ -2085,30 +2166,13 @@ def model_group_training_one_card(torch, np, smi_line: str, device="cuda"):
     (momentum, each round's loss) of the unsharded round's, the draws equal
     on every rank, K ``fed_direction`` and one ``server_update`` a round on
     each rank's share.  Returns each rank's (f) launches."""
-    from repro_torch.configs.base import FedConfig, get_config
-    from repro_torch.core.engine import FederatedEngine, metrics_to_host
-    from repro_torch.core.flat import FlatSpec
-    from repro_torch.data import LMFederatedData, federated_lm_corpora, gather_round_batches
-    from repro_torch.launch import federated_llm
-    from repro_torch.launch.mesh import spawn_cohort
-    from repro_torch.models.model import build_model, cohort_loss_fn
-    from repro_torch.sharding.rules import param_specs
-    from repro_torch.sharding.shard import join_shares, param_shapes, shard_params
-    from repro_torch.utils.trees import tree_leaves
-
     arch, cut = FED_LM_VS_CPU
-    cfg = replace(get_config(arch), **cut)
+    cfg, toks, draws = fed_lm_draws(np)
     B, S = FED_LM_VS_CPU_BATCH
     n_cl, C, K, R = (FED_LM_RUN[k] for k in ("n_clients", "cohort", "local_steps", "rounds"))
-    toks = federated_lm_corpora(cfg.vocab_size, n_cl, S + 1, 64)
-    rng = np.random.default_rng(8)  # phase 8 (c)'s draws
-    draws = [(rng.permutation(n_cl)[:C], rng.integers(0, toks.shape[1], size=(C, K, B)))
-             for _ in range(R)]
-    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = spawn_cohort(group_rank, GROUP_RANKS, args=(draws,), device=device, backend="gloo",
-                         timeout_s=600.0, deadline_s=900.0)
-    wall = time.perf_counter() - t0
+    ranks, wall = group_world_one_card(torch, group_rank, GROUP_RANKS, (draws,), device) \
+        if world is None else world
     # (e)
     for i, (arch_i, cut_i) in enumerate(GROUP_TRAIN):
         rows = [got["train"][i] for got in ranks]
@@ -2137,38 +2201,10 @@ def model_group_training_one_card(torch, np, smi_line: str, device="cuda"):
     remat = remat_dots_on_card(torch, np, device)
     lap_e = time.perf_counter() - t0
     # (f): the unsharded round on the card, phase 8 (c)'s
-    model = build_model(cfg)
-    fed = FedConfig(algo="fedcm", num_clients=n_cl, cohort_size=C, local_steps=K,
-                    alpha=federated_llm.ALPHA, eta_l=0.05,
-                    weight_decay=federated_llm.WEIGHT_DECAY, participation="fixed")
-    whole = model.init(torch.Generator().manual_seed(8))
-    spec = FlatSpec.from_tree(whole)
-    eng = FederatedEngine(fed, cohort_loss_fn(model), spec, batch_size=B, device=device)
-    data = LMFederatedData(toks, device=device)
-    state = eng.init(whole)
-    losses = []
-    for ids, idx in draws:
-        ids_t = torch.as_tensor(ids, device=device)
-        batches = gather_round_batches(data.client_x, data.client_y, None, ids_t, K, B,
-                                       idx=torch.as_tensor(idx))
-        state, m = eng.round_step(state, batches, ids_t,
-                                  torch.ones(C, dtype=torch.bool, device=device))
-        losses.append(float(metrics_to_host(m)["loss"][0]))
-    want = {"params": state.params.cpu().numpy(), "momentum": state.server.momentum.cpu().numpy()}
-    del state, eng, data
-    torch.cuda.empty_cache()
-    shapes = param_shapes(cfg)
+    want, losses = fed_lm_unsharded_on_card(torch, cfg, draws, toks, device)
     n = GROUP_RANKS
-    views = [FlatSpec.from_tree(shard_params(shapes, param_specs(shapes, cfg, n), r, n))
-             for r in range(n)]
-    specs = tree_leaves(param_specs(shapes, cfg, n))
-
-    def joined(key):
-        per_rank = [views[r].views(torch.from_numpy(ranks[r]["fed"][key])) for r in range(n)]
-        return np.concatenate([join_shares([v[i] for v in per_rank], d, n).reshape(-1).numpy()
-                               for i, d in enumerate(specs)])
-
-    got = {k: joined(k) for k in ("params", "momentum")}
+    got = {k: joined_fed_planes(torch, np, cfg, [r["fed"][k] for r in ranks], n)
+           for k in ("params", "momentum")}
     fed_rows = [r["fed"] for r in ranks]
     expected = {"fed_direction": R * K, "server_update": R, "dequant_update": 0,
                 "flash_attention": 0, "ssd_scan": 0}
@@ -2201,6 +2237,59 @@ def model_group_training_one_card(torch, np, smi_line: str, device="cuda"):
     return {f"fed_lm_group_rank{r}": f["launches"] for r, f in enumerate(fed_rows)}
 
 
+def fed_lm_unsharded_on_card(torch, cfg, draws, toks, device):
+    """Phase 8 (c)'s FedCM rounds on the card, unsharded: ``FED_LM_RUN``
+    rounds over ``cfg`` from phase 8 (c)'s weights on the injected
+    ``draws`` (ids, minibatch indices into ``toks``).  Returns the params
+    and momentum planes after them (numpy) and each round's loss."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core.engine import FederatedEngine, metrics_to_host
+    from repro_torch.core.flat import FlatSpec
+    from repro_torch.data import LMFederatedData, gather_round_batches
+    from repro_torch.launch import federated_llm
+    from repro_torch.models.model import build_model, cohort_loss_fn
+
+    B, _ = FED_LM_VS_CPU_BATCH
+    n_cl, C, K = (FED_LM_RUN[k] for k in ("n_clients", "cohort", "local_steps"))
+    model = build_model(cfg)
+    fed = FedConfig(algo="fedcm", num_clients=n_cl, cohort_size=C, local_steps=K,
+                    alpha=federated_llm.ALPHA, eta_l=0.05,
+                    weight_decay=federated_llm.WEIGHT_DECAY, participation="fixed")
+    whole = model.init(torch.Generator().manual_seed(8))
+    eng = FederatedEngine(fed, cohort_loss_fn(model), FlatSpec.from_tree(whole), batch_size=B,
+                          device=device)
+    data = LMFederatedData(toks, device=device)
+    state = eng.init(whole)
+    losses = []
+    for ids, idx in draws:
+        ids_t = torch.as_tensor(ids, device=device)
+        batches = gather_round_batches(data.client_x, data.client_y, None, ids_t, K, B,
+                                       idx=torch.as_tensor(idx))
+        state, m = eng.round_step(state, batches, ids_t,
+                                  torch.ones(C, dtype=torch.bool, device=device))
+        losses.append(float(metrics_to_host(m)["loss"][0]))
+    want = {"params": state.params.cpu().numpy(), "momentum": state.server.momentum.cpu().numpy()}
+    del state, eng, data
+    torch.cuda.empty_cache()
+    return want, losses
+
+
+def joined_fed_planes(torch, np, cfg, planes, n: int):
+    """The whole ``(P,)`` plane from the ``(P_r,)`` planes of a model
+    group's ``n`` ranks (rank order)."""
+    from repro_torch.core.flat import FlatSpec
+    from repro_torch.sharding.rules import param_specs
+    from repro_torch.sharding.shard import join_shares, param_shapes, shard_params
+    from repro_torch.utils.trees import tree_leaves
+
+    shapes = param_shapes(cfg)
+    specs = param_specs(shapes, cfg, n)
+    per_rank = [FlatSpec.from_tree(shard_params(shapes, specs, r, n)).views(
+        torch.from_numpy(planes[r])) for r in range(n)]
+    return np.concatenate([join_shares([v[i] for v in per_rank], d, n).reshape(-1).numpy()
+                           for i, d in enumerate(tree_leaves(specs))])
+
+
 def group_train_four_cards(torch, np, smi_line: str):
     """``--nccl`` (g): ``launch/train.run`` of ``GROUP_TRAIN_FULL``
     (starcoder2-7b whole, ``--model-parallel`` MP_FULL_RANKS over NCCL, B 8
@@ -2209,7 +2298,7 @@ def group_train_four_cards(torch, np, smi_line: str):
     on every rank, ms a step and tok/s after ``GROUP_TRAIN_WARM`` steps, the
     share of the cards' summed bf16 peak that the step's matmul FLOPs reach
     (phase 8 (b)'s ``train_matmul_flops``), each rank's peak memory, no
-    kernel launched."""
+    kernel launched.  Returns the losses and grad norms, for (k)."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import train
     from repro_torch.sharding.shard import share_bytes
@@ -2246,6 +2335,7 @@ def group_train_four_cards(torch, np, smi_line: str):
         fail(f"training {arch} on {n} cards: the ranks' losses differ")
     if not (np.isfinite(res.losses).all() and res.losses[-1] < res.losses[0]):
         fail(f"training {arch} on {n} cards: losses {res.losses} do not fall")
+    return res.losses, res.grad_norms
 
 
 def group_fed_four_cards(torch, np, smi_line: str):
@@ -2256,7 +2346,7 @@ def group_fed_four_cards(torch, np, smi_line: str):
     K ``fed_direction`` and one ``server_update`` a round, finite losses,
     the last round's below the first's, ms a round and each rank's peak
     memory.  An out-of-memory error fails the phase: nothing is retried
-    smaller."""
+    smaller.  Returns each round's loss and momentum norm, for (l)."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import federated_llm
     from repro_torch.sharding.shard import share_bytes
@@ -2288,6 +2378,689 @@ def group_fed_four_cards(torch, np, smi_line: str):
         fail(f"FedCM on {n} cards: launches {row['launches_per_rank']}, expected {expected}")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         fail(f"FedCM on {n} cards: losses {losses} do not fall")
+    return losses, [r["momentum_norm"] for r in res.rounds]
+
+
+# ------------------------------------------------------ phases 8 (i)-(l), 6c
+def grid_digests(torch, cfg, leaves, parallel):
+    """Two hashes of a grid rank's tree: of every part its model group
+    replicates (equal along a model row iff bitwise equal), and of every
+    leaf its data group replicates (equal down a data column)."""
+    import hashlib
+
+    from repro_torch.sharding.shard import share_fsdp, share_parts
+
+    row, col = hashlib.sha256(), hashlib.sha256()
+    fsdp = share_fsdp(cfg, parallel.size, parallel.data_size)
+    for t, (dim, pieces), f in zip(leaves, share_parts(cfg, parallel.size), fsdp):
+        for off, width, use in pieces:
+            if use != "split":
+                seg = t if dim is None else t.narrow(dim, off, width)
+                row.update(seg.detach().contiguous().cpu().numpy().tobytes())
+        if f is None:
+            col.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return row.hexdigest(), col.hexdigest()
+
+
+def grid_cfg(arch, cut):
+    """Phase 8 (i)'s config of ``arch``: f32, ``TRAIN_VOCAB``, cut by ``cut``."""
+    from repro_torch.configs.base import get_config
+
+    return replace(get_config(arch), dtype="float32", vocab_size=TRAIN_VOCAB, **cut)
+
+
+def grid_unsharded(torch, work, device):
+    """Phase 8 (i)'s reference, once, in the parent: for each arch of
+    ``GRID_TRAIN`` two unsharded steps on the card from ``GROUP_SEED``'s
+    draw, saved to ``work / "unsharded_<arch>.pt"``: the params and both
+    moments after them (leaves in tree order), each step's loss and grad
+    norm, and which params were drawn zero."""
+    from repro_torch.launch.steps import Knobs, build_train_step
+    from repro_torch.utils.trees import tree_leaves
+
+    for arch, cut in GRID_TRAIN:
+        step = build_train_step(grid_cfg(arch, cut), Knobs(remat="none", learning_rate=TRAIN_LR))
+        gen = torch.Generator(device=device)
+        gen.manual_seed(GROUP_SEED)
+        params = step.model.init(gen)
+        zero = [not bool(t.any()) for t in tree_leaves(params)]
+        batch = step.model.dummy_batch(GRID_B, TRAIN_S, device)
+        o, metrics = step.opt.init(params), []
+        for _ in range(2):
+            params, o, m = step.fn(params, o, batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        torch.save({"params": tree_leaves(params), "m": tree_leaves(o[1]),
+                    "v": tree_leaves(o[2]), "metrics": metrics, "zero": zero},
+                   work / f"unsharded_{arch}.pt")
+        del params, o, step
+    torch.cuda.empty_cache()
+
+
+def grid_train_case(torch, arch, cut, grids, device, work, snapshot: bool):
+    """Phase 8 (i) in one rank of the world: this rank's share on each grid
+    of the unsharded params and moments after two steps (``grid_unsharded``,
+    read from ``work``); then, on each grid, two steps of this rank's FSDP
+    share (``init_params_sharded`` from the same seed) on its data row's
+    block of the batch, with the kernels' launch counts set just before and
+    read just after, every leaf against the unsharded share.  With
+    ``snapshot`` the 2 x 2 run is snapshotted after step 1
+    (``save_checkpoint_shares``; each rank also saves its shares for the
+    parent to join) and resumed on 1 x 2 (this rank's model row, no data
+    group), whose step 2 is held to the straight 2 x 2 step 2 gathered over
+    data."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.ckpt import load_checkpoint, save_checkpoint_shares
+    from repro_torch.core.engine import synchronize
+    from repro_torch.kernels import launch_counts, launches_since
+    from repro_torch.launch.steps import Knobs, build_train_step, make_parallel
+    from repro_torch.sharding.rules import _keys
+    from repro_torch.sharding.shard import (
+        grid_take, init_params_sharded, join_shares, param_shapes, share_fsdp, snapshot_join,
+        snapshot_take,
+    )
+    from repro_torch.utils.trees import tree_flatten_with_path, tree_leaves
+
+    cfg = grid_cfg(arch, cut)
+    knobs = Knobs(remat="none", learning_rate=TRAIN_LR)
+    rank = dist.get_rank()
+    t_start = time.perf_counter()
+    keys = [_keys(p) for p, _ in tree_flatten_with_path(param_shapes(cfg))[0]]
+    whole = torch.load(work / f"unsharded_{arch}.pt", map_location=device)
+    zero, whole_metrics = whole["zero"], whole["metrics"]
+    batch = None
+    want = {(D, M): {name: [grid_take(t, k, cfg, rank % M, M, rank // M, D)
+                            for t, k in zip(whole[name], keys)]
+                     for name in ("params", "m", "v")}
+            for D, M in GRID_SHAPES}
+    del whole
+    rows = {"reference_load_s": time.perf_counter() - t_start}
+    for D, M in GRID_SHAPES:
+        parallel = make_parallel(*grids[(D, M)], cfg=cfg)
+        gstep = build_train_step(cfg, knobs, parallel)
+        if batch is None:
+            batch = gstep.model.dummy_batch(GRID_B, TRAIN_S, device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(GROUP_SEED)
+        share = init_params_sharded(gen, cfg, parallel.rank, M, data=D,
+                                    data_rank=parallel.data_rank)
+        n = GRID_B // D
+        mine = {k: v[parallel.data_rank * n:(parallel.data_rank + 1) * n]
+                for k, v in batch.items()}
+        before = launch_counts()
+        synchronize(device)
+        t0 = time.perf_counter()
+        p, o, metrics = share, gstep.opt.init(share), []
+        for i in range(2):
+            p, o, m = gstep.fn(p, o, mine)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            if i == 0 and snapshot and (D, M) == (2, 2):
+                tree = {"params": p, "opt": o}
+                save_checkpoint_shares(str(work / "grid_ckpt"), 1, tree,
+                                       snapshot_join(cfg, M, D))
+                torch.save(tree, work / f"grid_shares_{rank}.pt")
+                snap = o
+        s = time.perf_counter() - t0
+        launches = launches_since(before)
+        worst, bad = {}, []
+        for name, tree in (("params", p), ("m", o[1]), ("v", o[2])):
+            for i, (a, b, z) in enumerate(zip(tree_leaves(tree), want[(D, M)][name], zero)):
+                limit = UPDATE_REL_L2 if name == "params" and z else F32_REL_L2
+                rel = rel_l2(torch, a, b)
+                key = f"{name} {'from 0' if name == 'params' and z else ''}".strip()
+                worst[key] = max(worst.get(key, 0.0), rel)
+                if not (rel <= limit and bool(torch.isfinite(a).all())):
+                    bad.append((name, i, rel, limit))
+        row = {"metrics": metrics, "unsharded_metrics": whole_metrics, "max_rel_l2": worst,
+               "bad": bad, "launches": launches, "s_2_steps": s, "s_with_checks": 0.0,
+               "digests": [grid_digests(torch, cfg, tree_leaves(t), parallel)
+                           for t in (p, o[1], o[2])]}
+        if snapshot and (D, M) == (2, 2):
+            # resume the step-1 snapshot on 1 x 2: this rank's model row alone
+            row_par = make_parallel(grids[(D, M)][0])
+            rstep = build_train_step(cfg, knobs, row_par)
+            gen.manual_seed(GROUP_SEED)
+            tmpl = init_params_sharded(gen, cfg, row_par.rank, M)
+            tree, _ = load_checkpoint(str(work / "grid_ckpt"), 1,
+                                      {"params": tmpl, "opt": rstep.opt.init(tmpl)},
+                                      snapshot_take(cfg, row_par.rank, M))
+            rp, ro, rm = rstep.fn(tree["params"], tree["opt"], batch)
+            fsdp = share_fsdp(cfg, M, D)
+            worst_resume = 0.0
+            for name, a_tree, b_tree in (("params", rp, p), ("m", ro[1], o[1]),
+                                         ("v", ro[2], o[2])):
+                for a, b, f in zip(tree_leaves(a_tree), tree_leaves(b_tree), fsdp):
+                    parts = [torch.empty_like(b) for _ in range(D)]
+                    dist.all_gather(parts, b.contiguous(), group=parallel.data_group)
+                    whole = join_shares(parts, None, 1, f, D)
+                    worst_resume = max(worst_resume, rel_l2(torch, a, whole))
+            row.update(resume_1x2_max_rel_l2=worst_resume,
+                       resume_metrics=(float(rm["loss"]), float(rm["grad_norm"])),
+                       snapshot_step=int(snap[0]))
+        row["s_with_checks"] = time.perf_counter() - t0
+        rows[f"{D}x{M}"] = row
+    return rows
+
+
+def grid_serve_case(torch, parallel, device, work):
+    """Phase 6c in one rank of a model group of 2 (the grid's first model
+    row): ``serve.run`` of ``GRID_SERVE_ARGS`` on version 1 published in
+    ``work / "pub_group"``, rank 0 publishing version 2 there after decode
+    step ``GRID_PUBLISH_AFTER``; the kernels' launch counts set just before
+    and read just after.  Returns the tokens, the swap steps, the versions
+    swapped in and the launches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.fleet.publisher import ModelPublisher
+    from repro_torch.kernels import launch_counts, launches_since
+    from repro_torch.launch import serve
+
+    cfg = replace(get_config("llama3.2-1b"), **GRID_SERVE_CUT)
+    args = serve.build_parser().parse_args(
+        [*GRID_SERVE_ARGS, "--ckpt", str(work / "pub_group"), "--device", str(device)])
+    publish = (lambda stats: None)
+    if parallel.rank == 0:
+        pub = ModelPublisher(str(work / "pub_group"), retain=2)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(12)
+        later = serve.build_model(cfg).init(gen)
+
+        def publish(stats):
+            if stats.steps == GRID_PUBLISH_AFTER:
+                pub.publish(later, step=2)
+
+    before = launch_counts()
+    res = serve.run(args, on_step=publish, cfg=cfg, parallel=parallel)
+    return {"tokens": res.tokens, "swap_steps": list(res.stats.swap_steps),
+            "versions": list(res.stats.versions), "launches": launches_since(before),
+            "prefill_ms": [t * 1e3 for t in res.prefill_s]}
+
+
+def plane_digest(a) -> str:
+    """A hash of a numpy plane's bytes."""
+    import hashlib
+
+    return hashlib.sha256(a.tobytes()).hexdigest()
+
+
+def grid_rank(rank, device, draws, work):
+    """A rank of phases 8 (i), (j) and 6c on one card."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_grid
+    from repro_torch.launch.steps import make_parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    laps, t0 = {}, time.perf_counter()
+    grids = {shape: make_grid(*shape) for shape in GRID_SHAPES}
+    train = []
+    for arch, cut in GRID_TRAIN:
+        train.append(grid_train_case(torch, arch, cut, grids, device, work,
+                                     arch == GRID_SNAPSHOT))
+        laps[arch] = time.perf_counter() - t0 - sum(laps.values())
+    torch.cuda.empty_cache()
+    model_group, data_group = grids[(2, 2)]
+    fed = group_fed_case(torch, make_parallel(model_group), device, draws, data_group)
+    if dist.get_rank(data_group):  # data rank 0's planes come back; the others' digests
+        fed.update({k: plane_digest(fed[k]) for k in ("params", "momentum")})
+    laps["fed"] = time.perf_counter() - t0 - sum(laps.values())
+    torch.cuda.empty_cache()
+    served = grid_serve_case(torch, make_parallel(model_group), device, work) if rank < 2 \
+        else None
+    dist.barrier()
+    laps["serve"] = time.perf_counter() - t0 - sum(laps.values())
+    return {"train": train, "fed": fed, "serve": served, "laps_s": laps}
+
+
+def group_world_one_card(torch, body, n: int, args, device):
+    """``body``'s world of ``n`` gloo ranks sharing ``device``: the ranks'
+    results and the world's wall seconds."""
+    from repro_torch.launch.mesh import spawn_cohort
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_cohort(body, n, args=args, device=device, backend="gloo", timeout_s=600.0,
+                         deadline_s=900.0)
+    return ranks, time.perf_counter() - t0
+
+
+def grid_setup(torch, np, device="cuda"):
+    """The work directory of phases 8 (i), (j) and 6c, with version 1 of
+    6c's model published in two directories (the group's and the unsharded
+    server's) and 8 (i)'s unsharded steps (``grid_unsharded``);
+    ``grid_rank``'s arguments."""
+    import shutil
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.fleet.publisher import ModelPublisher
+    from repro_torch.models.model import build_model
+
+    work = ROOT / "build" / "smoke_grid"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(11)
+    first = build_model(replace(get_config("llama3.2-1b"), **GRID_SERVE_CUT)).init(gen)
+    for name in ("pub_group", "pub_plain"):
+        ModelPublisher(str(work / name), retain=2).publish(first, step=1)
+    del first
+    grid_unsharded(torch, work, device)
+    return fed_lm_draws(np)[2], work
+
+
+def both_group_worlds_one_card(torch, np, smi_line: str, device="cuda"):
+    """Phases 8 (e)–(f) and 8 (i), (j), 6c: their two worlds of gloo ranks
+    sharing cuda:0 run at once (2 and 4 ranks), then each phase's checks.
+    Returns the launches by path of (f), (j) and 6c."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    grid_args = grid_setup(torch, np, device)
+    with ThreadPoolExecutor(2) as pool:
+        group = pool.submit(group_world_one_card, torch, group_rank, GROUP_RANKS,
+                            (fed_lm_draws(np)[2],), device)
+        grid = pool.submit(group_world_one_card, torch, grid_rank, GRID_RANKS, grid_args,
+                           device)
+        group, grid = group.result(), grid.result()
+    say(f"phases 8 (e)-(f) and 8 (i)-(j), 6c: their worlds at once in "
+        f"{time.perf_counter() - t0:.1f} s (the worlds {group[1]:.1f} / {grid[1]:.1f} s)")
+    by_path = model_group_training_one_card(torch, np, smi_line, device, world=group)
+    grid_fed, grid_serve = grid_one_card(torch, np, smi_line, device, world=grid,
+                                         work=grid_args[1])
+    return {**by_path, **grid_fed}, grid_serve
+
+
+def grid_one_card(torch, np, smi_line: str, device="cuda", world=None, work=None):
+    """Phases 8 (i), (j) and 6c: one world of ``GRID_RANKS`` gloo ranks
+    sharing cuda:0 (``grid_rank``).  (i): on each grid of ``GRID_SHAPES``
+    each rank's FSDP share and both moments after two steps within
+    ``F32_REL_L2`` of the unsharded share (a leaf from 0 within
+    ``UPDATE_REL_L2``), the model-replicated parts bitwise equal along each
+    row and the data-replicated leaves down each column, one loss and one
+    grad norm, no kernel launched; the 2 x 2 snapshot after step 1 byte for
+    byte the file joined here from the ranks' shares, and its 1 x 2 resume's
+    step 2 within ``F32_REL_L2`` of the straight 2 x 2 step 2.  (j): the 2 x
+    2 grid's FedCM rounds against the unsharded card round (data rank 0's
+    planes joined; params within ``PARITY_RTOL`` / ``PARITY_ATOL``, momentum
+    and each round's loss within ``F32_REL_L2``), every data rank's planes
+    bitwise data rank 0's, the draws equal on all four ranks, on each rank
+    K ``fed_direction`` launches a round on its ``(C_loc, P_r)`` plane and
+    one ``server_update`` on its column block.  6c: both ranks swap to
+    version 2 at the same step as the unsharded server, with its tokens,
+    and launch ``flash_attention`` in their prefill.  ``world`` is the
+    world's ranks' results and wall seconds when the caller ran it on
+    ``work`` (``grid_setup``).  Returns the launches by path of (j) and
+    6c."""
+    import shutil
+
+    from repro_torch.checkpoint.ckpt import _map_with_paths, flatten_with_paths, save_checkpoint
+    from repro_torch.configs.base import get_config
+    from repro_torch.fleet.publisher import ModelPublisher
+    from repro_torch.kernels import launch_counts, launches_since
+    from repro_torch.launch import serve
+    from repro_torch.sharding.shard import snapshot_join
+
+    t0 = time.perf_counter()
+    arch, cut = FED_LM_VS_CPU
+    fcfg, toks, draws = fed_lm_draws(np)
+    B, S = FED_LM_VS_CPU_BATCH
+    n_cl, C, K, R = (FED_LM_RUN[k] for k in ("n_clients", "cohort", "local_steps", "rounds"))
+    scfg = replace(get_config("llama3.2-1b"), **GRID_SERVE_CUT)
+    if world is None:
+        draws, work = grid_setup(torch, np, device)
+        world = group_world_one_card(torch, grid_rank, GRID_RANKS, (draws, work), device)
+    ranks, wall = world
+    laps = {arch: {k: v if isinstance(v, float) else v["s_with_checks"] for k, v in t.items()}
+            for (arch, _), t in zip(GRID_TRAIN, ranks[0]["train"])}
+    say(f"phases 8 (i), 8 (j), 6c: the world {wall:.1f} s; rank 0's laps "
+        f"{json.dumps(ranks[0]['laps_s'])}; of each arch's, reading the unsharded steps and each "
+        f"grid's steps with their checks {json.dumps(laps)}")
+    # (i)
+    for i, (arch_i, cut_i) in enumerate(GRID_TRAIN):
+        for D, M in GRID_SHAPES:
+            rows = [got["train"][i][f"{D}x{M}"] for got in ranks]
+            first = rows[0]
+            for r, got in enumerate(rows):
+                if got["bad"] or any(got["launches"].values()):
+                    fail(f"training on a {D} x {M} grid, {arch_i}: rank {r}: leaves beyond "
+                         f"their bound {got['bad'][:5]}, launches {got['launches']}")
+                row_first, col_first = rows[r - r % M], rows[r % M]
+                if (any(a[0] != b[0] for a, b in zip(got["digests"], row_first["digests"]))
+                        or any(a[1] != b[1] for a, b in zip(got["digests"],
+                                                             col_first["digests"]))
+                        or got["metrics"] != first["metrics"]):
+                    fail(f"training on a {D} x {M} grid, {arch_i}: rank {r}'s replicated "
+                         f"parts or loss / grad norm differ")
+            worst_metric = max(abs(a - b) / max(abs(b), 1e-30)
+                               for got, want in zip(first["metrics"], first["unsharded_metrics"])
+                               for a, b in zip(got, want))
+            if not (np.isfinite(first["metrics"]).all() and worst_metric <= F32_REL_L2):
+                fail(f"training on a {D} x {M} grid, {arch_i}: metrics {first['metrics']} "
+                     f"against {first['unsharded_metrics']}")
+            row = {"arch": arch_i, "grid": [D, M], "cut": dict(cut_i, vocab_size=TRAIN_VOCAB),
+                   "B": GRID_B, "S": TRAIN_S, "losses": [m[0] for m in first["metrics"]],
+                   "loss_grad_norm_max_rel": worst_metric,
+                   "max_rel_l2_per_rank": [got["max_rel_l2"] for got in rows],
+                   "limits": [F32_REL_L2, UPDATE_REL_L2],
+                   "launches_per_rank": [got["launches"] for got in rows],
+                   "s_2_steps_per_rank": [got["s_2_steps"] for got in rows]}
+            if "resume_1x2_max_rel_l2" in first:
+                row["resume_1x2_max_rel_l2_per_rank"] = [got["resume_1x2_max_rel_l2"]
+                                                         for got in rows]
+                if max(row["resume_1x2_max_rel_l2_per_rank"]) > F32_REL_L2:
+                    fail(f"the 2 x 2 snapshot resumed on 1 x 2: {json.dumps(row)}")
+            say(f"training on a grid ({GRID_RANKS} gloo ranks sharing cuda:0): "
+                f"{json.dumps(row)}")
+    shares = [torch.load(work / f"grid_shares_{r}.pt") for r in range(GRID_RANKS)]
+    join = snapshot_join(grid_cfg(GRID_SNAPSHOT, dict(GRID_TRAIN)[GRID_SNAPSHOT]), 2, 2)
+    per_path = {}
+    for tree in shares:
+        for path, leaf in flatten_with_paths(tree):
+            per_path.setdefault(path, []).append(leaf)
+    save_checkpoint(str(work / "joined"), 1, _map_with_paths(
+        lambda path, leaf: join(path, per_path[path]), shares[0]))
+    snap = work / "grid_ckpt" / "step_1.msgpack"
+    same = (work / "joined" / "step_1.msgpack").read_bytes() == snap.read_bytes()
+    say(f"the 2 x 2 grid's step-1 snapshot ({snap.stat().st_size:,} bytes) is byte for byte "
+        f"the file joined from its ranks' shares: {same}")
+    if not same:
+        fail("the grid's snapshot differs from the file joined from its ranks' shares")
+    del shares, per_path
+    t_join = time.perf_counter() - t0
+    # (j)
+    want, losses = fed_lm_unsharded_on_card(torch, fcfg, draws, toks, device)
+    fed_rows = [r["fed"] for r in ranks]
+    got = {k: joined_fed_planes(torch, np, fcfg, [f[k] for f in fed_rows[:2]], 2)
+           for k in ("params", "momentum")}
+    expected = {"fed_direction": R * K, "server_update": R, "dequant_update": 0,
+                "flash_attention": 0, "ssd_scan": 0}
+    p_diff = float(np.max(np.abs(got["params"] - want["params"])))
+    m_rel = rel_l2_host(torch, got["momentum"], want["momentum"])
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(fed_rows[0]["losses"], losses))
+    replicated = all(fed_rows[r][k] == plane_digest(fed_rows[r % 2][k])
+                     for r in range(2, GRID_RANKS) for k in ("params", "momentum"))
+    row = {"arch": arch, "cut": cut, "grid": [2, 2],
+           "share_params": [f["share_params"] for f in fed_rows], "N": n_cl, "cohort": C,
+           "K": K, "B": B, "S": S, "rounds": R, "losses": fed_rows[0]["losses"],
+           "loss_max_rel": loss_rel, "params_max_abs_diff": p_diff, "momentum_rel_l2": m_rel,
+           "data_ranks_bitwise": replicated,
+           "launches_per_rank": [f["launches"] for f in fed_rows],
+           "draws_equal": len({f["draws_digest"] for f in fed_rows}) == 1,
+           "drawn_round_loss_per_rank": [f["drawn_round_loss"] for f in fed_rows],
+           "peak_bytes_per_rank": [f["peak_bytes"] for f in fed_rows], "card": smi_line,
+           "limits": {"params": [PARITY_RTOL, PARITY_ATOL], "momentum": F32_REL_L2}}
+    say(f"FedCM on a 2 x 2 grid ({GRID_RANKS} gloo ranks sharing cuda:0) vs the unsharded card "
+        f"round: {json.dumps(row)}")
+    if not (row["draws_equal"] and len(set(row["drawn_round_loss_per_rank"])) == 1):
+        fail("FedCM on a grid: the ranks' draws differ")
+    if any(f["launches"] != expected for f in fed_rows):
+        fail(f"FedCM on a grid: launches {row['launches_per_rank']}, expected {expected} on "
+             f"each rank")
+    if not (np.isfinite(fed_rows[0]["losses"]).all() and replicated
+            and np.allclose(got["params"], want["params"], rtol=PARITY_RTOL, atol=PARITY_ATOL)
+            and m_rel <= F32_REL_L2 and loss_rel <= F32_REL_L2
+            and all(f["losses"] == fed_rows[0]["losses"] for f in fed_rows)):
+        fail(f"FedCM on a grid: {json.dumps(row)}")
+    t_fed = time.perf_counter() - t0 - t_join
+    # 6c: the unsharded server on the card, its own directory, the same versions
+    args = serve.build_parser().parse_args(
+        [*GRID_SERVE_ARGS, "--ckpt", str(work / "pub_plain"), "--device", device])
+    pub = ModelPublisher(str(work / "pub_plain"), retain=2)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(12)
+    later = serve.build_model(scfg).init(gen)
+
+    def publish(stats):
+        if stats.steps == GRID_PUBLISH_AFTER:
+            pub.publish(later, step=2)
+
+    before = launch_counts()
+    plain = serve.run(args, on_step=publish, cfg=scfg)
+    plain_launches = launches_since(before)
+    del later
+    served = [r["serve"] for r in ranks[:2]]
+    row = {"arch": "llama3.2-1b", "cut": GRID_SERVE_CUT, "ranks": 2,
+           "swap_steps_per_rank": [g["swap_steps"] for g in served],
+           "versions_per_rank": [g["versions"] for g in served],
+           "unsharded_swap_steps": list(plain.stats.swap_steps),
+           "launches_per_rank": [g["launches"] for g in served],
+           "unsharded_launches": plain_launches,
+           "prefill_ms_per_rank": [g["prefill_ms"] for g in served]}
+    say(f"serve --ckpt --follow on a model group of 2 (gloo ranks sharing cuda:0): "
+        f"{json.dumps(row)}")
+    for r, g in enumerate(served):
+        if (g["swap_steps"] != list(plain.stats.swap_steps) or g["versions"] != [2]
+                or not np.array_equal(g["tokens"], plain.tokens)):
+            fail(f"serve --ckpt --follow on a group: rank {r} swapped at {g['swap_steps']} to "
+                 f"{g['versions']} (unsharded: {plain.stats.swap_steps}) or its tokens differ")
+        if g["launches"]["flash_attention"] != GRID_SERVE_CUT["n_layers"]:
+            fail(f"serve --ckpt --follow on a group: rank {r} launches {g['launches']}")
+    shutil.rmtree(work)
+    torch.cuda.empty_cache()
+    say(f"phases 8 (i), 8 (j) and 6c: the world {wall:.1f} s, then the snapshot's join "
+        f"{t_join:.1f} s, the unsharded round {t_fed:.1f} s, the unsharded server "
+        f"{time.perf_counter() - t0 - t_join - t_fed:.1f} s")
+    return ({f"fed_lm_grid_rank{r}": f["launches"] for r, f in enumerate(fed_rows)},
+            {f"serve_ckpt_group_rank{r}": g["launches"]["flash_attention"]
+             for r, g in enumerate(served)})
+
+
+def grid_train_four_cards(torch, np, smi_line: str, g_run):
+    """``--nccl`` (k): ``launch/train.run`` of ``GROUP_TRAIN_FULL``
+    (starcoder2-7b whole) on a ``GRID_FULL`` grid of cards over NCCL
+    (``--data-parallel 2 --model-parallel 2``: FSDP over data), B 8 x 512,
+    ``remat="dots"``, 10 steps, warmup 2.  Each rank's share and train
+    state are reckoned and printed first; then a loss that falls and is the
+    same on every rank, step 1's loss within ``GRID_STEP1_REL`` and every
+    step's loss and grad norm within ``GRID_TRAIN_LOSS_REL`` /
+    ``GRID_TRAIN_NORM_REL`` relative of (g)'s
+    (``g_run``: the same seed and batches; this holds the NCCL
+    reduce-scatter of the FSDP gradients to the model group's step), ms a
+    step and tok/s, the bf16-peak share as (g) computes it, each rank's peak
+    memory, no kernel launched."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train
+    from repro_torch.sharding.rules import _keys, fsdp_dim, local_shape, split_dim
+    from repro_torch.sharding.shard import param_shapes
+    from repro_torch.utils.trees import tree_flatten_with_path
+
+    arch, argv = GROUP_TRAIN_FULL
+    D, M = GRID_FULL
+    g_losses, g_norms = g_run
+    cfg = get_config(arch)
+    share = 0
+    for p, leaf in tree_flatten_with_path(param_shapes(cfg))[0]:
+        keys, shape = _keys(p), tuple(leaf.shape)
+        local = list(local_shape(shape, split_dim(keys, shape, M, cfg), M))
+        f = fsdp_dim(keys, shape, D, M, cfg)
+        if f is not None:
+            local[f] //= D
+        share += math.prod(local) * leaf.element_size()
+    say(f"training {arch} whole on a {D} x {M} grid of cards, reckoned before the run: FSDP "
+        f"share {share / 1e9:.2f} GB a rank; params + gradients + two AdamW moments "
+        f"{4 * share / 1e9:.2f} GB a rank; B {8 // D} x 512 a rank")
+    args = train.build_parser().parse_args(["--arch", arch, *argv, "--data-parallel", str(D),
+                                            "--model-parallel", str(M)])
+    t0 = time.perf_counter()
+    res = train.run(args, echo=False)
+    wall = time.perf_counter() - t0
+    steady = res.step_s[GROUP_TRAIN_WARM:]
+    step_s = statistics.mean(steady)
+    n = D * M
+    flops = train_matmul_flops(cfg, res.param_counts, args.batch, args.seq)
+    row = {"arch": arch, "cut": "none (published config)", "cards": n, "grid": [D, M],
+           "params": sum(res.param_counts.values()), "share_bytes": share, "B": args.batch,
+           "S": args.seq, "remat": args.remat, "losses": res.losses,
+           "grad_norms": res.grad_norms,
+           "loss_rel_to_g": [abs(a - b) / abs(b) for a, b in zip(res.losses, g_losses)],
+           "grad_norm_rel_to_g": [abs(a - b) / abs(b) for a, b in zip(res.grad_norms, g_norms)],
+           "limits": [GRID_TRAIN_LOSS_REL, GRID_TRAIN_NORM_REL], "ms_per_step": step_s * 1e3,
+           "ms_per_step_median": statistics.median(steady) * 1e3,
+           "tok_s": args.batch * args.seq / step_s, "matmul_flops_per_step": flops,
+           "bf16_peak_share_of_the_cards": flops / step_s / (n * BF16_FLOPS_PER_S),
+           "peak_gb_per_rank": [r["peak_bytes"] / 1e9 for r in res.by_rank],
+           "launches_per_rank": [r["launches"] for r in res.by_rank],
+           "wall_s_with_init": wall, "card": smi_line}
+    say(f"training on a {D} x {M} grid of cards: {json.dumps(row)}")
+    if any(any(r["launches"].values()) for r in res.by_rank):
+        fail(f"training {arch} on a grid: kernels launched in training")
+    if any(r["losses"] != res.losses for r in res.by_rank):
+        fail(f"training {arch} on a grid: the ranks' losses differ")
+    if not (np.isfinite(res.losses).all() and res.losses[-1] < res.losses[0]):
+        fail(f"training {arch} on a grid: losses {res.losses} do not fall")
+    if not (len(res.losses) == len(g_losses) and row["loss_rel_to_g"][0] <= GRID_STEP1_REL
+            and max(row["loss_rel_to_g"]) <= GRID_TRAIN_LOSS_REL
+            and max(row["grad_norm_rel_to_g"]) <= GRID_TRAIN_NORM_REL):
+        fail(f"training {arch} on a grid: losses {res.losses} / grad norms {res.grad_norms} "
+             f"against (g)'s {g_losses} / {g_norms}")
+
+
+def grid_snapshot_rank(rank, device, work):
+    """(k)'s snapshot in one rank of the grid of cards: its FSDP share of
+    ``GRID_SNAPSHOT_FULL``'s params and of two AdamW moments (drawn as
+    params from other seeds, so that no leaf is zero), written whole by
+    ``save_checkpoint_shares``.  Returns the device memory the call added on
+    this rank (its peak over what was allocated before), the largest share
+    of a leaf, the call's seconds, and whether this rank's share read back
+    from the file (``load_checkpoint(..., take=snapshot_take(...))``) is
+    bitwise what it wrote."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.ckpt import load_checkpoint, save_checkpoint_shares
+    from repro_torch.configs.base import get_config
+    from repro_torch.sharding.shard import init_params_sharded, snapshot_join, snapshot_take
+    from repro_torch.utils.trees import tree_leaves
+
+    D, M = GRID_FULL
+    arch, cut = GRID_SNAPSHOT_FULL
+    cfg = replace(get_config(arch), **cut)
+    m, d = rank % M, rank // M  # the grid's rank order (launch.mesh.make_grid)
+    gen = torch.Generator(device=device)
+
+    def share(seed):
+        gen.manual_seed(seed)
+        return init_params_sharded(gen, cfg, m, M, stage="cpu", data=D, data_rank=d)
+
+    tree = {"params": share(GROUP_SEED), "opt": [torch.tensor(7, device=device),
+                                                 share(GROUP_SEED + 1), share(GROUP_SEED + 2)]}
+    torch.cuda.synchronize(device)
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    save_checkpoint_shares(str(work), 1, tree, snapshot_join(cfg, M, D))
+    torch.cuda.synchronize(device)
+    save_s = time.perf_counter() - t0
+    added = torch.cuda.max_memory_allocated(device) - before
+    t0 = time.perf_counter()
+    back, meta = load_checkpoint(str(work), 1, tree, snapshot_take(cfg, m, M, d, D))
+    load_s = time.perf_counter() - t0
+    same = meta.get("step") == 1 and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(back), tree_leaves(tree)))
+    dist.barrier()
+    return {"added_bytes": added, "largest_share_bytes": max(
+        t.numel() * t.element_size() for t in tree_leaves(tree)), "save_s": save_s,
+            "load_s": load_s, "bitwise": same}
+
+
+def grid_snapshot_four_cards(torch, smi_line: str):
+    """``--nccl`` (k), its snapshot: ``grid_snapshot_rank`` on a
+    ``GRID_FULL`` grid of cards over NCCL.  Rank 0 gathers each leaf's
+    shares in blocks of ``SHARE_CHUNK`` elements into one set of ``world``
+    receive blocks, so the other ranks add no device memory and rank 0
+    ``world`` blocks (held to one more); every rank reads its share back
+    bitwise from the file."""
+    import shutil
+
+    from repro_torch.checkpoint.ckpt import SHARE_CHUNK
+    from repro_torch.launch.mesh import spawn_cohort
+
+    D, M = GRID_FULL
+    arch, cut = GRID_SNAPSHOT_FULL
+    work = ROOT / "build" / "smoke_snapshot"
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_cohort(grid_snapshot_rank, D * M, args=(work,), device="cuda",
+                         timeout_s=600.0, deadline_s=900.0)
+    wall = time.perf_counter() - t0
+    size = (work / "step_1.msgpack").stat().st_size
+    shutil.rmtree(work)
+    block = SHARE_CHUNK * 4  # f32
+    row = {"arch": arch, "cut": cut, "grid": [D, M], "file_bytes": size,
+           "gather_block_bytes": block, "added_gb_per_rank": [r["added_bytes"] / 1e9 for r in ranks],
+           "largest_share_gb": ranks[0]["largest_share_bytes"] / 1e9,
+           "every_share_of_it_gb": D * M * ranks[0]["largest_share_bytes"] / 1e9,
+           "save_s_per_rank": [r["save_s"] for r in ranks],
+           "load_s_per_rank": [r["load_s"] for r in ranks],
+           "bitwise_per_rank": [r["bitwise"] for r in ranks], "wall_s": wall, "card": smi_line}
+    say(f"snapshot of a 2 x 2 grid of cards (save_checkpoint_shares): {json.dumps(row)}")
+    if not all(r["bitwise"] for r in ranks):
+        fail("the grid's snapshot: a rank's share read back differs from what it wrote")
+    if (ranks[0]["added_bytes"] > (D * M + 1) * block
+            or any(r["added_bytes"] > block for r in ranks[1:])):
+        fail(f"the grid's snapshot added {row['added_gb_per_rank']} GB a rank, beyond "
+             f"{D * M + 1} blocks on rank 0 and one on the others")
+
+
+def grid_fed_four_cards(torch, np, smi_line: str, h_run):
+    """``--nccl`` (l): ``launch/federated_llm.run`` of ``FED_LM_FULL`` as
+    published, ``GROUP_FED_RUN`` (N 16, a fixed cohort of 8, K 2, B 4 x 64, 3
+    rounds) on a ``GRID_FULL`` grid of cards over NCCL: the cohort over data
+    (``cohort_shard``), each client over model.  Each rank's planes are
+    reckoned and printed first; then on each rank K ``fed_direction`` and one
+    ``server_update`` a round, finite losses, the last round's below the
+    first's, each round's loss and momentum norm within ``GRID_FED_REL``
+    relative of (h)'s (``h_run``: the same draws), ms a round and each
+    rank's peak memory.  An out-of-memory error fails the phase: nothing is
+    retried smaller."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import federated_llm
+    from repro_torch.sharding.shard import share_bytes
+
+    cfg = get_config(FED_LM_FULL)
+    D, M = GRID_FULL
+    C, R, K = (GROUP_FED_RUN[k] for k in ("cohort", "rounds", "local_steps"))
+    p_r = share_bytes(cfg, M) // 4
+    rows_plane = (C // D) * p_r * 4
+    block = C * -(-p_r // D) * 4
+    say(f"federating {FED_LM_FULL} with a cohort of {C} on a {D} x {M} grid of cards, reckoned "
+        f"before the run: P_r = {p_r:,} f32 a rank; a ({C // D}, P_r) plane "
+        f"{rows_plane / 1e9:.2f} GB and the fold's ({C}, {-(-p_r // D):,}) column block "
+        f"{block / 1e9:.2f} GB, {(rows_plane + block) / 1e9:.2f} GB together; (h)'s (8, P/4) "
+        f"plane was {C * (share_bytes(cfg, 4) // 4) * 4 / 1e9:.2f} GB")
+    t0 = time.perf_counter()
+    res = federated_llm.run(cfg, **GROUP_FED_RUN, device="cuda", model_parallel=M,
+                            cohort_shard=D)
+    wall = time.perf_counter() - t0
+    expected = {"fed_direction": R * K, "server_update": R, "dequant_update": 0,
+                "flash_attention": 0, "ssd_scan": 0}
+    losses = [r["loss"] for r in res.rounds]
+    row = {"arch": FED_LM_FULL, "cut": "none (published config)", "cards": D * M,
+           "grid": [D, M], "params": res.n_params,
+           "share_params": [r["share_params"] for r in res.by_rank], **GROUP_FED_RUN,
+           "losses": losses, "momentum_norm": [r["momentum_norm"] for r in res.rounds],
+           "loss_rel_to_h": [abs(a - b) / abs(b) for a, b in zip(losses, h_run[0])],
+           "momentum_norm_rel_to_h": [abs(r["momentum_norm"] - b) / abs(b)
+                                      for r, b in zip(res.rounds, h_run[1]) if b],
+           "limit": GRID_FED_REL, "ms_per_round": res.round_ms,
+           "peak_gb_per_rank": [r["peak_bytes"] / 1e9 for r in res.by_rank],
+           "launches_per_rank": [r["launches"] for r in res.by_rank],
+           "wall_s_with_init": wall, "card": smi_line}
+    say(f"FedCM on a {D} x {M} grid of cards: {json.dumps(row)}")
+    if any(r["launches"] != expected for r in res.by_rank):
+        fail(f"FedCM on a grid of cards: launches {row['launches_per_rank']}, expected "
+             f"{expected}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"FedCM on a grid of cards: losses {losses} do not fall")
+    h_losses, h_norms = h_run
+    norms = row["momentum_norm"]
+    if not (len(losses) == len(h_losses) and norms[0] == h_norms[0] == 0.0
+            and max(row["loss_rel_to_h"]) <= GRID_FED_REL
+            and max(row["momentum_norm_rel_to_h"]) <= GRID_FED_REL):
+        fail(f"FedCM on a grid of cards: losses {losses} / momentum norms {norms} against "
+             f"(h)'s {h_losses} / {h_norms}")
 
 
 def fed_lm_step_profile(torch, smi_line: str) -> None:
@@ -3768,12 +4541,25 @@ def main() -> int:
             model_group_four_cards(torch, np, smi_line)
             lap("6b (nccl)")
         torch.cuda.empty_cache()
-        group_train_four_cards(torch, np, smi_line)
+        g_run = group_train_four_cards(torch, np, smi_line)
         lap("8 (g)")
-        group_fed_four_cards(torch, np, smi_line)
+        h_run = group_fed_four_cards(torch, np, smi_line)
         lap("8 (h)")
+        grid_train_four_cards(torch, np, smi_line, g_run)
+        grid_snapshot_four_cards(torch, smi_line)
+        lap("8 (k)")
+        grid_fed_four_cards(torch, np, smi_line, h_run)
+        lap("8 (l)")
         for line in smi.stdout.strip().splitlines():
             say(line)
+        say(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                               "kind": torch.cuda.get_device_name(0),
+                                               "count": torch.cuda.device_count()}}))
+        return 0
+
+    if "--grid-only" in sys.argv[1:]:  # phases 8 (i), (j) and 6c alone, on one card
+        grid_one_card(torch, np, smi_line)
+        lap("8 (i)-(j), 6c")
         say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                "kind": torch.cuda.get_device_name(0),
                                                "count": torch.cuda.device_count()}}))
@@ -4067,8 +4853,11 @@ def main() -> int:
         fed_lm_step_profile(torch, smi_line)
     lap("8 (d)")
     # (e) and (f): training and FedCM rounds on a model group, ranks sharing the card
-    by_path.update(model_group_training_one_card(torch, np, smi_line))
-    lap("8 (e)-(f)")
+    # (i), (j) and 6c: training, FedCM rounds and serving published params on a grid; its
+    # world of 4 ranks and (e)-(f)'s of 2 at once
+    group_paths, grid_serve = both_group_worlds_one_card(torch, np, smi_line)
+    by_path.update(group_paths)
+    lap("8 (e)-(f), (i)-(j), 6c")
 
     # ---- 9. summary
     def main_case(cases, **sel):
@@ -4102,7 +4891,8 @@ def main() -> int:
         if name in ("flash_attention", "ssd_scan"):  # serving unsharded, and each group's ranks
             kernels[-1]["launches_by_path"] = {
                 "serve": launches[name],
-                **{f"model_group_{n}_ranks": per[name] for n, per in mp_launches.items()}}
+                **{f"model_group_{n}_ranks": per[name] for n, per in mp_launches.items()},
+                **(grid_serve if name == "flash_attention" else {})}
         if name in full:  # the federated LM's paths and its cohort plane beside the main one
             kernels[-1]["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
             kernels[-1]["full_plane"] = {k: full[name][k] for k in (

@@ -21,6 +21,11 @@ CUDA generator, the 5,056-byte mt19937 state for a CPU one) and
 ``load_checkpoint`` therefore refuses a port snapshot with its own
 ``KeyError`` for ``state/.rng``, and its ``load_flat`` reads every plane.
 
+``save_checkpoint_shares`` writes, from the ranks of a model group or a
+grid, the file an unsharded run writes (rank 0 gathers and joins each
+leaf's shares);
+``load_checkpoint(..., take=)`` restores a rank's shares from such a file.
+
 ``load_fed_run`` restores through the port's ``FlatSpec`` (leaf paths and
 shapes), with a ``like_state`` that fixes which planes the run carries, their
 dtypes and the device.  It reads the reference's snapshots too: every plane
@@ -41,11 +46,12 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import msgpack
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _BF16 = "bfloat16"
 RNG_KEY = "state/.rng_torch"
@@ -123,8 +129,12 @@ def fsync_dir(directory: str) -> None:
 def save_checkpoint(directory: str, step: int, tree: Any, meta: Optional[Dict] = None) -> str:
     """Write ``tree`` (nested dicts / lists / NamedTuples of tensors or
     numpy arrays) as ``<directory>/step_<step>.msgpack``, atomically."""
+    return _write(directory, step,
+                  {path: _entry(leaf) for path, leaf in flatten_with_paths(tree)}, meta)
+
+
+def _write(directory: str, step: int, payload: Dict[str, Any], meta: Optional[Dict]) -> str:
     os.makedirs(directory, exist_ok=True)
-    payload: Dict[str, Any] = {path: _entry(leaf) for path, leaf in flatten_with_paths(tree)}
     payload["__meta__"] = dict(meta or {}, step=step)
     fname = os.path.join(directory, f"step_{step}.msgpack")
     tmp = fname + ".tmp"
@@ -147,17 +157,80 @@ def _read(directory: str, step: Optional[int]) -> Tuple[Dict[str, Any], Dict]:
     return payload, payload.pop("__meta__", {})
 
 
-def load_checkpoint(directory: str, step: Optional[int], like: Any) -> Tuple[Any, Dict]:
+SHARE_CHUNK = 1 << 24  # elements of a share that one gather to rank 0 carries
+
+
+def save_checkpoint_shares(directory: str, step: int, tree: Any,
+                           join: Callable[[str, List[torch.Tensor]], torch.Tensor]
+                           ) -> Optional[str]:
+    """``save_checkpoint`` of the whole tree whose shares the ranks of the
+    world hold: every rank calls it with its own ``tree`` (the same
+    structure on every rank, each leaf the same shape on every rank).  Leaf
+    by leaf, ``gather`` brings every rank's share to rank 0 in blocks of at
+    most ``SHARE_CHUNK`` elements (from the host on gloo, which gathers
+    only CPU tensors), which copies them to the host and joins them there
+    (``join(path, shares)``, rank order); rank 0 then writes the file
+    atomically, and a barrier releases the others once it is there.  Rank 0
+    receives into one set of ``world`` blocks a dtype, kept for the call;
+    the other ranks add no device memory.  The file is the one an
+    unsharded run of the whole tree writes.  Rank 0 holds the whole tree on
+    the host, so host memory bounds the model that can be snapshotted so.
+    Returns the file's name on rank 0, None on the others."""
+    rank, world = dist.get_rank(), dist.get_world_size()
+    on_host = dist.get_backend() != "nccl"
+    leaves = flatten_with_paths(tree)
+    room: Dict[torch.dtype, int] = {}
+    for _, leaf in leaves:
+        room[leaf.dtype] = max(room.get(leaf.dtype, 0), min(leaf.numel(), SHARE_CHUNK))
+    recv: Dict[torch.dtype, List[torch.Tensor]] = {}
+    whole = []
+    for path, leaf in leaves:
+        flat = leaf.detach().reshape(-1)
+        hosts = [torch.empty(flat.numel(), dtype=flat.dtype) for _ in range(world)] \
+            if rank == 0 else None
+        for at in range(0, flat.numel(), SHARE_CHUNK):
+            block = flat[at:at + SHARE_CHUNK].contiguous()
+            if on_host:
+                block = block.cpu()
+            parts = None
+            if rank == 0:
+                if flat.dtype not in recv:
+                    recv[flat.dtype] = [torch.empty(room[flat.dtype], dtype=flat.dtype,
+                                                    device=block.device) for _ in range(world)]
+                parts = [r[:block.numel()] for r in recv[flat.dtype]]
+            dist.gather(block, parts, dst=0)
+            if rank == 0:
+                for h, p in zip(hosts, parts):
+                    h[at:at + block.numel()].copy_(p)
+        if rank == 0:
+            whole.append((path, join(path, [h.view(leaf.shape) for h in hosts])))
+        del hosts
+    del recv
+    fname = None
+    if rank == 0:
+        fname = _write(directory, step, {path: _entry(t) for path, t in whole}, None)
+    dist.barrier()
+    return fname
+
+
+def load_checkpoint(directory: str, step: Optional[int], like: Any,
+                    take: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
+                    ) -> Tuple[Any, Dict]:
     """Restore into the structure of ``like`` (a template tree): each leaf
     comes back in its stored dtype, on the template leaf's device.  A path
     the snapshot lacks raises ``KeyError``, a leaf of another shape than
-    the template's ``ValueError``."""
+    the template's ``ValueError``.  ``take(path, whole)`` restores a share
+    of each whole leaf (a rank's, of a snapshot written by
+    ``save_checkpoint_shares`` or an unsharded run): the template then
+    holds the shares, whose shapes are checked."""
     payload, meta = _read(directory, step)
 
     def restore(path, leaf):
         if path not in payload:
             raise KeyError(f"checkpoint missing leaf {path!r}")
         t = _tensor(payload[path])
+        if take is not None:
+            t = take(path, t)
         if not isinstance(leaf, torch.Tensor):
             return t
         if t.shape != leaf.shape:

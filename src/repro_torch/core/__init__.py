@@ -4,14 +4,17 @@ Counterpart of ``repro.core``.  ``repro_torch.core.registry`` is the public
 algorithm API: one ``AlgorithmSpec`` (a client-direction coefficient row
 or a ``direction_fn``, server-fold coefficient rows or a ``server_fn``,
 state-plane flags) drives the sync round, the async ring, the host store
-and cohort sharding, with the fused CUDA kernels under the affine rows.
+and cohort sharding, with the fused CUDA kernels under the affine rows;
+a round whose clients are model groups runs beside cohort sharding, the
+reference's ``fed_dryrun`` grid (``FederatedEngine``'s ``cohort_group`` and
+``model_group`` together).
 ``repro_torch.core.algorithms`` holds the builtin specs;
 ``@register_algorithm`` adds new ones as data.
 
 The reference's exports are here but these, which have no counterpart:
 
 * ``client_update`` and ``ClientOutputs``: the per-leaf tree path
-  (``use_flat_plane=False``), not ported yet (ROADMAP A.16 (d));
+  (``use_flat_plane=False``), not ported yet (ROADMAP A.16 (d) 4);
 * ``flat_client_update`` and ``FlatClientOutputs``: the reference's one
   client's local steps and its uplink NamedTuple.  The port runs the whole
   cohort as one ``(C, P)`` plane (``FederatedEngine`` ``_flat_cohort_pass``,

@@ -86,8 +86,16 @@ with its partial parts summed over the group, and ``delta_norm`` /
 ``momentum_norm`` are the whole plane's (``GroupPlane.norm``).  What reads
 a whole row or a client's whole plane raises ``NotImplementedError``
 naming ROADMAP A.16 (e): uplink compression, the fault layer, a
-``direction_fn`` / ``server_fn``, the async ring, the host store and
-cohort sharding.
+``direction_fn`` / ``server_fn``, the async ring and the host store.
+
+Both together are the reference's ``fed_dryrun`` layout, a grid of data ×
+model ranks (``launch.mesh.make_grid``): ``cohort_group`` the rank's data
+group and ``model_group`` a plane over its model group.  Each rank draws
+the whole cohort, computes its ``(C_loc, P_r)`` rows, launches
+``fed_direction`` K times a round on them and folds with ``scatter_fold``
+over the data group on its share's columns (one ``server_update`` launch
+on its ``(C_pad, ceil(P_r/D))`` block).  ``x`` and ``m`` stay replicated
+over data: the round keeps no FSDP storage.
 
 The per-leaf tree path (A.16) raises ``NotImplementedError`` naming its
 ROADMAP item (``check_supported``).
@@ -332,7 +340,7 @@ def check_supported(cfg: FedConfig) -> None:
                          f"known: {AVAILABILITY_PROCESSES}")
 
 
-def check_model_group(cfg: FedConfig, algo, cohort_group=None) -> None:
+def check_model_group(cfg: FedConfig, algo) -> None:
     """Refuse, naming ROADMAP A.16 (e), what a round over a model group does
     not run yet: each reads a whole row or a client's whole plane, where a
     rank holds its share's columns."""
@@ -344,9 +352,7 @@ def check_model_group(cfg: FedConfig, algo, cohort_group=None) -> None:
                                     "run over the whole row)"),
             (algo.direction_fn is not None or algo.server_fn is not None,
              f"{algo.name}'s direction_fn / server_fn (it would see one rank's share)"),
-            (cfg.population_store == "host", "population_store='host'"),
-            (cohort_group is not None or cfg.cohort_shard > 0,
-             "cohort sharding (the data axis, ROADMAP A.16 (d) 2)")):
+            (cfg.population_store == "host", "population_store='host'")):
         if on:
             raise NotImplementedError(f"{what} under a model group is not ported yet "
                                       f"(ROADMAP A.16 (e))")
@@ -484,7 +490,7 @@ class FederatedEngine:
                  model_group: Optional[GroupPlane] = None) -> None:
         check_supported(cfg)
         if model_group is not None:
-            check_model_group(cfg, get_algorithm(cfg.algo), cohort_group)
+            check_model_group(cfg, get_algorithm(cfg.algo))
         self.model_group = model_group
         self._draws_checked = False
         if cfg.population_store == "host" and (cohort_group is not None
@@ -971,11 +977,14 @@ class FederatedEngine:
     def _check_same_draws(self, ids, mask, batches) -> None:
         """Over a model group every rank must draw the same cohort and
         minibatches from its own generator; check the first round's draws
-        once (one ``all_gather`` of their ids and sums) rather than trust
-        it across devices."""
+        once (one ``all_gather`` of their ids and sums over the model group,
+        and over the cohort group beside it) rather than trust it across
+        devices."""
         d = torch.stack([t.to(torch.float64).sum() for t in (ids, mask, *batches.values())])
         d = torch.cat([d, ids.to(torch.float64)])
         every = self.model_group.parallel.all_gather(d[None], dim=0)
+        if self.cohort_group is not None:
+            every = torch.cat([every, gather_rows(d[None], self.cohort_group, self._shards)])
         if not bool((every == every[0]).all()):
             raise RuntimeError("the ranks of the model group drew different cohorts or "
                                "minibatches: seed every rank's generator alike")

@@ -26,13 +26,19 @@ Layout::
 polls between decode steps: ``poll()`` returns ``None`` while the
 published version is unchanged, else ``(version, params, meta)`` for the
 new one — the hot-swap seam of ``repro_torch.launch.serve.serve_loop``.
+``GroupParamsWatch`` is the same for the ranks of a model group: rank 0
+reads the pointer and every rank loads its share of the version it
+broadcasts, so every rank swaps at the same step.
 """
 from __future__ import annotations
 
 import json
 import os
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.ckpt import (
     fsync_dir,
@@ -133,20 +139,22 @@ class ModelPublisher:
 
 
 def load_published(directory: str, template: Any = None,
-                   version: Optional[int] = None) -> Tuple[int, Any, Dict]:
+                   version: Optional[int] = None,
+                   take: Optional[Callable[[str, Any], Any]] = None) -> Tuple[int, Any, Dict]:
     """Load a published version → ``(version, params, meta)``.
 
     ``version=None`` resolves the pointer.  With ``template`` the params
     restore through the typed template path (structure fixed, each leaf on
-    its template leaf's device); without one they come back as the raw
-    ``{path: CPU tensor}`` map."""
+    its template leaf's device; ``take(path, whole)``: a rank's share of
+    each leaf, ``checkpoint.ckpt.load_checkpoint``); without one they come
+    back as the raw ``{path: CPU tensor}`` map."""
     if version is None:
         ptr = read_pointer(directory)
         if ptr is None:
             raise FileNotFoundError(f"{directory}: nothing published yet")
         version = int(ptr["version"])
     if template is not None:
-        tree, meta = load_checkpoint(directory, version, {"params": template})
+        tree, meta = load_checkpoint(directory, version, {"params": template}, take)
         return version, tree["params"], _norm_meta(meta)
     flat, meta = load_flat(directory, version)
     params = {k.split("/", 1)[1]: v for k, v in flat.items()
@@ -202,6 +210,71 @@ class ParamsWatch:
         raise RuntimeError(
             f"{self.directory}: publisher outran the watcher "
             f"{self.max_retries}x in one poll — raise retain or max_retries"
+        )
+
+
+GROUP_WATCH_RETRIES = 8  # versions a group's poll tries before it gives up
+
+
+class GroupParamsWatch:
+    """``ParamsWatch`` for the ranks of a model group, which must swap at
+    the same decode step to the same version: each rank polling on its own
+    could see a publish a step apart from the others, or resolve different
+    versions when retention unlinks a file.  Every rank calls ``poll()`` at
+    every step boundary.  Rank 0 alone reads the pointer and broadcasts the
+    version over ``group``; every rank loads exactly that version, its share
+    of it (``take``); the ranks then agree (an ``all_reduce`` of a flag)
+    whether every one of them opened it, and if one did not (retention
+    unlinked it after rank 0 read the pointer) rank 0 reads the pointer
+    again and all retry together on the version it names now."""
+
+    def __init__(self, directory: str, template: Any, group,
+                 *, take: Optional[Callable[[str, Any], Any]] = None) -> None:
+        self.directory = str(directory)
+        self.template = template
+        self.take = take
+        self.group = group
+        self.version = 0  # last version returned (0 = none yet)
+        self._rank = dist.get_rank(group)
+        self._src = dist.get_global_rank(group, 0)
+        self._dev = (torch.device("cuda", torch.cuda.current_device())
+                     if dist.get_backend(group) == "nccl" else torch.device("cpu"))
+
+    def _pointer(self) -> int:
+        """Rank 0: the version ``LATEST.json`` names (0 before any)."""
+        ptr = read_pointer(self.directory)
+        return 0 if ptr is None else int(ptr["version"])
+
+    def _agree(self, value: int, op) -> int:
+        t = torch.tensor([value], dtype=torch.int64, device=self._dev)
+        if op is None:
+            dist.broadcast(t, src=self._src, group=self.group)
+        else:
+            dist.all_reduce(t, op=op, group=self.group)
+        return int(t.item())
+
+    def poll(self) -> Optional[Tuple[int, Any, Dict]]:
+        """``None`` on every rank if rank 0's pointer names no newer version;
+        else ``(version, params, meta)``, the same version on every rank."""
+        version = self._agree(self._pointer() if self._rank == 0 else 0, None)
+        for _ in range(GROUP_WATCH_RETRIES):
+            if version <= self.version:
+                return None
+            try:
+                got = load_published(self.directory, self.template, version, self.take)
+            except FileNotFoundError:
+                got = None
+            if self._agree(int(got is not None), dist.ReduceOp.MIN):
+                self.version = version
+                return got
+            newer = self._pointer() if self._rank == 0 else 0
+            version = self._agree(newer if newer > version else -1, None)
+            if version < 0:
+                raise FileNotFoundError(f"{self.directory}: a published version vanished and "
+                                        f"nothing newer is published")
+        raise RuntimeError(
+            f"{self.directory}: publisher outran the group's watch "
+            f"{GROUP_WATCH_RETRIES}x in one poll — raise retain"
         )
 
 

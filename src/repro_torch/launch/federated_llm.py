@@ -27,8 +27,19 @@ on the same draws (each rank's generator seeded alike), launching
 ``cuda:N−1`` over NCCL, or on the CPU over gloo with ``--device cpu``;
 rank 0 prints.
 
+``--cohort-shard D`` with it (``run(..., model_parallel=N, cohort_shard=D)``)
+is the reference's ``fed_dryrun`` layout whole: D·N ranks on a D × N grid
+(``launch.mesh.make_grid``), the cohort split over each data group and
+each client over each model group.  A rank draws the whole cohort, runs
+its ``(C_loc, P_r)`` rows' local steps (``fed_direction`` K times a round)
+and folds over its data group on its share's columns (``scatter_fold``:
+one ``server_update`` launch a round on its ``(C_pad, ceil(P_r/D))``
+block).  ``--cohort-shard D`` alone shards the cohort of unsharded clients.
+
     PYTHONPATH=src python -m repro_torch.launch.federated_llm --device cpu
     PYTHONPATH=src python -m repro_torch.launch.federated_llm --device cpu --model-parallel 2
+    PYTHONPATH=src python -m repro_torch.launch.federated_llm --device cpu --model-parallel 2 \\
+        --cohort-shard 2
 """
 from __future__ import annotations
 
@@ -45,7 +56,8 @@ from repro_torch.core.engine import FederatedEngine, metrics_to_host, resolve_de
 from repro_torch.core.flat import FlatSpec
 from repro_torch.data.pipeline import LMFederatedData, federated_lm_corpora
 from repro_torch.kernels import launch_counts, launches_since
-from repro_torch.launch.mesh import make_model_group, spawn_cohort
+from repro_torch.launch.mesh import make_grid, make_model_group, spawn_cohort
+from repro_torch.launch.steps import make_parallel
 from repro_torch.models.layers import ParallelContext
 from repro_torch.models.model import build_model, cohort_loss_fn
 from repro_torch.sharding.rules import check_model_parallel
@@ -80,19 +92,22 @@ class FedLMResult:
 
 def run(cfg, *, n_clients: int = 8, cohort: int = 3, local_steps: int = 4, batch: int = 4,
         seq: int = 64, rounds: int = 20, eta_l: float = 0.05, seed: int = 0,
-        device="cuda", model_parallel: int = 1,
-        parallel: Optional[ParallelContext] = None) -> FedLMResult:
+        device="cuda", model_parallel: int = 1, cohort_shard: int = 0,
+        parallel: Optional[ParallelContext] = None, cohort_group=None) -> FedLMResult:
     """FedCM over the LM ``cfg`` for ``rounds`` rounds (a fixed cohort;
     ``ALPHA``, ``ETA_G`` and ``WEIGHT_DECAY``).
     The weights are drawn on ``device`` from ``seed``, the cohorts and
     minibatches from a generator on ``device`` seeded with ``seed + 1``.
-    ``model_parallel`` > 1 (and no ``parallel``) spawns the ranks of a model
-    group and returns rank 0's result with every rank's ``by_rank`` entry;
-    ``parallel`` runs this rank's share of that group."""
+    ``model_parallel`` > 1 or ``cohort_shard`` > 1 (and no ``parallel`` /
+    ``cohort_group``) spawns the ranks of a model group, of a cohort group
+    or of a ``cohort_shard`` × ``model_parallel`` grid and returns rank 0's
+    result with every rank's ``by_rank`` entry; ``parallel`` runs this
+    rank's share of a model group, ``cohort_group`` its rows of the
+    cohort."""
     kw = dict(n_clients=n_clients, cohort=cohort, local_steps=local_steps, batch=batch,
               seq=seq, rounds=rounds, eta_l=eta_l, seed=seed)
-    if parallel is None and model_parallel > 1:
-        return run_model_parallel(cfg, model_parallel, device, **kw)
+    if parallel is None and cohort_group is None and max(model_parallel, cohort_shard) > 1:
+        return run_model_parallel(cfg, model_parallel, device, cohort_shard=cohort_shard, **kw)
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -116,7 +131,7 @@ def run(cfg, *, n_clients: int = 8, cohort: int = 3, local_steps: int = 4, batch
         spec = FlatSpec.from_tree(params)
         group = group_plane(spec, cfg, parallel)
     eng = FederatedEngine(fed, cohort_loss_fn(model, parallel), spec, batch_size=batch,
-                          device=dev, model_group=group)
+                          device=dev, cohort_group=cohort_group, model_group=group)
     rng = torch.Generator(device=dev)
     rng.manual_seed(seed + 1)  # alike on every rank: the same cohorts and minibatches
     state = eng.init(params, rng)
@@ -138,14 +153,16 @@ def run(cfg, *, n_clients: int = 8, cohort: int = 3, local_steps: int = 4, batch
                        round_ms, peak, [mine])
 
 
-def run_model_parallel(cfg, n: int, device, **kw) -> FedLMResult:
-    """``run`` in ``n`` spawned ranks of a model group (NCCL on n cards,
-    gloo on the CPU); rank 0's result with every rank's ``by_rank`` entry.
-    Raises unless every rank saw the same round metrics."""
+def run_model_parallel(cfg, n: int, device, cohort_shard: int = 0, **kw) -> FedLMResult:
+    """``run`` in the spawned ranks of a model group of ``n``, or of a
+    ``cohort_shard`` × ``n`` grid (NCCL on a card a rank, gloo on the CPU);
+    rank 0's result with every rank's ``by_rank`` entry.  Raises unless
+    every rank saw the same round metrics."""
     check_model_parallel(cfg, n)
     resolve_device(device)
-    results = spawn_cohort(_model_parallel_rank, n, args=(cfg, kw), device=device,
-                           timeout_s=MP_TIMEOUT_S, deadline_s=MP_DEADLINE_S)
+    data = max(cohort_shard, 1)
+    results = spawn_cohort(_model_parallel_rank, data * n, args=(cfg, kw, data, n),
+                           device=device, timeout_s=MP_TIMEOUT_S, deadline_s=MP_DEADLINE_S)
     for r, res in enumerate(results):
         if res.rounds != results[0].rounds:
             raise RuntimeError(f"rank {r} of the model group saw round metrics {res.rounds}, "
@@ -154,8 +171,12 @@ def run_model_parallel(cfg, n: int, device, **kw) -> FedLMResult:
     return results[0]
 
 
-def _model_parallel_rank(rank: int, device, cfg, kw) -> FedLMResult:
-    return run(cfg, device=str(device), parallel=make_model_group(), **kw)
+def _model_parallel_rank(rank: int, device, cfg, kw, data: int, n: int) -> FedLMResult:
+    if data == 1:
+        return run(cfg, device=str(device), parallel=make_model_group(), **kw)
+    model_group, data_group = make_grid(data, n)
+    parallel = make_parallel(model_group) if n > 1 else None
+    return run(cfg, device=str(device), parallel=parallel, cohort_group=data_group, **kw)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -166,6 +187,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--model-parallel", type=int, default=1, metavar="N",
                     help="each client a model group of N ranks: one card a rank over NCCL, "
                          "or gloo ranks with --device cpu (default 1: unsharded)")
+    ap.add_argument("--cohort-shard", type=int, default=0, metavar="D",
+                    help="split the cohort over D ranks (with --model-parallel N: a D x N "
+                         "grid of D*N ranks; default 0: unsharded)")
     return ap
 
 
@@ -174,9 +198,12 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.model_parallel < 1:
         ap.error(f"--model-parallel must be >= 1, got {args.model_parallel}")
+    if args.cohort_shard < 0:
+        ap.error(f"--cohort-shard must be >= 0, got {args.cohort_shard}")
     cfg = reduced(get_config("llama3.2-1b"))
     n_clients = 8
-    res = run(cfg, n_clients=n_clients, device=args.device, model_parallel=args.model_parallel)
+    res = run(cfg, n_clients=n_clients, device=args.device, model_parallel=args.model_parallel,
+              cohort_shard=args.cohort_shard)
     print(f"federated {res.arch} ({res.n_params / 1e6:.1f}M params) across {n_clients} "
           f"heterogeneous corpora with FedCM\n")
     for r, m in enumerate(res.rounds):

@@ -6,7 +6,9 @@ the model-parallel prefill and decode, as one SPMD program over a device
 mesh; the port runs one process a shard, joined by a ``torch.distributed``
 process group.  ``spawn_cohort`` starts the ranks (of either kind of world),
 and ``make_cohort_group`` / ``make_model_group`` give the engine / the
-model the group inside each of them.
+model the group inside each of them; ``make_grid`` splits a world of
+``data · model`` ranks into the reference's ``("data", "model")`` mesh, a
+model group a row and a data group a column.
 
 Backends: NCCL when the ranks are on distinct cards (rank r on ``cuda:r``);
 gloo when the ranks run on the CPU, or when the caller asks for it, which
@@ -132,6 +134,34 @@ def make_model_group(n_ranks: int = 0):
         raise ValueError(f"model group of {n_ranks} ranks but the process group has "
                          f"{ctx.size}")
     return ctx
+
+
+def make_grid(data: int, model: int):
+    """This rank's ``(model group, data group)`` on a grid of ``data`` ×
+    ``model`` ranks, the reference's ``("data", "model")`` mesh: world rank
+    ``r = d·model + m`` sits in model row d (ranks ``d·model`` …
+    ``d·model + model − 1``) and data column m (ranks m, model + m, …).
+    Every rank creates every row's and every column's group, rows first,
+    in the same order, as ``torch.distributed.new_group`` requires; a group
+    that spans the world is the default group, so ``data = 1`` gives
+    ``make_model_group``'s group and ``model = 1`` ``make_cohort_group``'s.
+    Raises unless the world has ``data · model`` ranks."""
+    if not dist.is_initialized():
+        raise ValueError(
+            f"a {data} x {model} grid needs an initialized process group of {data * model} "
+            f"ranks; start them with repro_torch.launch.mesh.spawn_cohort")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if data < 1 or model < 1 or world != data * model:
+        raise ValueError(f"a {data} x {model} grid needs {data * model} ranks, the process "
+                         f"group has {world}")
+
+    def groups(members):
+        made = [dist.group.WORLD if len(m) == world else dist.new_group(m) for m in members]
+        return next(g for g, m in zip(made, members) if rank in m)
+
+    model_group = groups([list(range(d * model, (d + 1) * model)) for d in range(data)])
+    data_group = groups([list(range(m, world, model)) for m in range(model)])
+    return model_group, data_group
 
 
 def _rank_main(rank, n_shards, backend, device, init_method, timeout_s, fn, args, results):

@@ -36,7 +36,13 @@ experts and vocabulary rows, and every rank feeds the same token (at
 encoder-decoder's greedy token is broadcast from rank 0 at every step);
 rank 0's session lines are printed.  N ranks run on ``cuda:0`` …
 ``cuda:N−1`` over NCCL, or on the CPU over gloo with ``--device cpu``.
-``--ckpt`` / ``--follow`` are refused under a group (ROADMAP A.16).
+``--ckpt`` under a group: each rank loads the published version and keeps
+its share of it (``sharding.shard.snapshot_take``); with ``--follow`` rank
+0 alone polls the pointer and broadcasts the version at every step
+boundary, and every rank loads exactly that one
+(``fleet.publisher.GroupParamsWatch``), so every rank swaps at the same
+decode step.  Serving over a grid's data axis is ROADMAP A.16 (d) 2
+(serve).
 
 Weights are random, drawn from ``--seed`` on the serving device (f32, the
 reference's ``param_dtype``; each use casts them to the activation dtype,
@@ -79,7 +85,7 @@ from repro_torch.models import encdec
 from repro_torch.models.layers import ParallelContext
 from repro_torch.models.model import build_model
 from repro_torch.sharding.rules import check_model_parallel
-from repro_torch.sharding.shard import init_params_sharded
+from repro_torch.sharding.shard import init_params_sharded, snapshot_take
 from repro_torch.utils.trees import tree_map
 
 # a model group's collectives wait this long for a rank (its weights may
@@ -200,16 +206,22 @@ def merge(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     return dst
 
 
-def load_ckpt_params(path: str, template: Any, *, follow: bool = False):
+def load_ckpt_params(path: str, template: Any, *, follow: bool = False, cfg=None,
+                     parallel: Optional[ParallelContext] = None):
     """Resolve ``--ckpt`` → ``(version, params, provider-or-None)``.
 
     ``path`` is a publisher directory (``LATEST.json`` pointer) or a single
     ``step_<v>.msgpack`` payload file from one; ``template`` (the model's
-    params tree) fixes the structure and the device."""
-    from repro_torch.fleet.publisher import ParamsWatch, load_published
+    params tree) fixes the structure and the device.  On a model group
+    (``parallel``, ``cfg`` the served config) ``template`` is the rank's
+    share, each rank keeps its share of the published version, and the
+    directory's watch is the group's (``GroupParamsWatch``)."""
+    from repro_torch.fleet.publisher import GroupParamsWatch, ParamsWatch, load_published
 
+    take = None if parallel is None else snapshot_take(cfg, parallel.rank, parallel.size)
     if os.path.isdir(path):
-        watcher = ParamsWatch(path, template=template)
+        watcher = (ParamsWatch(path, template=template) if parallel is None
+                   else GroupParamsWatch(path, template, parallel.group, take=take))
         try:
             got = watcher.poll()
         except KeyError as e:
@@ -225,7 +237,8 @@ def load_ckpt_params(path: str, template: Any, *, follow: bool = False):
     if not (name.startswith("step_") and name.endswith(".msgpack")):
         raise ValueError(f"--ckpt {path}: expected a publisher directory or a "
                          f"step_<version>.msgpack payload")
-    version, params, _ = load_published(d, template, int(name[len("step_"):-len(".msgpack")]))
+    version, params, _ = load_published(d, template, int(name[len("step_"):-len(".msgpack")]),
+                                        take)
     return version, params, None
 
 
@@ -266,15 +279,10 @@ def _serve_encdec(model, params, args, device, version: int,
 
 
 def check_model_parallel_args(args: argparse.Namespace, cfg, world: int) -> None:
-    """Refuse what a model group of ``world`` > 1 ranks does not serve:
-    published params (ROADMAP A.16), and an expert count the group does not
-    divide (``check_model_parallel``)."""
-    if world <= 1:
-        return
-    if args.ckpt or args.follow:
-        raise NotImplementedError("--ckpt / --follow under --model-parallel > 1 are not "
-                                  "ported (ROADMAP A.16)")
-    check_model_parallel(cfg, world)
+    """Refuse what a model group of ``world`` > 1 ranks does not serve: an
+    expert count the group does not divide (``check_model_parallel``)."""
+    if world > 1:
+        check_model_parallel(cfg, world)
 
 
 def run(args: argparse.Namespace, on_step: Optional[Callable[[ServeStats], None]] = None,
@@ -306,8 +314,10 @@ def run(args: argparse.Namespace, on_step: Optional[Callable[[ServeStats], None]
                                      stage="cpu" if device.type == "cuda" else None)
     version, provider = 0, None
     if args.ckpt:
-        version, params, provider = load_ckpt_params(args.ckpt, params, follow=args.follow)
-        print(f"serving published params: version {version} from {args.ckpt}")
+        version, params, provider = load_ckpt_params(args.ckpt, params, follow=args.follow,
+                                                     cfg=cfg, parallel=parallel)
+        if parallel is None or parallel.rank == 0:
+            print(f"serving published params: version {version} from {args.ckpt}")
     if cfg.is_encoder_decoder:
         return _serve_encdec(model, params, args, device, version, src_embeds, parallel)
     prompts = torch.as_tensor(

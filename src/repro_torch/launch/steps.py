@@ -25,9 +25,23 @@ leaves a rank reads only in part are summed over the group
 (``rules.sum_partial``); the clip takes the group's norm (the split parts
 summed over the ranks, each replicated part counted once,
 ``rules.group_sq_norm``); AdamW and the f32 update run on the share.  Every
-rank gets the same loss and grad norm.  On a model-only group the
-reference's ``mode="train"`` specs are its serve specs (their FSDP runs over
-the data axes, of size 1); the data axis is ROADMAP A.16 (d) 2.
+rank gets the same loss and grad norm.
+
+On a grid (``parallel.data_group``, ``launch.mesh.make_grid``) each rank
+calls the step with its FSDP share (``sharding.shard.grid_take``), its
+AdamW state on that share, and its data row's block of the batch (rows
+``[d·B/D, (d+1)·B/D)``, the reference's ``batch_specs``); microbatches
+split those rows.  The model gathers each period's slices as it uses them
+and reduce-scatters their gradients (``models.layers.fsdp_gather``); the
+leaves replicated over data have their gradients summed over the data
+group (``rules.sum_over_data``, one ``all_reduce`` a dtype); every
+gradient and the loss then take a factor 1/D, the mean over the data
+group of each rank's mean over its rows.  The clip's norm sums the FSDP
+slices over both groups and counts each replicated part once (on data
+rank 0 and model rank 0).  A MoE routes each data rank's tokens at the
+capacity of its own tokens, as the reference's mesh does, and its
+load-balance loss is averaged over the data group with the rest of the
+loss: where a token drops, the grid's step is not the unsharded one.
 
 ``make_parallel`` / ``build_prefill_step`` / ``build_serve_step`` are the
 reference's step builders as plain functions (no jit bundles, no
@@ -46,8 +60,8 @@ from repro_torch.models.layers import ParallelContext
 from repro_torch.models.model import Model, build_model
 from repro_torch.models.transformer import check_remat
 from repro_torch.optim.optimizers import Optimizer, adamw, clip_by_global_norm
-from repro_torch.sharding.rules import group_sq_norm, sum_partial
-from repro_torch.sharding.shard import share_parts
+from repro_torch.sharding.rules import group_sq_norm, sum_over_data, sum_partial
+from repro_torch.sharding.shard import fsdp_map, share_fsdp, share_parts
 from repro_torch.utils.trees import tree_flatten_with_path, tree_leaves, tree_map, tree_unflatten
 
 F32 = torch.float32
@@ -101,7 +115,11 @@ def build_train_step(cfg, knobs: Knobs = Knobs(),
     opt = adamw(knobs.learning_rate, moment_dtype=getattr(torch, knobs.moment_dtype))
     acc_dtype = getattr(torch, knobs.grad_accum_dtype)
     M = knobs.microbatches
-    parts = None if parallel is None else share_parts(cfg, parallel.size)
+    parts = fsdp = None
+    if parallel is not None:
+        parts = share_parts(cfg, parallel.size)
+        fsdp = share_fsdp(cfg, parallel.size, parallel.data_size)
+    n_data = 1 if parallel is None else parallel.data_size
 
     def loss_fn(params, mb):
         return model.loss_fn(params, mb, parallel=parallel, remat=knobs.remat,
@@ -126,9 +144,13 @@ def build_train_step(cfg, knobs: Knobs = Knobs(),
             loss = loss / M
         with torch.no_grad():
             norm = None
+            if n_data > 1:  # the mean over the data group of each rank's rows' loss
+                sum_over_data(tree_leaves(grads), fsdp, parallel)
+                grads = tree_map(lambda g: g / n_data, grads)
+                loss = parallel.data_all_reduce(loss.clone()) / n_data
             if parallel is not None:
                 sum_partial(tree_leaves(grads), parts, parallel)
-                norm = torch.sqrt(group_sq_norm(tree_leaves(grads), parts, parallel))
+                norm = torch.sqrt(group_sq_norm(tree_leaves(grads), parts, parallel, fsdp))
             grads, gnorm = clip_by_global_norm(grads, knobs.grad_clip, norm)
             updates, opt_state = opt.update(grads, opt_state, params)
             del grads
@@ -141,12 +163,22 @@ def build_train_step(cfg, knobs: Knobs = Knobs(),
 
 
 # ------------------------------------------------------------------ serving
-def make_parallel(group=None) -> Optional[ParallelContext]:
+def make_parallel(group=None, data_group=None, cfg=None) -> Optional[ParallelContext]:
     """The model group's context for this process, over the
-    ``torch.distributed`` process group ``group`` (None: unsharded)."""
+    ``torch.distributed`` process group ``group`` (None: unsharded), with a
+    grid's ``data_group`` beside it (``launch.mesh.make_grid``) and the FSDP
+    leaves of ``cfg``'s params on that grid (``sharding.shard.fsdp_map``)."""
     if group is None:
         return None
-    return ParallelContext(group, dist.get_rank(group), dist.get_world_size(group))
+    size = dist.get_world_size(group)
+    if data_group is None:
+        return ParallelContext(group, dist.get_rank(group), size)
+    data = dist.get_world_size(data_group)
+    if cfg is None and data > 1:
+        raise ValueError("a grid's context needs the model's config (cfg=) for its FSDP leaves")
+    return ParallelContext(group, dist.get_rank(group), size, data_group,
+                           dist.get_rank(data_group), data,
+                           fsdp=None if cfg is None else fsdp_map(cfg, size, data))
 
 
 def build_prefill_step(model: Model, parallel: Optional[ParallelContext] = None) -> Callable:

@@ -22,13 +22,27 @@ products' outputs kept).
 
 ``--model-parallel N`` trains on N ranks of a model group
 (``repro_torch.launch.mesh``; the reference's mesh with a ``"model"`` axis
-of N and a data axis of 1): each rank draws its share of the weights
-(``sharding.shard.init_params_sharded``, bitwise its slice of the
-unsharded draw), steps its share through ``build_train_step(cfg, knobs,
+of N and a data axis of 1, ``--data-parallel`` below): each rank draws
+its share of the weights (``sharding.shard.init_params_sharded``, bitwise
+its slice of the unsharded draw), steps its share through ``build_train_step(cfg, knobs,
 parallel)`` on the same batches, and rank 0 logs; every rank's loss and
 grad norm are the same.  N ranks run on ``cuda:0`` … ``cuda:N−1`` over
-NCCL, or on the CPU over gloo with ``--device cpu``.  Snapshots under a
-group (``--ckpt-dir``) are refused (ROADMAP A.16 (d) 1).
+NCCL, or on the CPU over gloo with ``--device cpu``.
+
+``--data-parallel D`` adds the data axis: D·N ranks on a D × N grid
+(``launch.mesh.make_grid``, the reference's ``("data", "model")`` mesh:
+rank ``d·N + m``), each storing its FSDP slice of its model share
+(``sharding.shard.init_params_sharded(..., data=D, data_rank=d)``) and
+stepping its data row's block of B/D rows of each batch; the model gathers
+each period's slices as it uses them (``models.layers.fsdp_gather``).  The
+batch must be a multiple of D.
+
+``--ckpt-dir`` under a group or a grid writes the file an unsharded run
+writes, ``step_<N>.msgpack`` of ``{"params", "opt"}`` in the reference's
+layout: rank 0 gathers and joins the shares leaf by leaf and writes it
+(``checkpoint.ckpt.save_checkpoint_shares``), so host memory bounds the
+model that can be snapshotted; a resumed rank reads the file and takes its
+share (``load_checkpoint(..., take=)``), on any grid shape or none.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 20 \\
         --batch 4 --seq 32 --log-every 5
@@ -38,6 +52,8 @@ group (``--ckpt-dir``) are refused (ROADMAP A.16 (d) 1).
         --steps 10 --batch 4 --seq 32 --log-every 5
     PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-7b --full \\
         --model-parallel 4 --remat dots --batch 8 --seq 512 --steps 10 --warmup 2
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --data-parallel 2 \\
+        --model-parallel 2 --steps 10 --batch 4 --seq 32 --ckpt-dir /tmp/g --ckpt-every 5
 """
 from __future__ import annotations
 
@@ -48,19 +64,23 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from repro_torch.checkpoint.ckpt import latest_step, load_checkpoint, save_checkpoint
+from repro_torch.checkpoint.ckpt import (
+    latest_step, load_checkpoint, save_checkpoint, save_checkpoint_shares,
+)
 from repro_torch.configs.base import ARCH_IDS, get_config, reduced
 from repro_torch.core.engine import resolve_device, synchronize
 from repro_torch.data.pipeline import lm_batch_iterator
 from repro_torch.data.synthetic import CHAIN_VOCAB, make_synthetic_lm, source_frames
 from repro_torch.kernels import launch_counts, launches_since
-from repro_torch.launch.mesh import make_model_group, spawn_cohort
-from repro_torch.launch.steps import Knobs, build_train_step
+from repro_torch.launch.mesh import make_grid, spawn_cohort
+from repro_torch.launch.steps import Knobs, build_train_step, make_parallel
 from repro_torch.models.layers import ParallelContext
 from repro_torch.models.transformer import REMATS
 from repro_torch.optim.optimizers import warmup_cosine
 from repro_torch.sharding.rules import check_model_parallel
-from repro_torch.sharding.shard import init_params_sharded, param_shapes
+from repro_torch.sharding.shard import (
+    init_params_sharded, param_shapes, snapshot_join, snapshot_take,
+)
 from repro_torch.utils.metrics import MetricLogger
 from repro_torch.utils.trees import tree_leaves
 
@@ -98,15 +118,14 @@ def _config(args: argparse.Namespace):
 
 
 def check_model_parallel_args(args: argparse.Namespace, cfg, world: int) -> None:
-    """Refuse what a model group of ``world`` > 1 ranks does not train:
-    snapshots (ROADMAP A.16 (d) 1), and an expert count the group does not
-    divide (``check_model_parallel``)."""
-    if world <= 1:
-        return
-    if args.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir under --model-parallel > 1 is not ported "
-                                  "(ROADMAP A.16 (d) 1: each rank saving and loading its share)")
-    check_model_parallel(cfg, world)
+    """Refuse what a model group of ``world`` ranks does not train: an
+    expert count the group does not divide (``check_model_parallel``), and
+    a batch that ``--data-parallel`` does not divide."""
+    data = getattr(args, "data_parallel", 1)
+    if args.batch % data:
+        raise ValueError(f"--batch {args.batch} does not split over --data-parallel {data}")
+    if world > 1:
+        check_model_parallel(cfg, world)
 
 
 def run(args: argparse.Namespace, cfg=None, echo: bool = True,
@@ -117,7 +136,8 @@ def run(args: argparse.Namespace, cfg=None, echo: bool = True,
     0's result comes back, with every rank's in ``by_rank``; ``parallel``
     trains this rank's share of that group."""
     cfg = _config(args) if cfg is None else cfg
-    if parallel is None and getattr(args, "model_parallel", 1) > 1:
+    if parallel is None and getattr(args, "model_parallel", 1) * getattr(
+            args, "data_parallel", 1) > 1:
         return run_model_parallel(args, cfg)
     device = resolve_device(args.device)
     if cfg.is_encoder_decoder and echo:
@@ -135,12 +155,18 @@ def run(args: argparse.Namespace, cfg=None, echo: bool = True,
         check_model_parallel_args(args, cfg, parallel.size)
         # the kept slices wait on the host while whole leaves are drawn on the card
         params = init_params_sharded(gen, cfg, parallel.rank, parallel.size,
-                                     stage="cpu" if device.type == "cuda" else None)
+                                     stage="cpu" if device.type == "cuda" else None,
+                                     data=parallel.data_size, data_rank=parallel.data_rank)
     opt_state = step_fn.opt.init(params)
+    n_data, d = (1, 0) if parallel is None else (parallel.data_size, parallel.data_rank)
+    rows = slice(d * args.batch // n_data, (d + 1) * args.batch // n_data)
 
     start_step = 0
     if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
-        tree, meta = load_checkpoint(args.ckpt_dir, None, {"params": params, "opt": opt_state})
+        take = None if parallel is None else snapshot_take(
+            cfg, parallel.rank, parallel.size, parallel.data_rank, parallel.data_size)
+        tree, meta = load_checkpoint(args.ckpt_dir, None, {"params": params, "opt": opt_state},
+                                     take)
         params, opt_state = tree["params"], tree["opt"]
         start_step = int(meta.get("step", 0))
         if echo:
@@ -166,6 +192,8 @@ def run(args: argparse.Namespace, cfg=None, echo: bool = True,
                                 device)
             batch = {"src_embeds": src,
                      "tgt_tokens": batch["tokens"], "labels": batch["labels"]}
+        if n_data > 1:  # this data row's block of the batch
+            batch = {k: v[rows] for k, v in batch.items()}
         synchronize(device)
         t0 = time.perf_counter()
         params, opt_state, metrics = step_fn.fn(params, opt_state, batch)
@@ -180,7 +208,12 @@ def run(args: argparse.Namespace, cfg=None, echo: bool = True,
                     tok_per_s=round(toks_since / max(t_since, 1e-9)))
             toks_since, t_since = 0, 0.0
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-            save_checkpoint(args.ckpt_dir, step + 1, {"params": params, "opt": opt_state})
+            tree = {"params": params, "opt": opt_state}
+            if parallel is None:
+                save_checkpoint(args.ckpt_dir, step + 1, tree)
+            else:
+                save_checkpoint_shares(args.ckpt_dir, step + 1, tree, snapshot_join(
+                    cfg, parallel.size, parallel.data_size))
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
     if echo and metrics is not None:
         print(f"final loss: {losses[-1]:.4f}")
@@ -193,13 +226,14 @@ def run(args: argparse.Namespace, cfg=None, echo: bool = True,
 
 
 def run_model_parallel(args: argparse.Namespace, cfg) -> TrainResult:
-    """``--model-parallel N``: ``run`` in N spawned ranks of a model group
-    (NCCL on N cards, gloo with ``--device cpu``); rank 0's result with
-    every rank's ``by_rank`` entry.  Raises unless every rank saw the same
-    losses and grad norms."""
+    """``--model-parallel N`` (and ``--data-parallel D``): ``run`` in D·N
+    spawned ranks of a model group or a D × N grid (NCCL on D·N cards, gloo
+    with ``--device cpu``); rank 0's result with every rank's ``by_rank``
+    entry.  Raises unless every rank saw the same losses and grad norms."""
     check_model_parallel_args(args, cfg, args.model_parallel)
     resolve_device(args.device)
-    results = spawn_cohort(_model_parallel_rank, args.model_parallel, args=(args, cfg),
+    world = args.model_parallel * getattr(args, "data_parallel", 1)
+    results = spawn_cohort(_model_parallel_rank, world, args=(args, cfg),
                            device=args.device, timeout_s=MP_TIMEOUT_S, deadline_s=MP_DEADLINE_S)
     first = results[0]
     for r, res in enumerate(results):
@@ -212,10 +246,11 @@ def run_model_parallel(args: argparse.Namespace, cfg) -> TrainResult:
 
 
 def _model_parallel_rank(rank: int, device, args: argparse.Namespace, cfg) -> TrainResult:
-    """One rank of ``--model-parallel N``: ``run`` on this rank's device;
-    rank 0 logs."""
+    """One rank of ``--model-parallel N`` (a grid's with ``--data-parallel
+    D`` > 1): ``run`` on this rank's device; rank 0 logs."""
     args = argparse.Namespace(**{**vars(args), "device": str(device)})
-    return run(args, cfg, echo=rank == 0, parallel=make_model_group(args.model_parallel))
+    grid = make_grid(getattr(args, "data_parallel", 1), args.model_parallel)
+    return run(args, cfg, echo=rank == 0, parallel=make_parallel(*grid, cfg=cfg))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -240,14 +275,22 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--model-parallel", type=int, default=1, metavar="N",
                     help="train on N ranks of a model group: one card a rank over NCCL, or "
                          "gloo ranks with --device cpu (default 1: unsharded)")
+    ap.add_argument("--data-parallel", type=int, default=1, metavar="D",
+                    help="train on a D x N grid of D*N ranks (N: --model-parallel): each rank "
+                         "its FSDP slice of its model share and B/D rows of each batch "
+                         "(default 1)")
     return ap
 
 
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.model_parallel < 1:
-        ap.error(f"--model-parallel must be >= 1, got {args.model_parallel}")
+    for flag in ("model_parallel", "data_parallel"):
+        if getattr(args, flag) < 1:
+            ap.error(f"--{flag.replace('_', '-')} must be >= 1, got {getattr(args, flag)}")
+    if args.batch % args.data_parallel:
+        ap.error(f"--batch {args.batch} does not split over --data-parallel "
+                 f"{args.data_parallel}")
     run(args)
     return 0
 

@@ -22,7 +22,9 @@ ranks that each hold their share of the weights
 encoder's and the decoder's attention on the rank's heads, the
 cross-attention's K/V of the rank's kv heads (computed once a layer, held
 so in the decode cache), the MLP's hidden columns, each with one
-``all_reduce``; the vocabulary-split embedding and logits.
+``all_reduce``; the vocabulary-split embedding and logits.  On a grid's
+FSDP storage each layer's slices are gathered where the stack selects the
+layer, inside its checkpointed region (``layers.fsdp_gather``).
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ from repro_torch.models.layers import (
     cross_attention,
     embed_init,
     encode_kv,
+    fsdp_gather,
     heads_out,
     init_attention,
     init_mlp,
@@ -106,7 +109,8 @@ def _maybe_remat(fn, remat: str, h):
 
 
 def _embed(params, tokens, cfg, parallel: Optional[ParallelContext]) -> torch.Tensor:
-    return embed_tokens(params["embed"], tokens, cfg, getattr(torch, cfg.dtype), parallel)
+    embed = fsdp_gather({"embed": params["embed"]}, parallel)["embed"]
+    return embed_tokens(embed, tokens, cfg, getattr(torch, cfg.dtype), parallel)
 
 
 def encode(params, src_embeds: torch.Tensor, *, cfg, use_kernels: bool = False,
@@ -144,7 +148,8 @@ def encode(params, src_embeds: torch.Tensor, *, cfg, use_kernels: bool = False,
         return h + mlp(lp["mlp"], rmsnorm(h, lp["norm2"]), cfg=cfg, parallel=parallel)
 
     for lp in _layers(params["enc"], cfg.n_encoder_layers):
-        h = _maybe_remat(lambda h_, lp=lp: layer(lp, h_), remat, h)
+        h = _maybe_remat(lambda h_, lp=lp: layer(fsdp_gather(lp, parallel, ("enc",)), h_), remat,
+                         h)
     return rmsnorm(h, params["enc_norm"])
 
 
@@ -168,9 +173,11 @@ def decode_train(params, tgt_tokens: torch.Tensor, enc_out: torch.Tensor, *, cfg
         return h + mlp(lp["mlp"], rmsnorm(h, lp["norm2"]), cfg=cfg, parallel=parallel)
 
     for lp in _layers(params["dec"], cfg.n_layers):
-        h = _maybe_remat(lambda h_, lp=lp: layer(lp, h_), remat, h)
+        h = _maybe_remat(lambda h_, lp=lp: layer(fsdp_gather(lp, parallel, ("dec",)), h_), remat,
+                         h)
     h = rmsnorm(h, params["dec_norm"])
-    return unembed_logits(h, params["unembed"], cfg, parallel)
+    unembed = fsdp_gather({"unembed": params["unembed"]}, parallel)["unembed"]
+    return unembed_logits(h, unembed, cfg, parallel)
 
 
 def init_decode_cache(params, cfg, batch: int, max_len: int, enc_out: torch.Tensor,

@@ -35,6 +35,19 @@ kept whole that a rank reads only in part (``sharding.rules.group_use``:
 over the group.  ``torch.distributed.nn.functional.all_reduce`` is not
 used: its backward sums the gradient, which under a replicated loss
 multiplies every gradient upstream of it by the group's size.
+
+A grid (``ParallelContext.data_group``, the reference's ``("data",
+"model")`` mesh) adds a data group to the model group.  The layers do not
+see it: in training each rank stores its FSDP slice of its model share
+(``sharding.rules.fsdp_dim``, listed on ``ParallelContext.fsdp``), and the
+model gathers a period's slices into the model share where its stack
+selects the period, and ``embed`` / ``unembed`` where it reads them
+(``fsdp_gather``: forward an ``all_gather`` over the data group, backward
+the reduce-scatter of the gradient, so each rank keeps its slice's).
+Under ``remat`` the gather lies inside the checkpointed region, so it is
+redone in backward and never saved; under ``remat="none"`` autograd keeps
+each period's gathered weights for its backward, so a step holds the
+whole model share and FSDP saves no memory.
 """
 from __future__ import annotations
 
@@ -47,6 +60,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.sharding.rules import _keys
+from repro_torch.utils.trees import tree_flatten_with_path, tree_unflatten
 
 
 # ------------------------------------------------------------ parallel context
@@ -57,13 +72,29 @@ class ParallelContext:
     size.  ``counts`` tallies the collectives the layers issue
     (``all_reduce``, ``all_gather``), the bytes each rank sends into them,
     and the mamba2 blocks that ran whole on every rank because the group's
-    size does not divide their heads (``mamba_whole``)."""
+    size does not divide their heads (``mamba_whole``); on a grid also the
+    FSDP gathers over the data group and their gradients' reduce-scatters
+    (``data_all_gather``, ``data_reduce_scatter``)."""
 
     group: Any
     rank: int
     size: int
+    # the grid's data group (``launch.mesh.make_grid``): None, rank 0 and
+    # size 1 off a grid
+    data_group: Any = None
+    data_rank: int = 0
+    data_size: int = 1
+    # on a grid, the params-tree keys of the leaves stored in FSDP slices
+    # → the sliced dimension counted from the last (``sharding.shard.fsdp_map``)
+    fsdp: Optional[Dict[Tuple[str, ...], int]] = field(default=None, compare=False)
     counts: Dict[str, int] = field(default_factory=lambda: {
-        "all_reduce": 0, "all_gather": 0, "bytes": 0, "mamba_whole": 0}, compare=False)
+        "all_reduce": 0, "all_gather": 0, "bytes": 0, "mamba_whole": 0, "data_all_gather": 0,
+        "data_reduce_scatter": 0}, compare=False)
+
+    def data_all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the data group, in ``x``'s dtype, written into ``x``."""
+        dist.all_reduce(x, group=self.data_group)
+        return x
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """The sum over the group, in ``x``'s dtype, written into ``x``."""
@@ -142,6 +173,113 @@ class _CopyIntoGroup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.parallel.all_reduce(g.clone(memory_format=torch.contiguous_format)), None
+
+
+# ------------------------------------------------------------- FSDP on a grid
+def _cat_flat(ts: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in ts])
+
+
+def _data_gather(parallel: ParallelContext, shares, dims):
+    """Every data rank's slice of each of ``shares`` (one dtype) joined
+    along its dim of ``dims``, in one ``all_gather``."""
+    parallel.counts["data_all_gather"] += 1
+    flat = _cat_flat(shares)
+    parts = [torch.empty_like(flat) for _ in range(parallel.data_size)]
+    dist.all_gather(parts, flat, group=parallel.data_group)
+    out, at = [], 0
+    for s, d in zip(shares, dims):
+        n = s.numel()
+        out.append(torch.cat([p[at:at + n].view(s.shape) for p in parts], dim=d))
+        at += n
+    return out
+
+
+def _data_reduce_scatter(parallel: ParallelContext, grads, dims):
+    """This rank's slice of the sum over the data group of each of
+    ``grads`` (one dtype; the gathered leaves' gradients) along its dim, in
+    one collective: NCCL's ``reduce_scatter_tensor``, else (gloo has none)
+    an ``all_reduce`` of every rank's block and this rank's block of it.
+    Both sum in a fixed order."""
+    parallel.counts["data_reduce_scatter"] += 1
+    n_d, r = parallel.data_size, parallel.data_rank
+    blocks = [_cat_flat([g.narrow(d, i * (g.shape[d] // n_d), g.shape[d] // n_d)
+                         for g, d in zip(grads, dims)]) for i in range(n_d)]
+    if dist.get_backend(parallel.data_group) == "nccl":
+        mine = torch.empty_like(blocks[0])
+        dist.reduce_scatter_tensor(mine, torch.cat(blocks), group=parallel.data_group)
+    else:
+        every = torch.cat(blocks)
+        dist.all_reduce(every, group=parallel.data_group)
+        mine = every.view(n_d, -1)[r]
+    out, at = [], 0
+    for g, d in zip(grads, dims):
+        shape = list(g.shape)
+        shape[d] //= n_d
+        n = math.prod(shape)
+        out.append(mine[at:at + n].view(shape).clone())
+        at += n
+    return out
+
+
+class _GatherOverData(torch.autograd.Function):
+    """Forward: the data group's slices of each share joined (one
+    ``all_gather`` a dtype); backward: the reduce-scatter of the gradients
+    (one a dtype), each rank its slice's."""
+
+    @staticmethod
+    def forward(ctx, parallel, dims, *shares):
+        ctx.parallel, ctx.dims = parallel, dims
+        out = [None] * len(shares)
+        for idx in _by_dtype(shares):
+            for i, t in zip(idx, _data_gather(parallel, [shares[i] for i in idx],
+                                              [dims[i] for i in idx])):
+                out[i] = t
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        parallel, dims = ctx.parallel, ctx.dims
+        out = [None] * len(grads)
+        for idx in _by_dtype(grads):
+            for i, g in zip(idx, _data_reduce_scatter(parallel, [grads[i] for i in idx],
+                                                      [dims[i] for i in idx])):
+                out[i] = g
+        return (None, None, *out)
+
+
+def _by_dtype(ts) -> List[List[int]]:
+    groups: Dict[Any, List[int]] = {}
+    for i, t in enumerate(ts):
+        groups.setdefault(t.dtype, []).append(i)
+    return list(groups.values())
+
+
+def fsdp_gather(tree, parallel: Optional[ParallelContext], at: Tuple[str, ...] = ()):
+    """``tree`` (a period's params, a layer's, or ``{"embed": …}``; ``at``
+    its keys in the params tree) with every leaf that this rank holds an
+    FSDP slice of (``parallel.fsdp``) gathered into its model share over the
+    data group (``_GatherOverData``: one ``all_gather`` a dtype, and in
+    backward one reduce-scatter); as it is off a grid."""
+    if parallel is None or parallel.data_size == 1:
+        return tree
+    if parallel.fsdp is None:
+        raise ValueError("a grid's ParallelContext needs the map of its FSDP leaves "
+                         "(launch.steps.make_parallel(..., cfg=))")
+    leaves, treedef = tree_flatten_with_path(tree)
+    picks, dims = [], []
+    for i, (path, t) in enumerate(leaves):
+        d = parallel.fsdp.get(at + _keys(path))
+        if d is not None:
+            picks.append(i)
+            dims.append(t.dim() + d)
+    if not picks:
+        return tree
+    vals = [t for _, t in leaves]
+    for i, t in zip(picks, _GatherOverData.apply(parallel, tuple(dims),
+                                                 *[vals[i] for i in picks])):
+        vals[i] = t
+    return tree_unflatten(treedef, vals)
 
 
 def split(parallel: Optional[ParallelContext], local: int, whole: int) -> bool:

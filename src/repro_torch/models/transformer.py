@@ -42,6 +42,7 @@ from repro_torch.models.layers import (
     Keep,
     ParallelContext,
     embed_init,
+    fsdp_gather,
     init_attention,
     init_mlp,
     init_moe,
@@ -231,28 +232,33 @@ def _run_period(slots, pp, shared, h, aux, cache_i, emit: bool, kw):
     return h, aux, out_i
 
 
-def _remat_period(slots, pp, shared, h, aux, remat: str, kw):
+def _remat_period(slots, pp, at, shared, h, aux, remat: str, kw):
     """A training period (no cache) under ``remat_call``: its activations
     (``"full"``), or all but its weight products' outputs (``"dots"``), are
     recomputed in backward instead of kept."""
     def body(h_, aux_):
-        return _run_period(slots, pp, shared, h_, aux_, None, False, kw)[:2]
+        return _run_period(slots, fsdp_gather(pp, kw["parallel"], at), shared, h_, aux_, None,
+                           False, kw)[:2]
 
     return remat_call(body, remat, h, aux)
 
 
-def _run_stack(slots, stacked, n: int, shared, h, aux, cache, emit: bool,
+def _run_stack(slots, stacked, at, n: int, shared, h, aux, cache, emit: bool,
                remat: str = "none", **kw):
     """The reference's scan over ``n`` periods of ``slots``: returns ``(h,
     aux, emitted)``.  Decode (``cache`` given) writes every new cache leaf
     into the cache's stacked buffers in place; prefill with ``emit``
-    returns the new caches stacked over periods."""
+    returns the new caches stacked over periods.  On a grid each period's
+    FSDP slices are gathered as the period is selected (``fsdp_gather``;
+    ``at``: the stack's keys in the params tree), inside the checkpointed
+    region under ``remat``."""
     emitted = []
     for i in range(n):
         pp = tree_map(lambda a: a[i], stacked)
         if remat != "none" and cache is None and not emit:
-            h, aux = _remat_period(slots, pp, shared, h, aux, remat, kw)
+            h, aux = _remat_period(slots, pp, at, shared, h, aux, remat, kw)
             continue
+        pp = fsdp_gather(pp, kw["parallel"], at)
         cache_i = None if cache is None else tree_map(lambda a: a[i], cache)
         h, aux, out_i = _run_period(slots, pp, shared, h, aux, cache_i, emit, kw)
         emitted.append(out_i)
@@ -288,7 +294,8 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, *, cfg,
     slots, n_periods, tail = period_layout(cfg)
     adtype = getattr(torch, cfg.dtype)
     dev = tokens.device
-    h = embed_tokens(params["embed"], tokens, cfg, adtype, parallel)
+    embed = fsdp_gather({"embed": params["embed"]}, parallel)["embed"]
+    h = embed_tokens(embed, tokens, cfg, adtype, parallel)
     B, S = tokens.shape
     if cache is None:
         positions = torch.arange(S, device=dev)
@@ -298,13 +305,17 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, *, cfg,
     kw = dict(cfg=cfg, positions=positions, cache_pos=cache_pos, use_kernels=use_kernels,
               parallel=parallel)
     shared = params.get("shared")
+    if shared is not None:  # read by every shared slot: gathered once a forward
+        shared = fsdp_gather(shared, parallel, ("shared",))
 
     aux = torch.zeros((), dtype=torch.float32, device=dev)
-    h, aux, out_periods = _run_stack(slots, params["periods"], n_periods, shared, h, aux,
+    h, aux, out_periods = _run_stack(slots, params["periods"], ("periods",), n_periods, shared,
+                                     h, aux,
                                      None if cache is None else cache["periods"], emit, remat,
                                      **kw)
     if tail:
-        h, aux, out_tail = _run_stack(tail[:1], params["tail"], len(tail), shared, h, aux,
+        h, aux, out_tail = _run_stack(tail[:1], params["tail"], ("tail",), len(tail), shared, h,
+                                      aux,
                                       None if cache is None else cache["tail"], emit, remat,
                                       **kw)
     new_cache = cache
@@ -314,7 +325,8 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, *, cfg,
             new_cache["tail"] = out_tail
 
     h = rmsnorm(h, params["final_norm"])
-    unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    unembed = (embed.T if cfg.tie_embeddings
+               else fsdp_gather({"unembed": params["unembed"]}, parallel)["unembed"])
     return unembed_logits(h, unembed, cfg, parallel), new_cache, aux
 
 

@@ -13,18 +13,26 @@ the r-th of N equal slices, under the reference's divisibility guard (a
 dimension that N does not divide stays whole).  The mamba2 leaves whose
 last dimension packs several parts (``w_in``: z, x, B, C, dt; ``conv_w`` /
 ``conv_b``: x, B, C) are split part by part (``Pieces``), so that a rank
-holds whole SSD heads.  A model group replicates the batch: there is no
-data axis, so the serve mode's replication outside the expert banks is all
-there is of it.  The reference's data axes (and its training specs' FSDP
-over them) and its cache specs are ROADMAP A.16 (d).
+holds whole SSD heads.  In serving a model group replicates the batch:
+the serve mode's data split (and its expert-bank FSDP) and the reference's
+cache specs are ROADMAP A.16 (d).
+
+The data part (``fsdp_dim``): the reference's ``mode="train"`` storage
+over its data axes.  On a grid of data × model ranks (``launch.mesh.make_grid``)
+each large leaf's model share is split once more over the data group, along
+the dimension the reference's helper ``f`` names — ``d_model`` of every
+leaf it catches — under the same divisibility guard; the training batch is
+split over data as ``batch_specs`` splits it (each data rank its block of
+rows).
 
 Training on a group reads one more answer a leaf (``group_use``,
 ``group_parts``): split (each rank holds and reads its slice), whole
 (every rank holds and reads all of it: the whole gradient on every rank),
 or partial (every rank holds all of it but reads a part, so each rank's
-gradient is partial and the ranks' are summed).  On a model-only group the
-reference's ``mode="train"`` specs equal its serve specs: their FSDP runs
-over the data axes, of size 1 here.
+gradient is partial and the ranks' are summed).  Over the data group a
+leaf is either held in part (``fsdp_dim`` not None: its gradient is
+reduce-scattered where the model gathers it) or replicated (its data
+ranks' gradients are averaged, ``sum_over_data``).
 """
 from __future__ import annotations
 
@@ -177,6 +185,46 @@ def param_specs(params: Any, cfg, world: int) -> Any:
                                     for p, leaf in leaves])
 
 
+def fsdp_axis(path: Sequence[str], nd: int) -> Optional[int]:
+    """The dimension of an ``nd``-dimensional leaf at ``path`` that the
+    reference's train-mode helper ``f`` shards over its data axes, before
+    its divisibility guard: ``D`` of ``embed`` (V, D) and ``unembed`` (D,
+    V), of ``wq`` / ``wk`` / ``wv`` (…, D, H, hd), ``wo`` (…, H, hd, D),
+    ``router`` (…, D, E), the dense and MoE ``w_gate`` / ``w_up`` (…, D, F)
+    / (…, E, D, F) and ``w_down`` (…, F, D) / (…, E, F, D), and mamba2's
+    ``w_in`` (…, D, ·) and ``w_out`` (…, d_inner, D); None for conv, norms,
+    biases and the small leaves.  The same index in a period's leaf (the
+    stacked leaf less its leading axis) but for ``embed`` / ``unembed``,
+    which are not stacked."""
+    key = path[-1] if path else ""
+    if key in ("embed", "unembed"):
+        return 1 if key == "embed" else 0
+    if key in ("wq", "wk", "wv"):
+        return nd - 3
+    if key in ("wo", "w_down", "w_out"):
+        return nd - 1
+    if key in ("router", "w_gate", "w_up", "w_in"):
+        return nd - 2
+    return None
+
+
+def fsdp_dim(path: Sequence[str], shape: Sequence[int], data: int, model: int = 1,
+             cfg=None) -> Optional[int]:
+    """The dimension of the leaf at ``path`` (whole ``shape``) that a data
+    group of ``data`` ranks splits in training, on the leaf's share of a
+    model group of ``model``: ``fsdp_axis``'s, under the reference's
+    divisibility guard; None when ``data`` is 1, for the leaves ``f`` does
+    not catch, and where ``data`` does not divide the dimension.  The model
+    group never splits that dimension, so the guard reads the whole leaf's
+    size of it."""
+    dim = fsdp_axis(path, len(shape))
+    if dim is None or data <= 1:
+        return None
+    local = local_shape(shape, split_dim(path, shape, model, cfg), model) if model > 1 \
+        else tuple(shape)
+    return dim if _ok(local[dim], data) else None
+
+
 def check_model_parallel(cfg, world: int) -> None:
     """Refuse an expert count that a model group of ``world`` > 1 ranks does
     not divide (the reference's expert-parallel MoE asserts the same)."""
@@ -242,34 +290,55 @@ def _segments(t: torch.Tensor, parts, use: str, lead: int):
             yield t if dim is None else t.narrow(lead + dim, off, width)
 
 
-def sum_partial(tensors, parts, parallel, lead: int = 0) -> None:
-    """Sum over the group, in place, the ``"partial"`` parts of each of
-    ``tensors`` (a rank's gradients, in the order of ``parts``; ``lead``
-    leading batch dims before each leaf's own), one ``all_reduce`` a
-    dtype."""
+def _all_reduce_segments(segs, reduce) -> None:
+    """``reduce`` (an in-place ``all_reduce``) of the tensors ``segs``, one
+    call a dtype over their concatenation, written back into each."""
     by_dtype = {}
-    for t, p in zip(tensors, parts):
-        for seg in _segments(t, p, "partial", lead):
-            by_dtype.setdefault(seg.dtype, []).append(seg)
+    for seg in segs:
+        by_dtype.setdefault(seg.dtype, []).append(seg)
     for segs in by_dtype.values():
         flat = torch.cat([seg.reshape(-1) for seg in segs])
-        parallel.all_reduce(flat)
+        reduce(flat)
         at = 0
         for seg in segs:
             seg.copy_(flat[at:at + seg.numel()].view(seg.shape))
             at += seg.numel()
 
 
-def group_sq_norm(tensors, parts, parallel) -> torch.Tensor:
+def sum_partial(tensors, parts, parallel, lead: int = 0) -> None:
+    """Sum over the group, in place, the ``"partial"`` parts of each of
+    ``tensors`` (a rank's gradients, in the order of ``parts``; ``lead``
+    leading batch dims before each leaf's own), one ``all_reduce`` a
+    dtype."""
+    _all_reduce_segments([seg for t, p in zip(tensors, parts)
+                          for seg in _segments(t, p, "partial", lead)], parallel.all_reduce)
+
+
+def sum_over_data(tensors, fsdp, parallel) -> None:
+    """Sum over the data group, in place, each of ``tensors`` (a rank's
+    gradients, in the order of ``fsdp``: each leaf's ``fsdp_dim``) that the
+    data group replicates, one ``all_reduce`` a dtype.  The leaves it holds
+    in part had theirs reduce-scattered where the model gathered them."""
+    _all_reduce_segments([t for t, f in zip(tensors, fsdp) if f is None],
+                         parallel.data_all_reduce)
+
+
+def group_sq_norm(tensors, parts, parallel, fsdp: Optional[Sequence] = None) -> torch.Tensor:
     """The f32 squared L2 norm of the whole tree whose shares ``tensors``
     are (each rank passes its own, in the order of ``parts``): the split
     parts summed over the group, every replicated part (whole or partial,
     the same on every rank) counted once, on rank 0, so that no part is
-    counted N times and no 1/N enters."""
+    counted N times and no 1/N enters.  On a grid (``fsdp``: each leaf's
+    ``fsdp_dim``) the same over the data group: a leaf held in part there is
+    summed over it, a replicated one counted on data rank 0 alone."""
     uses = ("split",) if parallel.rank else GROUP_USES
+    fsdp = fsdp or [None] * len(parts)
     total = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
-    for t, p in zip(tensors, parts):
+    for t, p, f in zip(tensors, parts, fsdp):
+        if f is None and parallel.data_rank:
+            continue
         for use in uses:
             for seg in _segments(t, p, use, 0):
                 total = total + torch.sum(torch.square(seg.to(torch.float32)))
-    return parallel.all_reduce(total)
+    total = parallel.all_reduce(total)
+    return parallel.data_all_reduce(total) if parallel.data_size > 1 else total

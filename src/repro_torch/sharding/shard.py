@@ -21,18 +21,28 @@ Training on a group (``rules.group_parts``): ``share_parts`` lists each
 leaf's parts and uses in tree order, ``group_plane`` the same for a flat
 plane over a rank's share (the federated engine's ``model_group``), and
 ``join_shares`` rebuilds whole leaves from every rank's share.
+
+Training on a grid of ``data`` × ``model`` ranks (rank ``d·M + m``: model
+rank m of data row d) stores the model share's FSDP slice: ``grid_take``
+takes it (the model share, then the d-th of ``data`` slices along
+``rules.fsdp_dim``), ``init_params_sharded(..., data=, data_rank=)`` draws
+it, ``share_fsdp`` lists each leaf's FSDP dimension in tree order
+(``fsdp_map``: by params-tree keys, for ``models.layers.fsdp_gather``), and
+``join_shares(..., fsdp=, data=)`` rebuilds whole leaves from the grid's
+shares.  ``snapshot_join`` / ``snapshot_take`` apply the two to the paths
+of a ``{"params", "opt"}`` snapshot (``checkpoint.ckpt``).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.models import encdec, transformer
 from repro_torch.sharding.rules import (
-    Pieces, Split, _keys, check_model_parallel, group_parts, local_shape, param_specs,
-    split_dim,
+    Pieces, Split, _keys, check_model_parallel, fsdp_dim, group_parts, local_shape,
+    param_specs, split_dim,
 )
 from repro_torch.utils.trees import tree_flatten_with_path, tree_leaves, tree_map
 
@@ -86,11 +96,24 @@ def shard_params(params: Any, specs: Any, rank: int, world: int) -> Any:
     return tree_map(lambda leaf, dim: take(leaf, dim, rank, world), params, specs)
 
 
+def grid_take(leaf: torch.Tensor, path: Sequence[str], cfg, rank: int, world: int,
+              data_rank: int = 0, data: int = 1, device=None) -> torch.Tensor:
+    """The share of the whole ``leaf`` at ``path`` that grid rank (``data_rank``,
+    ``rank``) of a ``data`` × ``world`` grid stores in training: the model
+    share's ``data_rank``-th slice along ``rules.fsdp_dim`` (the model share
+    itself where the leaf has none), on ``device``."""
+    shape = tuple(leaf.shape)
+    share = take(leaf, split_dim(path, shape, world, cfg), rank, world, device)
+    return take(share, fsdp_dim(path, shape, data, world, cfg), data_rank, data)
+
+
 def init_params_sharded(generator: torch.Generator, cfg, rank: int, world: int,
-                        stage: Optional[str] = None) -> Any:
+                        stage: Optional[str] = None, *, data: int = 1,
+                        data_rank: int = 0) -> Any:
     """Rank ``rank``'s share of ``transformer.init_params(generator, cfg)``
     (``encdec.init_params`` for the encoder-decoder), bitwise, drawn on the
-    generator's device leaf by leaf.  ``stage`` is a
+    generator's device leaf by leaf; on a grid of ``data`` rows, data rank
+    ``data_rank``'s FSDP slice of it (``grid_take``).  ``stage`` is a
     device where the kept slices wait until the last leaf is drawn (the
     host, so that a card holds one whole leaf at a time and never that
     leaf beside the share); the share is then moved to the generator's
@@ -99,7 +122,7 @@ def init_params_sharded(generator: torch.Generator, cfg, rank: int, world: int,
     check_model_parallel(cfg, world)
 
     def keep(path: Tuple[str, ...], leaf: torch.Tensor) -> torch.Tensor:
-        return take(leaf, split_dim(path, tuple(leaf.shape), world, cfg), rank, world, stage)
+        return grid_take(leaf, path, cfg, rank, world, data_rank, data, stage)
 
     params = _init(cfg)(generator, cfg, keep=keep)
     if stage is not None:
@@ -125,6 +148,28 @@ def share_parts(cfg, world: int) -> List:
             for p, leaf in tree_flatten_with_path(param_shapes(cfg))[0]]
 
 
+def share_fsdp(cfg, world: int, data: int) -> List[Optional[int]]:
+    """``rules.fsdp_dim`` of every leaf of ``cfg``'s params tree on a grid of
+    ``data`` × ``world`` ranks, in the tree's leaf order."""
+    return [fsdp_dim(_keys(p), tuple(leaf.shape), data, world, cfg)
+            for p, leaf in tree_flatten_with_path(param_shapes(cfg))[0]]
+
+
+def fsdp_map(cfg, world: int, data: int) -> Dict[Tuple[str, ...], int]:
+    """The leaves of ``cfg``'s params tree that a grid of ``data`` ×
+    ``world`` ranks stores in FSDP slices: params-tree keys → ``rules.fsdp_dim``
+    counted from the last dimension (negative), so that it names the same
+    dimension in a stacked leaf and in one period's slice of it.  What
+    ``models.layers.fsdp_gather`` gathers (``ParallelContext.fsdp``)."""
+    out = {}
+    for p, leaf in tree_flatten_with_path(param_shapes(cfg))[0]:
+        keys, shape = _keys(p), tuple(leaf.shape)
+        d = fsdp_dim(keys, shape, data, world, cfg)
+        if d is not None:
+            out[keys] = d - len(shape)
+    return out
+
+
 def group_plane(spec, cfg, parallel):
     """The ``core.flat.GroupPlane`` of ``spec``, the ``FlatSpec`` of this
     rank's share of ``cfg``'s params on the model group ``parallel``."""
@@ -139,9 +184,17 @@ def group_plane(spec, cfg, parallel):
                       sum(t.numel() * t.element_size() for t in shapes))
 
 
-def join_shares(shares: Sequence[torch.Tensor], dim: Split, world: int) -> torch.Tensor:
+def join_shares(shares: Sequence[torch.Tensor], dim: Split, world: int,
+                fsdp: Optional[int] = None, data: int = 1) -> torch.Tensor:
     """The whole leaf from every rank's share of it (rank order), split by
-    ``dim``: the inverse of ``take``.  A whole leaf is rank 0's."""
+    ``dim``: the inverse of ``take``.  A whole leaf is rank 0's.  On a grid
+    (``data`` rows, ``fsdp`` the leaf's ``rules.fsdp_dim``) ``shares`` are
+    the ``data × world`` grid ranks' in rank order ``d·world + m``: the
+    inverse of ``grid_take``."""
+    if data > 1:
+        shares = [shares[m] if fsdp is None else
+                  torch.cat([shares[d * world + m] for d in range(data)], dim=fsdp)
+                  for m in range(world)]
     if dim is None:
         return shares[0]
     if not isinstance(dim, Pieces):
@@ -153,3 +206,52 @@ def join_shares(shares: Sequence[torch.Tensor], dim: Split, world: int) -> torch
                    else [shares[0].narrow(dim.dim, at, width)])
         at += width
     return torch.cat(pieces, dim=dim.dim)
+
+
+# ------------------------------------------------------ snapshots of a group
+def _param_keys(path: str, shapes) -> Optional[Tuple[str, ...]]:
+    """The params-tree keys of a snapshot path (``params/…`` or an AdamW
+    moment's ``opt/<i>/…``; ``checkpoint.ckpt``'s spelling), None for a leaf
+    of no param's shape (the optimizer's step)."""
+    parts = tuple(path.split("/"))
+    for i in range(1, len(parts)):
+        if parts[i:] in shapes:
+            return parts[i:]
+    return None
+
+
+def _whole_shapes(cfg):
+    return {_keys(p): tuple(t.shape) for p, t in tree_flatten_with_path(param_shapes(cfg))[0]}
+
+
+def snapshot_join(cfg, world: int, data: int = 1):
+    """``join(path, shares)`` for ``checkpoint.ckpt.save_checkpoint_shares``:
+    the whole leaf of a ``{"params", "opt"}`` snapshot path from the shares
+    of the ``data`` × ``world`` grid's ranks (``join_shares``); a leaf that
+    is no param's (the step) is rank 0's."""
+    shapes = _whole_shapes(cfg)
+
+    def join(path: str, shares: Sequence[torch.Tensor]) -> torch.Tensor:
+        keys = _param_keys(path, shapes)
+        if keys is None:
+            return shares[0]
+        shape = shapes[keys]
+        return join_shares(shares, split_dim(keys, shape, world, cfg), world,
+                           fsdp_dim(keys, shape, data, world, cfg), data)
+
+    return join
+
+
+def snapshot_take(cfg, rank: int, world: int, data_rank: int = 0, data: int = 1):
+    """``take(path, whole)`` for ``checkpoint.ckpt.load_checkpoint``: grid
+    rank (``data_rank``, ``rank``)'s share of a snapshot's whole leaf
+    (``grid_take``); a leaf that is no param's as it is."""
+    shapes = _whole_shapes(cfg)
+
+    def take_share(path: str, whole: torch.Tensor) -> torch.Tensor:
+        keys = _param_keys(path, shapes)
+        if keys is None:
+            return whole
+        return grid_take(whole, keys, cfg, rank, world, data_rank, data)
+
+    return take_share

@@ -243,9 +243,15 @@ REFUSED = {
 
 @pytest.mark.parametrize("what", REFUSED)
 def test_what_a_model_group_does_not_run_raises(what):
+    """Each A.16 (e) case raises.  Cohort sharding no longer does (the grid,
+    tests/test_torch_fed_lm_grid.py): the engine passes the model group's
+    check and asks for the cohort's process group, which this process has
+    not got."""
     fed = replace(port_cfg(_ref_cfg("fedcm")), **REFUSED[what])
+    lifted = what == "cohort-shard"
     with registered():
-        with pytest.raises(NotImplementedError, match=r"A\.16 \(e\)"):
+        with pytest.raises(ValueError if lifted else NotImplementedError,
+                           match="spawn_cohort" if lifted else r"A\.16 \(e\)"):
             _engine(fed)
 
 

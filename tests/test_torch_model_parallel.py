@@ -35,10 +35,12 @@ from _torch_parity import LM_ATOL, LM_RTOL, assert_close
 from repro.configs.base import get_config as ref_get_config
 from repro.configs.base import reduced as ref_reduced
 from repro.models import build_model as ref_build_model
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, get_config, reduced
+from repro_torch.fleet.publisher import ModelPublisher
 from repro_torch.launch.mesh import spawn_cohort
 from repro_torch.launch import serve
 from repro_torch.models.layers import ParallelContext, kv_heads_of
+from repro_torch.models.model import build_model
 from repro_torch.models.transformer import init_params
 from repro_torch.sharding.rules import _keys, param_specs
 from repro_torch.sharding.shard import init_params_sharded, param_shapes, shard_params
@@ -256,11 +258,21 @@ def test_init_params_sharded_through_a_stage_device_is_the_same_share():
         assert a.device == b.device and torch.equal(a, b)
 
 
-@pytest.mark.parametrize("flags", [["--ckpt", "runs/pub"], ["--ckpt", "runs/pub", "--follow"]])
-def test_published_params_under_a_group_are_refused(flags):
-    args = serve.build_parser().parse_args(["--device", "cpu", "--model-parallel", "2", *flags])
-    with pytest.raises(NotImplementedError, match="A.16"):
-        serve.run_model_parallel(args, [])
+@pytest.mark.parametrize("flags", [["--ckpt", "{pub}"], ["--ckpt", "{pub}", "--follow"]])
+def test_published_params_under_a_group_are_refused(flags, tmp_path):
+    """No longer refused: a model group of 2 serves published params (each
+    rank its share of the version; ``--follow`` through the group's watch),
+    and its tokens are the unsharded server's."""
+    cfg = reduced(get_config("llama3.2-1b"))
+    ModelPublisher(str(tmp_path), retain=2).publish(
+        build_model(cfg).init(torch.Generator().manual_seed(4)), step=1)
+    argv = ["--device", "cpu", "--batch", "2", "--prompt-len", "8", "--gen", "4",
+            *[f.format(pub=tmp_path) for f in flags]]
+    one = serve.run(serve.build_parser().parse_args(argv))
+    argv += ["--model-parallel", "2"]
+    for res in serve.run_model_parallel(serve.build_parser().parse_args(argv), argv):
+        np.testing.assert_array_equal(res.tokens, one.tokens)
+        assert res.stats.served_version == 1
 
 
 SMALL = ["--device", "cpu", "--batch", "2", "--prompt-len", "12", "--gen", "6", "--seed", "3"]

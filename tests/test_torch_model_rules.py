@@ -14,7 +14,9 @@ are split part by part along the same dimension (``rules.Pieces``: a rank's
 z, x and dt columns, B's and C's whole), and the shared expert's MLP under
 ``moe`` (maverick), which the reference's ``"moe" in path`` rule splits
 along the stacked periods axis, is split over its hidden dimension like
-every MLP.
+every MLP.  ``rules.fsdp_dim`` is held the same way to the data-axis
+entry of the reference's ``mode="train"`` specs on a ``("data", "model")``
+mesh.
 """
 import pytest
 import torch
@@ -28,7 +30,8 @@ from repro.sharding.rules import _path_str
 from repro.sharding.rules import param_specs as ref_param_specs
 from repro_torch.configs.base import ARCH_IDS, get_config
 from repro_torch.sharding.rules import (
-    MAMBA_SPLIT_KEYS, Pieces, check_model_parallel, local_shape, param_specs, split_dim,
+    MAMBA_SPLIT_KEYS, Pieces, _keys, check_model_parallel, fsdp_dim, local_shape, param_specs,
+    split_dim,
 )
 from repro_torch.sharding.shard import param_shapes, share_bytes, take
 from repro_torch.utils.trees import tree_flatten_with_path
@@ -197,3 +200,46 @@ def test_share_bytes_of_the_full_width_runs(arch, world, gb):
 def test_share_bytes_count_b_and_c_whole_on_every_rank(arch, world):
     """The share of the new families at every group size, counted by hand."""
     assert share_bytes(get_config(arch), world) == _share_by_hand(get_config(arch), world)
+
+
+# ------------------------------------------------------------- the data axis
+GRIDS = ((2, 2), (16, 4), (8, 1))  # (data, model)
+
+
+def _ref_fsdp_dims(arch, data, model):
+    """The dimension of each leaf that the reference's ``mode="train"``
+    specs put on the data axis, on a shape-only ``("data", "model")`` mesh."""
+    cfg = ref_get_config(arch)
+    sds = jax.eval_shape(lambda: ref_build_model(cfg).init(jax.random.PRNGKey(0)))
+    specs = ref_param_specs(sds, cfg, FakeMesh({"data": data, "model": model}), mode="train")
+    out = {}
+    for path, spec in jax.tree_util.tree_flatten_with_path(
+            specs, is_leaf=lambda x: isinstance(x, P))[0]:
+        dims = [i for i, e in enumerate(spec) if e in ("data", ("data",))]
+        assert len(dims) <= 1
+        out[_path_str(path)] = dims[0] if dims else None
+    return out
+
+
+@pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_fsdp_dim_agrees_with_the_references_train_specs(arch, grid):
+    """``rules.fsdp_dim`` is the dimension the reference's train specs shard
+    over ``"data"``, leaf for leaf, under its divisibility guard; it is
+    ``d_model`` wherever it is not None, and never the model group's."""
+    data, model = grid
+    cfg = get_config(arch)
+    ref = _ref_fsdp_dims(arch, data, model)
+    shapes = param_shapes(cfg)
+    seen = 0
+    for p, leaf in tree_flatten_with_path(shapes)[0]:
+        keys, shape = _keys(p), tuple(leaf.shape)
+        dim = fsdp_dim(keys, shape, data, model, cfg)
+        assert dim == ref[_norm(p)], (p, dim, ref[_norm(p)])
+        if dim is not None:
+            seen += 1
+            assert shape[dim] == cfg.d_model, p
+            assert dim != split_dim(keys, shape, model, cfg), p
+    assert seen > 0
+    assert all(d is None for d in (fsdp_dim(_keys(p), tuple(leaf.shape), 1, model, cfg)
+                                   for p, leaf in tree_flatten_with_path(shapes)[0]))

@@ -342,10 +342,20 @@ def test_run_model_parallel_reports_every_rank():
 
 
 def test_snapshots_under_a_group_are_refused(tmp_path):
-    args = train.build_parser().parse_args(["--arch", "llama3.2-1b", *SMALL, "--model-parallel",
-                                            "2", "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match=r"A\.16 \(d\) 1"):
-        train.run(args)
+    """No longer refused: a model group's ``--ckpt-dir`` snapshot is the
+    unsharded layout, which an unsharded run resumes, its losses within
+    ``LM_RTOL`` of the group's straight run's."""
+    argv = ["--arch", "llama3.2-1b", *SMALL, "--ckpt-every", "2"]
+    group = train.run(train.build_parser().parse_args(
+        [*argv, "--model-parallel", "2", "--ckpt-dir", str(tmp_path / "g")]), echo=False)
+    (tmp_path / "u").mkdir()
+    (tmp_path / "u" / "step_2.msgpack").write_bytes((tmp_path / "g" / "step_2.msgpack")
+                                                    .read_bytes())
+    res = train.run(train.build_parser().parse_args([*argv, "--ckpt-dir", str(tmp_path / "u")]),
+                    echo=False)
+    assert res.start_step == 2 and len(res.losses) == 2
+    for a, b in zip(res.losses, group.losses[2:]):
+        assert_close(a, b, rtol=LM_RTOL, atol=LM_ATOL)
 
 
 def test_bad_model_parallel_flag_is_rejected():
