@@ -289,16 +289,48 @@ and ends with a ``clock:`` line (seconds since the script started):
    on the grid's first row (a model group of 2), llama3.2-1b at its
    published widths cut to one layer, vocabulary ``TRAIN_VOCAB``: version
    2 published after decode step 3, both ranks swap at the unsharded
-   server's step, with its tokens, one flash launch a rank (``--grid-only``
-   runs (i), (j) and 6c alone).  ``--nccl`` on four cards: (g) / (h) on
-   4-way model groups, then (k) starcoder2-7b trained whole on a 2 x 2
-   grid of cards (FSDP over data) and (l) llama3.2-1b federated at a
-   cohort of 8 on a 2 x 2 grid (``--groups-only``: (g)-(l) alone);
+   server's step, with its tokens, one flash launch a rank; 6d serving on
+   the same world's 2 x 2 and 4 x 1 grids (``GRID_SERVE``: zamba2-7b as one
+   mamba layer and the shared block, starcoder2-7b at 2 layers with its
+   window cut to 4, dbrx-132b at 1 layer with 4 experts of a quarter
+   width; vocabulary ``TRAIN_VOCAB``, bf16; ``GRID_SERVE_RUNS``): B 1
+   against a 16-deep cache the data ranks split into slabs (the prompt
+   across two, decode across a boundary, starcoder2's last step with one
+   valid slab), and B 4 split over the data rows in both ``serve_params``
+   layouts, each rank's share taken from the whole draw, 6 / 2
+   teacher-forced decode steps, against the unsharded model on the card on
+   the rows the rank serves (a MoE routes each data row's block at its own
+   capacity): every step's logits and every cache leaf (its heads, then
+   its slab) within ``LM_REL_L2``, logits byte for byte along each row (the
+   world where the sequence splits), the token written on exactly the
+   data rank whose slab holds it, three data-group ``all_reduce``s an
+   attention application a decode step where the sequence splits and none
+   where the batch does, a prefill's flash / SSD launches on each rank
+   (``--grid-only`` runs (i), (j), 6c and 6d alone, then, on 4 gloo ranks
+   sharing cuda:0, the witness of (m)'s gate, ``long_context_witness``:
+   zamba2-7b at published widths cut to 7 layers on (m)'s layouts, with
+   f32 activations within ``F32_REL_L2`` of the 1 x 4 group and in bf16
+   within ``LONG_REL_L2`` of it, its decode combining slabs that all hold
+   data; and a rehearsal of (n), cut to fit).  ``--nccl`` on four
+   cards: phase 4f (c), 6b's four-card serving (``MP_FULL``), then (m)
+   ``serve.run`` of zamba2-7b whole at ``--shape long_500k`` (B 1, a
+   524,288-deep cache, a 32,768-token prompt, 32 tokens, 2 sessions) on 1
+   x 4, 4 x 1 (``--serve-params replicated``) and 2 x 2 (``fsdp``), the
+   grids fed the 1 x 4 group's tokens and their logits within
+   ``LONG_REL_L2`` of its at every step, and (n) dbrx-132b at MP_FULL's 16
+   of 40 layers on 2 x 2 in the serve layout (expert banks FSDP over
+   data) fed MP_FULL's tokens, its relative L2 reported; each with prefill
+   and decode ms, peak and cache GB a rank (under ``CARD_BYTES``), flash /
+   SSD launches and data-group collectives a rank; then (g) / (h) on 4-way
+   model groups, (k) starcoder2-7b trained whole on a 2 x 2 grid of cards
+   (FSDP over data) and (l) llama3.2-1b federated at a cohort of 8 on a 2
+   x 2 grid (``--groups-only``: (g)-(l) alone);
 9. summary — the ``nvidia-smi`` line, one JSON line ``{"kernels": [...]}``
    (``flash_attention`` / ``ssd_scan`` launches summed over phase 6's
    serving runs, the federated kernels' those of the main path; beside
-   flash's and the SSD scan's, ``launches_by_path``: phase 6's count and
-   each rank's in phase 6b's worlds; for ``fed_direction`` and
+   flash's and the SSD scan's, ``launches_by_path``: phase 6's count,
+   each rank's in phase 6b's worlds, 6c's ranks' and 6d's (summed over a
+   grid's cases); for ``fed_direction`` and
    ``server_update``, ``launches_by_path``
    — the main path, phase 4g's runs (each user spec, the CNN), phase 8
    (c)'s card run and 8 (d), each its own count — and ``full_plane``, their times and bound at the federated LM's cohort
@@ -516,6 +548,69 @@ GRID_SERVE_ARGS = ["--arch", "llama3.2-1b", "--full", "--batch", "2", "--prompt-
                    "--gen", "8", "--follow"]
 GRID_SERVE_CUT = {"n_layers": 1, "vocab_size": TRAIN_VOCAB}
 GRID_PUBLISH_AFTER = 3
+GRID_SERVE_SEED = 13
+# (B, prompt, cache, steps, {grid: serve_params}): B 1 against a cache the
+# data ranks split (slabs of 4 on 4 x 1, 8 on 2 x 2): the prompt spans two
+# of 4 x 1's slabs, decode (positions 6-11) crosses a slab boundary on both
+# grids, and at position 11 starcoder2's window leaves one valid slab; B 4
+# split over the data rows, in both layouts on 2 x 2
+GRID_SERVE_RUNS = ((1, 6, 16, 6, {(2, 2): ("fsdp",), (4, 1): ("replicated",)}),
+                   (4, 6, 8, 2, {(2, 2): ("fsdp", "replicated"), (4, 1): ("replicated",)}))
+# the f32 case's: B 1 in the replicated layout alone (no data-group gathers
+# of its 3 GB through the host)
+GRID_SERVE_F32_RUNS = ((1, 6, 16, 6, {(2, 2): ("replicated",), (4, 1): ("replicated",)}),)
+# 6d: serving on the same world's grids, (name, arch, cut, runs): each case
+# at its published widths cut in depth, the vocabulary cut to TRAIN_VOCAB,
+# bf16 weights and activations unless cut says otherwise; zamba2 as one
+# mamba layer and the shared block (its 7 bf16 layers drift past LM_REL_L2
+# over a split of the SSD heads: 2.05e-2 of the SSM state), and its 7
+# layers in f32, held to F32_REL_L2; starcoder2's window cut to 4 so that
+# it empties slabs of a 16-deep cache, dbrx's 4 experts cut to a quarter of
+# their hidden width (their data-group gathers go through the host under
+# gloo)
+GRID_SERVE = (("zamba2-7b", "zamba2-7b", {"n_layers": 2, "attn_every": 2}, GRID_SERVE_RUNS),
+              ("zamba2-7b f32", "zamba2-7b",
+               {"n_layers": 7, "param_dtype": "float32", "dtype": "float32"},
+               GRID_SERVE_F32_RUNS),
+              ("starcoder2-7b", "starcoder2-7b", {"n_layers": 2, "sliding_window": 4},
+               GRID_SERVE_RUNS),
+              ("dbrx-132b", "dbrx-132b", {"n_layers": 1, "n_experts": 4, "d_ff": 2688},
+               GRID_SERVE_RUNS))
+# --nccl (m): zamba2-7b whole at long_500k's shape (B 1, a 524,288-deep
+# cache), a 32,768-token prompt (prefill_32k's length), 32 tokens, 2
+# sessions, on each (data, model, serve_params) layout; the 1 x 4 model
+# group (heads split over model, no data axis) first, the reference of the
+# others
+LONG_ARGS = ["--arch", "zamba2-7b", "--full", "--shape", "long_500k", "--prompt-len", "32768",
+             "--gen", "32", "--sessions", "2"]
+LONG_LAYOUTS = ((1, 4, "fsdp"), (4, 1, "replicated"), (2, 2, "fsdp"))
+# (n): dbrx-132b at MP_FULL's 16 of 40 layers, SERVE_ARGS, on 2 x 2 in the
+# serve layout (expert banks FSDP over data, the rest replicated over data),
+# against MP_FULL's 1 x 4 run
+MOE_GRID = (2, 2, "replicated")
+CARD_BYTES = 80e9
+# (m)'s logits against the 1 x 4 group's: bf16 activations round each
+# layout's sums in its own order, and that drift grows with depth.
+# --grid-only's witness (``long_context_witness``, NVIDIA H100 80GB HBM3,
+# 700.00 W) at 7 layers: with f32 activations 4 x 1 and 2 x 2 are within
+# 4.2e-6 / 2.8e-6 of 1 x 4, so the grids compute the group's function; in
+# bf16 every layout, 1 x 4 included, is 1.60e-2 from that f32 run, and the
+# grids 1.47e-2 / 1.51e-2 from bf16 1 x 4.  That is ~5e-2 at zamba2's 81
+# layers if it grows as the square root of depth (6.2e-2 / 6.3e-2 read on
+# four cards); LM_REL_L2 holds at one period.  A miss fails the run after
+# the later phases have run.
+LONG_REL_L2 = 1e-1
+# the witness: zamba2-7b at published widths cut to 7 layers (its f32
+# weights), B 1, a 1,024-token prompt and 4 tokens, 2 sessions, into a
+# 2,048-deep cache: slabs of 512 on 4 x 1 (the prompt fills two, decode
+# writes the third, the fourth stays empty) and of 1,024 on 2 x 2 (decode
+# writes the second), so the combine sums slabs that all hold data, where
+# (m)'s 32,768-token prompt and 32 tokens stay inside slab 0 of 131,072 /
+# 262,144
+WITNESS_ARGS = ["--arch", "zamba2-7b", "--full", "--batch", "1", "--cache-len", "2048",
+                "--prompt-len", "1024", "--gen", "4", "--sessions", "2"]
+WITNESS_CUT = {"n_layers": 7, "vocab_size": TRAIN_VOCAB}
+DEFERRED: list = []  # failures reported at the end of --nccl, after every phase ran
 # --nccl (k): ``launch/train.run`` of starcoder2-7b whole on a 2 x 2 grid of
 # cards (FSDP over data), phase (g)'s flags and seed; (l)
 # ``launch/federated_llm.run`` of llama3.2-1b as published on a 2 x 2 grid,
@@ -1409,10 +1504,11 @@ def model_group_kernels(torch, fa_kernel, fa_ref, ssd_kernel, ssd_ref, gen):
     return fa_cases, ssd_cases
 
 
-def mp_serve_rank(rank, device, arch, cut):
+def mp_serve_rank(rank, device, arch, cut, keep_logits=False):
     """A rank of the four-card runs: ``serve.run`` (``SERVE_ARGS``) on the
     model group, with the flash and SSD launch counts and the peak memory
-    reset just before and read just after."""
+    reset just before and read just after; with ``keep_logits`` rank 0's
+    sampled-from logits of every step (phase (n)'s reference)."""
     import torch
 
     from repro_torch.configs.base import get_config
@@ -1429,10 +1525,17 @@ def mp_serve_rank(rank, device, arch, cut):
     torch.cuda.reset_peak_memory_stats(device)
     fa_kernel.KERNEL.launches = 0
     ssd_kernel.KERNEL.launches = 0
+    logits = {}
+
+    def on_logits(s, i, lg):
+        if keep_logits and rank == 0:
+            logits[(s, i)] = lg.cpu().numpy()
+
     t0 = time.perf_counter()
-    res = serve.run(args, cfg=replace(get_config(arch), **cut), parallel=parallel)
+    res = serve.run(args, cfg=replace(get_config(arch), **cut), parallel=parallel,
+                    on_logits=on_logits)
     torch.cuda.synchronize(device)
-    return {"wall_s": time.perf_counter() - t0,
+    return {"wall_s": time.perf_counter() - t0, "logits": logits,
             "launches": {"flash_attention": fa_kernel.KERNEL.launches,
                          "ssd_scan": ssd_kernel.KERNEL.launches},
             "peak_bytes": torch.cuda.max_memory_allocated(device), "tokens": res.tokens,
@@ -1474,7 +1577,8 @@ def model_group_four_cards(torch, np, smi_line: str):
     ``serve.run``: tokens in range, finite and the same on every rank, the
     flash and SSD launches of ``mp_expected_launches`` a prefill on each
     rank (seamless serves one session); prefill (encode) and decode ms of
-    each session, the peak device memory of each rank."""
+    each session, the peak device memory of each rank.  Returns rank 0's
+    result of the MoE grid's reference (``MOE_GRID``'s arch, dbrx-132b)."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch.mesh import spawn_cohort
     from repro_torch.sharding.shard import share_bytes
@@ -1484,11 +1588,14 @@ def model_group_four_cards(torch, np, smi_line: str):
                          device="cuda", backend="nccl", timeout_s=120.0, deadline_s=300.0)
     say(f"nccl all_reduce on {MP_FULL_RANKS} cards, bf16, ms a call (rank 0; 50 calls after 5 "
         f"warm-up): {json.dumps(probe[0])}; {smi_line}")
+    moe_reference = None
     for arch, cut in MP_FULL:
         cfg = replace(get_config(arch), **cut)
         t0 = time.perf_counter()
-        ranks = spawn_cohort(mp_serve_rank, MP_FULL_RANKS, args=(arch, cut), device="cuda",
-                             backend="nccl", timeout_s=600.0, deadline_s=1500.0)
+        ranks = spawn_cohort(mp_serve_rank, MP_FULL_RANKS, args=(arch, cut, arch == "dbrx-132b"),
+                             device="cuda", backend="nccl", timeout_s=600.0, deadline_s=1500.0)
+        if arch == "dbrx-132b":
+            moe_reference = ranks[0]
         wall = time.perf_counter() - t0
         toks = ranks[0]["tokens"]
         sessions = 1 if cfg.is_encoder_decoder else 2
@@ -1517,6 +1624,7 @@ def model_group_four_cards(torch, np, smi_line: str):
                 "collectives_rank0": ranks[0]["counts"],
                 "run_s_per_rank": [g["wall_s"] for g in ranks], "wall_s": wall,
                 "first_tokens": toks[0, :8].tolist()}) + f"; {smi_line}")
+    return moe_reference
 
 
 # ---------------------------------------------------------------------- phase 7
@@ -2575,6 +2683,412 @@ def grid_serve_case(torch, parallel, device, work):
             "prefill_ms": [t * 1e3 for t in res.prefill_s]}
 
 
+def serve_grid_cfg(arch, cut):
+    """Phase 6d's config of ``arch``: bf16 weights, ``TRAIN_VOCAB``, cut by ``cut``."""
+    from repro_torch.configs.base import get_config
+
+    return replace(get_config(arch), **{"param_dtype": "bfloat16", "vocab_size": TRAIN_VOCAB,
+                                        **cut})
+
+
+def serve_grid_drive(torch, model, params, toks, prompt: int, steps: int, cache_len: int,
+                     batch: int, parallel=None):
+    """A session of phase 6d: prefill ``toks[:, :prompt]`` into a cache of
+    ``cache_len`` positions (``batch``: the served batch, the rows of
+    ``toks`` unsharded) and decode ``steps`` tokens fed the next ones of
+    ``toks``.  Returns the last position's logits of the prefill and of each
+    step and the cache leaves after the prefill and after the last step
+    (f32 numpy, with the last key of each leaf's path), and for each step
+    whether the first attention K leaf changed and the ``all_reduce``s of
+    the data group."""
+    from repro_torch.launch.serve import merge_prefill
+    from repro_torch.sharding.rules import _keys
+    from repro_torch.utils.trees import tree_flatten_with_path
+
+    def leaves(cache):
+        return [(_keys(p)[-1], x.float().cpu().numpy())
+                for p, x in tree_flatten_with_path(cache)[0]]
+
+    t = torch.as_tensor(toks, device=params["embed"].device)
+    logits, pre, _ = model.apply(params, t[:, :prompt], return_cache=True, parallel=parallel)
+    cache = merge_prefill(model.init_cache(params, batch, cache_len, parallel), pre, parallel)
+    del pre
+    out = {"logits": [logits[:, -1].float().cpu().numpy()], "written": [], "combines": [],
+           "cache_prefill": leaves(cache)}
+    first_k = next((x for p, x in tree_flatten_with_path(cache)[0] if _keys(p)[-1] == "k"), None)
+    for i in range(prompt, prompt + steps):
+        before = None if first_k is None else first_k.clone()
+        n0 = 0 if parallel is None else parallel.counts["data_all_reduce"]
+        lg, cache = model.decode_step(params, t[:, i:i + 1], cache, i, parallel)
+        out["logits"].append(lg[:, -1].float().cpu().numpy())
+        out["written"].append(None if first_k is None else bool((first_k != before).any()))
+        out["combines"].append(0 if parallel is None else parallel.counts["data_all_reduce"] - n0)
+    out["cache"] = leaves(cache)
+    return out
+
+
+def serve_grid_blocks(batch: int):
+    """The row blocks ``(lo, n)`` phase 6d's oracles serve: the whole batch
+    where no grid of ``GRID_SHAPES`` splits it, else each data row's block
+    on each grid."""
+    blocks = {(0, batch)}
+    for D, _ in GRID_SHAPES:
+        if batch % D == 0:
+            blocks |= {(d * batch // D, batch // D) for d in range(D)}
+    return sorted(blocks)
+
+
+def serve_grid_unsharded(torch, np, work, device):
+    """Phase 6d's oracles, once, in the parent: for each case of
+    ``GRID_SERVE`` and each of its runs the unsharded model on the card
+    (``GRID_SERVE_SEED``'s draw) serving each row block of
+    ``serve_grid_blocks`` alone (a MoE routes each block at its own
+    capacity), saved to ``work / "serve_<name>_B<B>_<lo>_<n>.pt"``."""
+    from repro_torch.models.model import build_model
+
+    for name, arch, cut, runs in GRID_SERVE:
+        cfg = serve_grid_cfg(arch, cut)
+        model = build_model(cfg)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(GRID_SERVE_SEED)
+        params = model.init(gen)
+        for B, prompt, cache_len, steps, _ in runs:
+            toks = np.random.default_rng(GRID_SERVE_SEED).integers(0, cfg.vocab_size,
+                                                                   size=(B, prompt + steps))
+            for lo, n in serve_grid_blocks(B):
+                got = serve_grid_drive(torch, model, params, toks[lo:lo + n], prompt, steps,
+                                       cache_len, n)
+                torch.save(got, work / f"serve_{name}_B{B}_{lo}_{n}.pt")
+        del params
+    torch.cuda.empty_cache()
+
+
+def serve_grid_case(torch, grids, device, work):
+    """Phase 6d in one rank of the grid world: for each case of
+    ``GRID_SERVE``, its whole draw on the card (``GRID_SERVE_SEED``) and, on
+    each grid and layout of its runs, this rank's share of it
+    (``grid_take``, the ``serve_params`` layout) served by
+    ``serve_grid_drive`` on the grid's serving context, with the kernels'
+    launch counts read just before and just after.  Each run against its
+    oracle (``serve_grid_unsharded``, read from ``work``): the relative L2
+    of every step's logits, and of each cache leaf after the prefill and
+    after the last step against its part of the oracle's (the rank's kv or
+    SSD heads, then its slab where the sequence splits).  Returns those, a
+    digest of the logits, the written flags and data-group ``all_reduce``s
+    of each step, the launches and the share's bytes."""
+    import hashlib
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.kernels import launch_counts, launches_since
+    from repro_torch.launch.steps import Knobs, make_parallel, param_mode
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.rules import _keys, row_block, seq_slab
+    from repro_torch.sharding.shard import grid_take, param_shapes
+    from repro_torch.utils.trees import tree_flatten_with_path, tree_unflatten
+
+    rank = dist.get_rank()
+    rows = []
+    for name, arch, cut, runs in GRID_SERVE:
+        cfg = serve_grid_cfg(arch, cut)
+        model = build_model(cfg)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(GRID_SERVE_SEED)
+        whole = tree_flatten_with_path(model.init(gen))
+        keys = [_keys(p) for p, _ in tree_flatten_with_path(param_shapes(cfg))[0]]
+        for B, prompt, cache_len, steps, layouts in runs:
+            toks = np.random.default_rng(GRID_SERVE_SEED).integers(0, cfg.vocab_size,
+                                                                   size=(B, prompt + steps))
+            for (D, M), modes in layouts.items():
+                m, d = rank % M, rank // M
+                for serve_params in modes:
+                    knobs = Knobs(serve_params=serve_params)
+                    mode = param_mode(knobs)
+                    parallel = make_parallel(*grids[(D, M)], cfg=cfg, knobs=knobs, batch=B)
+                    share = tree_unflatten(whole[1], [grid_take(t, k, cfg, m, M, d, D, mode=mode)
+                                                      for (_, t), k in zip(whole[0], keys)])
+                    lo, n = row_block(B, D, d) if not parallel.seq_split else (0, B)
+                    before = launch_counts()
+                    got = serve_grid_drive(torch, model, share, toks[lo:lo + n], prompt, steps,
+                                           cache_len, B, parallel)
+                    launches = launches_since(before)
+                    want = torch.load(work / f"serve_{name}_B{B}_{lo}_{n}.pt", weights_only=False)
+                    logit_rel = [rel_l2_host(torch, a, b)
+                                 for a, b in zip(got["logits"], want["logits"])]
+                    cache_rel = {}
+                    for when in ("cache_prefill", "cache"):
+                        for (key, a), (_, b) in zip(got[when], want[when]):
+                            part = mp_cache_part(np, key, b, cfg, m, M)
+                            if parallel.seq_split and key in ("k", "v"):
+                                s0, sn = seq_slab(cache_len, D, d)
+                                part = part[:, :, s0:s0 + sn]
+                            if a.shape != part.shape:
+                                cache_rel[f"{when} {key}"] = float("inf")
+                                continue
+                            rel = rel_l2_host(torch, a, part) if np.abs(part).max() else \
+                                float(np.abs(a).max())
+                            cache_rel[f"{when} {key}"] = max(cache_rel.get(f"{when} {key}", 0.0),
+                                                             rel)
+                    rows.append({
+                        "case": name, "B": B, "grid": [D, M], "serve_params": serve_params,
+                        "seq_split": parallel.seq_split, "rows": [lo, n],
+                        "logits_max_rel_l2": max(logit_rel), "cache_max_rel_l2": cache_rel,
+                        "digest": hashlib.sha1(b"".join(x.tobytes() for x in got["logits"]))
+                        .hexdigest(), "written": got["written"], "combines": got["combines"],
+                        "launches": {k: launches[k] for k in ("flash_attention", "ssd_scan")},
+                        "other_launches": sum(v for k, v in launches.items()
+                                              if k not in ("flash_attention", "ssd_scan")),
+                        "data_all_gather": parallel.counts["data_all_gather"],
+                        "share_bytes": sum(t.numel() * t.element_size()
+                                           for t in tree_leaves_of(share)),
+                        "finite": all(np.isfinite(x).all() for x in got["logits"])})
+                    del share, got
+        del whole
+        torch.cuda.empty_cache()
+    return rows
+
+
+def tree_leaves_of(tree):
+    from repro_torch.utils.trees import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def serve_grid_checks(np, ranks, smi_line: str) -> dict:
+    """Phase 6d's bounds over the world's results (each rank's list of
+    ``serve_grid_case`` rows, in the same order): every step's logits and
+    every cache leaf within ``LM_REL_L2`` of the oracle (``F32_REL_L2`` in
+    f32); the logits byte for
+    byte equal on the ranks that serve the same rows (a model row, or the
+    world where the sequence splits); where the sequence splits the token
+    written on exactly the data rank whose slab holds its position and
+    three ``all_reduce``s over the data group an attention application a
+    step, elsewhere none; a prefill's flash / SSD launches on each rank,
+    and no other kernel; no data-group gather of a leaf outside ``moe`` in
+    the replicated layout.  Returns the launches by path."""
+    from repro_torch.models.transformer import period_layout
+    from repro_torch.sharding.rules import seq_slab
+
+    by_path = {}
+    for i, first in enumerate(ranks[0]):
+        rows = [r[i] for r in ranks]
+        D, M = first["grid"]
+        _, arch, cut, runs = next(c for c in GRID_SERVE if c[0] == first["case"])
+        cfg = serve_grid_cfg(arch, cut)
+        limit = F32_REL_L2 if cfg.dtype == "float32" else LM_REL_L2
+        slots, n_periods, tail = period_layout(cfg)
+        n_attn = [s.kind for s in slots].count("attn") * n_periods
+        B, prompt, cache_len, steps, _ = next(r for r in runs if r[0] == first["B"])
+        expected = mp_expected_launches(cfg)
+        what = f"{first['case']} B {first['B']} on {D} x {M} ({first['serve_params']})"
+        for r, got in enumerate(rows):
+            same = rows[0] if first["seq_split"] else rows[r - r % M]
+            if not (got["finite"] and got["logits_max_rel_l2"] <= limit
+                    and max(got["cache_max_rel_l2"].values()) <= limit):
+                fail(f"serving on a grid, {what}: rank {r}: {json.dumps(got)}")
+            if got["digest"] != same["digest"]:
+                fail(f"serving on a grid, {what}: rank {r}'s logits differ from its row's")
+            if got["launches"] != expected or got["other_launches"]:
+                fail(f"serving on a grid, {what}: rank {r} launched {got['launches']} "
+                     f"(+{got['other_launches']} others), expected {expected}")
+            if got["combines"] != [3 * n_attn if got["seq_split"] else 0] * steps:
+                fail(f"serving on a grid, {what}: rank {r}'s data-group all_reduces a step "
+                     f"{got['combines']}")
+            if got["serve_params"] == "replicated" and not cfg.n_experts and got["data_all_gather"]:
+                fail(f"serving on a grid, {what}: rank {r} gathered over data in the replicated "
+                     f"layout")
+        for s in range(steps):
+            for m in range(M):
+                writers = [d for d in range(D) if rows[d * M + m]["written"][s]]
+                want = ([(prompt + s) // seq_slab(cache_len, D, 0)[1]] if first["seq_split"]
+                        else list(range(D)))
+                if n_attn and writers != want:
+                    fail(f"serving on a grid, {what}: step {s} written on data ranks {writers}, "
+                         f"expected {want}")
+        say(f"serving on a grid ({GRID_RANKS} gloo ranks sharing cuda:0), phase 6d: " + json.dumps({
+            "case": first["case"], "cut": cut, "B": B,
+            "prompt": prompt, "cache": cache_len, "steps": steps, "grid": [D, M],
+            "serve_params": first["serve_params"], "split": "sequence" if first["seq_split"]
+            else "batch", "logits_max_rel_l2": max(g["logits_max_rel_l2"] for g in rows),
+            "cache_max_rel_l2": max(max(g["cache_max_rel_l2"].values()) for g in rows),
+            "limit": limit, "launches_per_rank": [g["launches"] for g in rows],
+            "data_all_reduce_a_step": first["combines"][0],
+            "data_all_gather_rank0": first["data_all_gather"],
+            "share_bytes_per_rank": [g["share_bytes"] for g in rows]}) + f"; {smi_line}")
+        for r, got in enumerate(rows):
+            key = f"serve_grid_{D}x{M}_rank{r}"
+            for k, v in got["launches"].items():
+                by_path.setdefault(k, {}).setdefault(key, 0)
+                by_path[k][key] += v
+    return by_path
+
+
+def serve_grid_rank(rank, device, argv, D, M, serve_params, cut, feed, keep_logits):
+    """A rank of phases (m) and (n): ``serve.run`` of ``argv`` on a ``D`` ×
+    ``M`` grid (``serve.grid_context``; the model group at D = 1) in the
+    ``serve_params`` layout, its config cut by ``cut``, fed ``feed`` (the
+    reference layout's tokens) when given; the flash and SSD launch counts
+    and the peak memory reset just before and read just after, the cache's
+    bytes on this rank, the data group's collectives, and with
+    ``keep_logits`` rank 0's sampled-from logits of every step."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    args = serve.build_parser().parse_args([*argv, "--data-parallel", str(D), "--model-parallel",
+                                            str(M), "--serve-params", serve_params])
+    args.device = str(device)
+    cfg = replace(get_config(args.arch), **cut)
+    parallel = serve.grid_context(args, cfg)
+    shaped = serve.with_shape(args)
+    cache_len = shaped.cache_len or shaped.prompt_len + shaped.gen
+    meta = transformer.init_cache(cfg, shaped.batch, cache_len, device="meta", parallel=parallel)
+    logits = {}
+
+    def on_logits(s, i, lg):
+        if keep_logits and rank == 0:
+            logits[(s, i)] = lg.cpu().numpy()
+
+    torch.cuda.reset_peak_memory_stats(device)
+    fa_kernel.KERNEL.launches = 0
+    ssd_kernel.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    res = serve.run(args, cfg=cfg, parallel=parallel, on_logits=on_logits, feed=feed)
+    torch.cuda.synchronize(device)
+    return {"wall_s": time.perf_counter() - t0,
+            "launches": {"flash_attention": fa_kernel.KERNEL.launches,
+                         "ssd_scan": ssd_kernel.KERNEL.launches},
+            "peak_bytes": torch.cuda.max_memory_allocated(device), "tokens": res.tokens,
+            "finite": res.finite, "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+            "cache_bytes": sum(t.numel() * t.element_size() for t in tree_leaves_of(meta)),
+            "counts": dict(parallel.counts), "seq_split": parallel.seq_split,
+            "logits": logits}
+
+
+def serve_share_gb(arch, cut, data: int, model: int) -> float:
+    """A rank's share of ``arch`` cut by ``cut`` in GB: on ``model`` ranks,
+    or on a ``data`` × ``model`` grid in the serve layout."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.sharding.shard import share_bytes
+
+    return share_bytes(replace(get_config(arch), **cut), model, data, "serve") / 1e9
+
+
+def serve_grid_layouts(torch, np, smi_line: str, argv, layouts, cut, *, device="cuda",
+                       backend="nccl", name="long context", reference=None,
+                       limit=LM_REL_L2):
+    """Phases (m) and (n): ``argv`` served by ``serve_grid_rank`` on each
+    ``(D, M, serve_params)`` of ``layouts`` in turn, a world of four ranks
+    each (``backend``: NCCL, one card a rank; gloo ranks sharing cuda:0 in
+    ``--grid-only``'s witness and rehearsal).  The first layout (or
+    ``reference``, an earlier run's rank-0 result) is the reference: the
+    others are fed its tokens, and every step's logits of rank 0 are held to
+    its, within ``limit`` relative L2 (None: reported, not gated).  Gated on
+    every layout: finite logits, the tokens equal on the ranks that serve
+    the same rows, a prefill's flash / SSD launches on each rank, where the
+    sequence splits three data-group ``all_reduce``s an attention
+    application a decode step, and a peak under ``CARD_BYTES`` a rank.
+    Returns the launches by path and each layout's rank-0 result."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import spawn_cohort
+    from repro_torch.models.transformer import period_layout
+
+    args = serve.with_shape(serve.build_parser().parse_args(argv))
+    cfg = replace(get_config(args.arch), **cut)
+    slots, n_periods, tail = period_layout(cfg)
+    n_attn = [s.kind for s in slots].count("attn") * n_periods
+    expected = {k: v * args.sessions for k, v in mp_expected_launches(cfg).items()}
+    decode_steps = args.sessions * (args.gen - 1)
+    by_path, firsts = {}, []
+    for D, M, serve_params in layouts:
+        t0 = time.perf_counter()
+        ranks = spawn_cohort(serve_grid_rank, D * M, args=(
+            argv, D, M, serve_params, cut, None if reference is None else reference["tokens"],
+            True), device=device, backend=backend, timeout_s=900.0, deadline_s=1500.0)
+        wall = time.perf_counter() - t0
+        first = ranks[0]
+        what = f"{name} {cfg.name} on {D} x {M} ({serve_params})"
+        for r, got in enumerate(ranks):
+            same = ranks[0] if (got["seq_split"] or D == 1) else ranks[r - r % M]
+            if not got["finite"] or not np.array_equal(got["tokens"], same["tokens"]):
+                fail(f"{what}: rank {r}'s logits non-finite or its tokens differ from its row's")
+            if got["launches"] != expected:
+                fail(f"{what}: rank {r} launched {got['launches']}, expected {expected}")
+            combines = got["counts"]["data_all_reduce"]
+            if combines != (3 * n_attn * decode_steps if got["seq_split"] else 0):
+                fail(f"{what}: rank {r} ran {combines} data-group all_reduces over "
+                     f"{decode_steps} decode steps")
+            if got["peak_bytes"] >= CARD_BYTES:
+                fail(f"{what}: rank {r}'s peak {got['peak_bytes']} B")
+        rels = None if reference is None else logit_gaps(torch, first, reference)
+        if rels is not None:
+            if limit is not None and not max(rels) <= limit:
+                DEFERRED.append(f"{what}: logits against the reference layout's, relative L2 "
+                                f"{rels}")
+        row = {"layout": [D, M], "serve_params": serve_params, "B": args.batch,
+               "cache_len": args.cache_len or args.prompt_len + args.gen,
+               "prompt": args.prompt_len, "gen": args.gen,
+               "split": "sequence" if first["seq_split"] else ("batch" if D > 1 else "none"),
+               "prefill_ms": [[g["prefill_s"][s] * 1e3 for s in range(args.sessions)]
+                              for g in ranks],
+               "decode_ms_a_step": [[g["decode_s"][s] * 1e3 / (args.gen - 1)
+                                     for s in range(args.sessions)] for g in ranks],
+               "peak_gb_per_rank": [g["peak_bytes"] / 1e9 for g in ranks],
+               "cache_gb_per_rank": [g["cache_bytes"] / 1e9 for g in ranks],
+               "launches_per_rank": [g["launches"] for g in ranks],
+               "data_all_reduce_a_step": first["counts"]["data_all_reduce"] / decode_steps,
+               "data_all_gather_a_forward": first["counts"]["data_all_gather"] / (
+                   decode_steps + args.sessions),
+               "max_rel_l2_vs_reference": None if rels is None else max(rels),
+               "rel_l2_limit": limit, "wall_s": wall}
+        say(f"{name}: {json.dumps(row)}; {smi_line}")
+        if reference is None:
+            reference = first
+        firsts.append(first)
+        for r, got in enumerate(ranks):
+            by_path[f"{name.replace(' ', '_')}_{D}x{M}_rank{r}"] = got["launches"]
+    return by_path, firsts
+
+
+def logit_gaps(torch, got, want) -> list:
+    """The relative L2 of each step's rank-0 logits of ``got`` against
+    ``want``'s (two ``serve_grid_rank`` results fed the same tokens)."""
+    return [rel_l2_host(torch, got["logits"][k], want["logits"][k][:len(got["logits"][k])])
+            for k in sorted(got["logits"])]
+
+
+def long_context_witness(torch, np, smi_line: str):
+    """``--grid-only``'s witness of (m)'s gate, on 4 gloo ranks sharing
+    cuda:0: ``WITNESS_ARGS`` served by ``serve_grid_layouts`` on each layout
+    of ``LONG_LAYOUTS``, first with f32 activations (the 1 x 4 group the
+    reference, the grids within ``F32_REL_L2`` of it at every step), then
+    in bf16 as (m) serves it, each layout against that f32 run (reported)
+    and the grids against the bf16 1 x 4 group, within ``LONG_REL_L2``."""
+    _, f32 = serve_grid_layouts(torch, np, smi_line, WITNESS_ARGS, LONG_LAYOUTS,
+                                {**WITNESS_CUT, "dtype": "float32"}, backend="gloo",
+                                name="long context witness f32", limit=F32_REL_L2)
+    _, bf16 = serve_grid_layouts(torch, np, smi_line, WITNESS_ARGS, LONG_LAYOUTS, WITNESS_CUT,
+                                 backend="gloo", name="long context witness bf16",
+                                 reference=f32[0], limit=None)
+    row = {}
+    for (D, M, _), got in zip(LONG_LAYOUTS, bf16):
+        row[f"{D}x{M}"] = {"bf16_vs_f32_1x4": max(logit_gaps(torch, got, f32[0])),
+                           "bf16_vs_bf16_1x4": max(logit_gaps(torch, got, bf16[0]))}
+    say(f"long context witness ({WITNESS_CUT['n_layers']} layers, relative L2 of the logits, "
+        f"the largest over the steps): {json.dumps(row)}; limit {LONG_REL_L2}; {smi_line}")
+    if not max(r["bf16_vs_bf16_1x4"] for r in row.values()) <= LONG_REL_L2:
+        fail(f"long context witness: a bf16 grid past LONG_REL_L2 of the bf16 1 x 4 group: "
+             f"{json.dumps(row)}")
+
+
 def plane_digest(a) -> str:
     """A hash of a numpy plane's bytes."""
     import hashlib
@@ -2583,7 +3097,7 @@ def plane_digest(a) -> str:
 
 
 def grid_rank(rank, device, draws, work):
-    """A rank of phases 8 (i), (j) and 6c on one card."""
+    """A rank of phases 8 (i), (j), 6c and 6d on one card."""
     import torch
     import torch.distributed as dist
 
@@ -2610,7 +3124,10 @@ def grid_rank(rank, device, draws, work):
         else None
     dist.barrier()
     laps["serve"] = time.perf_counter() - t0 - sum(laps.values())
-    return {"train": train, "fed": fed, "serve": served, "laps_s": laps}
+    torch.cuda.empty_cache()
+    serve_grid = serve_grid_case(torch, grids, device, work)
+    laps["serve_grid"] = time.perf_counter() - t0 - sum(laps.values())
+    return {"train": train, "fed": fed, "serve": served, "serve_grid": serve_grid, "laps_s": laps}
 
 
 def group_world_one_card(torch, body, n: int, args, device):
@@ -2626,10 +3143,10 @@ def group_world_one_card(torch, body, n: int, args, device):
 
 
 def grid_setup(torch, np, device="cuda"):
-    """The work directory of phases 8 (i), (j) and 6c, with version 1 of
+    """The work directory of phases 8 (i), (j), 6c and 6d, with version 1 of
     6c's model published in two directories (the group's and the unsharded
-    server's) and 8 (i)'s unsharded steps (``grid_unsharded``);
-    ``grid_rank``'s arguments."""
+    server's), 8 (i)'s unsharded steps (``grid_unsharded``) and 6d's
+    oracles (``serve_grid_unsharded``); ``grid_rank``'s arguments."""
     import shutil
 
     from repro_torch.configs.base import get_config
@@ -2646,13 +3163,15 @@ def grid_setup(torch, np, device="cuda"):
         ModelPublisher(str(work / name), retain=2).publish(first, step=1)
     del first
     grid_unsharded(torch, work, device)
+    serve_grid_unsharded(torch, np, work, device)
     return fed_lm_draws(np)[2], work
 
 
 def both_group_worlds_one_card(torch, np, smi_line: str, device="cuda"):
-    """Phases 8 (e)–(f) and 8 (i), (j), 6c: their two worlds of gloo ranks
-    sharing cuda:0 run at once (2 and 4 ranks), then each phase's checks.
-    Returns the launches by path of (f), (j) and 6c."""
+    """Phases 8 (e)–(f) and 8 (i), (j), 6c, 6d: their two worlds of gloo
+    ranks sharing cuda:0 run at once (2 and 4 ranks), then each phase's
+    checks.  Returns the launches by path of (f) and (j), and of 6c and 6d
+    by kernel."""
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
@@ -2663,7 +3182,7 @@ def both_group_worlds_one_card(torch, np, smi_line: str, device="cuda"):
         grid = pool.submit(group_world_one_card, torch, grid_rank, GRID_RANKS, grid_args,
                            device)
         group, grid = group.result(), grid.result()
-    say(f"phases 8 (e)-(f) and 8 (i)-(j), 6c: their worlds at once in "
+    say(f"phases 8 (e)-(f) and 8 (i)-(j), 6c, 6d: their worlds at once in "
         f"{time.perf_counter() - t0:.1f} s (the worlds {group[1]:.1f} / {grid[1]:.1f} s)")
     by_path = model_group_training_one_card(torch, np, smi_line, device, world=group)
     grid_fed, grid_serve = grid_one_card(torch, np, smi_line, device, world=grid,
@@ -2688,10 +3207,11 @@ def grid_one_card(torch, np, smi_line: str, device="cuda", world=None, work=None
     K ``fed_direction`` launches a round on its ``(C_loc, P_r)`` plane and
     one ``server_update`` on its column block.  6c: both ranks swap to
     version 2 at the same step as the unsharded server, with its tokens,
-    and launch ``flash_attention`` in their prefill.  ``world`` is the
-    world's ranks' results and wall seconds when the caller ran it on
-    ``work`` (``grid_setup``).  Returns the launches by path of (j) and
-    6c."""
+    and launch ``flash_attention`` in their prefill.  6d: serving on both
+    grids against the unsharded model (``serve_grid_checks``).  ``world``
+    is the world's ranks' results and wall seconds when the caller ran it on
+    ``work`` (``grid_setup``).  Returns the launches by path of (j), and of
+    6c and 6d by kernel."""
     import shutil
 
     from repro_torch.checkpoint.ckpt import _map_with_paths, flatten_with_paths, save_checkpoint
@@ -2713,7 +3233,7 @@ def grid_one_card(torch, np, smi_line: str, device="cuda", world=None, work=None
     ranks, wall = world
     laps = {arch: {k: v if isinstance(v, float) else v["s_with_checks"] for k, v in t.items()}
             for (arch, _), t in zip(GRID_TRAIN, ranks[0]["train"])}
-    say(f"phases 8 (i), 8 (j), 6c: the world {wall:.1f} s; rank 0's laps "
+    say(f"phases 8 (i), 8 (j), 6c, 6d: the world {wall:.1f} s; rank 0's laps "
         f"{json.dumps(ranks[0]['laps_s'])}; of each arch's, reading the unsharded steps and each "
         f"grid's steps with their checks {json.dumps(laps)}")
     # (i)
@@ -2836,14 +3356,17 @@ def grid_one_card(torch, np, smi_line: str, device="cuda", world=None, work=None
                  f"{g['versions']} (unsharded: {plain.stats.swap_steps}) or its tokens differ")
         if g["launches"]["flash_attention"] != GRID_SERVE_CUT["n_layers"]:
             fail(f"serve --ckpt --follow on a group: rank {r} launches {g['launches']}")
+    serve_paths = serve_grid_checks(np, [r["serve_grid"] for r in ranks], smi_line)
+    serve_paths.setdefault("flash_attention", {}).update(
+        {f"serve_ckpt_group_rank{r}": g["launches"]["flash_attention"]
+         for r, g in enumerate(served)})
     shutil.rmtree(work)
     torch.cuda.empty_cache()
-    say(f"phases 8 (i), 8 (j) and 6c: the world {wall:.1f} s, then the snapshot's join "
-        f"{t_join:.1f} s, the unsharded round {t_fed:.1f} s, the unsharded server "
-        f"{time.perf_counter() - t0 - t_join - t_fed:.1f} s")
+    say(f"phases 8 (i), 8 (j), 6c and 6d: the world {wall:.1f} s, then the snapshot's join "
+        f"{t_join:.1f} s, the unsharded round {t_fed:.1f} s, the unsharded server and 6d's "
+        f"checks {time.perf_counter() - t0 - t_join - t_fed:.1f} s")
     return ({f"fed_lm_grid_rank{r}": f["launches"] for r, f in enumerate(fed_rows)},
-            {f"serve_ckpt_group_rank{r}": g["launches"]["flash_attention"]
-             for r, g in enumerate(served)})
+            serve_paths)
 
 
 def grid_train_four_cards(torch, np, smi_line: str, g_run):
@@ -4535,11 +5058,29 @@ def main() -> int:
         if torch.cuda.device_count() < MP_FULL_RANKS:
             fail(f"--nccl runs the model group on {MP_FULL_RANKS} cards; "
                  f"{torch.cuda.device_count()} visible")
+        four_card_paths = {}
         if "--groups-only" not in sys.argv[1:]:
             cohort_sharding(torch, np, su_kernel, smi_line, nccl_only=True)
             lap("4f (c)")
-            model_group_four_cards(torch, np, smi_line)
+            moe_reference = model_group_four_cards(torch, np, smi_line)
             lap("6b (nccl)")
+            # (m): zamba2-7b at long_500k's cache on 1 x 4, 4 x 1 and 2 x 2
+            paths, _ = serve_grid_layouts(torch, np, smi_line, LONG_ARGS, LONG_LAYOUTS, {},
+                                          name="long context", limit=LONG_REL_L2)
+            four_card_paths.update(paths)
+            lap("(m)")
+            # (n): dbrx-132b (16 of 40) on 2 x 2 in the serve layout against MP_FULL's 1 x 4
+            paths, _ = serve_grid_layouts(
+                torch, np, smi_line, ["--arch", "dbrx-132b", *SERVE_ARGS], (MOE_GRID,),
+                dict(MP_FULL)["dbrx-132b"], name="moe grid", reference=moe_reference,
+                limit=None)
+            four_card_paths.update(paths)
+            cut = dict(MP_FULL)["dbrx-132b"]
+            say(f"dbrx-132b (16 of 40) a rank's share: the serve layout on 2 x 2 "
+                f"{serve_share_gb('dbrx-132b', cut, 2, 2):.2f} GB, the model group of 4 "
+                f"{serve_share_gb('dbrx-132b', cut, 1, 4):.2f} GB")
+            lap("(n)")
+            say("four-card serving launches by path: " + json.dumps(four_card_paths))
         torch.cuda.empty_cache()
         g_run = group_train_four_cards(torch, np, smi_line)
         lap("8 (g)")
@@ -4550,6 +5091,8 @@ def main() -> int:
         lap("8 (k)")
         grid_fed_four_cards(torch, np, smi_line, h_run)
         lap("8 (l)")
+        if DEFERRED:
+            fail("; ".join(DEFERRED))
         for line in smi.stdout.strip().splitlines():
             say(line)
         say(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -4557,9 +5100,19 @@ def main() -> int:
                                                "count": torch.cuda.device_count()}}))
         return 0
 
-    if "--grid-only" in sys.argv[1:]:  # phases 8 (i), (j) and 6c alone, on one card
+    if "--grid-only" in sys.argv[1:]:  # phases 8 (i), (j), 6c and 6d alone, on one card
         grid_one_card(torch, np, smi_line)
-        lap("8 (i)-(j), 6c")
+        lap("8 (i)-(j), 6c, 6d")
+        # the witness of (m)'s gate, and a rehearsal of (n), on 4 gloo ranks sharing cuda:0
+        long_context_witness(torch, np, smi_line)
+        serve_grid_layouts(torch, np, smi_line, ["--arch", "dbrx-132b", *SERVE_ARGS[:-4],
+                                                 "--gen", "4", "--sessions", "1"],
+                           ((1, 4, "fsdp"), MOE_GRID),
+                           {"n_layers": 2, "n_experts": 4, "vocab_size": TRAIN_VOCAB},
+                           backend="gloo", name="moe grid rehearsal", limit=None)
+        lap("(m)-(n) rehearsal")
+        if DEFERRED:
+            fail("; ".join(DEFERRED))
         say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                "kind": torch.cuda.get_device_name(0),
                                                "count": torch.cuda.device_count()}}))
@@ -4853,11 +5406,11 @@ def main() -> int:
         fed_lm_step_profile(torch, smi_line)
     lap("8 (d)")
     # (e) and (f): training and FedCM rounds on a model group, ranks sharing the card
-    # (i), (j) and 6c: training, FedCM rounds and serving published params on a grid; its
-    # world of 4 ranks and (e)-(f)'s of 2 at once
+    # (i), (j), 6c and 6d: training, FedCM rounds, serving published params and serving on a
+    # grid; its world of 4 ranks and (e)-(f)'s of 2 at once
     group_paths, grid_serve = both_group_worlds_one_card(torch, np, smi_line)
     by_path.update(group_paths)
-    lap("8 (e)-(f), (i)-(j), 6c")
+    lap("8 (e)-(f), (i)-(j), 6c, 6d")
 
     # ---- 9. summary
     def main_case(cases, **sel):
@@ -4888,11 +5441,11 @@ def main() -> int:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main.get("library_ms"),
         })
-        if name in ("flash_attention", "ssd_scan"):  # serving unsharded, and each group's ranks
+        if name in ("flash_attention", "ssd_scan"):  # serving unsharded, each group's, grid's ranks
             kernels[-1]["launches_by_path"] = {
                 "serve": launches[name],
                 **{f"model_group_{n}_ranks": per[name] for n, per in mp_launches.items()},
-                **(grid_serve if name == "flash_attention" else {})}
+                **grid_serve.get(name, {})}
         if name in full:  # the federated LM's paths and its cohort plane beside the main one
             kernels[-1]["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
             kernels[-1]["full_plane"] = {k: full[name][k] for k in (

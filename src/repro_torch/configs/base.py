@@ -1,8 +1,9 @@
 """Configurations: copies of ``repro.configs.base``'s ``FedConfig`` (cut to
 the fields this package reads), ``FaultConfig``, ``CompressionConfig`` and
-``ModelConfig`` (every field), with the same names and defaults, and the
-architecture registry: all ten archs of the reference's pool (the dense,
-moe, ssm, hybrid and vlm decoder-only families and the encoder-decoder).
+``ModelConfig`` (every field), with the same names and defaults, the four
+workload shapes (``ShapeConfig``, ``SHAPES``), and the architecture
+registry: all ten archs of the reference's pool (the dense, moe, ssm,
+hybrid and vlm decoder-only families and the encoder-decoder).
 
 Fields for features the port does not run yet stay in the copy so that a
 config asking for them fails loudly (``repro_torch.core.engine`` raises
@@ -228,6 +229,25 @@ class ModelConfig:
     @property
     def ssm_heads(self) -> int:
         return (self.ssm_expand * self.d_model) // self.ssm_head_dim
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """A workload shape, the reference's: ``kind`` is train, prefill or
+    decode; a decode shape's ``seq_len`` is the depth of its cache."""
+
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
 
 
 # The reference's architecture pool, in its order, all ported.

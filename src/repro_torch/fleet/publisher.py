@@ -217,8 +217,9 @@ GROUP_WATCH_RETRIES = 8  # versions a group's poll tries before it gives up
 
 
 class GroupParamsWatch:
-    """``ParamsWatch`` for the ranks of a model group, which must swap at
-    the same decode step to the same version: each rank polling on its own
+    """``ParamsWatch`` for the ranks of a model group, or of a grid's whole
+    world (its data group's gathers need every rank on one version), which
+    must swap at the same decode step to the same version: each rank polling on its own
     could see a publish a step apart from the others, or resolve different
     versions when retention unlinks a file.  Every rank calls ``poll()`` at
     every step boundary.  Rank 0 alone reads the pointer and broadcasts the

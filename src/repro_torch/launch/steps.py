@@ -13,9 +13,14 @@ no backward, as the reference's Pallas kernels have none.
 The ``Knobs`` fields keep the reference's names and defaults: gradients
 accumulate over microbatches in ``grad_accum_dtype`` and the AdamW moments
 are stored in ``moment_dtype`` (both f32 by default); the weights keep the
-dtype ``model.init`` gives them (the config's ``param_dtype``).  Left out
-are ``param_dtype``, ``seq_shard_acts``, ``serve_params`` and
-``scan_unroll`` (lowering and mesh knobs, ROADMAP A.16 (d) 6).
+dtype ``model.init`` gives them (the config's ``param_dtype``).
+``serve_params`` is the serving layout's name, as the reference's:
+``"fsdp"`` (the default) stores the params as training does, FSDP over the
+data group, and ``"replicated"`` in the reference's ``mode="serve"``
+layout, which keeps only the expert banks' data slices (``param_mode``);
+a serving grid's context reads it (``make_parallel(..., knobs=)``).
+Left out are ``param_dtype``, ``seq_shard_acts`` and ``scan_unroll``
+(lowering and mesh knobs, ROADMAP A.16 (d) 6).
 
 ``build_train_step(cfg, knobs, parallel)`` trains on a model group: every
 rank calls the step with its share of the params and of the AdamW state
@@ -46,7 +51,16 @@ loss: where a token drops, the grid's step is not the unsharded one.
 ``make_parallel`` / ``build_prefill_step`` / ``build_serve_step`` are the
 reference's step builders as plain functions (no jit bundles, no
 shardings): the group's ranks each call the step with their share of the
-params (``repro_torch.sharding.shard``) and the same tokens.
+params (``repro_torch.sharding.shard``) and the same tokens.  On a grid
+(``make_parallel(..., knobs=, batch=)``) each rank holds its share in the
+``knobs.serve_params`` layout; where the data group divides the batch each data
+row calls the steps with its block of the rows (and a MoE routes them at
+its own capacity, as the reference's mesh does), and where it does not
+every rank calls them with every row and holds its slab of each attention
+cache's sequence (``ParallelContext.seq_split``).  The reference prefills
+in the train layout and decodes in the ``serve_params`` one; a serving
+process of the port holds one layout for both (a route difference: the
+values are the same).
 """
 from __future__ import annotations
 
@@ -60,12 +74,16 @@ from repro_torch.models.layers import ParallelContext
 from repro_torch.models.model import Model, build_model
 from repro_torch.models.transformer import check_remat
 from repro_torch.optim.optimizers import Optimizer, adamw, clip_by_global_norm
-from repro_torch.sharding.rules import group_sq_norm, sum_over_data, sum_partial
+from repro_torch.sharding.rules import (
+    group_sq_norm, serve_splits_batch, sum_over_data, sum_partial,
+)
 from repro_torch.sharding.shard import fsdp_map, share_fsdp, share_parts
 from repro_torch.utils.trees import tree_flatten_with_path, tree_leaves, tree_map, tree_unflatten
 
 F32 = torch.float32
 DTYPES = ("float32", "bfloat16")
+# Knobs.serve_params → the layout mode of ``sharding.rules.fsdp_dim``
+SERVE_PARAMS = {"fsdp": "train", "replicated": "serve"}
 
 
 @dataclass(frozen=True)
@@ -77,6 +95,16 @@ class Knobs:
     use_kernels: bool = False  # only False: True raises, no kernel has a backward
     moment_dtype: str = "float32"  # AdamW's moments; bf16 halves their memory
     grad_accum_dtype: str = "float32"  # the microbatch gradient accumulator
+    serve_params: str = "fsdp"  # "fsdp" | "replicated": the serving layout (param_mode)
+
+
+def param_mode(knobs: Knobs) -> str:
+    """The layout mode (``sharding.rules.fsdp_dim``) of ``knobs.serve_params``:
+    ``"fsdp"`` → ``"train"``, ``"replicated"`` → ``"serve"``."""
+    if knobs.serve_params not in SERVE_PARAMS:
+        raise ValueError(f"serve_params must be one of {tuple(SERVE_PARAMS)}, got "
+                         f"{knobs.serve_params!r}")
+    return SERVE_PARAMS[knobs.serve_params]
 
 
 class TrainStep(NamedTuple):
@@ -163,11 +191,17 @@ def build_train_step(cfg, knobs: Knobs = Knobs(),
 
 
 # ------------------------------------------------------------------ serving
-def make_parallel(group=None, data_group=None, cfg=None) -> Optional[ParallelContext]:
+def make_parallel(group=None, data_group=None, cfg=None, knobs: Optional[Knobs] = None,
+                  batch: Optional[int] = None) -> Optional[ParallelContext]:
     """The model group's context for this process, over the
     ``torch.distributed`` process group ``group`` (None: unsharded), with a
-    grid's ``data_group`` beside it (``launch.mesh.make_grid``) and the FSDP
-    leaves of ``cfg``'s params on that grid (``sharding.shard.fsdp_map``)."""
+    grid's ``data_group`` beside it (``launch.mesh.make_grid``) and the
+    leaves of ``cfg``'s params that the grid stores in data slices
+    (``sharding.shard.fsdp_map``): in the layout of a serving process's
+    ``knobs.serve_params`` (``param_mode``), or training's FSDP layout where
+    ``knobs`` is None.  ``batch``, the rows a grid serves: where the data
+    group does not divide them it splits the caches' sequence instead
+    (``ParallelContext.seq_split``)."""
     if group is None:
         return None
     size = dist.get_world_size(group)
@@ -178,12 +212,16 @@ def make_parallel(group=None, data_group=None, cfg=None) -> Optional[ParallelCon
         raise ValueError("a grid's context needs the model's config (cfg=) for its FSDP leaves")
     return ParallelContext(group, dist.get_rank(group), size, data_group,
                            dist.get_rank(data_group), data,
-                           fsdp=None if cfg is None else fsdp_map(cfg, size, data))
+                           fsdp=None if cfg is None else fsdp_map(
+                               cfg, size, data, "train" if knobs is None else param_mode(knobs)),
+                           seq_split=batch is not None and not serve_splits_batch(batch, data))
 
 
 def build_prefill_step(model: Model, parallel: Optional[ParallelContext] = None) -> Callable:
     """``fn(params, tokens) -> (logits of the last position (B, V), cache)``
-    through the kernels, as the reference's prefill step."""
+    through the kernels, as the reference's prefill step.  On a grid the
+    cache holds every prompt position; ``launch.serve.merge_prefill`` keeps
+    the rank's slab of it."""
     def prefill_step(params, tokens):
         logits, cache, _ = model.apply(params, tokens, return_cache=True, parallel=parallel)
         return logits[:, -1], cache
@@ -193,7 +231,8 @@ def build_prefill_step(model: Model, parallel: Optional[ParallelContext] = None)
 
 def build_serve_step(model: Model, parallel: Optional[ParallelContext] = None) -> Callable:
     """``fn(params, token (B, 1), cache, pos) -> (next token (B, 1), cache)``:
-    one greedy decode step, the cache written in place."""
+    one greedy decode step, the cache written in place (on a grid that
+    splits the sequence, on the one rank whose slab holds ``pos``)."""
     def serve_step(params, token, cache, pos):
         logits, cache = model.decode_step(params, token, cache, pos, parallel=parallel)
         return torch.argmax(logits[:, -1].to(F32), dim=-1)[:, None], cache

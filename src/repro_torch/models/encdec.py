@@ -42,6 +42,7 @@ from repro_torch.models.layers import (
     apply_rope,
     attend_blocked,
     attend_direct,
+    cache_extent,
     cross_attention,
     embed_init,
     encode_kv,
@@ -58,8 +59,10 @@ from repro_torch.models.layers import (
     pick_kv_heads,
     rmsnorm,
     self_attention,
+    seq_split,
 )
 from repro_torch.models.transformer import check_remat, embed_tokens, unembed_logits
+from repro_torch.sharding.rules import seq_slab
 from repro_torch.utils.trees import tree_map
 
 
@@ -185,12 +188,22 @@ def init_decode_cache(params, cfg, batch: int, max_len: int, enc_out: torch.Tens
     """Zero self-attention cache ``k`` / ``v`` ``(L, B, max_len, Hkv, hd)`` in
     the activation dtype, and each decoder layer's cross-attention K/V of
     ``enc_out``, ``cross_k`` / ``cross_v`` ``(L, B, S_src, Hkv, hd)``; over a
-    group Hkv is the rank's kv heads (``layers.kv_heads_of``) in both."""
-    shape = (cfg.n_layers, batch, max_len, len(kv_heads_of(cfg, parallel)),
+    group Hkv is the rank's kv heads (``layers.kv_heads_of``) in both.  On
+    a grid ``batch`` and ``max_len`` are the served batch's and the whole
+    sequence's, and ``enc_out`` the encoding of the rows the rank serves:
+    its block of them, or every row, when the data group splits the
+    sequence, with the rank's slab of each sequence, the source's too
+    (``layers.cache_extent``)."""
+    rows, positions = cache_extent(batch, max_len, parallel)
+    shape = (cfg.n_layers, rows, positions, len(kv_heads_of(cfg, parallel)),
              cfg.resolved_head_dim)
     dtype = getattr(torch, cfg.dtype)
-    cross = [encode_kv(lp["cross_attn"], enc_out, cfg=cfg, parallel=parallel)
+    cross = [encode_kv(fsdp_gather(lp, parallel, ("dec",))["cross_attn"], enc_out, cfg=cfg,
+                       parallel=parallel)
              for lp in _layers(params["dec"], cfg.n_layers)]
+    if seq_split(parallel):
+        lo, n = seq_slab(enc_out.shape[1], parallel.data_size, parallel.data_rank)
+        cross = [{k: t[:, lo:lo + n] for k, t in c.items()} for c in cross]
     return {"k": torch.zeros(shape, dtype=dtype, device=enc_out.device),
             "v": torch.zeros(shape, dtype=dtype, device=enc_out.device),
             "cross_k": torch.stack([c["k"] for c in cross]),
@@ -201,10 +214,12 @@ def decode_step(params, token: torch.Tensor, cache: Dict[str, torch.Tensor], pos
                 cfg, parallel: Optional[ParallelContext] = None):
     """token ``(B, 1)`` at position ``pos`` → ``(logits (B, 1, V), cache)``;
     each layer writes its K/V into ``cache`` at ``pos`` in place, and the
-    same dict is returned."""
+    same dict is returned.  On a grid's FSDP storage each layer's slices
+    are gathered as the stack selects it, and ``unembed`` where it is read."""
     h = _embed(params, token, cfg, parallel)
     positions = torch.full((1,), int(pos), device=h.device)
     for i, lp in enumerate(_layers(params["dec"], cfg.n_layers)):
+        lp = fsdp_gather(lp, parallel, ("dec",))
         a, _ = self_attention(lp["self_attn"], rmsnorm(h, lp["norm1"]), cfg=cfg,
                               positions=positions, is_global=True,
                               cache={"k": cache["k"][i], "v": cache["v"][i]}, cache_pos=pos,
@@ -215,4 +230,5 @@ def decode_step(params, token: torch.Tensor, cache: Dict[str, torch.Tensor], pos
                                 parallel=parallel)
         h = h + mlp(lp["mlp"], rmsnorm(h, lp["norm2"]), cfg=cfg, parallel=parallel)
     h = rmsnorm(h, params["dec_norm"])
-    return unembed_logits(h, params["unembed"], cfg, parallel), cache
+    unembed = fsdp_gather({"unembed": params["unembed"]}, parallel)["unembed"]
+    return unembed_logits(h, unembed, cfg, parallel), cache

@@ -48,6 +48,19 @@ Under ``remat`` the gather lies inside the checkpointed region, so it is
 redone in backward and never saved; under ``remat="none"`` autograd keeps
 each period's gathered weights for its backward, so a step holds the
 whole model share and FSDP saves no memory.
+
+Serving on a grid (the reference's ``batch_specs`` / ``cache_specs``,
+``sharding.rules.serve_splits_batch``): where the data group divides the
+batch each data row serves its block of rows and the layers see nothing
+new.  Where it does not (long_500k's B = 1, ``ParallelContext.seq_split``)
+every data rank serves the whole batch on the same activations and holds a
+contiguous slab of each attention cache's sequence (``cache_extent``).  A
+decode step writes the token's K/V only on the rank whose slab holds its
+position (the reference's shard-local ``_cache_write_shardmap``), and the
+attention over the cache combines the slabs' partial softmaxes over the
+data group (``attend_slabs``: an ``all_reduce`` of the max, then of the
+sums and of the outputs), which gives every data rank the same values;
+the cross-attention over a source sequence split so does the same.
 """
 from __future__ import annotations
 
@@ -60,7 +73,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.sharding.rules import _keys
+from repro_torch.sharding.rules import _keys, row_block, seq_slab
 from repro_torch.utils.trees import tree_flatten_with_path, tree_unflatten
 
 
@@ -74,7 +87,9 @@ class ParallelContext:
     and the mamba2 blocks that ran whole on every rank because the group's
     size does not divide their heads (``mamba_whole``); on a grid also the
     FSDP gathers over the data group and their gradients' reduce-scatters
-    (``data_all_gather``, ``data_reduce_scatter``)."""
+    (``data_all_gather``, ``data_reduce_scatter``), and the ``all_reduce``s
+    over it (``data_all_reduce``: training's gradient and loss sums, and
+    serving's combine of a cache's slabs)."""
 
     group: Any
     rank: int
@@ -87,14 +102,27 @@ class ParallelContext:
     # on a grid, the params-tree keys of the leaves stored in FSDP slices
     # → the sliced dimension counted from the last (``sharding.shard.fsdp_map``)
     fsdp: Optional[Dict[Tuple[str, ...], int]] = field(default=None, compare=False)
+    # serving on a grid whose data group does not divide the batch
+    # (``sharding.rules.serve_splits_batch``): every data rank serves the
+    # whole batch and holds slab ``data_rank`` of each attention cache's
+    # sequence (``slab_start``); False where the data group splits the batch
+    seq_split: bool = False
     counts: Dict[str, int] = field(default_factory=lambda: {
         "all_reduce": 0, "all_gather": 0, "bytes": 0, "mamba_whole": 0, "data_all_gather": 0,
-        "data_reduce_scatter": 0}, compare=False)
+        "data_reduce_scatter": 0, "data_all_reduce": 0}, compare=False)
 
-    def data_all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum over the data group, in ``x``'s dtype, written into ``x``."""
-        dist.all_reduce(x, group=self.data_group)
+    def data_all_reduce(self, x: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """The reduction ``op`` (a sum by default) over the data group, in
+        ``x``'s dtype, written into ``x``."""
+        self.counts["data_all_reduce"] += 1
+        dist.all_reduce(x, op=op, group=self.data_group)
         return x
+
+    def slab_start(self, length: int) -> int:
+        """The first position of this rank's slab of a cache sequence whose
+        slab holds ``length`` positions: ``data_rank · length`` where the
+        data group splits the sequence, else 0 (the rank holds it all)."""
+        return self.data_rank * length if self.seq_split else 0
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """The sum over the group, in ``x``'s dtype, written into ``x``."""
@@ -187,6 +215,7 @@ def _data_gather(parallel: ParallelContext, shares, dims):
     flat = _cat_flat(shares)
     parts = [torch.empty_like(flat) for _ in range(parallel.data_size)]
     dist.all_gather(parts, flat, group=parallel.data_group)
+    del flat  # a serving step's expert banks: one copy of the slices fewer at the peak
     out, at = [], 0
     for s, d in zip(shares, dims):
         n = s.numel()
@@ -280,6 +309,26 @@ def fsdp_gather(tree, parallel: Optional[ParallelContext], at: Tuple[str, ...] =
                                                  *[vals[i] for i in picks])):
         vals[i] = t
     return tree_unflatten(treedef, vals)
+
+
+def cache_extent(batch: int, length: int, parallel: Optional[ParallelContext]
+                 ) -> Tuple[int, int]:
+    """``(rows, positions)`` of the cache this rank holds for a served batch
+    of ``batch`` rows and a cache sequence of ``length`` positions: all of
+    both off a grid; on one, its block of rows where the data group splits
+    the batch, or every row and its slab of the sequence where it does not
+    (``ParallelContext.seq_split``; ``sharding.rules.row_block`` /
+    ``seq_slab``, which refuse what the data group does not divide)."""
+    if parallel is None or parallel.data_size == 1:
+        return batch, length
+    if parallel.seq_split:
+        return batch, seq_slab(length, parallel.data_size, parallel.data_rank)[1]
+    return row_block(batch, parallel.data_size, parallel.data_rank)[1], length
+
+
+def seq_split(parallel: Optional[ParallelContext]) -> bool:
+    """Whether ``parallel``'s data group splits the caches' sequence."""
+    return parallel is not None and parallel.seq_split and parallel.data_size > 1
 
 
 def split(parallel: Optional[ParallelContext], local: int, whole: int) -> bool:
@@ -466,6 +515,26 @@ def attend_direct(q, k, v, mask, scale: float) -> torch.Tensor:
     return _gqa_combine(p, v)
 
 
+def attend_slabs(q, k, v, mask, scale: float, parallel: ParallelContext) -> torch.Tensor:
+    """``attend_direct`` over a K/V sequence that the data group holds in
+    slabs, this rank's ``k`` / ``v`` (B, S_slab, Hkv, hd) and ``mask`` its
+    slab's columns: the slabs' partial softmaxes combined by three
+    ``all_reduce``s over the data group, in f32 — the max of each query
+    head's scores, then the sum of ``exp(s − max)``, then, with ``p =
+    exp(s − max) / sum`` cast to the activation dtype as ``attend_direct``
+    casts its softmax, the sum of the partial products ``p @ V``.  A slab
+    with no valid position adds exactly zero (its scores are −1e30, the
+    max is a valid slab's).  Every data rank gets the same result."""
+    s = _gqa_scores(q, k) * scale
+    s = torch.where(mask, s, torch.full((), -1e30, dtype=torch.float32, device=s.device))
+    m = parallel.data_all_reduce(s.amax(dim=-1, keepdim=True), dist.ReduceOp.MAX)
+    e = torch.exp(s - m)
+    total = parallel.data_all_reduce(e.sum(dim=-1, keepdim=True))
+    p = (e / total).to(q.dtype)
+    out = parallel.data_all_reduce(_gqa_combine(p, v).to(torch.float32))
+    return out.to(q.dtype)
+
+
 def attend_blocked(q, k, v, *, causal: bool, window: Optional[int], scale: float,
                    q_positions: torch.Tensor, kv_positions: torch.Tensor, q_block: int = 512,
                    kv_block: int = 1024) -> torch.Tensor:
@@ -581,7 +650,13 @@ def self_attention(
     one ``all_reduce`` sums the partial outputs of ``wo``.  QK-norm, RoPE
     and the window act per head.  The decode cache holds the local kv
     heads (the reference splits its cache's sequence over ``"model"``
-    instead, a GSPMD layout choice: the values are the same)."""
+    instead, a GSPMD layout choice: the values are the same).
+
+    On a grid whose data group splits the cache's sequence (``seq_split``)
+    ``cache`` is this rank's slab, from position ``parallel.slab_start``:
+    the token's K/V are written only where its position falls in the slab,
+    the masks read the slab's absolute positions, and ``attend_slabs``
+    combines the slabs over the data group before ``wo``."""
     S = x.shape[1]
     hd = cfg.resolved_head_dim
     scale = 1.0 / math.sqrt(hd)
@@ -612,14 +687,21 @@ def self_attention(
         new_cache = {"k": k, "v": v} if return_kv else None
     else:
         kc, vc = cache["k"], cache["v"]
-        S_max = kc.shape[1]
-        kc[:, cache_pos:cache_pos + S] = k.to(kc.dtype)
-        vc[:, cache_pos:cache_pos + S] = v.to(vc.dtype)
-        kv_positions = torch.arange(S_max, device=x.device)
+        S_slab = kc.shape[1]
+        start = 0 if parallel is None else parallel.slab_start(S_slab)
+        # the positions [cache_pos, cache_pos + S) that fall in this rank's slab
+        lo, hi = max(cache_pos, start), min(cache_pos + S, start + S_slab)
+        if lo < hi:
+            kc[:, lo - start:hi - start] = k[:, lo - cache_pos:hi - cache_pos].to(kc.dtype)
+            vc[:, lo - start:hi - start] = v[:, lo - cache_pos:hi - cache_pos].to(vc.dtype)
+        kv_positions = torch.arange(start, start + S_slab, device=x.device)
         valid = kv_positions <= cache_pos
         if window is not None:
             valid &= kv_positions > cache_pos - window
-        out = attend_direct(q, kc, vc, valid[None, None, None, :], scale)
+        if seq_split(parallel):
+            out = attend_slabs(q, kc, vc, valid[None, None, None, :], scale, parallel)
+        else:
+            out = attend_direct(q, kc, vc, valid[None, None, None, :], scale)
         new_cache = {"k": kc, "v": vc}
 
     return heads_out(out, params["wo"], cfg, parallel), new_cache
@@ -634,14 +716,19 @@ def cross_attention(params: Dict[str, torch.Tensor], x: torch.Tensor,
     ``BLOCKED_ATTENTION_THRESHOLD``, as in the reference.  Over a group the
     rank's q heads attend over the kv heads ``enc_kv`` holds (``encode_kv``
     with ``parallel``), and one ``all_reduce`` sums the partial outputs of
-    ``wo``."""
+    ``wo``.  Where a grid's data group splits the source sequence
+    (``seq_split``) ``enc_kv`` is this rank's slab of it, combined over the
+    data group by ``attend_slabs``."""
     scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
     Sq = x.shape[1]
     q = _project(into_heads(x, params["wq"], cfg, parallel), params["wq"])
     k = enc_kv["k"].to(x.dtype)
     v = enc_kv["v"].to(x.dtype)
     S_src = k.shape[1]
-    if max(Sq, S_src) >= BLOCKED_ATTENTION_THRESHOLD:
+    if seq_split(parallel):
+        everywhere = torch.ones((1, 1, Sq, S_src), dtype=torch.bool, device=x.device)
+        out = attend_slabs(q, k, v, everywhere, scale, parallel)
+    elif max(Sq, S_src) >= BLOCKED_ATTENTION_THRESHOLD:
         out = attend_blocked(q, k, v, causal=False, window=None, scale=scale,
                              q_positions=torch.arange(Sq, device=x.device),
                              kv_positions=torch.arange(S_src, device=x.device))

@@ -166,8 +166,9 @@ def mamba2_block(
         if return_state:
             k = cfg.ssm_conv
             # conv state = the last (k-1) RAW xBC inputs, left-padded when the
-            # prefill segment is shorter than k-1
-            tail = xBC_raw[:, max(0, S - (k - 1)):]
+            # prefill segment is shorter than k-1; a copy, since a view would
+            # keep the whole (B, S, ·) input projection alive with the cache
+            tail = xBC_raw[:, max(0, S - (k - 1)):].clone()
             if tail.shape[1] < k - 1:
                 tail = F.pad(tail, (0, 0, k - 1 - tail.shape[1], 0))
             new_state = {"ssm": final_state, "conv": tail}

@@ -41,6 +41,7 @@ from repro_torch.models import mamba2 as m2
 from repro_torch.models.layers import (
     Keep,
     ParallelContext,
+    cache_extent,
     embed_init,
     fsdp_gather,
     init_attention,
@@ -366,14 +367,18 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, device=None,
     group (``layers.kv_heads_of``); mamba slots {"ssm","conv"} stacked
     likewise, over a group on the rank's SSD heads
     (``mamba2.init_mamba2_state``); the tail's mamba layers under
-    ``"tail"``."""
+    ``"tail"``.  ``batch`` and ``max_len`` are the served batch's and the
+    whole sequence's: on a grid the rank holds its block of the rows, or
+    every row and its slab of each attention cache's sequence, with its
+    mamba states whole (``layers.cache_extent``)."""
     dtype = dtype or getattr(torch, cfg.dtype)
     slots, n_periods, tail = period_layout(cfg)
+    rows, positions = cache_extent(batch, max_len, parallel)
 
     def slot_cache(slot: SlotSpec, n: int):
         if slot.kind == "mamba":
-            return m2.init_mamba2_state(cfg, batch, dtype, (n,), device, parallel)
-        shape = (n, batch, max_len, len(kv_heads_of(cfg, parallel)), cfg.resolved_head_dim)
+            return m2.init_mamba2_state(cfg, rows, dtype, (n,), device, parallel)
+        shape = (n, rows, positions, len(kv_heads_of(cfg, parallel)), cfg.resolved_head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 

@@ -13,17 +13,31 @@ the r-th of N equal slices, under the reference's divisibility guard (a
 dimension that N does not divide stays whole).  The mamba2 leaves whose
 last dimension packs several parts (``w_in``: z, x, B, C, dt; ``conv_w`` /
 ``conv_b``: x, B, C) are split part by part (``Pieces``), so that a rank
-holds whole SSD heads.  In serving a model group replicates the batch:
-the serve mode's data split (and its expert-bank FSDP) and the reference's
-cache specs are ROADMAP A.16 (d).
+holds whole SSD heads.
 
-The data part (``fsdp_dim``): the reference's ``mode="train"`` storage
-over its data axes.  On a grid of data × model ranks (``launch.mesh.make_grid``)
-each large leaf's model share is split once more over the data group, along
-the dimension the reference's helper ``f`` names — ``d_model`` of every
-leaf it catches — under the same divisibility guard; the training batch is
-split over data as ``batch_specs`` splits it (each data rank its block of
-rows).
+The data part (``fsdp_dim``): the reference's storage over its data axes.
+On a grid of data × model ranks (``launch.mesh.make_grid``) each large
+leaf's model share is split once more over the data group, along the
+dimension the reference's helper ``f`` names — ``d_model`` of every leaf
+it catches — under the same divisibility guard.  ``mode="train"`` (FSDP
+storage: training's layout, and serving's by default) catches every such
+leaf; ``mode="serve"`` (``Knobs.serve_params="replicated"``) only the
+leaves under ``moe`` — the expert banks, whose replicated copies would
+not fit a card — and replicates the rest over data.  The training batch
+is split over data as ``batch_specs`` splits it (each data rank its block
+of rows).
+
+Serving on a grid (``serve_splits_batch``, ``row_block``, ``seq_slab``)
+follows the reference's ``batch_specs`` / ``cache_specs``: where the data
+group's size D divides the batch B, each data rank serves its block of
+rows and caches them; where it does not (long_500k's B = 1), every data
+rank serves the whole batch and holds a contiguous slab ``[d·S/D,
+(d+1)·S/D)`` of every attention cache's sequence (self and cross K/V).
+One route difference: the reference puts the sequence over its data axes
+and ``"model"`` together and leaves the heads whole, while the port keeps
+the model group's head split and puts the sequence over the data group
+only.  At M = 1 the two are one layout; at any M the values are the same,
+and so are the bytes a rank holds wherever M divides the kv heads.
 
 Training on a group reads one more answer a leaf (``group_use``,
 ``group_parts``): split (each rank holds and reads its slice), whole
@@ -208,21 +222,63 @@ def fsdp_axis(path: Sequence[str], nd: int) -> Optional[int]:
     return None
 
 
+PARAM_MODES = ("train", "serve")
+
+
 def fsdp_dim(path: Sequence[str], shape: Sequence[int], data: int, model: int = 1,
-             cfg=None) -> Optional[int]:
+             cfg=None, mode: str = "train") -> Optional[int]:
     """The dimension of the leaf at ``path`` (whole ``shape``) that a data
-    group of ``data`` ranks splits in training, on the leaf's share of a
-    model group of ``model``: ``fsdp_axis``'s, under the reference's
-    divisibility guard; None when ``data`` is 1, for the leaves ``f`` does
-    not catch, and where ``data`` does not divide the dimension.  The model
-    group never splits that dimension, so the guard reads the whole leaf's
-    size of it."""
+    group of ``data`` ranks splits, on the leaf's share of a model group of
+    ``model``: ``fsdp_axis``'s, under the reference's divisibility guard;
+    None when ``data`` is 1, for the leaves ``f`` does not catch, where
+    ``data`` does not divide the dimension, and in ``mode="serve"`` for
+    every leaf whose path holds no ``moe`` (the reference's ``f`` reads
+    ``"moe" not in pstr``: the expert banks, the router and a shared expert
+    under ``moe`` keep their slices).  The model group never splits that
+    dimension, so the guard reads the whole leaf's size of it."""
+    if mode not in PARAM_MODES:
+        raise ValueError(f"param layout mode must be one of {PARAM_MODES}, got {mode!r}")
     dim = fsdp_axis(path, len(shape))
     if dim is None or data <= 1:
+        return None
+    if mode == "serve" and not any("moe" in k for k in path):
         return None
     local = local_shape(shape, split_dim(path, shape, model, cfg), model) if model > 1 \
         else tuple(shape)
     return dim if _ok(local[dim], data) else None
+
+
+# ----------------------------------------------------------- serving on a grid
+def serve_splits_batch(batch: int, data: int) -> bool:
+    """Whether a data group of ``data`` ranks splits a served batch of
+    ``batch`` rows over its ranks (``data`` divides it: each data rank
+    serves and caches its block of rows), or else the caches' sequence
+    (every data rank serves every row and holds a slab of each attention
+    cache): the reference's ``B % fsdp_size == 0`` test."""
+    if batch < 1 or data < 1:
+        raise ValueError(f"a batch of {batch} rows on a data group of {data} ranks")
+    return batch % data == 0
+
+
+def row_block(batch: int, data: int, data_rank: int) -> Tuple[int, int]:
+    """``(start, rows)`` of data rank ``data_rank``'s block of a batch of
+    ``batch`` rows that ``data`` ranks split: ``[d·B/D, (d+1)·B/D)``."""
+    if batch % data:
+        raise ValueError(f"a batch of {batch} rows does not split over {data} data ranks")
+    n = batch // data
+    return data_rank * n, n
+
+
+def seq_slab(length: int, data: int, data_rank: int) -> Tuple[int, int]:
+    """``(start, length)`` of data rank ``data_rank``'s contiguous slab of a
+    cache sequence of ``length`` positions that ``data`` ranks split:
+    ``[d·S/D, (d+1)·S/D)``.  Refuses a length that ``data`` does not
+    divide, as the reference's shard-local cache write needs too."""
+    if length % data:
+        raise ValueError(f"a cache of {length} positions does not split into {data} equal "
+                         f"slabs over the data group: make its length a multiple of {data}")
+    n = length // data
+    return data_rank * n, n
 
 
 def check_model_parallel(cfg, world: int) -> None:

@@ -30,7 +30,13 @@ it, ``share_fsdp`` lists each leaf's FSDP dimension in tree order
 (``fsdp_map``: by params-tree keys, for ``models.layers.fsdp_gather``), and
 ``join_shares(..., fsdp=, data=)`` rebuilds whole leaves from the grid's
 shares.  ``snapshot_join`` / ``snapshot_take`` apply the two to the paths
-of a ``{"params", "opt"}`` snapshot (``checkpoint.ckpt``).
+of a ``{"params", "opt"}`` snapshot (``checkpoint.ckpt``).  Serving on a
+grid takes shares in the layout's ``mode`` (``rules.fsdp_dim``):
+``"train"``, FSDP storage, or ``"serve"``, the layout that keeps only the
+``moe`` leaves' data slices (``Knobs.serve_params="replicated"``):
+``grid_take``, ``init_params_sharded``, ``share_fsdp``, ``fsdp_map`` and
+``snapshot_take`` take it, and ``share_bytes`` counts a rank's share of
+either.
 """
 from __future__ import annotations
 
@@ -41,8 +47,7 @@ import torch
 
 from repro_torch.models import encdec, transformer
 from repro_torch.sharding.rules import (
-    Pieces, Split, _keys, check_model_parallel, fsdp_dim, group_parts, local_shape,
-    param_specs, split_dim,
+    Pieces, Split, _keys, check_model_parallel, fsdp_dim, group_parts, local_shape, split_dim,
 )
 from repro_torch.utils.trees import tree_flatten_with_path, tree_leaves, tree_map
 
@@ -97,23 +102,24 @@ def shard_params(params: Any, specs: Any, rank: int, world: int) -> Any:
 
 
 def grid_take(leaf: torch.Tensor, path: Sequence[str], cfg, rank: int, world: int,
-              data_rank: int = 0, data: int = 1, device=None) -> torch.Tensor:
+              data_rank: int = 0, data: int = 1, device=None,
+              mode: str = "train") -> torch.Tensor:
     """The share of the whole ``leaf`` at ``path`` that grid rank (``data_rank``,
-    ``rank``) of a ``data`` × ``world`` grid stores in training: the model
-    share's ``data_rank``-th slice along ``rules.fsdp_dim`` (the model share
-    itself where the leaf has none), on ``device``."""
+    ``rank``) of a ``data`` × ``world`` grid stores in the layout ``mode``:
+    the model share's ``data_rank``-th slice along ``rules.fsdp_dim`` (the
+    model share itself where the leaf has none), on ``device``."""
     shape = tuple(leaf.shape)
     share = take(leaf, split_dim(path, shape, world, cfg), rank, world, device)
-    return take(share, fsdp_dim(path, shape, data, world, cfg), data_rank, data)
+    return take(share, fsdp_dim(path, shape, data, world, cfg, mode), data_rank, data)
 
 
 def init_params_sharded(generator: torch.Generator, cfg, rank: int, world: int,
                         stage: Optional[str] = None, *, data: int = 1,
-                        data_rank: int = 0) -> Any:
+                        data_rank: int = 0, mode: str = "train") -> Any:
     """Rank ``rank``'s share of ``transformer.init_params(generator, cfg)``
     (``encdec.init_params`` for the encoder-decoder), bitwise, drawn on the
     generator's device leaf by leaf; on a grid of ``data`` rows, data rank
-    ``data_rank``'s FSDP slice of it (``grid_take``).  ``stage`` is a
+    ``data_rank``'s slice of it in the layout ``mode`` (``grid_take``).  ``stage`` is a
     device where the kept slices wait until the last leaf is drawn (the
     host, so that a card holds one whole leaf at a time and never that
     leaf beside the share); the share is then moved to the generator's
@@ -122,7 +128,7 @@ def init_params_sharded(generator: torch.Generator, cfg, rank: int, world: int,
     check_model_parallel(cfg, world)
 
     def keep(path: Tuple[str, ...], leaf: torch.Tensor) -> torch.Tensor:
-        return grid_take(leaf, path, cfg, rank, world, data_rank, data, stage)
+        return grid_take(leaf, path, cfg, rank, world, data_rank, data, stage, mode)
 
     params = _init(cfg)(generator, cfg, keep=keep)
     if stage is not None:
@@ -130,13 +136,20 @@ def init_params_sharded(generator: torch.Generator, cfg, rank: int, world: int,
     return params
 
 
-def share_bytes(cfg, world: int) -> int:
-    """The bytes of one rank's share of ``cfg``'s params (every rank's share
-    is the same size; a mamba2 leaf's whole parts count on every rank)."""
-    shapes = param_shapes(cfg)
-    return sum(math.prod(local_shape(leaf.shape, dim, world)) * leaf.element_size()
-               for leaf, dim in zip(tree_leaves(shapes),
-                                    tree_leaves(param_specs(shapes, cfg, world))))
+def share_bytes(cfg, world: int, data: int = 1, mode: str = "train") -> int:
+    """The bytes of one rank's share of ``cfg``'s params on a model group of
+    ``world`` ranks (every rank's share is the same size; a mamba2 leaf's
+    whole parts count on every rank), and on a grid of ``data`` such rows
+    its slice in the layout ``mode``."""
+    total = 0
+    for p, leaf in tree_flatten_with_path(param_shapes(cfg))[0]:
+        keys, shape = _keys(p), tuple(leaf.shape)
+        local = list(local_shape(shape, split_dim(keys, shape, world, cfg), world))
+        f = fsdp_dim(keys, shape, data, world, cfg, mode)
+        if f is not None:
+            local[f] //= data
+        total += math.prod(local) * leaf.element_size()
+    return total
 
 
 # ------------------------------------------------------- training on a group
@@ -148,23 +161,25 @@ def share_parts(cfg, world: int) -> List:
             for p, leaf in tree_flatten_with_path(param_shapes(cfg))[0]]
 
 
-def share_fsdp(cfg, world: int, data: int) -> List[Optional[int]]:
+def share_fsdp(cfg, world: int, data: int, mode: str = "train") -> List[Optional[int]]:
     """``rules.fsdp_dim`` of every leaf of ``cfg``'s params tree on a grid of
-    ``data`` × ``world`` ranks, in the tree's leaf order."""
-    return [fsdp_dim(_keys(p), tuple(leaf.shape), data, world, cfg)
+    ``data`` × ``world`` ranks in the layout ``mode``, in the tree's leaf
+    order."""
+    return [fsdp_dim(_keys(p), tuple(leaf.shape), data, world, cfg, mode)
             for p, leaf in tree_flatten_with_path(param_shapes(cfg))[0]]
 
 
-def fsdp_map(cfg, world: int, data: int) -> Dict[Tuple[str, ...], int]:
+def fsdp_map(cfg, world: int, data: int, mode: str = "train") -> Dict[Tuple[str, ...], int]:
     """The leaves of ``cfg``'s params tree that a grid of ``data`` ×
-    ``world`` ranks stores in FSDP slices: params-tree keys → ``rules.fsdp_dim``
+    ``world`` ranks stores in data slices in the layout ``mode``:
+    params-tree keys → ``rules.fsdp_dim``
     counted from the last dimension (negative), so that it names the same
     dimension in a stacked leaf and in one period's slice of it.  What
     ``models.layers.fsdp_gather`` gathers (``ParallelContext.fsdp``)."""
     out = {}
     for p, leaf in tree_flatten_with_path(param_shapes(cfg))[0]:
         keys, shape = _keys(p), tuple(leaf.shape)
-        d = fsdp_dim(keys, shape, data, world, cfg)
+        d = fsdp_dim(keys, shape, data, world, cfg, mode)
         if d is not None:
             out[keys] = d - len(shape)
     return out
@@ -242,16 +257,17 @@ def snapshot_join(cfg, world: int, data: int = 1):
     return join
 
 
-def snapshot_take(cfg, rank: int, world: int, data_rank: int = 0, data: int = 1):
+def snapshot_take(cfg, rank: int, world: int, data_rank: int = 0, data: int = 1,
+                  mode: str = "train"):
     """``take(path, whole)`` for ``checkpoint.ckpt.load_checkpoint``: grid
-    rank (``data_rank``, ``rank``)'s share of a snapshot's whole leaf
-    (``grid_take``); a leaf that is no param's as it is."""
+    rank (``data_rank``, ``rank``)'s share of a snapshot's whole leaf in the
+    layout ``mode`` (``grid_take``); a leaf that is no param's as it is."""
     shapes = _whole_shapes(cfg)
 
     def take_share(path: str, whole: torch.Tensor) -> torch.Tensor:
         keys = _param_keys(path, shapes)
         if keys is None:
             return whole
-        return grid_take(whole, keys, cfg, rank, world, data_rank, data)
+        return grid_take(whole, keys, cfg, rank, world, data_rank, data, mode=mode)
 
     return take_share

@@ -31,7 +31,7 @@ from repro.sharding.rules import param_specs as ref_param_specs
 from repro_torch.configs.base import ARCH_IDS, get_config
 from repro_torch.sharding.rules import (
     MAMBA_SPLIT_KEYS, Pieces, _keys, check_model_parallel, fsdp_dim, local_shape, param_specs,
-    split_dim,
+    row_block, seq_slab, serve_splits_batch, split_dim,
 )
 from repro_torch.sharding.shard import param_shapes, share_bytes, take
 from repro_torch.utils.trees import tree_flatten_with_path
@@ -206,12 +206,12 @@ def test_share_bytes_count_b_and_c_whole_on_every_rank(arch, world):
 GRIDS = ((2, 2), (16, 4), (8, 1))  # (data, model)
 
 
-def _ref_fsdp_dims(arch, data, model):
-    """The dimension of each leaf that the reference's ``mode="train"``
-    specs put on the data axis, on a shape-only ``("data", "model")`` mesh."""
+def _ref_fsdp_dims(arch, data, model, mode="train"):
+    """The dimension of each leaf that the reference's ``mode`` specs put on
+    the data axis, on a shape-only ``("data", "model")`` mesh."""
     cfg = ref_get_config(arch)
     sds = jax.eval_shape(lambda: ref_build_model(cfg).init(jax.random.PRNGKey(0)))
-    specs = ref_param_specs(sds, cfg, FakeMesh({"data": data, "model": model}), mode="train")
+    specs = ref_param_specs(sds, cfg, FakeMesh({"data": data, "model": model}), mode=mode)
     out = {}
     for path, spec in jax.tree_util.tree_flatten_with_path(
             specs, is_leaf=lambda x: isinstance(x, P))[0]:
@@ -243,3 +243,90 @@ def test_fsdp_dim_agrees_with_the_references_train_specs(arch, grid):
     assert seen > 0
     assert all(d is None for d in (fsdp_dim(_keys(p), tuple(leaf.shape), 1, model, cfg)
                                    for p, leaf in tree_flatten_with_path(shapes)[0]))
+
+
+# ---------------------------------------------------------- serving on a grid
+@pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_fsdp_dim_in_serve_mode_agrees_with_the_references_serve_specs(arch, grid):
+    """``fsdp_dim(..., mode="serve")`` is the dimension the reference's
+    ``mode="serve"`` specs shard over ``"data"``, leaf for leaf: only
+    leaves under ``moe`` keep a data slice; ``mode="train"`` is the
+    default, leaf for leaf."""
+    data, model = grid
+    cfg = get_config(arch)
+    ref = _ref_fsdp_dims(arch, data, model, mode="serve")
+    sliced = 0
+    for p, leaf in tree_flatten_with_path(param_shapes(cfg))[0]:
+        keys, shape = _keys(p), tuple(leaf.shape)
+        dim = fsdp_dim(keys, shape, data, model, cfg, mode="serve")
+        assert dim == ref[_norm(p)], (p, dim, ref[_norm(p)])
+        assert fsdp_dim(keys, shape, data, model, cfg, mode="train") == \
+            fsdp_dim(keys, shape, data, model, cfg)
+        if dim is not None:
+            sliced += 1
+            assert "moe" in keys, p
+    assert (sliced > 0) == bool(cfg.n_experts)
+    with pytest.raises(ValueError, match="mode"):
+        fsdp_dim(("embed",), (8, 4), 2, 1, cfg, mode="eval")
+
+
+def _ref_serve_split(arch, batch, length, data, model):
+    """The reference's decode layout on a shape-only ``("data", "model")``
+    mesh: whether ``batch_specs`` puts the batch on the data axis, and the
+    spec of an attention cache's ``k`` leaf (``cache_specs``)."""
+    from repro.configs.base import ShapeConfig
+    from repro.sharding.rules import batch_specs, cache_specs
+
+    cfg = ref_get_config(arch)
+    mesh = FakeMesh({"data": data, "model": model})
+    shape = ShapeConfig("s", "decode", length, batch)
+    splits = batch_specs(cfg, shape, mesh)["token"][0] is not None
+    specs = cache_specs(cfg, shape, mesh)
+    flat = jax.tree_util.tree_flatten_with_path(specs, is_leaf=lambda x: isinstance(x, P))[0]
+    kv = next(spec for path, spec in flat if _path_str(path).split("/")[-1] == "k")
+    return splits, kv
+
+
+def _ref_slab(kv, length, data, model, d, m):
+    """``[start, end)`` of the sequence that device (data ``d``, model
+    ``m``) holds under the cache spec ``kv`` (the reference's
+    ``_cache_write_shardmap`` index over the sequence's axes in order)."""
+    axes = kv[2] if isinstance(kv[2], tuple) else (kv[2],)
+    sizes, coords = {"data": data, "model": model}, {"data": d, "model": m}
+    idx, n = 0, 1
+    for a in axes:
+        if a is None:
+            continue
+        idx, n = idx * sizes[a] + coords[a], n * sizes[a]
+    return idx * length // n, (idx + 1) * length // n
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "zamba2-7b", "starcoder2-7b"])
+@pytest.mark.parametrize("batch,length", [(1, 524288), (3, 48), (4, 32), (128, 32768)])
+@pytest.mark.parametrize("grid", [(2, 1), (4, 1), (2, 2), (4, 4)],
+                         ids=lambda g: f"{g[0]}x{g[1]}")
+def test_the_batch_or_sequence_split_agrees_with_the_references_specs(arch, batch, length, grid):
+    """``serve_splits_batch`` is the reference's choice between the batch
+    and the caches' sequence on its data axes; a split batch's row blocks
+    are the reference's, and a split sequence's slabs too at M = 1.  At M >
+    1 the reference splits the sequence over data and ``"model"`` together
+    while the port keeps the heads over ``"model"``: the port's slab of
+    data rank d is the reference's slabs of (d, 0) … (d, M − 1) joined (a
+    route difference)."""
+    data, model = grid
+    ref_splits, kv = _ref_serve_split(arch, batch, length, data, model)
+    assert serve_splits_batch(batch, data) == ref_splits
+    for d in range(data):
+        if ref_splits:
+            assert kv[1] in ("data", ("data",))
+            lo, n = row_block(batch, data, d)
+            assert (lo, lo + n) == (d * batch // data, (d + 1) * batch // data)
+            continue
+        assert kv[1] is None and kv[2] == ("data", "model")
+        lo, n = seq_slab(length, data, d)
+        ref = [_ref_slab(kv, length, data, model, d, m) for m in range(model)]
+        assert ref[0][0] == lo and ref[-1][1] == lo + n
+        assert all(a[1] == b[0] for a, b in zip(ref, ref[1:]))
+        if model == 1:
+            assert ref == [(lo, lo + n)]
