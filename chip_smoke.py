@@ -629,6 +629,13 @@ GRID_FED_REL = 1.5e-4
 # (k)'s snapshot: starcoder2-7b at its published widths cut to two layers,
 # drawn on the 2 x 2 grid of cards and written with ``save_checkpoint_shares``
 GRID_SNAPSHOT_FULL = ("starcoder2-7b", {"n_layers": 2})
+# phase 4h: the per-leaf tree path.  f32 relative L2 of every plane after
+# TREE_ROUNDS rounds, against the card's flat kernel path and the CPU's tree
+# path; the mixed bf16/f32 tree card vs CPU at the tests' bf16 bar
+TREE_ROUNDS, TREE_TIMED = 3, 10
+TREE_VS_FLAT, TREE_VS_CPU, TREE_BF16_VS_CPU = 1e-5, 1e-4, 2e-2
+TREE_SPEC = "_tree_normalized"
+TREE_TASK = {}  # device -> (params, momentum, FlatSpec, FederatedData) of phase 4h's runs
 OTHER_ALGOS = ("fedprox", "fedavgm", "fedacg", "fedadam", "fedadagrad", "fedyogi", "mimelite",
                "scaffold", "feddyn")
 # the reference benchmark's per-algorithm settings (benchmarks/common.py: η_g
@@ -4755,6 +4762,249 @@ def public_api(torch, np, bindings, fd_kernel, smi_line: str):
     return paths
 
 
+# ---------------------------------------------------------------------- phase 4h
+def tree_direction(cfg, m, cst, x, x0, g):
+    """The runtime spec's direction: the gradient over its whole norm.  On
+    the tree path it sees one client's leaf trees, on the flat path its
+    ``(P,)`` plane (a one-leaf tree): the same function of the same
+    numbers."""
+    from repro_torch.utils.trees import tree_leaves, tree_map
+
+    n = sum((a * a).sum() for a in tree_leaves(g)).sqrt() + 1e-12
+    return tree_map(lambda a: a / n, g)
+
+
+def tree_spec():
+    from repro_torch.core.registry import AlgorithmSpec, FoldPass
+
+    return AlgorithmSpec(
+        name=TREE_SPEC, direction_row=None, direction_fn=tree_direction,
+        fold=(FoldPass("delta", c_mm=0.0, c_md=lambda cfg, e, n: -1.0 / (e * cfg.local_steps),
+                       c_xd=lambda cfg, e, n: cfg.eta_g),))
+
+
+def tree_round_inputs(torch, np, cfg, data, dev):
+    """``TREE_ROUNDS`` rounds of injected draws (ids, masks, minibatch
+    indices, full batches) on ``dev``, the same numbers on every device."""
+    from repro_torch.core.engine import RoundInputs, cohort_capacity
+    from repro_torch.data import gather_full_client_batch, gather_round_batches
+
+    cap = cohort_capacity(cfg)
+    rng = np.random.default_rng(8)
+    out = []
+    for _ in range(TREE_ROUNDS):
+        ids = torch.as_tensor(rng.permutation(cfg.num_clients)[:cap], device=dev)
+        mask = torch.as_tensor(np.arange(cap) < rng.binomial(cfg.num_clients, 0.1), device=dev)
+        idx = rng.integers(0, data.n_per_client, size=(cap, cfg.local_steps, 50))
+        batches = gather_round_batches(data.client_x, data.client_y, None, ids,
+                                       cfg.local_steps, 50, idx=torch.as_tensor(idx))
+        full = gather_full_client_batch(data.client_x, data.client_y, ids)
+        out.append(RoundInputs(batches, ids, mask, full_batches=full))
+    return out
+
+
+def tree_planes(torch, np, bindings, algo, dev, flat):
+    """``TREE_ROUNDS`` rounds of ``algo`` on ``dev`` from one converted state
+    (the CLI's MLP and task, a nonzero momentum), on the tree path or the
+    flat one, on the injected draws of ``tree_round_inputs``.  Returns the
+    final planes, the tree path's raveled, and the launches of the rounds
+    (the card's tree path must launch none)."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core.convert import (
+        params_from_numpy, params_to_numpy, state_from_numpy, tree_state_from_numpy,
+    )
+    from repro_torch.core.engine import FederatedEngine
+    from repro_torch.core.flat import FlatSpec
+    from repro_torch.data import FederatedData, make_synthetic_classification
+    from repro_torch.models.small import classification_loss, mlp_classifier
+
+    cfg = FedConfig(algo=algo, participation="bernoulli", use_flat_plane=flat,
+                    **ALGO_SETTINGS.get(algo, {}))
+    model = mlp_classifier((32, 128, 128, 10))
+    if dev not in TREE_TASK:  # the task, the start state and the data, made once a device
+        x_tr, y_tr, _, _ = make_synthetic_classification(n_train=20_000, n_test=10, seed=3)
+        params = params_to_numpy(model.init(torch.Generator().manual_seed(3)))
+        momentum = [{k: (0.01 * v).astype(np.float32) for k, v in layer.items()}
+                    for layer in params_to_numpy(model.init(torch.Generator().manual_seed(4)))]
+        TREE_TASK[dev] = (params, momentum, FlatSpec.from_tree(params_from_numpy(params)),
+                          FederatedData(x_tr, y_tr, cfg.num_clients, dirichlet_alpha=0.6,
+                                        seed=3, device=dev))
+    params, momentum, tree, data = TREE_TASK[dev]  # tree: to ravel the tree path's state
+    if flat:
+        state, spec = state_from_numpy(params, cfg, momentum=momentum, device=dev)
+    else:
+        state, spec = tree_state_from_numpy(params, cfg, momentum=momentum, device=dev), None
+    eng = FederatedEngine(cfg, classification_loss(model.apply), spec, device=dev)
+    counted = dev == "cuda"  # the CPU's runs go on beside the card's and count nothing
+    if counted:
+        for b in bindings.values():
+            b.launches = 0
+    for inp in tree_round_inputs(torch, np, cfg, data, dev):
+        state, _ = eng.round_step(state, inp.batches, inp.ids, inp.mask,
+                                  full_batches=inp.full_batches)
+    launches = {k: b.launches for k, b in bindings.items()} if counted else {}
+
+    def ravel(t, **kw):
+        return None if t is None else t if flat else tree.ravel(t, **kw)
+
+    return {"params": ravel(state.params), "momentum": ravel(state.server.momentum),
+            "second_moment": ravel(state.server.second_moment),
+            "client_states": ravel(state.client_states, batch_dims=1)}, launches
+
+
+def tree_vs_flat(torch, np, bindings, algo, cpu_planes):
+    """One spec on the card: the tree path (launch counts 0) against the
+    card's flat kernel path and against the CPU's tree path
+    (``cpu_planes``, computed beside it).  Returns the relative L2 of every
+    plane the spec has."""
+    card_tree, launches = tree_planes(torch, np, bindings, algo, "cuda", False)
+    if any(launches.values()):
+        fail(f"tree path {algo}: launched kernels {launches}")
+    card_flat, _ = tree_planes(torch, np, bindings, algo, "cuda", True)
+    out = {"vs_flat": {}, "vs_cpu": {}}
+    for key, t in card_tree.items():
+        if t is None:
+            continue
+        for other, limit, name in ((card_flat, TREE_VS_FLAT, "vs_flat"),
+                                   (cpu_planes, TREE_VS_CPU, "vs_cpu")):
+            rel = rel_l2(torch, t, other[key])
+            out[name][key] = rel
+            if not rel <= limit:
+                fail(f"tree path {algo} on the card: {key} {name} relative L2 {rel:.3e} > "
+                     f"{limit}")
+    return out
+
+
+def tree_mixed_dtypes(torch, np, bindings):
+    """A tree of a bf16 and an f32 leaf on the tree path, card vs CPU:
+    ``TREE_ROUNDS`` FedCM rounds of the tests' quadratic, no launch, the
+    bf16 leaf back in f32 after the server step (as in the reference)."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core.engine import FederatedEngine
+
+    def loss(params, batch):
+        d = params["w"].to(torch.float32)[:, None, :] - batch["c"]
+        return 0.5 * (d ** 2).sum(-1).mean(-1) + 0.5 * (params["b"].to(torch.float32) ** 2).mean(-1)
+
+    rng = np.random.default_rng(9)
+    w, b = rng.normal(size=(4096,)), rng.normal(size=(1024,))
+    c = rng.normal(size=(4, 2, 8, 4096)).astype(np.float32)  # (C, K, B, 4096)
+    cfg = FedConfig(algo="fedcm", num_clients=8, cohort_size=4, local_steps=2,
+                    participation="fixed", use_flat_plane=False)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng = FederatedEngine(cfg, loss, None, device=dev)
+        st = eng.init({"w": torch.tensor(w, dtype=torch.bfloat16),
+                       "b": torch.tensor(b, dtype=torch.float32)})
+        for bd in bindings.values():
+            bd.launches = 0
+        for _ in range(TREE_ROUNDS):
+            st, _ = eng.round_step(st, {"c": torch.tensor(c, device=dev)},
+                                   torch.arange(4, device=dev),
+                                   torch.ones(4, dtype=torch.bool, device=dev))
+        if dev == "cuda" and any(bd.launches for bd in bindings.values()):
+            fail("tree path, mixed dtypes: launched a kernel")
+        if st.params["w"].dtype != torch.float32:
+            fail(f"tree path, mixed dtypes: the bf16 leaf came back {st.params['w'].dtype}")
+        out[dev] = st
+    rel = {k: rel_l2(torch, out["cuda"].params[k], out["cpu"].params[k]) for k in ("w", "b")}
+    if not max(rel.values()) <= TREE_BF16_VS_CPU:
+        fail(f"tree path, mixed dtypes: card vs CPU relative L2 {rel} > {TREE_BF16_VS_CPU}")
+    return rel
+
+
+def tree_ms_per_round(torch, bindings):
+    """FedCM at the main path's widths: ms a round of the tree path and of
+    the flat kernel path in one call (``TREE_TIMED`` rounds after 2 warm-up,
+    synchronized), and the tree path's launches in those rounds."""
+    from repro_torch.configs.base import FedConfig
+
+    out = {}
+    for name, flat in (("flat", True), ("tree", False)):
+        cfg = FedConfig(algo="fedcm", participation="bernoulli", use_flat_plane=flat)
+        eng, state, data = fresh_engine(torch, cfg)
+        state, _ = eng.run_rounds(state, data, 2)
+        torch.cuda.synchronize()
+        for b in bindings.values():
+            b.launches = 0
+        t0 = time.perf_counter()
+        state, _ = eng.run_rounds(state, data, TREE_TIMED)
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e3 / TREE_TIMED
+        out[f"{name}_launches"] = {k: b.launches for k, b in bindings.items()}
+    if any(out["tree_launches"].values()):
+        fail(f"tree path: launched {out['tree_launches']} in its timed rounds")
+    return out
+
+
+def tree_path_and_contracts(torch, np, bindings, smi_line: str):
+    """Phase 4h: the per-leaf tree path on the card — the eleven registered
+    specs and a runtime spec whose ``direction_fn`` sees trees, each
+    ``TREE_ROUNDS`` rounds against the card's flat kernel path
+    (``TREE_VS_FLAT``) and the tree path on the CPU (``TREE_VS_CPU``) with
+    no kernel launched; a mixed bf16/f32 tree; the tree path's ms a round
+    beside the flat path's — and, beside them in a subprocess, the
+    analysis contracts' full matrix on the card
+    (``python -m repro_torch.analysis.trace --device cuda``)."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    import repro_torch.core.algorithms  # noqa: F401  (the builtin specs register on import)
+    from repro_torch.core.registry import list_algorithms, register_algorithm, unregister_algorithm
+
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    trace = subprocess.Popen([sys.executable, "-m", "repro_torch.analysis.trace",
+                              "--device", "cuda"], cwd=ROOT, env=env, text=True,
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    try:
+        register_algorithm(tree_spec(), override=True)
+        try:
+            algos = list_algorithms()
+            if len(algos) != 12:
+                fail(f"phase 4h: {len(algos)} specs registered, expected the 11 builtin + 1")
+            # the CPU's tree runs in a thread beside the card's (torch's CPU ops
+            # release the interpreter lock)
+            def on_cpu(a):
+                out = tree_planes(torch, np, bindings, a, "cpu", False)[0]
+                laps["cpu"] = time.perf_counter() - t0
+                return out
+
+            laps = {}
+            with ThreadPoolExecutor(1) as pool:
+                cpu = {a: pool.submit(on_cpu, a) for a in algos}
+                rows = {}
+                for a in algos:
+                    rows[a] = tree_vs_flat(torch, np, bindings, a, cpu[a].result())
+                    laps["card"] = time.perf_counter() - t0
+        finally:
+            unregister_algorithm(TREE_SPEC)
+        for algo, row in rows.items():
+            say(f"tree path on the card, {algo}, {TREE_ROUNDS} injected rounds, launches 0: "
+                f"relative L2 {json.dumps(row)} (limits: vs the flat kernel path {TREE_VS_FLAT},"
+                f" vs the CPU {TREE_VS_CPU})")
+        say(f"tree path on the card, mixed bf16/f32 tree, launches 0: card vs CPU relative L2 "
+            f"{json.dumps(tree_mixed_dtypes(torch, np, bindings))} (limit {TREE_BF16_VS_CPU})")
+        ms = tree_ms_per_round(torch, bindings)
+        say(f"tree path ms/round (fedcm, the main path's widths, {TREE_TIMED} rounds after 2 "
+            f"warm-up): tree {ms['tree']:.3f} beside flat {ms['flat']:.3f}; launches "
+            f"{json.dumps(ms['tree_launches'])} vs {json.dumps(ms['flat_launches'])}; "
+            f"{smi_line}")
+        text, _ = trace.communicate(timeout=300)
+        laps["contracts"] = time.perf_counter() - t0
+    finally:
+        if trace.poll() is None:
+            trace.kill()
+            trace.wait()
+    for line in text.strip().splitlines():
+        say(f"contracts: {line}")
+    if trace.returncode != 0:
+        fail(f"python -m repro_torch.analysis.trace --device cuda exited {trace.returncode}")
+    say(f"tree path and contracts: phase 4h in {time.perf_counter() - t0:.1f} s (ended: the "
+        f"card's spec runs at {laps['card']:.1f} s, the CPU's at {laps['cpu']:.1f}, the "
+        f"contracts' subprocess at {laps['contracts']:.1f})")
+
+
 # ---------------------------------------------------------------------- phase 5
 def card_vs_cpu(torch, np, algo="fedcm", cnn=False):
     """Three rounds of ``algo`` from one converted state on the card and on
@@ -5100,6 +5350,14 @@ def main() -> int:
                                                "count": torch.cuda.device_count()}}))
         return 0
 
+    if "--tree-only" in sys.argv[1:]:  # phase 4h alone, on one card
+        tree_path_and_contracts(torch, np, bindings, smi_line)
+        lap("4h")
+        say(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                               "kind": torch.cuda.get_device_name(0),
+                                               "count": torch.cuda.device_count()}}))
+        return 0
+
     if "--grid-only" in sys.argv[1:]:  # phases 8 (i), (j), 6c and 6d alone, on one card
         grid_one_card(torch, np, smi_line)
         lap("8 (i)-(j), 6c, 6d")
@@ -5342,6 +5600,10 @@ def main() -> int:
     # ---- 4g. the public API on the card, launch counts from each run only
     api_paths = public_api(torch, np, bindings, fd_kernel, smi_line)
     lap("4g")
+
+    # ---- 4h. the per-leaf tree path (no kernel) and the analysis contracts
+    tree_path_and_contracts(torch, np, bindings, smi_line)
+    lap("4h")
 
     # ---- 5. card vs CPU
     diffs = card_vs_cpu(torch, np)

@@ -11,15 +11,16 @@ reference's ``fed_dryrun`` grid (``FederatedEngine``'s ``cohort_group`` and
 ``repro_torch.core.algorithms`` holds the builtin specs;
 ``@register_algorithm`` adds new ones as data.
 
-The reference's exports are here but these, which have no counterpart:
+The per-leaf tree path (``use_flat_plane=False``, ROADMAP A.16 (d) 4) is
+the reference's oracle route: ``FederatedEngine`` keeps the params tree as
+its state and runs each round leaf by leaf with the registry's tree
+interpreters, launching no kernel; ``client_update`` / ``ClientOutputs``
+are its one-client local steps and uplink, and ``flat_client_update`` /
+``FlatClientOutputs`` the flat plane's (one row of the engine's cohort
+pass).
 
-* ``client_update`` and ``ClientOutputs``: the per-leaf tree path
-  (``use_flat_plane=False``), not ported yet (ROADMAP A.16 (d) 4);
-* ``flat_client_update`` and ``FlatClientOutputs``: the reference's one
-  client's local steps and its uplink NamedTuple.  The port runs the whole
-  cohort as one ``(C, P)`` plane (``FederatedEngine`` ``_flat_cohort_pass``,
-  no per-client function), and ``sparse_client_finalize`` returns the
-  uplink planes as a dict by name;
+The reference's exports are all here but one, which has no counterpart:
+
 * ``FlatMaster``: the reference's f32 cache of a sub-f32 tree's planes
   across calls.  The port's state already is the f32 plane
   (``FedState.params``), so there is nothing to cache.
@@ -29,14 +30,17 @@ import importlib
 # each export by its module; imported on first use (PEP 562), so importing a
 # kernel wrapper, which the engine imports in turn, never cycles through here
 _HOME = {
-    "repro_torch.core.algorithms": ("ALGORITHMS", "sparse_client_finalize"),
+    "repro_torch.core.algorithms": ("ALGORITHMS", "FlatClientOutputs",
+                                    "sparse_client_finalize"),
     "repro_torch.core.engine": ("AsyncRoundMetrics", "FederatedEngine", "FedState",
-                                "RoundMetrics", "cohort_capacity", "local_learning_rate",
+                                "RoundMetrics", "client_update", "cohort_capacity",
+                                "flat_client_update", "local_learning_rate",
                                 "make_eval_fn", "sample_cohort", "sample_cohort_ex"),
     "repro_torch.core.faults": ("FaultPlan", "corrupt_uplink", "fault_masks", "rows_finite",
                                 "zero_rows"),
     "repro_torch.core.flat": ("CohortUplink", "FlatSpec", "LeafSpec", "ring_push"),
-    "repro_torch.core.registry": ("Algorithm", "AlgorithmSpec", "DirectionRow", "FoldPass",
+    "repro_torch.core.registry": ("Algorithm", "AlgorithmSpec", "ClientOutputs", "DirectionRow",
+                                  "FoldPass",
                                   "ServerState", "client_state_init", "describe_algorithm",
                                   "get_algorithm", "list_algorithms", "register_algorithm",
                                   "routing_table_md", "server_init", "unregister_algorithm"),
@@ -46,8 +50,7 @@ _MODULE_OF = {name: module for module, names in _HOME.items() for name in names}
 __all__ = sorted(_MODULE_OF)
 
 #: the reference's exports with no counterpart here (see the module docstring)
-NOT_PORTED = ("ClientOutputs", "FlatClientOutputs", "FlatMaster", "client_update",
-              "flat_client_update")
+NOT_PORTED = ("FlatMaster",)
 
 
 def __getattr__(name):

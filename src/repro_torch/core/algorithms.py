@@ -22,6 +22,8 @@ fold (``srv.momentum`` is m').
 """
 from __future__ import annotations
 
+from typing import Any, NamedTuple, Optional
+
 import torch
 
 from repro_torch.core.registry import (
@@ -282,6 +284,15 @@ register_algorithm(AlgorithmSpec(
                    c_xd=0.0),),
     server_post_fn=_fedacg_post,
 ))
+
+
+class FlatClientOutputs(NamedTuple):
+    """One client's uplink on the flat plane (``flat_client_update``):
+    ``(P,)`` planes, None for a plane the spec does not use."""
+
+    delta: Any  # x_{i,K} − x_t
+    state_delta: Optional[Any]  # SCAFFOLD's Δc_i / FedDyn's Δλ_i, or None
+    extra: Optional[Any]  # MimeLite's full-batch gradient, or None
 
 
 def sparse_client_finalize(algo: AlgorithmSpec, cfg, x0, xK, cst, m, eta_l,

@@ -5,7 +5,9 @@ packages; the reference's outputs come back as numpy with ``np.asarray``
 on its pytrees.  This module turns such arrays into the port's params and
 cache trees and flat ``FedState``, and the port's state back into numpy
 planes for comparison.  bf16 arrays (ml_dtypes on the numpy side) pass through f32,
-which is exact.
+which is exact.  ``tree_state_from_numpy`` / ``tree_state_to_numpy`` do the
+same for the per-leaf tree path's state (``use_flat_plane=False``), whose
+planes are trees of the params' structure.
 """
 from __future__ import annotations
 
@@ -18,7 +20,13 @@ from repro_torch.configs.base import FedConfig
 from repro_torch.core.compress import effective_compression, init_residuals
 from repro_torch.core.engine import FedState
 from repro_torch.core.flat import FlatSpec
-from repro_torch.core.registry import ServerState, client_state_init, get_algorithm
+from repro_torch.core.registry import (
+    ServerState,
+    client_state_init,
+    get_algorithm,
+    tree_client_state_init,
+    tree_server_init,
+)
 from repro_torch.utils.trees import tree_map
 
 
@@ -123,4 +131,43 @@ def state_to_numpy(state: FedState) -> Dict[str, np.ndarray]:
             "round": int(state.server.round),
             "second_moment": opt(state.server.second_moment),
             "residuals": opt(state.residuals),
+            "client_states": opt(state.client_states)}
+
+
+def tree_state_from_numpy(params, cfg: FedConfig, *, momentum=None, round: int = 0,
+                          client_states=None, second_moment=None, device="cpu",
+                          generator: Optional[torch.Generator] = None) -> FedState:
+    """The tree path's ``FedState`` from numpy trees — how the reference's
+    tree ``FedState`` is carried into the port.  ``params`` keeps its leaf
+    dtypes; ``momentum`` / ``second_moment`` (trees of the params'
+    structure) and ``client_states`` (the reference's stacked ``(N, …)``
+    tree) keep theirs, and each missing one is the reference's initial
+    plane (``tree_server_init`` in ``cfg.momentum_dtype``,
+    ``tree_client_state_init``), present iff the spec needs it."""
+    tree = params_from_numpy(params, device)
+    algo = get_algorithm(cfg.algo)
+    server = tree_server_init(tree, cfg.momentum_dtype,
+                              needs_second_moment=algo.needs_second_moment)
+    if momentum is not None:
+        server = server._replace(momentum=params_from_numpy(momentum, device))
+    if second_moment is not None and algo.needs_second_moment:
+        server = server._replace(second_moment=params_from_numpy(second_moment, device))
+    server = server._replace(round=torch.tensor(round, dtype=torch.int32, device=device))
+    cst = tree_client_state_init(tree, cfg)
+    if cst is not None and client_states is not None:
+        cst = params_from_numpy(client_states, device)
+    return FedState(params=tree, server=server, rng=generator, client_states=cst)
+
+
+def tree_state_to_numpy(state: FedState) -> Dict[str, object]:
+    """numpy trees of a tree-path state: params, momentum, second moment
+    and client states (None where the run has none; bf16 widened to f32)
+    and the round counter."""
+    def opt(t):
+        return None if t is None else params_to_numpy(t)
+
+    return {"params": params_to_numpy(state.params),
+            "momentum": params_to_numpy(state.server.momentum),
+            "round": int(state.server.round),
+            "second_moment": opt(state.server.second_moment),
             "client_states": opt(state.client_states)}

@@ -97,8 +97,31 @@ over the data group on its share's columns (one ``server_update`` launch
 on its ``(C_pad, ceil(P_r/D))`` block).  ``x`` and ``m`` stay replicated
 over data: the round keeps no FSDP storage.
 
-The per-leaf tree path (A.16) raises ``NotImplementedError`` naming its
-ROADMAP item (``check_supported``).
+The per-leaf tree path (``use_flat_plane=False``) is the reference's
+numerical oracle and its route for params that are not all floating
+point: the state is the params tree itself, leaf by leaf in each leaf's
+dtype (``tree_server_init``, ``tree_client_state_init``), and a round
+(``_tree_round``) gathers the cohort's client-state leaves, runs the K
+local steps as one batched forward/backward a step over ``(C, *shape)``
+leaves (``client_update`` is its one-client case) with the spec's
+direction interpreted leaf by leaf and a cast back to each leaf's dtype at
+every step, injects the faults over the leaf trees, takes the masked mean
+of every uplink tree leaf by leaf in ``aggregate_dtype`` (the unused
+planes are zeros, as in the reference) and closes with
+``tree_server_update``, the quorum's no-op fold and the client-state
+scatter.  It launches no kernel.  Uplink compression, the host store,
+cohort sharding and the async ring raise the reference's ``ValueError``
+there; a model group raises ``NotImplementedError`` (ROADMAP A.16 (e)).
+As in the reference, a sub-f32 leaf comes back from the server step in
+f32 (the fold's f32 mean promotes it), and an integer leaf raises
+``TypeError`` at its gradient.
+
+Inside ``run_rounds`` and the async loops the round updates the state's
+planes in place: a loop's first fold (and first residual write) makes new
+planes, so the caller's state stays as it was, and from then on params,
+momentum, second moment, client states and residuals each keep their
+storage (``repro_torch.analysis.trace`` contract (a)).  ``round_step``
+and ``run_round`` return new planes and leave their input as it was.
 """
 from __future__ import annotations
 
@@ -112,7 +135,7 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import FedConfig
 from repro_torch.core import algorithms  # noqa: F401  (registers the builtin specs)
-from repro_torch.core.algorithms import sparse_client_finalize
+from repro_torch.core.algorithms import FlatClientOutputs, sparse_client_finalize
 from repro_torch.core.compress import (
     COMPRESS_STREAM,
     PLANE_STREAMS,
@@ -133,6 +156,7 @@ from repro_torch.core.faults import (
     corrupt_uplink,
     fault_masks,
     nanmedian_midpoint,
+    row_size,
     rows_finite,
     rows_sqnorm,
     zero_rows,
@@ -146,11 +170,14 @@ from repro_torch.core.flat import (
     ring_push,
 )
 from repro_torch.core.registry import (
+    ClientOutputs,
     ServerState,
     client_state_init,
     get_algorithm,
     list_algorithms,
     server_init,
+    tree_client_state_init,
+    tree_server_init,
 )
 from repro_torch.data.pipeline import gather_full_client_batch, gather_round_batches
 from repro_torch.data.population import (
@@ -174,6 +201,13 @@ from repro_torch.kernels.server_update.ops import (
 from repro_torch.launch.mesh import make_cohort_group
 from repro_torch.sharding.rules import cohort_axis_size, padded_cohort
 from repro_torch.utils.draws import uniform as hash_uniform
+from repro_torch.utils.trees import (
+    tree_bytes,
+    tree_flatten_with_path,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 
 
 class FedState(NamedTuple):
@@ -185,7 +219,10 @@ class FedState(NamedTuple):
     the uplink is top-k on resident state), ``client_states`` the ``(N, P)``
     f32 per-client state plane — SCAFFOLD's c_i, FedDyn's λ_i — (None
     unless the spec keeps per-client state on resident state; under
-    ``population_store="host"`` both live in host stores)."""
+    ``population_store="host"`` both live in host stores).  On the tree
+    path ``params``, the server planes and ``client_states`` (``(N, …)``
+    leaves) are trees of the params' structure, and ``residuals`` is
+    None."""
 
     params: torch.Tensor
     server: ServerState
@@ -308,19 +345,8 @@ def synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-# (predicate, what, ROADMAP item) for every knob the port does not run yet
-_UNPORTED = (
-    (lambda c: not c.use_flat_plane, "use_flat_plane=False (the per-leaf tree path)", "A.16"),
-)
-
-
 def check_supported(cfg: FedConfig) -> None:
-    """Raise ``NotImplementedError`` (naming the ROADMAP item) for any part
-    of ``cfg`` the port does not run yet, ``ValueError`` for bad values."""
-    for pred, what, item in _UNPORTED:
-        if pred(cfg):
-            raise NotImplementedError(
-                f"{what} is not ported to repro_torch yet (ROADMAP {item})")
+    """Raise ``ValueError`` for bad values in ``cfg``."""
     if cfg.algo not in list_algorithms():
         raise ValueError(f"unknown federated algorithm {cfg.algo!r}; registered: "
                          f"{list(list_algorithms())}")
@@ -356,6 +382,27 @@ def check_model_group(cfg: FedConfig, algo) -> None:
         if on:
             raise NotImplementedError(f"{what} under a model group is not ported yet "
                                       f"(ROADMAP A.16 (e))")
+
+
+def check_tree_path(cfg: FedConfig, algo, cohort_group, model_group) -> None:
+    """Refuse, with the reference's messages, what the per-leaf tree path
+    does not run: each is a transform of flat ``(C, P)`` planes.  A model
+    group raises ``NotImplementedError`` naming ROADMAP A.16 (e)."""
+    if effective_compression(cfg, algo) is not None:
+        raise ValueError("uplink compression is a flat-plane transform (it quantizes (C, P) "
+                         "cohort planes) — set cfg.use_flat_plane=True (the tree path stays "
+                         "the uncompressed oracle)")
+    if cfg.population_store == "host":
+        raise ValueError("population_store='host' rides the flat parameter plane (the store "
+                         "gathers/scatters contiguous (C, P) rows) — set "
+                         "cfg.use_flat_plane=True")
+    if cohort_group is not None or cfg.cohort_shard > 0:
+        raise ValueError("cohort-parallel execution runs on the flat parameter plane — it "
+                         "shards (C, P) uplink planes; set cfg.use_flat_plane=True (the tree "
+                         "path stays the single-device oracle)")
+    if model_group is not None:
+        raise NotImplementedError("the per-leaf tree path (use_flat_plane=False) under a "
+                                  "model group is not ported yet (ROADMAP A.16 (e))")
 
 
 def cohort_capacity(cfg: FedConfig) -> int:
@@ -448,6 +495,202 @@ def _accuracy(predict_fn, params, x, y, batch_size: int) -> torch.Tensor:
     return hits / x.shape[0]
 
 
+# ----------------------------------------------------------------------
+# the cohort's local steps on the flat plane
+# ----------------------------------------------------------------------
+
+
+def _plane_value_and_grad(loss_fn, spec: FlatSpec, x: torch.Tensor, batch,
+                          model_group: Optional[GroupPlane] = None):
+    """Per-client losses ``(C,)`` and gradient plane ``(C, P)`` of the
+    cohort plane ``x`` in one backward (each client's loss depends only
+    on its own row, so the gradient of the sum is per-client).
+
+    The gradient is taken with respect to each leaf's view of the plane
+    and written into its columns of one ``(C, P)`` buffer.  Taken with
+    respect to the plane, each view's slice backward would write a zero
+    ``(C, P)`` plane and the planes would be summed: the same values
+    (every element has one nonzero term), but at an LM's width one
+    plane is gigabytes and the model has a dozen leaves."""
+    plane = x.detach().requires_grad_(True)
+    with torch.enable_grad():
+        views = spec.views(plane)
+        losses = loss_fn(spec.unravel_views(views), batch)
+        grads = list(torch.autograd.grad(losses.sum(), views, allow_unused=True))
+    g = torch.empty_like(x)
+    for i, l in enumerate(spec.leaves):
+        cols = g[..., l.offset:l.offset + l.size]
+        if grads[i] is None:  # a leaf the loss does not read
+            cols.zero_()
+        else:
+            cols.copy_(grads[i].reshape(cols.shape))
+        grads[i] = None  # free each leaf's gradient once it is in the plane
+    if model_group is not None:  # the parts each rank reads only in part
+        model_group.sum_partial(spec, g)
+    return losses.detach(), g
+
+
+def _cohort_pass(algo, cfg, loss_fn, spec: FlatSpec, x_t, m_t, batches, eta_l, cst=None,
+                 full_batches=None, model_group: Optional[GroupPlane] = None):
+    """K local steps of the whole cohort on the ``(C, P)`` plane: one
+    batched value-and-grad and ONE ``fed_direction`` launch per step
+    (a ``direction_fn`` spec: its callable on each client row instead).
+    Returns (uplink planes by name, losses ``(C,)``)."""
+    C = batches["y"].shape[0]
+    if algo.direction_fn is None:
+        auxes, coefs = direction_operands(algo, cfg, m_t, cst, x_t, eta_l)
+
+        def step(x, g):
+            return fed_direction(x, g, auxes, coefs)
+    else:
+        # an escape hatch sees one client's (P,) planes: a direction such
+        # as g / ‖g‖ means something else over the whole (C, P) plane
+        def step(x, g):
+            return torch.stack([
+                flat_direction_step(algo, cfg, x[c], g[c], m_t,
+                                    None if cst is None else cst[c], x_t, eta_l)
+                for c in range(C)])
+    x0 = x_t.expand(C, -1).contiguous()
+    x = x0
+    losses = []
+    for k in range(cfg.local_steps):
+        batch_k = {key: v[:, k] for key, v in batches.items()}
+        loss, g = _plane_value_and_grad(loss_fn, spec, x, batch_k, model_group)
+        if cfg.weight_decay:
+            g = cfg.weight_decay * x + g
+        x = step(x, g)
+        losses.append(loss)
+    full_grad = None
+    if algo.needs_full_grad:
+        _, full_grad = _plane_value_and_grad(loss_fn, spec, x0, full_batches, model_group)
+    planes = sparse_client_finalize(algo, cfg, x_t, x, cst, m_t, eta_l, full_grad)
+    return planes, torch.stack(losses, dim=1).mean(dim=1)
+
+
+def _one_row(tree):
+    return None if tree is None else tree_map(lambda a: a[None], tree)
+
+
+def flat_client_update(algo, cfg, loss_fn, spec: FlatSpec, x_t, x0_tree, m_t, m_tree,
+                       cst_tree_i, cst_flat_i, batches, eta_l, full_grad_batch=None,
+                       unroll: bool = False):
+    """One client's K local steps on the flat plane, in the reference's
+    argument order: the cohort pass of the engine on one row (the fused
+    route: ``fed_direction`` a step, or the ``direction_fn``).  ``x_t`` /
+    ``m_t`` are ``(P,)``, ``cst_flat_i`` this client's ``(P,)`` state row
+    or None, ``batches`` ``{"x": (K, B, …), "y": (K, B)}`` and
+    ``full_grad_batch`` the client's whole dataset (MimeLite).
+    ``loss_fn`` follows the port's convention: leaves with a leading
+    client axis in, ``(C,)`` losses out (``FederatedEngine``).  The tree
+    views ``x0_tree``, ``m_tree`` and ``cst_tree_i`` and ``unroll`` (the
+    reference's leaf route and its dry-run form) are accepted and unused.
+    Returns ``(FlatClientOutputs, mean local loss)``."""
+    planes, losses = _cohort_pass(
+        get_algorithm(algo) if isinstance(algo, str) else algo, cfg, loss_fn, spec, x_t, m_t,
+        _one_row(batches), eta_l, None if cst_flat_i is None else cst_flat_i[None],
+        _one_row(full_grad_batch))
+    return FlatClientOutputs(*(None if planes[k] is None else planes[k][0]
+                               for k in ("delta", "state_delta", "extra"))), losses[0]
+
+
+# ----------------------------------------------------------------------
+# the per-leaf tree path
+# ----------------------------------------------------------------------
+
+
+def _tree_value_and_grad(loss_fn, leaves, paths, treedef, batch):
+    """Per-client losses ``(C,)`` and the gradient leaves of a cohort's
+    ``(C, …)`` leaves, each in its leaf's dtype, in one backward.  A leaf
+    that is not floating point raises ``TypeError``, as the reference's
+    ``jax.grad`` does on the tree path."""
+    for path, leaf in zip(paths, leaves):
+        if not leaf.dtype.is_floating_point:
+            raise TypeError(f"grad requires floating-point inputs, but the params leaf "
+                            f"{path} has dtype {leaf.dtype}")
+    xs = [leaf.detach().requires_grad_(True) for leaf in leaves]
+    with torch.enable_grad():
+        losses = loss_fn(tree_unflatten(treedef, xs), batch)
+        grads = torch.autograd.grad(losses.sum(), xs, allow_unused=True)
+    return losses.detach(), [torch.zeros_like(x) if g is None else g
+                             for x, g in zip(xs, grads)]
+
+
+def _leaf_step(x: torch.Tensor, v: torch.Tensor, eta_l: torch.Tensor) -> torch.Tensor:
+    """``x − η_l·v`` computed in the promoted dtype (at least f32, as the
+    reference's f32 η_l promotes it) and cast back to the leaf's dtype."""
+    dt = torch.promote_types(torch.promote_types(x.dtype, v.dtype), eta_l.dtype)
+    return (x.to(dt) - eta_l * v.to(dt)).to(x.dtype)
+
+
+def _tree_cohort_update(algo, cfg, loss_fn, params, m, cst, batches, eta_l,
+                        full_batches=None):
+    """K local steps of a cohort on the tree path: ``params`` and ``m`` the
+    broadcast trees, ``cst`` the cohort's client-state tree of ``(C, …)``
+    leaves (zeros for a stateless spec), ``batches`` leaves ``(C, K, B,
+    …)``.  Each step is one batched forward/backward over ``(C, *shape)``
+    leaves, weight decay, the spec's direction (a ``direction_fn`` once
+    per client on its leaf trees) and the step cast back to each leaf's
+    dtype.  Returns ``(ClientOutputs of (C, …) leaves, losses (C,))``."""
+    flat, treedef = tree_flatten_with_path(params)
+    paths = [path for path, _ in flat]
+    C = tree_leaves(batches)[0].shape[0]
+
+    def cohort(leaves):
+        return [leaf.expand(C, *leaf.shape).contiguous() for leaf in leaves]
+
+    x = cohort([leaf for _, leaf in flat])
+    losses = []
+    for k in range(cfg.local_steps):
+        batch_k = tree_map(lambda b: b[:, k], batches)
+        loss, g = _tree_value_and_grad(loss_fn, x, paths, treedef, batch_k)
+        if cfg.weight_decay:
+            g = [cfg.weight_decay * xi + gi for xi, gi in zip(x, g)]
+        xt, gt = tree_unflatten(treedef, x), tree_unflatten(treedef, g)
+        if algo.direction_fn is None:
+            v = algo.tree_direction(cfg, m, cst, xt, params, gt)
+        else:  # the escape hatch sees one client's leaf trees
+            rows = [algo.tree_direction(cfg, m, tree_map(lambda a: a[c], cst),
+                                        tree_map(lambda a: a[c], xt), params,
+                                        tree_map(lambda a: a[c], gt)) for c in range(C)]
+            v = tree_map(lambda *vs: torch.stack(vs), *rows)
+        x = [_leaf_step(xi, vi, eta_l) for xi, vi in zip(x, tree_leaves(v))]
+        losses.append(loss)
+    full_grad = None
+    if algo.needs_full_grad:
+        _, fg = _tree_value_and_grad(loss_fn, cohort([leaf for _, leaf in flat]), paths,
+                                     treedef, full_batches)
+        full_grad = tree_unflatten(treedef, fg)
+    outs = algo.client_finalize(cfg, params, tree_unflatten(treedef, x), cst, m, eta_l,
+                                full_grad)
+    return outs, torch.stack(losses, dim=1).mean(dim=1)
+
+
+def client_update(algo, cfg, loss_fn, params, bcast_momentum, client_state, batches, eta_l,
+                  full_grad_batch=None, unroll: bool = False):
+    """One client's K local steps on the tree path, in the reference's
+    argument order: weight decay, the spec's direction over the leaf trees
+    and a cast back to each leaf's dtype at every step, then
+    ``client_finalize``.  ``params`` / ``bcast_momentum`` are leaf trees,
+    ``client_state`` this client's state tree (None: zeros), ``batches``
+    ``{"x": (K, B, …), "y": (K, B)}`` and ``full_grad_batch`` the client's
+    whole dataset (MimeLite).  ``loss_fn`` follows the port's convention:
+    leaves with a leading client axis in, ``(C,)`` losses out
+    (``FederatedEngine``).  ``unroll`` (the reference's dry-run form) is
+    accepted and unused.  Returns ``(ClientOutputs, mean local loss)``."""
+    algo = get_algorithm(algo) if isinstance(algo, str) else algo
+    cst = (tree_map(torch.zeros_like, params) if client_state is None else client_state)
+    outs, losses = _tree_cohort_update(algo, cfg, loss_fn, params, bcast_momentum,
+                                       _one_row(cst), _one_row(batches), eta_l,
+                                       _one_row(full_grad_batch))
+    return ClientOutputs(*(tree_map(lambda a: a[0], t) for t in outs)), losses[0]
+
+
+def _tree_norm(tree) -> torch.Tensor:
+    """‖tree‖ over every leaf, in f32."""
+    return torch.sqrt(sum(torch.sum(torch.square(leaf.to(torch.float32)))
+                          for leaf in tree_leaves(tree)))
+
+
 class FederatedEngine:
     """Round engine for (algorithm, loss_fn, parameter layout).
 
@@ -483,6 +726,11 @@ class FederatedEngine:
     this rank's share's, ``loss_fn`` runs on the group
     (``cohort_loss_fn(model, parallel)``), and each rank builds the same
     engine and calls the same methods with the same draws.
+
+    ``cfg.use_flat_plane=False`` runs the per-leaf tree path: the state is
+    the params tree (``init`` copies it onto the device), ``spec`` may be
+    None, and the same ``loss_fn`` gets ``(C, *shape)`` leaves in each
+    leaf's dtype.
     """
 
     def __init__(self, cfg: FedConfig, loss_fn: Callable, spec: FlatSpec,
@@ -491,6 +739,8 @@ class FederatedEngine:
         check_supported(cfg)
         if model_group is not None:
             check_model_group(cfg, get_algorithm(cfg.algo))
+        if not cfg.use_flat_plane:
+            check_tree_path(cfg, get_algorithm(cfg.algo), cohort_group, model_group)
         self.model_group = model_group
         self._draws_checked = False
         if cfg.population_store == "host" and (cohort_group is not None
@@ -526,6 +776,11 @@ class FederatedEngine:
         # (population_store="host"), attached by init()
         self.population = None
         self.residual_population = None
+
+    def params_tree(self, state: FedState):
+        """The model's params tree of ``state``: views of the flat plane, or
+        on the tree path the state's own tree."""
+        return self.spec.unravel(state.params) if self.cfg.use_flat_plane else state.params
 
     def _plane_norm(self, x: torch.Tensor) -> torch.Tensor:
         """‖x‖ of a ``(P,)`` plane; over a model group, of the whole plane."""
@@ -576,8 +831,19 @@ class FederatedEngine:
         zero residual rows under top-k compression.  Under
         ``population_store="host"`` neither ``(N, P)`` plane is allocated:
         fresh host stores are attached as ``self.population`` (stateful
-        specs) and ``self.residual_population`` (top-k)."""
-        cfg, size = self.cfg, self.spec.size
+        specs) and ``self.residual_population`` (top-k).  On the tree path
+        the state is a copy of the params tree on this engine's device with
+        the reference's tree planes (``tree_server_init`` in
+        ``cfg.momentum_dtype``, ``tree_client_state_init``)."""
+        cfg = self.cfg
+        if not cfg.use_flat_plane:
+            params = tree_map(lambda a: a.detach().to(self.device, copy=True), params)
+            return FedState(
+                params=params,
+                server=tree_server_init(params, cfg.momentum_dtype,
+                                        needs_second_moment=self.algo.needs_second_moment),
+                rng=generator, client_states=tree_client_state_init(params, cfg))
+        size = self.spec.size
         residuals = client_states = None
         if self._host:
             self.population = (make_population_store(cfg, size)
@@ -596,12 +862,16 @@ class FederatedEngine:
             client_states=client_states,
         )
 
-    def payload_bytes(self) -> Dict[str, int]:
+    def payload_bytes(self, params=None) -> Dict[str, int]:
         """Per-client per-round communication in bytes (§4.2): x_t down,
         plus Δ_t (or SCAFFOLD's c) when the spec broadcasts it; up, P per
         wire plane (``wire_uplink_planes``), or under compression the
-        planes' bytes on the wire."""
-        nbytes, size = self.spec.nbytes, self.spec.size
+        planes' bytes on the wire.  The tree path passes the round's
+        ``params`` tree, whose leaf dtypes set the bytes."""
+        if params is not None:
+            nbytes = size = tree_bytes(params)
+        else:
+            nbytes, size = self.spec.nbytes, self.spec.size
         if self.model_group is not None:  # a client's whole model, not this rank's share
             nbytes, size = self.model_group.whole_nbytes, self.model_group.whole_size
         down = nbytes * (2 if self.algo.needs_momentum_broadcast else 1)
@@ -612,32 +882,8 @@ class FederatedEngine:
     # -------------------------------------------------- client phase
     def _value_and_grad(self, x: torch.Tensor, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """Per-client losses ``(C,)`` and gradient plane ``(C, P)`` of the
-        cohort plane ``x`` in one backward (each client's loss depends only
-        on its own row, so the gradient of the sum is per-client).
-
-        The gradient is taken with respect to each leaf's view of the plane
-        and written into its columns of one ``(C, P)`` buffer.  Taken with
-        respect to the plane, each view's slice backward would write a zero
-        ``(C, P)`` plane and the planes would be summed: the same values
-        (every element has one nonzero term), but at an LM's width one
-        plane is gigabytes and the model has a dozen leaves."""
-        spec = self.spec
-        plane = x.detach().requires_grad_(True)
-        with torch.enable_grad():
-            views = spec.views(plane)
-            losses = self.loss_fn(spec.unravel_views(views), batch)
-            grads = list(torch.autograd.grad(losses.sum(), views, allow_unused=True))
-        g = torch.empty_like(x)
-        for i, l in enumerate(spec.leaves):
-            cols = g[..., l.offset:l.offset + l.size]
-            if grads[i] is None:  # a leaf the loss does not read
-                cols.zero_()
-            else:
-                cols.copy_(grads[i].reshape(cols.shape))
-            grads[i] = None  # free each leaf's gradient once it is in the plane
-        if self.model_group is not None:  # the parts each rank reads only in part
-            self.model_group.sum_partial(spec, g)
-        return losses.detach(), g
+        cohort plane ``x`` (``_plane_value_and_grad``)."""
+        return _plane_value_and_grad(self.loss_fn, self.spec, x, batch, self.model_group)
 
     def _flat_cohort_pass(self, x_t, m_t, batches, eta_l, cst=None, full_batches=None):
         """K local steps of the whole cohort on the ``(C, P)`` plane: one
@@ -650,36 +896,8 @@ class FederatedEngine:
         dataset, over which a full-batch spec takes one more batched
         gradient at x_t.  Returns (uplink planes by name, losses) with
         losses ``(C,)`` the per-client mean over the K steps."""
-        cfg, algo = self.cfg, self.algo
-        C = batches["y"].shape[0]
-        if algo.direction_fn is None:
-            auxes, coefs = direction_operands(algo, cfg, m_t, cst, x_t, eta_l)
-
-            def step(x, g):
-                return fed_direction(x, g, auxes, coefs)
-        else:
-            # an escape hatch sees one client's (P,) planes: a direction such
-            # as g / ‖g‖ means something else over the whole (C, P) plane
-            def step(x, g):
-                return torch.stack([
-                    flat_direction_step(algo, cfg, x[c], g[c], m_t,
-                                        None if cst is None else cst[c], x_t, eta_l)
-                    for c in range(C)])
-        x0 = x_t.expand(C, -1).contiguous()
-        x = x0
-        losses = []
-        for k in range(cfg.local_steps):
-            batch_k = {key: v[:, k] for key, v in batches.items()}
-            loss, g = self._value_and_grad(x, batch_k)
-            if cfg.weight_decay:
-                g = cfg.weight_decay * x + g
-            x = step(x, g)
-            losses.append(loss)
-        full_grad = None
-        if algo.needs_full_grad:
-            _, full_grad = self._value_and_grad(x0, full_batches)
-        planes = sparse_client_finalize(algo, cfg, x_t, x, cst, m_t, eta_l, full_grad)
-        return planes, torch.stack(losses, dim=1).mean(dim=1)
+        return _cohort_pass(self.algo, self.cfg, self.loss_fn, self.spec, x_t, m_t, batches,
+                            eta_l, cst, full_batches, self.model_group)
 
     def _client_rows(self, state: FedState, ids) -> torch.Tensor:
         """The cohort's ``(C, P)`` client-state rows from the resident plane."""
@@ -702,7 +920,9 @@ class FederatedEngine:
         row would still poison the fold).  With ``cfg.fault`` None nothing
         runs.
 
-        Under cohort sharding ``ids`` and ``mask`` are the whole cohort's,
+        ``planes`` are ``(C, P)`` planes, or on the tree path trees of
+        ``(C, …)`` leaves (the noise draw's columns go to the leaves in
+        order).  Under cohort sharding ``ids`` and ``mask`` are the whole cohort's,
         ``planes`` this rank's rows: the drop and deadline draws run for the
         whole cohort on every rank, corruption touches this rank's rows
         (never a pad row), and the quarantine decides from every rank's
@@ -712,7 +932,7 @@ class FederatedEngine:
         if fault is None:
             return mask, planes, zero, zero
         delta = planes["delta"]
-        plan = fault_masks(fault, t, ids, delta.shape[-1], noise_ids=self._own(ids),
+        plan = fault_masks(fault, t, ids, row_size(delta), noise_ids=self._own(ids),
                            u_drop=d.u_drop, z_deadline=d.z_deadline, u_corrupt=d.u_corrupt,
                            z_noise=self._own(d.z_noise))
         n_dropped = zero
@@ -838,7 +1058,7 @@ class FederatedEngine:
         return new_x, new_server
 
     def _fold(self, state: FedState, entry: CohortUplink, discount: float = 1.0,
-              fold_rows=None, emit_rows: bool = False):
+              fold_rows=None, emit_rows: bool = False, in_place: bool = False):
         """Server phase: fold ONE entry into the state — the spec's fold
         rows with the entry's launch-time η_l and the staleness discount
         ``discount`` on the coefficient row and the post-step (a
@@ -849,7 +1069,9 @@ class FederatedEngine:
         resident plane).  A
         compressed state delta is decoded for the scatter; with
         ``emit_rows`` the updated ``(C, P)`` rows come back instead of being
-        scattered.  Leaves the round counter alone.  Returns ``(state,
+        scattered.  ``in_place`` writes the new params, server planes and
+        client-state rows into the state's own buffers (the loops, which
+        own them after their first fold).  Leaves the round counter alone.  Returns ``(state,
         ‖mean Δ‖, quorum_skipped, rows)``.
 
         Under cohort sharding the entry's planes are this rank's rows: the
@@ -893,10 +1115,13 @@ class FederatedEngine:
         # a below-quorum (or empty) cohort carries the server planes through
         ok = n_active >= float(max(1, cfg.min_quorum))
         new_x = torch.where(ok, new_x, x_t)
+        new_m = torch.where(ok, new_server.momentum, fsrv.momentum)
         sm = new_server.second_moment
-        new_server = new_server._replace(
-            momentum=torch.where(ok, new_server.momentum, fsrv.momentum),
-            second_moment=None if sm is None else torch.where(ok, sm, fsrv.second_moment))
+        new_sm = None if sm is None else torch.where(ok, sm, fsrv.second_moment)
+        if in_place:
+            new_x, new_m = x_t.copy_(new_x), fsrv.momentum.copy_(new_m)
+            new_sm = None if sm is None else fsrv.second_moment.copy_(new_sm)
+        new_server = new_server._replace(momentum=new_m, second_moment=new_sm)
         # client-state rows of active members only; below quorum the
         # weights are zero and each row is written back as cst + 0·sd
         new_cst, rows = state.client_states, None
@@ -909,18 +1134,21 @@ class FederatedEngine:
             rows = base + sd * (self._own(w, "zero") * ok.to(torch.float32))[:, None]
             rows = self._all_rows(rows)[:w.shape[0]]
             if not emit_rows:
-                new_cst = new_cst.index_copy(0, entry.ids.long(), rows)
+                scatter = new_cst.index_copy_ if in_place else new_cst.index_copy
+                new_cst = scatter(0, entry.ids.long(), rows)
                 rows = None
         state = state._replace(params=new_x, server=new_server, client_states=new_cst)
         return state, self._plane_norm(mean_delta), 1.0 - ok.to(torch.float32), rows
 
     @staticmethod
-    def _adopt_residuals(state: FedState, ids, new_rows) -> FedState:
-        """Write a launch's top-k residual rows into the resident plane: the
-        residual is client-side state, updated whatever the quorum decides."""
+    def _adopt_residuals(state: FedState, ids, new_rows, in_place: bool = False) -> FedState:
+        """Write a launch's top-k residual rows into the resident plane (in
+        its own buffer with ``in_place``): the residual is client-side
+        state, updated whatever the quorum decides."""
         if new_rows is None or state.residuals is None:
             return state
-        return state._replace(residuals=state.residuals.index_copy(0, ids.long(), new_rows))
+        scatter = state.residuals.index_copy_ if in_place else state.residuals.index_copy
+        return state._replace(residuals=scatter(0, ids.long(), new_rows))
 
     # -------------------------------------------------- sync round
     def round_step(self, state: FedState, batches, ids, mask, n_clipped=None,
@@ -934,12 +1162,21 @@ class FederatedEngine:
         metrics; ``full_batches`` = {"x": (C, n, ...), "y": (C, n)} is each
         client's whole dataset, which a full-batch spec (MimeLite) needs.
 
-        The round is a launch and an immediate fold (γ = 1)."""
-        inp = RoundInputs(batches, ids, mask, n_clipped, full_batches, draws)
+        The round is a launch and an immediate fold (γ = 1); on the tree
+        path, ``_tree_round``."""
+        return self._round(state, RoundInputs(batches, ids, mask, n_clipped, full_batches,
+                                              draws))
+
+    def _round(self, state: FedState, inp: RoundInputs, in_place: bool = False):
+        """One sync round on ``inp``; ``in_place`` folds into the state's own
+        buffers (see ``_fold``)."""
+        if not self.cfg.use_flat_plane:
+            return self._tree_round(state, inp)
         m_t = state.server.momentum
+        m_norm = self._plane_norm(m_t)  # before a fold in place moves it
         entry, lau, new_res = self._launch(state, m_t, inp)
-        state = self._adopt_residuals(state, ids, new_res)
-        state, norm, skipped, _ = self._fold(state, entry, 1.0)
+        state = self._adopt_residuals(state, inp.ids, new_res, in_place)
+        state, norm, skipped, _ = self._fold(state, entry, 1.0, in_place=in_place)
         state = state._replace(server=state.server._replace(round=state.server.round + 1))
         pay = self.payload_bytes()
         zero = torch.zeros((), dtype=torch.float32, device=m_t.device)
@@ -947,17 +1184,93 @@ class FederatedEngine:
             loss=lau.loss,
             n_active=lau.n_active,
             delta_norm=norm,
-            momentum_norm=self._plane_norm(m_t),
+            momentum_norm=m_norm,
             eta_l=entry.eta_l,
-            bytes_down=lau.n_active * float(pay["down_per_client"]),
-            bytes_up=lau.n_active * float(pay["up_per_client"]),
-            n_clipped=zero if n_clipped is None else n_clipped.to(torch.float32),
+            bytes_down=lau.n_active * pay["down_per_client"],
+            bytes_up=lau.n_active * pay["up_per_client"],
+            n_clipped=zero if inp.n_clipped is None else inp.n_clipped.to(torch.float32),
             n_dropped=lau.n_dropped,
             n_quarantined=lau.n_quarantined,
             n_retries=zero,
             quorum_skipped=skipped,
         )
         return state, metrics
+
+    def _tree_round(self, state: FedState, inp: RoundInputs):
+        """One round of the per-leaf tree path (the reference's
+        ``_tree_round_step``): gather the cohort's client-state leaves
+        (zeros for a stateless spec), the cohort's local steps
+        (``_tree_cohort_update``), faults, the masked mean of every uplink
+        tree leaf by leaf in ``aggregate_dtype``, ``tree_server_update``,
+        the quorum's no-op fold and the client-state scatter.  Launches no
+        kernel."""
+        cfg, algo = self.cfg, self.algo
+        t = state.server.round
+        eta_l = local_learning_rate(cfg, t)
+        ids, x_t, srv = inp.ids, state.params, state.server
+        if algo.needs_full_grad and inp.full_batches is None:
+            raise ValueError(f"{algo.name} takes a full-batch gradient at x_t: pass "
+                             f"full_batches (data.pipeline.gather_full_client_batch)")
+        if algo.needs_client_state:
+            if state.client_states is None:
+                raise ValueError(f"{algo.name} keeps per-client state — call "
+                                 f"eng.init(params, generator) so FedState.client_states "
+                                 f"is allocated before stepping")
+            cst = tree_map(lambda a: a.index_select(0, ids.long()), state.client_states)
+        else:
+            cst = tree_map(lambda p: torch.zeros((ids.shape[0], *p.shape), dtype=p.dtype,
+                                                 device=p.device), x_t)
+        outs, losses = _tree_cohort_update(algo, cfg, self.loss_fn, x_t, srv.momentum, cst,
+                                           inp.batches, eta_l, inp.full_batches)
+        mask, planes, n_dropped, n_quar = self._inject_faults(t, ids, inp.mask, outs._asdict(),
+                                                              inp.draws or RoundDraws())
+        w = mask.to(torch.float32)
+        n_active = w.sum()
+        agg = getattr(torch, cfg.aggregate_dtype)
+
+        def mmean(tree):
+            return tree_map(lambda a: torch.tensordot(w.to(agg), a.to(agg), dims=1).to(
+                torch.float32) / n_active.clamp(min=1.0), tree)
+
+        means = [mmean(planes[k]) for k in ("delta", "state_delta", "extra")]
+        new_x, new_srv = algo.tree_server_update(cfg, x_t, srv, *means, n_active, eta_l)
+        # a below-quorum (or empty) cohort carries the server trees through
+        ok = n_active >= float(max(1, cfg.min_quorum))
+
+        def keep(new, old):
+            return None if new is None else tree_map(lambda a, b: torch.where(ok, a, b), new, old)
+
+        new_srv = new_srv._replace(momentum=keep(new_srv.momentum, srv.momentum),
+                                   second_moment=keep(new_srv.second_moment, srv.second_moment),
+                                   round=t + 1)
+        new_cst = state.client_states
+        if algo.needs_client_state:  # active members only; none below quorum
+            w_sc = w * ok.to(torch.float32)
+
+            def scatter(a, d):
+                rows = a.index_select(0, ids.long()) + d * w_sc.reshape(
+                    -1, *([1] * (d.dim() - 1))).to(a.dtype)
+                return a.index_copy(0, ids.long(), rows.to(a.dtype))
+
+            new_cst = tree_map(scatter, state.client_states, planes["state_delta"])
+        pay = self.payload_bytes(x_t)
+        zero = torch.zeros((), dtype=torch.float32, device=w.device)
+        metrics = RoundMetrics(
+            loss=(losses * w).sum() / n_active.clamp(min=1.0),
+            n_active=n_active,
+            delta_norm=_tree_norm(means[0]),
+            momentum_norm=_tree_norm(srv.momentum),
+            eta_l=eta_l,
+            bytes_down=n_active * pay["down_per_client"],
+            bytes_up=n_active * pay["up_per_client"],
+            n_clipped=zero if inp.n_clipped is None else inp.n_clipped.to(torch.float32),
+            n_dropped=n_dropped,
+            n_quarantined=n_quar,
+            n_retries=zero,
+            quorum_skipped=1.0 - ok.to(torch.float32),
+        )
+        return state._replace(params=keep(new_x, x_t), server=new_srv,
+                              client_states=new_cst), metrics
 
     # -------------------------------------------------- data-driven round
     def _draw_round(self, generator, t, data) -> RoundInputs:
@@ -1000,20 +1313,21 @@ class FederatedEngine:
         if self._host:
             state, ms = self.run_rounds_store(state, data, 1)
             return state, RoundMetrics(*[None if v is None else v[0] for v in ms])
-        inp = self._draw_round(state.rng, state.server.round, data)
-        return self.round_step(state, inp.batches, inp.ids, inp.mask, inp.n_clipped,
-                               full_batches=inp.full_batches)
+        return self._round(state, self._draw_round(state.rng, state.server.round, data))
 
     def run_rounds(self, state: FedState, data, n_rounds: int) -> Tuple[FedState, RoundMetrics]:
         """``n_rounds`` rounds as a Python loop; metrics come back stacked
-        with a leading ``(n_rounds,)`` axis, still on the device."""
+        with a leading ``(n_rounds,)`` axis, still on the device.  The first
+        round writes new planes, the later ones fold into those in place:
+        the caller's ``state`` stays as it was."""
         if n_rounds < 1:
             raise ValueError(f"n_rounds must be >= 1, got {n_rounds}")
         if self._host:
             return self.run_rounds_store(state, data, n_rounds)
         rows = []
-        for _ in range(n_rounds):
-            state, m = self.run_round(state, data)
+        for i in range(n_rounds):
+            inp = self._draw_round(state.rng, state.server.round, data)
+            state, m = self._round(state, inp, in_place=i > 0)
             rows.append(m)
         return state, _stack(RoundMetrics, rows)
 
@@ -1030,6 +1344,10 @@ class FederatedEngine:
             raise ValueError(f"pipeline_depth must be >= 1, got {D}")
         if S < 0:
             raise ValueError(f"staleness must be >= 0, got {S}")
+        if not self.cfg.use_flat_plane:
+            raise ValueError("run_rounds_async requires cfg.use_flat_plane=True — the "
+                             "in-flight cohort ring is a flat-plane carry (the tree path "
+                             "stays the sync oracle)")
         return D, S
 
     def run_rounds_async(self, state: FedState, data, n_rounds: int, *,
@@ -1086,39 +1404,47 @@ class FederatedEngine:
         entries still in flight (empty after ``drain``; ``drain_async``
         folds them later).  Under ``population_store="host"`` the rows come
         from and go back to the host stores at the resident gather and
-        scatter points: at launch, and at fold time."""
+        scatter points: at launch, and at fold time.  The loop's first fold
+        (and first residual write) makes new planes, the later ones write
+        into them in place; the S-stale momenta sit in S buffers of their
+        own."""
         cfg, algo = self.cfg, self.algo
         D, S = self._async_args(n_rounds, pipeline_depth, staleness)
         store, res_store = self._stores()
         mhist = None
         if S > 0 and algo.needs_momentum_broadcast:
             # slot t mod S holds the momentum entering round t − S
-            mhist = [state.server.momentum] * S
+            mhist = [state.server.momentum.clone() for _ in range(S)]
         discount = float(cfg.staleness_discount) ** (D - 1)
         pay = self.payload_bytes()
         dev = state.params.device
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         pending: Tuple[CohortUplink, ...] = ()
         rows = []
+        folded_once = adopted_once = False
         for t in range(n_rounds):
             r0 = state.server.round
             inp = inputs(state)
-            m_used = state.server.momentum
-            if mhist is not None:
-                m_used, mhist[t % S] = mhist[t % S], state.server.momentum
+            m_used = state.server.momentum if mhist is None else mhist[t % S]
+            m_norm = _norm(m_used)
             retries = 0
             stored = store is not None or res_store is not None
-            ids_np = inp.ids.cpu().numpy() if stored else None
+            ids_np = inp.ids.cpu().numpy() if stored else None  # repro: noqa REP003 -- the host store's ids: its designed boundary
             cohort_rows, res_rows, r = self._gather_rows(store, res_store, ids_np)
             retries += r
             entry, lau, new_res = self._launch(state, m_used, inp, cohort_rows, res_rows)
+            if mhist is not None:  # the slot now keeps the momentum entering round t
+                mhist[t % S].copy_(state.server.momentum)
             if res_store is not None:
                 retries += self._scatter_rows(None, res_store, ids_np, None, new_res)
             else:
-                state = self._adopt_residuals(state, inp.ids, new_res)
+                state = self._adopt_residuals(state, inp.ids, new_res, adopted_once)
+                adopted_once = adopted_once or new_res is not None
             if len(pending) + 1 >= D:
                 oldest, pending = ring_push(pending, entry)
-                state, norm, skipped, r = self._fold_stored(state, oldest, discount, store)
+                state, norm, skipped, r = self._fold_stored(state, oldest, discount, store,
+                                                            folded_once)
+                folded_once = True
                 retries += r
                 folded = 1.0
             else:  # pipeline fill: launch only
@@ -1133,10 +1459,10 @@ class FederatedEngine:
                 loss=lau.loss,
                 n_active=lau.n_active,
                 delta_norm=norm,
-                momentum_norm=_norm(m_used),
+                momentum_norm=m_norm,
                 eta_l=entry.eta_l,
-                bytes_down=lau.n_active * float(pay["down_per_client"]),
-                bytes_up=lau.n_active * float(pay["up_per_client"]),
+                bytes_down=lau.n_active * pay["down_per_client"],
+                bytes_up=lau.n_active * pay["up_per_client"],
                 folded=zero + folded,
                 eval_acc=eval_acc,
                 n_clipped=zero if inp.n_clipped is None else inp.n_clipped.to(torch.float32),
@@ -1146,7 +1472,7 @@ class FederatedEngine:
                 quorum_skipped=skipped,
             ))
         if drain:
-            state = self.drain_async(state, pending, D)
+            state = self._drain(state, pending, D, folded_once)
             pending = ()
         return state, _stack(AsyncRoundMetrics, rows), pending
 
@@ -1154,10 +1480,13 @@ class FederatedEngine:
         """Fold the entries still in flight, oldest first, with the
         discount of a ``pipeline_depth``-deep ring (the configured overlap,
         whatever ``len(pending)`` is).  The round counter stays."""
+        return self._drain(state, pending, pipeline_depth)
+
+    def _drain(self, state: FedState, pending, pipeline_depth: int, in_place: bool = False):
         discount = float(self.cfg.staleness_discount) ** (pipeline_depth - 1)
         store, _ = self._stores()
-        for entry in pending:
-            state = self._fold_stored(state, entry, discount, store)[0]
+        for i, entry in enumerate(pending):
+            state = self._fold_stored(state, entry, discount, store, in_place or i > 0)[0]
         return state
 
     # -------------------------------------------------- host population store
@@ -1220,20 +1549,22 @@ class FederatedEngine:
         retries = 0
         for s, got in ((store, rows), (res_store, res_rows)):
             if s is not None and got is not None:
-                retries += self._store_io(s.scatter, ids_np, got.cpu().numpy())[1]
+                rows = got.cpu().numpy()  # repro: noqa REP003 -- rows back to the host store
+                retries += self._store_io(s.scatter, ids_np, rows)[1]
         return retries
 
-    def _fold_stored(self, state: FedState, entry: CohortUplink, discount: float, store):
+    def _fold_stored(self, state: FedState, entry: CohortUplink, discount: float, store,
+                     in_place: bool = False):
         """``_fold`` with the client-state rows gathered from ``store`` at
         fold time and scattered back (resident when ``store`` is None).
         Returns ``(state, ‖mean Δ‖, quorum_skipped, n_retries)``."""
         if store is None:
-            state, norm, skipped, _ = self._fold(state, entry, discount)
+            state, norm, skipped, _ = self._fold(state, entry, discount, in_place=in_place)
             return state, norm, skipped, 0
-        ids_np = entry.ids.cpu().numpy()
+        ids_np = entry.ids.cpu().numpy()  # repro: noqa REP003 -- the host store's ids at fold time
         frows, _, retries = self._gather_rows(store, None, ids_np)
         state, norm, skipped, rows = self._fold(state, entry, discount, fold_rows=frows,
-                                                emit_rows=True)
+                                                emit_rows=True, in_place=in_place)
         return state, norm, skipped, retries + self._scatter_rows(store, None, ids_np, rows,
                                                                   None)
 

@@ -1,8 +1,8 @@
 """Fault injection and uplink quarantine primitives (pure mask/plane math).
 
-Counterpart of ``repro.core.faults`` on the flat plane: the payload is
-the cohort's ``(C, P)`` delta plane (the per-leaf tree forms are the tree
-path, ROADMAP A.16).  The fault model lives in
+Counterpart of ``repro.core.faults``: the payload is the cohort's ``(C, P)``
+delta plane, or on the per-leaf tree path a tree of ``(C, …)`` leaves (a
+plane is a one-leaf tree).  The fault model lives in
 ``repro_torch.configs.base.FaultConfig``; this module turns it into masks
 and planes, which the engine splices between the local steps and the fold.
 
@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.utils import draws
+from repro_torch.utils.trees import tree_flatten_with_path, tree_leaves, tree_map, tree_unflatten
 
 CORRUPT_MODES = ("nan", "inf", "noise")
 STREAM_DROP, STREAM_DEADLINE, STREAM_CORRUPT, STREAM_NOISE = 1, 2, 3, 4
@@ -69,37 +70,62 @@ def fault_masks(fault, t, ids: torch.Tensor, size: int = 0, *, noise_ids=None,
     return FaultPlan(drop=drop, corrupt=corrupt, noise=noise)
 
 
-def corrupt_uplink(fault, cmask: torch.Tensor, noise: Optional[torch.Tensor],
-                   x: torch.Tensor) -> torch.Tensor:
-    """Corrupt the rows of the ``(C, P)`` plane ``x`` where ``cmask`` is
-    True; other rows pass through bitwise."""
+def row_size(x) -> int:
+    """Elements of one client's payload: ``P`` of a ``(C, P)`` plane, the
+    sum over leaves of a tree of ``(C, …)`` leaves."""
+    return sum(l[0].numel() for l in tree_leaves(x))
+
+
+def corrupt_uplink(fault, cmask: torch.Tensor, noise: Optional[torch.Tensor], x):
+    """Corrupt the rows of the payload ``x`` (a ``(C, P)`` plane or a tree
+    of ``(C, …)`` leaves) where ``cmask`` is True; other rows pass through
+    bitwise.  Under "noise" ``noise`` is ``(C, row_size(x))``: a tree's
+    leaves take its columns in leaf order."""
     mode = fault.corrupt_mode
     if mode not in CORRUPT_MODES:
         raise ValueError(f"unknown corrupt_mode {mode!r}; known: nan | inf | noise")
-    cm = cmask[:, None]
-    if mode in ("nan", "inf"):
-        fill = torch.full((), float("nan") if mode == "nan" else float("inf"),
-                          dtype=x.dtype, device=x.device)
-        return torch.where(cm, fill, x)
-    noisy = x + (fault.noise_scale * torch.abs(x.to(torch.float32)) * noise).to(x.dtype)
-    return torch.where(cm, noisy, x)
+    leaves, treedef = tree_flatten_with_path(x)
+    out, off = [], 0
+    for _, leaf in leaves:
+        cm = cmask.reshape(-1, *([1] * (leaf.dim() - 1)))
+        if mode in ("nan", "inf"):
+            fill = torch.full((), float("nan") if mode == "nan" else float("inf"),
+                              dtype=leaf.dtype, device=leaf.device)
+            out.append(torch.where(cm, fill, leaf))
+            continue
+        n = leaf[0].numel()
+        z = noise[:, off:off + n].reshape(leaf.shape)
+        off += n
+        noisy = leaf + (fault.noise_scale * torch.abs(leaf.to(torch.float32)) * z).to(leaf.dtype)
+        out.append(torch.where(cm, noisy, leaf))
+    return tree_unflatten(treedef, out)
 
 
-def rows_finite(x: torch.Tensor) -> torch.Tensor:
-    """(C,) bool: is every element of client c's row finite?"""
-    return torch.isfinite(x).all(dim=1)
+def rows_finite(x) -> torch.Tensor:
+    """(C,) bool: is every element of client c's payload finite?"""
+    ok = None
+    for leaf in tree_leaves(x):
+        f = torch.isfinite(leaf).reshape(leaf.shape[0], -1).all(dim=1)
+        ok = f if ok is None else ok & f
+    return ok
 
 
-def rows_sqnorm(x: torch.Tensor) -> torch.Tensor:
-    """(C,) f32: squared L2 norm of each client's row."""
-    return torch.square(x.to(torch.float32)).sum(dim=1)
+def rows_sqnorm(x) -> torch.Tensor:
+    """(C,) f32: squared L2 norm of each client's payload."""
+    s = None
+    for leaf in tree_leaves(x):
+        q = torch.square(leaf.to(torch.float32)).reshape(leaf.shape[0], -1).sum(dim=1)
+        s = q if s is None else s + q
+    return s
 
 
-def zero_rows(x: torch.Tensor, bad: torch.Tensor) -> torch.Tensor:
-    """Set quarantined rows to exact zeros.  Zeroing (not only a zero
-    weight) is load-bearing: 0·NaN = NaN in the fold, while an exact-zero
-    row adds ±0, which leaves the sum bitwise."""
-    return torch.where(bad[:, None], torch.zeros((), dtype=x.dtype, device=x.device), x)
+def zero_rows(x, bad: torch.Tensor):
+    """Set quarantined rows to exact zeros in every leaf.  Zeroing (not
+    only a zero weight) is load-bearing: 0·NaN = NaN in the fold, while an
+    exact-zero row adds ±0, which leaves the sum bitwise."""
+    return tree_map(lambda leaf: torch.where(
+        bad.reshape(-1, *([1] * (leaf.dim() - 1))),
+        torch.zeros((), dtype=leaf.dtype, device=leaf.device), leaf), x)
 
 
 def nanmedian_midpoint(v: torch.Tensor) -> torch.Tensor:

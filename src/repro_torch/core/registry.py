@@ -69,6 +69,16 @@ engine change::
 ``python -m repro_torch.core.registry [--write]`` prints the routing table
 of the registered specs (and writes it into ``kernels/README.md``).
 
+The per-leaf tree path (``use_flat_plane=False``) has the reference's
+generic interpreters over leaf trees instead of the kernels:
+``tree_direction``, ``client_finalize`` (unused uplink planes
+materialize as zeros) and ``tree_server_update``, with the tree forms of
+the state allocation, ``tree_server_init`` and ``tree_client_state_init``.
+There a ``direction_fn`` sees one client's leaf trees and a ``server_fn``
+the cohort means as leaf trees, as in the reference; a ``state_update_fn``
+and a ``server_post_fn``, written on tensors, run leaf by leaf (every
+builtin one is elementwise).
+
 Coefficients are floats or callables: ``cfg -> float`` for direction rows,
 ``(cfg, eta_l, n_active) -> scalar`` for fold rows, where ``eta_l`` and
 ``n_active`` are device tensors (η_l decays per round, |S| is drawn), so a
@@ -80,6 +90,8 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
+
+from repro_torch.utils.trees import tree_flatten_with_path, tree_leaves, tree_map, tree_unflatten
 
 DirCoef = Union[float, Callable[[Any], float]]
 FoldCoef = Union[float, Callable[[Any, Any, Any], Any]]
@@ -118,8 +130,20 @@ class ServerState(NamedTuple):
     second_moment: Optional[torch.Tensor] = None
 
 
+class ClientOutputs(NamedTuple):
+    """A client's uplink on the per-leaf tree path, as leaf trees (leaves
+    with a leading cohort axis for a cohort): ``delta`` = x_{i,K} − x_t,
+    ``state_delta`` the per-client state update (SCAFFOLD's Δc_i, FedDyn's
+    Δλ_i) and ``extra`` the full-batch gradient (MimeLite); a plane the
+    spec does not use is zeros, as in the reference."""
+
+    delta: Any
+    state_delta: Any
+    extra: Any
+
+
 def _dir_coef(c: DirCoef, cfg) -> float:
-    return float(c(cfg)) if callable(c) else float(c)
+    return float(c(cfg)) if callable(c) else float(c)  # repro: noqa REP003 -- a direction coefficient is a Python value of cfg
 
 
 def _fold_coef(c: FoldCoef, cfg, eta_l, n_active):
@@ -127,11 +151,11 @@ def _fold_coef(c: FoldCoef, cfg, eta_l, n_active):
 
 
 def _is_static_zero(c) -> bool:
-    return isinstance(c, (int, float)) and float(c) == 0.0
+    return isinstance(c, (int, float)) and float(c) == 0.0  # repro: noqa REP003 -- isinstance-guarded Python scalar
 
 
 def _is_static_one(c) -> bool:
-    return isinstance(c, (int, float)) and float(c) == 1.0
+    return isinstance(c, (int, float)) and float(c) == 1.0  # repro: noqa REP003 -- isinstance-guarded Python scalar
 
 
 class AlgorithmSpec(NamedTuple):
@@ -236,6 +260,97 @@ class AlgorithmSpec(NamedTuple):
                                                for a in (mean_delta, mean_sd, mean_extra))
         return self.server_fn(cfg, params, server, mean_delta, mean_sd, mean_extra,
                               n_active, eta_l)
+
+    # -------------------------------------------- the per-leaf tree path
+    def tree_direction(self, cfg, m, cst, x, x0, g):
+        """The local direction v over leaf trees (the reference's
+        ``direction``): the affine row leaf by leaf in the reference's
+        order, or the ``direction_fn`` on the trees.  ``x``, ``g`` and
+        ``cst`` may lead with a cohort axis, against which ``m`` and ``x0``
+        broadcast."""
+        if self.direction_fn is not None:
+            return self.direction_fn(cfg, m, cst, x, x0, g)
+        row = self.direction_row
+        c_g, c_x = _dir_coef(row.c_g, cfg), _dir_coef(row.c_x, cfg)
+        streams = {"momentum": m, "client_state": cst}
+        aux = [(streams[s], _dir_coef(c, cfg)) for s, c in row.aux]
+        aux = [(t, c) for t, c in aux if c != 0.0]  # static-zero streams drop
+        trees = [g] + ([x, x0] if c_x != 0.0 else []) + [t for t, _ in aux]
+        coefs = [c for _, c in aux]
+
+        def leaf(g_l, *rest):
+            v = c_g * g_l
+            if c_x != 0.0:
+                v = v + c_x * (rest[0] - rest[1])
+                rest = rest[2:]
+            for c_s, s_l in zip(coefs, rest):
+                v = v + c_s * s_l
+            return v
+
+        return tree_map(leaf, *trees)
+
+    def client_finalize(self, cfg, x0, xK, cst, m, eta_l, full_grad) -> ClientOutputs:
+        """The uplink on the tree path: unused planes materialize as zeros
+        (the tree path aggregates them, as the reference's does).  The
+        state update runs leaf by leaf."""
+        delta = tree_map(torch.sub, xK, x0)
+        if self.state_update_fn is not None:
+            sd = tree_map(lambda a, b, c, d, e: self.state_update_fn(cfg, a, b, c, d, e, eta_l),
+                          x0, xK, cst, m, delta)
+        else:
+            sd = tree_map(torch.zeros_like, xK)
+        extra = full_grad if self.needs_full_grad else tree_map(torch.zeros_like, xK)
+        return ClientOutputs(delta, sd, extra)
+
+    def tree_server_update(self, cfg, params, st, mean_delta, mean_sd, mean_extra, n_active,
+                           eta_l, discount=1.0):
+        """The round close over leaf trees (the reference's
+        ``server_update``): the fold rows leaf by leaf, the momentum cast
+        to its store dtype, the round counter advanced, then the post-step
+        leaf by leaf; or the ``server_fn`` on the (γ-discounted) mean
+        trees."""
+        if self.server_fn is not None:
+            if not _is_static_one(discount):
+                mean_delta, mean_sd, mean_extra = (
+                    None if t is None else tree_map(lambda a: discount * a, t)
+                    for t in (mean_delta, mean_sd, mean_extra))
+            return self.server_fn(cfg, params, st, mean_delta, mean_sd, mean_extra,
+                                  n_active, eta_l)
+        planes = {"delta": mean_delta, "state_delta": mean_sd, "extra": mean_extra}
+        x, m = params, st.momentum
+        dmean_delta = None
+        for p in self.fold:
+            dmean = planes[p.plane]
+            if not _is_static_one(discount):
+                dmean = tree_map(lambda a: discount * a, dmean)
+            if p.plane == "delta":
+                dmean_delta = dmean
+            c_mm = _fold_coef(p.c_mm, cfg, eta_l, n_active)
+            c_md = _fold_coef(p.c_md, cfg, eta_l, n_active)
+            c_xd = _fold_coef(p.c_xd, cfg, eta_l, n_active)
+            if not (_is_static_zero(p.c_md) and _is_static_one(p.c_mm)):
+                if _is_static_zero(p.c_mm):
+                    m = tree_map(lambda d: c_md * d, dmean)
+                else:
+                    m = tree_map(lambda mi, d: c_mm * mi + c_md * d, m, dmean)
+            if not _is_static_zero(p.c_xd):
+                x = tree_map(lambda xi, d: xi + c_xd * d, x, dmean)
+        if self.momentum_store == "momentum_dtype":
+            m = tree_map(lambda a: a.to(self.momentum_dtype(cfg)), m)
+        new_st = st._replace(momentum=m, round=st.round + 1)
+        if self.server_post_fn is None:
+            return x, new_st
+        xs, treedef = tree_flatten_with_path(x)
+        ms, sms = tree_leaves(m), new_st.second_moment
+        sms = [None] * len(ms) if sms is None else tree_leaves(sms)
+        outs = [self.server_post_fn(cfg, xl, new_st._replace(momentum=ml, second_moment=sl),
+                                    dl, n_active, eta_l)
+                for (_, xl), ml, sl, dl in zip(xs, ms, sms, tree_leaves(dmean_delta))]
+        x = tree_unflatten(treedef, [o[0] for o in outs])
+        m = tree_unflatten(treedef, [o[1].momentum for o in outs])
+        sm = (None if new_st.second_moment is None
+              else tree_unflatten(treedef, [o[1].second_moment for o in outs]))
+        return x, new_st._replace(momentum=m, second_moment=sm)
 
 
 #: the reference's other name for the spec
@@ -369,6 +484,33 @@ def client_state_init(spec: AlgorithmSpec, num_clients: int, size: int,
     if not spec.needs_client_state:
         return None
     return torch.zeros((num_clients, size), dtype=torch.float32, device=device)
+
+
+def tree_server_init(params, momentum_dtype="float32",
+                     needs_second_moment: bool = True) -> ServerState:
+    """The reference's ``server_init(params, …)`` on the tree path: a zero
+    momentum tree in ``momentum_dtype``, round 0, and a zero second moment
+    in each leaf's dtype iff ``needs_second_moment``, on the params'
+    device."""
+    mdt = getattr(torch, momentum_dtype) if isinstance(momentum_dtype, str) else momentum_dtype
+    leaves = tree_leaves(params)
+    dev = leaves[0].device if leaves else None
+    return ServerState(
+        momentum=tree_map(lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device), params),
+        round=torch.zeros((), dtype=torch.int32, device=dev),
+        second_moment=tree_map(torch.zeros_like, params) if needs_second_moment else None)
+
+
+def tree_client_state_init(params, cfg):
+    """The reference's ``client_state_init(params, cfg)`` on the tree path:
+    stacked ``(N, …)`` zero leaves in each leaf's dtype iff the spec keeps
+    per-client state on resident state, else None."""
+    if not get_algorithm(cfg.algo).needs_client_state:
+        return None
+    if cfg.population_store != "resident":
+        return None
+    return tree_map(lambda p: torch.zeros((cfg.num_clients, *p.shape), dtype=p.dtype,
+                                          device=p.device), params)
 
 
 def describe_algorithm(spec: AlgorithmSpec) -> Dict[str, str]:

@@ -21,7 +21,7 @@ def coef_vector(values: Iterable, device) -> torch.Tensor:
     host and a kernel reads every coefficient from device memory."""
     parts = [
         v.to(torch.float32).reshape(()) if isinstance(v, torch.Tensor)
-        else torch.full((), float(v), dtype=torch.float32, device=device)
+        else torch.full((), float(v), dtype=torch.float32, device=device)  # repro: noqa REP003 -- isinstance-guarded Python scalar
         for v in values
     ]
     return torch.stack(parts)

@@ -75,9 +75,9 @@ def fed_direction_flat(x: torch.Tensor, g: torch.Tensor,
     KERNEL.launch(
         fn, out.data_ptr(), x.data_ptr(), g.data_ptr(), *ptrs, coefs.data_ptr(),
         x.numel(), P,
-        int(x.dtype == torch.bfloat16), int(g.dtype == torch.bfloat16), len(auxes),
+        int(x.dtype == torch.bfloat16), int(g.dtype == torch.bfloat16), len(auxes),  # repro: noqa REP003 -- Python flags of the launch
         sum(1 << j for j, a in enumerate(auxes) if a.dtype == torch.bfloat16),
         sum(1 << j for j, b in enumerate(bcast) if b),
-        int(vec_ok), device, stream,
+        int(vec_ok), device, stream,  # repro: noqa REP003 -- Python flags of the launch
     )
     return out

@@ -208,10 +208,10 @@ def _launch(binding, plane, per_row, wn, x, m, coefs, write_x, write_m):
         x.data_ptr() if write_x else None,
         m.data_ptr() if write_m else None,
         coefs.data_ptr(), C, P,
-        int(plane.dtype == torch.bfloat16),
-        int(write_m and m.dtype == torch.bfloat16),
-        int(write_x and x.dtype == torch.bfloat16),
-        int(write_x), int(write_m),
+        int(plane.dtype == torch.bfloat16),  # repro: noqa REP003 -- Python flags of the launch
+        int(write_m and m.dtype == torch.bfloat16),  # repro: noqa REP003 -- Python flags of the launch
+        int(write_x and x.dtype == torch.bfloat16),  # repro: noqa REP003 -- Python flags of the launch
+        int(write_x), int(write_m),  # repro: noqa REP003 -- Python flags of the launch
         *device_plan(C, P, plane.element_size(), device).args(), device, stream,
     )
     return new_x, new_m, mean

@@ -21,7 +21,9 @@ thread hot-swaps them, one telemetry row a round, and a health endpoint.
 (``repro_torch.launch.mesh``): NCCL on ``cuda:0`` … ``cuda:N−1``, or gloo
 with ``--device cpu``; rank 0 prints the log, line for line the unsharded
 run's, and under ``--serve`` runs the fleet loop while the others step.
-Runs on ``cuda`` and raises when there is no GPU, unless ``--device cpu``
+``--no-flat-plane`` runs the per-leaf tree path (the reference's oracle
+route, no kernel launched); it refuses what the reference refuses there,
+and the snapshot and fleet flags.  Runs on ``cuda`` and raises when there is no GPU, unless ``--device cpu``
 asks for the CPU (the kernels' plain versions).
 
     PYTHONPATH=src python -m repro_torch.launch.fed_train --algo fedcm \
@@ -37,6 +39,7 @@ asks for the CPU (the kernels' plain versions).
     PYTHONPATH=src python -m repro_torch.launch.fed_train --rounds 20 --ckpt-every 5 \
         --ckpt-dir runs/fleet --serve
     PYTHONPATH=src python -m repro_torch.launch.fed_train --cohort-shard 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.fed_train --no-flat-plane --algo scaffold
     PYTHONPATH=src python -m repro_torch.launch.fed_train --list-algos
 """
 from __future__ import annotations
@@ -180,7 +183,7 @@ def run_federated(
         if cfg.population_store == "host":
             # the host loop has no in-loop eval: evaluate once at the end
             state, ms = eng.run_rounds_async(state, data, cfg.rounds)
-            acc = evaluate(spec.unravel(state.params), x_te_t, y_te_t)
+            acc = evaluate(eng.params_tree(state), x_te_t, y_te_t)
             host = metrics_to_host(ms)
             log_row(cfg.rounds, host, -1, acc, cfg.rounds)
             return acc, log
@@ -194,7 +197,7 @@ def run_federated(
         if cfg.pipeline_depth > 1 or cfg.rounds % eval_every:
             # the drain folded the cohorts still in flight after the last
             # in-loop eval (or the run ended off the cadence)
-            acc = evaluate(spec.unravel(state.params), x_te_t, y_te_t)
+            acc = evaluate(eng.params_tree(state), x_te_t, y_te_t)
         return acc, log
     acc, r = 0.0, 0
     if resume:
@@ -226,7 +229,7 @@ def run_federated(
         host = metrics_to_host(ms)  # one transfer per chunk, for the log and telemetry
         dt = time.perf_counter() - t0
         r += chunk
-        acc = evaluate(spec.unravel(state.params), x_te_t, y_te_t)
+        acc = evaluate(eng.params_tree(state), x_te_t, y_te_t)
         version = None
         snapshot = ckpt_every > 0 and (r % ckpt_every == 0 or r >= cfg.rounds)
         if snapshot:
@@ -435,6 +438,11 @@ def build_parser() -> argparse.ArgumentParser:
                        help="telemetry JSONL path (default <ckpt-dir>/telemetry.jsonl)")
     fleet.add_argument("--publish-retain", type=int, default=4,
                        help="published versions kept on disk (>= 2)")
+    ap.add_argument("--flat-plane", action=argparse.BooleanOptionalAction,
+                    default=FedConfig.use_flat_plane,
+                    help="carry params/momentum/client state on the flat (P,) plane "
+                         "(--no-flat-plane keeps the per-leaf tree path, which launches "
+                         "no kernel)")
     ap.add_argument("--cohort-shard", type=int, default=0,
                     help="shard each cohort over N ranks, one process each: NCCL on "
                          "cuda:0..N-1, or gloo with --device cpu; 0 = one process")
@@ -468,6 +476,14 @@ def check_flags(ap: argparse.ArgumentParser, args: argparse.Namespace) -> None:
     if args.population_store == "host" and args.cohort_shard > 0:
         ap.error("--population-store host is a single-device host loop; it does not "
                  "compose with --cohort-shard")
+    if args.cohort_shard > 0 and not args.flat_plane:
+        ap.error("--cohort-shard shards the flat (C, P) uplink planes — drop --no-flat-plane")
+    if args.population_store == "host" and not args.flat_plane:
+        ap.error("--population-store host gathers/scatters flat (C, P) state rows — drop "
+                 "--no-flat-plane")
+    if (args.ckpt_every > 0 or args.resume or args.serve) and not args.flat_plane:
+        ap.error("--ckpt-every / --resume / --serve snapshot the flat plane; the tree "
+                 "path's snapshot is not ported — drop --no-flat-plane")
 
 
 def resolve_config(args: argparse.Namespace) -> FedConfig:
@@ -502,7 +518,7 @@ def resolve_config(args: argparse.Namespace) -> FedConfig:
         zipf_exponent=args.zipf_exponent, dropout_rate=args.dropout_rate,
         fault=fault, min_quorum=args.min_quorum,
         allow_empty_cohort=args.allow_empty_cohort, compression=compression,
-        cohort_shard=args.cohort_shard,
+        cohort_shard=args.cohort_shard, use_flat_plane=args.flat_plane,
     )
 
 

@@ -36,6 +36,10 @@ class SmallModel(NamedTuple):
 
 
 def _dense(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    # ``h @ w + b`` in the promoted dtype, as JAX promotes it: bf16 leaves
+    # meet f32 activations in f32
+    dt = torch.promote_types(torch.promote_types(h.dtype, w.dtype), b.dtype)
+    h, w, b = h.to(dt), w.to(dt), b.to(dt)
     if w.dim() == 3:  # cohort-batched: h (C, B, in), w (C, in, out), b (C, out)
         return torch.baddbmm(b.unsqueeze(1), h, w)
     return torch.addmm(b, h, w)

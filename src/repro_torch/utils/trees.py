@@ -93,3 +93,8 @@ def split_flat(flat: torch.Tensor, shapes: Sequence[Tuple[int, ...]], dtypes=Non
         out.append(seg)
         off += n
     return out
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of a tree's leaves in their dtypes."""
+    return sum(leaf.numel() * leaf.element_size() for leaf in tree_leaves(tree))

@@ -1,8 +1,8 @@
 """The port's public surface against the reference's, and its examples.
 
 * ``repro_torch.core`` exports the reference's ``repro.core.__all__`` but
-  the names listed in its docstring (``NOT_PORTED``: the per-leaf tree
-  path and names with no meaning on the port's f32 planes);
+  the one listed in its docstring (``NOT_PORTED``: ``FlatMaster``, which
+  has no meaning on the port's f32 planes);
   ``repro_torch.models`` and ``repro_torch.data`` export the reference's;
 * ``FlatSpec.view_leaf`` is the reference's view of a plane's leaf;
   ``masked_mean`` its ``_masked_pmean``; ``sample_cohort`` drops the clip

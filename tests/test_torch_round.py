@@ -280,8 +280,22 @@ def test_unported_config_raises_naming_roadmap_item(knob, item):
         with pytest.raises(ValueError, match="spawn_cohort"):
             FederatedEngine(cfg, classification_loss(model.apply), spec, device="cpu")
         return
-    # the tree path (A.16) is not ported; an unknown algorithm,
-    # availability process or store is a bad value
-    error = ValueError if item.startswith("unknown") else NotImplementedError
-    with pytest.raises(error, match=item):
+    if item == "A.16":
+        # the per-leaf tree path (A.16 (d) 4) is ported: the check accepts
+        # it and the engine runs a round on the params tree
+        cfg = FedConfig(**knob)
+        check_supported(cfg)
+        model = mlp_classifier(DIMS)
+        params = model.init(torch.Generator().manual_seed(0))
+        eng = FederatedEngine(cfg, classification_loss(model.apply), None, device="cpu")
+        state = eng.init(params, torch.Generator().manual_seed(1))
+        C = cfg.cohort_size
+        x = torch.zeros(C, cfg.local_steps, 2, DIMS[0])
+        y = torch.zeros(C, cfg.local_steps, 2, dtype=torch.long)
+        state, m = eng.round_step(state, {"x": x, "y": y}, torch.arange(C),
+                                  torch.ones(C, dtype=torch.bool))
+        assert isinstance(state.params, list) and bool(torch.isfinite(m.loss))
+        return
+    # an unknown algorithm, availability process or store is a bad value
+    with pytest.raises(ValueError, match=item):
         check_supported(FedConfig(**knob))
