@@ -9,6 +9,12 @@ and ends with a ``clock:`` line (seconds since the script started):
 
 1. device check — CUDA present, the card's name and power limit from
    ``nvidia-smi``, TF32 off for matmuls and convolutions;
+D. dry-run — right after phase 1, a CPU subprocess (no card visible to it)
+   runs ``launch/dryrun.py`` / ``launch/fed_dryrun.py`` on fake tensors
+   for configurations the card phases run (``dryrun_entries``: phase 6's
+   ``DRY_SERVE`` at their prefill and one decode step, 8 (a)'s
+   ``DRY_TRAIN`` steps, phase 4's main path; under ``--nccl`` each rank of
+   6b's ``DRY_MP`` and of 8 (h)), beside every card phase; phase 9 reads it;
 2. build — the four sources of ``src/repro_torch/csrc`` compiled for
    sm_90a, one ``nvcc`` per source, in parallel; the five kernels bound
    (``server_update.cu`` holds the dense fold and the dequant fold); then
@@ -325,7 +331,15 @@ and ends with a ``clock:`` line (seconds since the script started):
    model groups, (k) starcoder2-7b trained whole on a 2 x 2 grid of cards
    (FSDP over data) and (l) llama3.2-1b federated at a cohort of 8 on a 2
    x 2 grid (``--groups-only``: (g)-(l) alone);
-9. summary — the ``nvidia-smi`` line, one JSON line ``{"kernels": [...]}``
+9. summary — first the dry-run's witness (``dryrun_witness``): each
+   entry's kernel launches and each rank's collective census equal to what
+   the card's run counted (``ParallelContext.counts``), exactly, and the
+   card's peak (``max_memory_allocated`` less the phase's base) inside the
+   band ``DRY_PEAK_*`` around the dry-run's MemTracker peak, the ratio
+   printed on a ``dry-run witness:`` line each (``--nccl`` ends with the
+   same for its entries; ``--nccl --witness-only`` runs 6b's ``DRY_MP``,
+   8 (h) and the witness alone); then the ``nvidia-smi`` line, one JSON
+   line ``{"kernels": [...]}``
    (``flash_attention`` / ``ssd_scan`` launches summed over phase 6's
    serving runs, the federated kernels' those of the main path; beside
    flash's and the SSD scan's, ``launches_by_path``: phase 6's count,
@@ -334,7 +348,8 @@ and ends with a ``clock:`` line (seconds since the script started):
    ``server_update``, ``launches_by_path``
    — the main path, phase 4g's runs (each user spec, the CNN), phase 8
    (c)'s card run and 8 (d), each its own count — and ``full_plane``, their times and bound at the federated LM's cohort
-   plane) and, last, ``{"ok": true, "device": {...}}``.
+   plane, and the launches phase D predicted, ``"dryrun"``) and, last,
+   ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -680,6 +695,27 @@ CLI_WITH_COUNTS = (
 # phase 4e (c): llama3.2-1b at its published widths cut to 2 layers
 LM_FLEET_ARGS = ["--arch", "llama3.2-1b", "--full", "--batch", "4", "--prompt-len", "1024",
                  "--gen", "8"]
+# phase D: the dry-run (``launch/dryrun.py``, ``launch/fed_dryrun.py``) of
+# configurations the card phases run, at their cut, batch and length, in a
+# CPU subprocess on fake tensors (no card visible to it) beside the card
+# phases: phase 6's serving of DRY_SERVE (a session of SERVE_ARGS' shape cut
+# to its prefill and one decode step: the card's launches are its 2 sessions'
+# prefills, twice the dry-run's), phase 8
+# (a)'s train steps of DRY_TRAIN, phase 4's main path (ROUNDS rounds of the
+# MLP); under --nccl each rank of 6b's DRY_MP on MP_FULL_RANKS cards and of
+# 8 (h).  Phase 9 holds each entry's kernel launches and each rank's
+# collective census (ParallelContext.counts) to the card's run exactly, and
+# the card's peak (max_memory_allocated less the phase's base) P_c to the
+# dry-run's MemTracker peak P_d within DRY_PEAK_LO·P_d ≤ P_c ≤ DRY_PEAK_HI·P_d
+# + DRY_PEAK_SLACK: the caching allocator rounds each block up to 512 bytes
+# and keeps cuBLAS workspaces, which MemTracker does not see (PERF.md, PR 30)
+DRY_SERVE = ("llama3.2-1b", "mamba2-1.3b", "qwen3-14b")
+DRY_TRAIN = "llama3.2-1b"
+DRY_MP = "chameleon-34b"
+DRY_PEAK_LO, DRY_PEAK_HI, DRY_PEAK_SLACK = 0.90, 1.25, 64 * 2 ** 20
+DRY_JOBS, DRY_JOBS_NCCL = 3, 8  # the subprocess's workers: one card's host has 8 cores, four's 32
+DRY_WAIT_S = 600.0  # phase 9 waits this long for the subprocess at most
+DRY_CARD: dict = {}  # entry name -> the card's launches, counts and peak, filled by the phases
 
 
 def fail(msg: str) -> None:
@@ -1173,6 +1209,7 @@ def serve_full_width(torch, np, bindings):
         args = serve.build_parser().parse_args(["--arch", arch, *SERVE_ARGS])
         cfg = replace(get_config(arch), **cut)
         torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()  # what earlier phases still hold
         torch.cuda.reset_peak_memory_stats()
         for b in bindings.values():
             b.launches = 0
@@ -1207,6 +1244,9 @@ def serve_full_width(torch, np, bindings):
             f"{res.tokens[0, :8].tolist()}")
         out[arch] = {"launches": launches, "sessions": sessions, "rows": rows,
                      "n_layers": cfg.n_layers, "peak_bytes": peak}
+        if arch in DRY_SERVE:  # phase D's witness: the dry-run serves one session's prefill
+            DRY_CARD[f"serve {arch}"] = {"launches": launches, "peak": peak - base,
+                                         "per": sessions}
         del res
         torch.cuda.empty_cache()
     return out
@@ -1577,7 +1617,7 @@ def mp_collective_rank(rank, device, shapes):
     return out
 
 
-def model_group_four_cards(torch, np, smi_line: str):
+def model_group_four_cards(torch, np, smi_line: str, cases=MP_FULL):
     """``--nccl``: first the ms of one NCCL ``all_reduce`` of a decode
     step's and of a prefill's activation (``mp_collective_rank``), then
     ``MP_FULL`` served on ``MP_FULL_RANKS`` cards over NCCL through
@@ -1596,7 +1636,7 @@ def model_group_four_cards(torch, np, smi_line: str):
     say(f"nccl all_reduce on {MP_FULL_RANKS} cards, bf16, ms a call (rank 0; 50 calls after 5 "
         f"warm-up): {json.dumps(probe[0])}; {smi_line}")
     moe_reference = None
-    for arch, cut in MP_FULL:
+    for arch, cut in cases:
         cfg = replace(get_config(arch), **cut)
         t0 = time.perf_counter()
         ranks = spawn_cohort(mp_serve_rank, MP_FULL_RANKS, args=(arch, cut, arch == "dbrx-132b"),
@@ -1615,6 +1655,11 @@ def model_group_four_cards(torch, np, smi_line: str):
                      f"{got['launches']} (expected {expected}) or non-finite")
         if toks.shape != (4, 32) or not ((toks >= 0).all() and (toks < cfg.padded_vocab).all()):
             fail(f"model group {arch}: tokens of shape {toks.shape} outside the vocabulary")
+        if arch == DRY_MP:  # phase D's witness: each rank's launches, census and peak
+            for r, got in enumerate(ranks):
+                DRY_CARD[f"6b {arch} rank {r}"] = {"launches": got["launches"],
+                                                   "counts": got["counts"],
+                                                   "peak": got["peak_bytes"]}
         steps = 32 if cfg.is_encoder_decoder else 31  # the first token comes from prefill
         for s_ in range(sessions):
             say(f"model group {arch} ({cfg.n_layers} of {get_config(arch).n_layers} layers, "
@@ -1806,6 +1851,9 @@ def train_card_vs_cpu(torch, np, bindings, arch: str, cut: dict):
 
     cfg = replace(get_config(arch), dtype="float32", vocab_size=TRAIN_VOCAB, **cut)
     step = build_train_step(cfg, Knobs(remat="none", learning_rate=TRAIN_LR))
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()  # the card's peak from here: weights, state, steps
+    torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6)
     params = step.model.init(gen)
@@ -1828,6 +1876,9 @@ def train_card_vs_cpu(torch, np, bindings, arch: str, cut: dict):
                      "s": time.perf_counter() - t0,
                      "launches": {k: v.launches for k, v in bindings.items()}}
         del o, p
+    card_peak = torch.cuda.max_memory_allocated() - base
+    if arch == DRY_TRAIN:  # phase D's witness
+        DRY_CARD[f"train {arch}"] = {"launches": runs["cuda"]["launches"], "peak": card_peak}
     torch.cuda.empty_cache()
     if any(runs["cuda"]["launches"].values()):
         fail(f"card vs CPU training {arch}: kernels launched in training: "
@@ -1856,7 +1907,8 @@ def train_card_vs_cpu(torch, np, bindings, arch: str, cut: dict):
            "B": TRAIN_B, "S": TRAIN_S, "loss_grad_norm_max_rel": worst_metric,
            "max_rel_l2": worst, "limits": [F32_REL_L2, UPDATE_REL_L2],
            "losses": [m[0] for m in runs["cuda"]["metrics"]],
-           "card_s_2_steps": runs["cuda"]["s"], "cpu_s_2_steps": runs["cpu"]["s"]}
+           "card_s_2_steps": runs["cuda"]["s"], "cpu_s_2_steps": runs["cpu"]["s"],
+           "card_peak_bytes": card_peak}
     del runs
     torch.cuda.empty_cache()
     if worst_metric > F32_REL_L2:
@@ -2491,6 +2543,9 @@ def group_fed_four_cards(torch, np, smi_line: str):
     say(f"FedCM with each client a model group of {n} cards: {json.dumps(row)}")
     if any(r["launches"] != expected for r in res.by_rank):
         fail(f"FedCM on {n} cards: launches {row['launches_per_rank']}, expected {expected}")
+    for r, mine in enumerate(res.by_rank):  # phase D's witness
+        DRY_CARD[f"8 (h) rank {r}"] = {"launches": mine["launches"],
+                                       "counts": mine["collectives"], "peak": mine["peak_bytes"]}
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         fail(f"FedCM on {n} cards: losses {losses} do not fall")
     return losses, [r["momentum_norm"] for r in res.rounds]
@@ -5226,8 +5281,179 @@ def card_vs_cpu_ring(torch, np, algo):
     return res
 
 
+# ---------------------------------------------------------------------- phase D
+def dryrun_entries(nccl: bool) -> list:
+    """Phase D's entries, ``(name, what, kwargs)``: ``what`` is ``"dryrun"``
+    (``launch.dryrun.run_one``), ``"fed"`` (``launch.fed_dryrun.run``) or
+    ``"classifier"`` (``fed_dryrun.run_classifier``, the main path).  No
+    flop counter (``exec_only``): phase 9 compares launches, census and
+    peaks."""
+    serve = dict(data=1, model=1, shape_name="prefill_32k", batch=4, seq=1024, gen=32,
+                 sessions=2, exec_only=True)
+    cuts = {arch: cut for arch, cut, _ in SERVE_ARCHS}
+    if nccl:
+        from repro_torch.configs.base import get_config
+        from repro_torch.launch import federated_llm
+
+        run = GROUP_FED_RUN
+        fed = dict(data=1, model=MP_FULL_RANKS, rounds=run["rounds"], cohort=run["cohort"],
+                   local_steps=run["local_steps"], batch=run["batch"], seq=run["seq"],
+                   n_clients=run["n_clients"], n_seqs=federated_llm.N_SEQS, eta_l=0.05,
+                   alpha=federated_llm.ALPHA, weight_decay=federated_llm.WEIGHT_DECAY,
+                   cfg_overrides={"n_layers": get_config(FED_LM_FULL).n_layers}, exec_only=True)
+        return ([(f"6b {DRY_MP} rank {r}", "dryrun",
+                  dict(serve, arch=DRY_MP, model=MP_FULL_RANKS, rank=r,
+                       cfg_overrides=dict(MP_FULL)[DRY_MP])) for r in range(MP_FULL_RANKS)]
+                + [(f"8 (h) rank {r}", "fed", dict(fed, rank=r)) for r in range(MP_FULL_RANKS)])
+    return ([(f"serve {arch}", "dryrun", dict(serve, arch=arch, cfg_overrides=cuts[arch],
+                                              sessions=1, decode_steps=1))
+             for arch in DRY_SERVE]
+            + [(f"train {DRY_TRAIN}", "dryrun",
+                dict(arch=DRY_TRAIN, shape_name="train_4k", data=1, model=1, batch=TRAIN_B,
+                     seq=TRAIN_S, steps=2, exec_only=True,
+                     overrides={"remat": "none", "microbatches": 1, "learning_rate": TRAIN_LR},
+                     cfg_overrides={"dtype": "float32", "vocab_size": TRAIN_VOCAB,
+                                    **dict(TRAIN_VS_CPU)[DRY_TRAIN]})),
+               ("main path", "classifier", {})])
+
+
+def dryrun_entry(entry) -> tuple:
+    """One entry of phase D, in a worker of the subprocess (no card)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    torch.set_num_threads(1)
+    name, what, kw = entry
+    if what == "dryrun":
+        from repro_torch.launch.dryrun import run_one
+        res = run_one(**kw, out=None, quiet=True)
+    elif what == "fed":
+        from repro_torch.launch import fed_dryrun
+        res = fed_dryrun.run(**kw, out=None, quiet=True)
+    else:
+        from repro_torch.configs.base import FedConfig
+        from repro_torch.launch import fed_dryrun
+        res = fed_dryrun.run_classifier(FedConfig(participation="bernoulli", rounds=ROUNDS),
+                                        exec_only=True)
+    keep = ("launches", "parallel_counts", "peak_bytes", "memory", "host_reads", "seconds",
+            "flops_per_device", "op_bytes_per_device", "collective_bytes_per_device")
+    return name, {k: res.get(k) for k in keep}
+
+
+def dryrun_subprocess(path: str, nccl: bool) -> int:
+    """``--dryrun-entries PATH``: every entry of ``dryrun_entries`` in a pool
+    of spawned workers (one process an entry), their results to ``PATH``."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    sys.path.insert(0, str(ROOT / "src"))
+    t0 = time.perf_counter()
+    entries = dryrun_entries(nccl)
+    with ProcessPoolExecutor(max_workers=DRY_JOBS_NCCL if nccl else DRY_JOBS,
+                             mp_context=mp.get_context("spawn"), max_tasks_per_child=1) as ex:
+        out = dict(ex.map(dryrun_entry, entries))
+    Path(path).write_text(json.dumps({"entries": out, "seconds": time.perf_counter() - t0}))
+    return 0
+
+
+def start_dryrun(nccl: bool) -> dict:
+    """Phase D: start the dry-run subprocess on the CPU (``CUDA_VISIBLE_DEVICES``
+    empty: it sees no card), in a session of its own, killed with its
+    workers when this script exits."""
+    import atexit
+    import os
+    import signal
+    import tempfile
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    log = open(work / "dryrun.log", "w")
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": str(ROOT / "src")}
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--dryrun-entries",
+           str(work / "dryrun.json")] + (["--nccl"] if nccl else [])
+    proc = subprocess.Popen(cmd, env=env, stdout=log, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+
+    def stop():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        log.close()
+        for f in work.iterdir():
+            f.unlink()
+        work.rmdir()
+
+    atexit.register(stop)
+    say(f"phase D: dry-run subprocess started on the CPU ({len(dryrun_entries(nccl))} entries, "
+        f"pid {proc.pid})")
+    return {"proc": proc, "work": work, "started": time.perf_counter()}
+
+
+def peak_in_band(card: int, dry: int) -> bool:
+    return DRY_PEAK_LO * dry <= card <= DRY_PEAK_HI * dry + DRY_PEAK_SLACK
+
+
+def dryrun_witness(dry: dict, smi_line: str) -> dict:
+    """Phase 9's comparison: wait for phase D, then hold each entry's kernel
+    launches and each rank's collective census to what the card's run
+    counted (``DRY_CARD``), exactly, and the card's peak to the dry-run's
+    within the band; print the ratio of every entry.  Fails on any miss.
+    Returns the launches the dry-run predicted, summed by kernel."""
+    from repro_torch.launch.hlo_stats import comparable_counts
+
+    proc = dry["proc"]
+    try:
+        proc.wait(timeout=DRY_WAIT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"phase D: the dry-run subprocess did not end within {DRY_WAIT_S:.0f} s")
+    tail = (dry["work"] / "dryrun.log").read_text()[-4000:]
+    if proc.returncode != 0:
+        fail(f"phase D: the dry-run subprocess exited {proc.returncode}:\n{tail}")
+    got = json.loads((dry["work"] / "dryrun.json").read_text())
+    entries = got["entries"]
+    say(f"phase D: {len(entries)} dry-runs in {got['seconds']:.1f} s of the subprocess "
+        f"(ended {time.perf_counter() - dry['started']:.1f} s after it started)")
+    misses, totals = [], {}
+    for name, card in DRY_CARD.items():
+        d = entries.get(name)
+        if d is None:
+            misses.append(f"{name}: no dry-run entry")
+            continue
+        per = card.get("per", 1)  # the card ran the dry-run's entry this many times
+        want = {k: v for k, v in card["launches"].items() if v}
+        pred = {k: v * per for k, v in d["launches"].items() if v}
+        for k, v in pred.items():
+            totals[k] = totals.get(k, 0) + v
+        row = {"entry": name, "launches": pred, "launches_ok": pred == want,
+               "peak_card": card["peak"], "peak_dry": d["peak_bytes"],
+               "peak_ratio": card["peak"] / d["peak_bytes"] if d["peak_bytes"] else None,
+               "peak_in_band": peak_in_band(card["peak"], d["peak_bytes"]),
+               "host_reads": d["host_reads"], "dry_s": d["seconds"]}
+        if not row["launches_ok"]:
+            misses.append(f"{name}: launches {pred} predicted, the card counted {want}")
+        if "counts" in card:
+            row["counts"] = d["parallel_counts"]
+            row["counts_ok"] = d["parallel_counts"] == comparable_counts(card["counts"])
+            if not row["counts_ok"]:
+                misses.append(f"{name}: census {d['parallel_counts']} predicted, the card's "
+                              f"ParallelContext.counts {comparable_counts(card['counts'])}")
+        if not row["peak_in_band"]:
+            misses.append(f"{name}: card peak {card['peak']} B outside [{DRY_PEAK_LO}, "
+                          f"{DRY_PEAK_HI}] x the dry-run's {d['peak_bytes']} B + "
+                          f"{DRY_PEAK_SLACK} B")
+        say(f"dry-run witness: {json.dumps(row)}; {smi_line}")
+    if misses:
+        fail("phase 9, dry-run witness: " + "; ".join(misses))
+    say(f"dry-run witness: {len(DRY_CARD)} entries, launches and census equal to the card's "
+        f"counts, every peak in the band")
+    return totals
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
+    if "--dryrun-entries" in sys.argv[1:]:  # phase D's subprocess (no card)
+        return dryrun_subprocess(sys.argv[sys.argv.index("--dryrun-entries") + 1],
+                                 "--nccl" in sys.argv[1:])
     import torch
 
     t_start = time.perf_counter()
@@ -5254,7 +5480,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     say(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} (count {torch.cuda.device_count()}); "
-        f"TF32 off for matmul and cudnn")
+        f"TF32 off for matmul and cudnn; total_memory "
+        f"{torch.cuda.get_device_properties(0).total_memory} B")
+    nccl = "--nccl" in sys.argv[1:]
+    dry = None
+    if nccl or not {"--tree-only", "--grid-only"} & set(sys.argv[1:]):
+        dry = start_dryrun(nccl)  # phase D, beside every card phase
 
     from repro_torch.kernels.build import build_all
     from repro_torch.kernels.fed_direction import kernel as fd_kernel
@@ -5309,6 +5540,18 @@ def main() -> int:
             fail(f"--nccl runs the model group on {MP_FULL_RANKS} cards; "
                  f"{torch.cuda.device_count()} visible")
         four_card_paths = {}
+        if "--witness-only" in sys.argv[1:]:
+            # phase D's four-card entries alone: 6b's DRY_MP, 8 (h), then phase 9's comparison
+            model_group_four_cards(torch, np, smi_line, cases=((DRY_MP, dict(MP_FULL)[DRY_MP]),))
+            lap("6b (nccl)")
+            group_fed_four_cards(torch, np, smi_line)
+            lap("8 (h)")
+            dryrun_witness(dry, smi_line)
+            lap("9 (dry-run witness)")
+            say(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                   "kind": torch.cuda.get_device_name(0),
+                                                   "count": torch.cuda.device_count()}}))
+            return 0
         if "--groups-only" not in sys.argv[1:]:
             cohort_sharding(torch, np, su_kernel, smi_line, nccl_only=True)
             lap("4f (c)")
@@ -5341,6 +5584,8 @@ def main() -> int:
         lap("8 (k)")
         grid_fed_four_cards(torch, np, smi_line, h_run)
         lap("8 (l)")
+        dryrun_witness(dry, smi_line)  # the entries the card ran (--groups-only: 8 (h)'s)
+        lap("9 (dry-run witness)")
         if DEFERRED:
             fail("; ".join(DEFERRED))
         for line in smi.stdout.strip().splitlines():
@@ -5504,12 +5749,18 @@ def main() -> int:
     for name, (cfg, expected) in paths.items():
         for b in bindings.values():
             b.launches = 0
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         acc, log = run_federated(cfg, 0.6, eval_every=EVAL_EVERY, seed=0, echo=False,
                                  device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: b.launches for k, b in bindings.items()}
+        if name == "uncompressed":  # phase D's witness
+            DRY_CARD["main path"] = {"launches": launches,
+                                     "peak": torch.cuda.max_memory_allocated() - base}
         for row in log.rows:
             say(f"{name} path: " + " ".join(f"{k}={v}" for k, v in row.items() if v is not None))
         losses = log.column("loss")
@@ -5674,7 +5925,10 @@ def main() -> int:
     by_path.update(group_paths)
     lap("8 (e)-(f), (i)-(j), 6c, 6d")
 
-    # ---- 9. summary
+    # ---- 9. summary: first phase D's dry-run against the card's counts
+    dry_launches = dryrun_witness(dry, smi_line)
+    lap("9 (dry-run witness)")
+
     def main_case(cases, **sel):
         return next(r for r in cases if r["C"] == MAIN_C and r["P"] == MAIN_P
                     and all(r[k] == v for k, v in sel.items()))
@@ -5712,6 +5966,8 @@ def main() -> int:
             kernels[-1]["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
             kernels[-1]["full_plane"] = {k: full[name][k] for k in (
                 "C", "P", "ms", "plain_ms", "bound_ms", "bound_by")}
+    for k in kernels:  # phase D: the launches the dry-run predicted (phase 9 held them equal)
+        k.setdefault("launches_by_path", {})["dryrun"] = dry_launches.get(k["name"], 0)
     say(f"steady ms/round {s_per_round * 1e3:.3f}; eager ms/call fed_direction "
         f"{fd_main['eager_ms']:.4f}, server_update {su_main['eager_ms']:.4f}, "
         f"dequant_update {dq_main['eager_ms']:.4f}")

@@ -4,13 +4,17 @@ Each kernel keeps the reference's three-file layout: ``kernel.py`` binds the
 CUDA source in ``repro_torch/csrc`` (ctypes, see ``build.py``), ``ref.py`` is
 the same function in plain PyTorch ops, and ``ops.py`` dispatches: the plain
 version for tensors on the CPU, the kernel for CUDA tensors — where it
-launches or raises, and never falls back.
+launches or raises, and never falls back.  A ``FakeTensor`` (a dry-run's,
+``repro_torch.launch.dryrun``) is no CUDA tensor: given one, a binding
+allocates what its launch would and records the launch
+(``build.NativeKernel.fake_launch``) without building or launching (``is_fake``).
 """
 from __future__ import annotations
 
 from typing import Dict, Iterable
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 
 def coef_vector(values: Iterable, device) -> torch.Tensor:
@@ -25,6 +29,13 @@ def coef_vector(values: Iterable, device) -> torch.Tensor:
         for v in values
     ]
     return torch.stack(parts)
+
+
+def is_fake(*tensors) -> bool:
+    """Whether any of ``tensors`` is a ``FakeTensor``: a dry-run's operand,
+    which has a shape, a dtype and a device but no memory.  A real tensor,
+    on the card or the CPU, never is."""
+    return any(isinstance(t, FakeTensor) for t in tensors)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -15,6 +15,13 @@ may hold several, each with its own binding): its ``load()`` builds and
 loads the library, ``launch()`` calls the C function, raises on a non-zero
 ``cudaGetLastError()``, and adds one to ``launches`` — the plain integer
 count that shows a run went through the kernel.
+
+A dry-run (``repro_torch.launch.dryrun``) calls the wrappers with
+``FakeTensor`` inputs, which have no memory to launch on: each wrapper then
+allocates its outputs and workspaces as a launch would, calls
+``fake_launch`` (which tells every hook in ``FAKE_LAUNCH_HOOKS`` — a census,
+``launch.hlo_stats.CensusMode`` — and leaves ``launches`` alone) and builds
+nothing.
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Callable, Dict, Iterable, List, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -93,6 +100,11 @@ def build_all(names: Iterable[str]) -> Dict[str, dict]:
     return done
 
 
+# hook(name, nbytes, flops) of every fake launch: the bytes the launch would
+# move (its inputs read once, its outputs written once) and its operations
+FAKE_LAUNCH_HOOKS: List[Callable[[str, int, int], None]] = []
+
+
 class NativeKernel:
     """The ctypes binding of entry point ``symbol`` of ``csrc/<source>.cu``
     (``source`` defaults to ``name``) and its launch count."""
@@ -132,3 +144,12 @@ class NativeKernel:
             msg = self._err(code).decode() if self._err is not None else str(code)
             raise RuntimeError(f"{self.name} launch failed: CUDA error {code} ({msg})")
         self.launches += 1
+
+    def fake_launch(self, tensors: Sequence, flops: int = 0) -> None:
+        """Record a launch on ``FakeTensor`` operands (a dry-run): each hook
+        of ``FAKE_LAUNCH_HOOKS`` is told this binding's name, the bytes of
+        ``tensors`` (the launch's inputs and outputs) and ``flops``.
+        Nothing is built or launched, and ``launches`` stays as it is."""
+        nbytes = sum(t.numel() * t.element_size() for t in tensors if t is not None)
+        for hook in list(FAKE_LAUNCH_HOOKS):
+            hook(self.name, nbytes, flops)

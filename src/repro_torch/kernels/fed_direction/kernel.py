@@ -10,6 +10,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.kernels import is_fake
 from repro_torch.kernels.build import NativeKernel
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -33,7 +34,9 @@ def fed_direction_flat(x: torch.Tensor, g: torch.Tensor,
     """x: ``(C, P)`` or ``(P,)`` f32/bf16; g: x's shape, f32/bf16; each aux
     x's shape (per client) or ``(P,)`` (broadcast over rows), f32/bf16;
     coefs: ``(3 + len(auxes),)`` f32 on the device.  Returns x' in x's
-    dtype, in a new tensor."""
+    dtype, in a new tensor.  ``FakeTensor`` operands (a dry-run) get the
+    output and a recorded launch (``NativeKernel.fake_launch``), nothing
+    built or launched."""
     auxes = list(auxes)
     if len(auxes) > MAX_AUX:
         raise ValueError(f"fed_direction takes at most {MAX_AUX} aux streams, got {len(auxes)}")
@@ -63,6 +66,10 @@ def fed_direction_flat(x: torch.Tensor, g: torch.Tensor,
     if coefs.device != x.device:
         raise ValueError(f"coefs on {coefs.device}, x on {x.device}")
 
+    if is_fake(x, g, coefs, *auxes):  # a dry-run: what the launch allocates, no launch
+        out = torch.empty_like(x)
+        KERNEL.fake_launch([x, g, *auxes, coefs, out], flops=2 * (2 + len(auxes)) * x.numel())
+        return out
     fn = KERNEL.load()
     if x.device.type != "cuda":
         raise ValueError(f"fed_direction kernel needs CUDA tensors, got {x.device}")

@@ -9,6 +9,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import is_fake
 from repro_torch.kernels.build import NativeKernel
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -53,16 +54,38 @@ def _check(q, k, v):
     return B, Sq, Skv, H, Hkv, hd
 
 
+def attention_pairs(Sq: int, Skv: int, causal: bool, window: Optional[int],
+                    q_offset: int = 0) -> int:
+    """The (query, key) pairs the masks keep: query i sits at position
+    ``i + q_offset`` and sees key j where ``j <= i + q_offset`` (causal)
+    and ``i + q_offset − j < window``; the kernel's products are
+    ``4 · hd`` operations a pair and head."""
+    total = 0
+    for i in range(Sq):
+        p = i + q_offset
+        hi = min(Skv - 1, p) if causal else Skv - 1
+        lo = 0 if window is None else max(0, p - window + 1)
+        total += max(0, hi - lo + 1)
+    return total
+
+
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: Optional[int] = None,
                          scale: Optional[float] = None, q_offset: int = 0) -> torch.Tensor:
     """q ``(B, Sq, H, hd)``, k and v ``(B, Skv, Hkv, hd)``, contiguous CUDA
     tensors of one dtype (f32 or bf16).  Returns the attention output
     ``(B, Sq, H, hd)`` in q's dtype.  ``window`` None means no sliding
-    window; an int window must be positive."""
+    window; an int window must be positive.  ``FakeTensor`` operands (a
+    dry-run) get the output and a recorded launch
+    (``NativeKernel.fake_launch``), nothing built or launched."""
     B, Sq, Skv, H, Hkv, hd = _check(q, k, v)
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive or None, got {window}")
+    if is_fake(q, k, v):  # a dry-run: what the launch allocates, no launch
+        out = torch.empty_like(q)
+        KERNEL.fake_launch([q, k, v, out], flops=4 * hd * B * H * attention_pairs(
+            Sq, Skv, causal, window, q_offset))
+        return out
     fn = KERNEL.load()
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention kernel needs CUDA tensors, got {q.device}")

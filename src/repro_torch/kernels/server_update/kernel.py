@@ -21,6 +21,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch.kernels import is_fake
 from repro_torch.kernels.build import NativeKernel
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -188,15 +189,23 @@ def _check_operands(plane, plane_dtypes, wn, x, m, coefs, m_dtype, write_x, writ
 
 def _launch(binding, plane, per_row, wn, x, m, coefs, write_x, write_m):
     """Allocate the outputs and launch ``binding`` (CUDA tensors only);
-    ``per_row`` holds the pointers that sit between the plane and ``wn``
-    in the C signature (the dequant scale)."""
-    fn = binding.load()
-    if plane.device.type != "cuda":
-        raise ValueError(f"{binding.name} kernel needs CUDA tensors, got {plane.device}")
+    ``per_row`` holds the tensors whose pointers sit between the plane and
+    ``wn`` in the C signature (the dequant scale).  ``FakeTensor``
+    operands (a dry-run) get the outputs and a recorded launch
+    (``NativeKernel.fake_launch``), nothing built or launched."""
+    read = [plane, *per_row, wn, coefs, x if write_x else None, m if write_m else None]
+    fake = is_fake(*[t for t in read if t is not None])
+    if not fake:
+        fn = binding.load()
+        if plane.device.type != "cuda":
+            raise ValueError(f"{binding.name} kernel needs CUDA tensors, got {plane.device}")
     C, P = plane.shape
     mean = torch.empty((P,), dtype=torch.float32, device=plane.device)
     new_x = torch.empty_like(x) if write_x else None
     new_m = torch.empty_like(m) if write_m else None
+    if fake:  # a dry-run: the launch's outputs, no launch
+        binding.fake_launch([*read, mean, new_x, new_m], flops=2 * C * P + 4 * P)
+        return new_x, new_m, mean
     device = (plane.device.index if plane.device.index is not None
               else torch.cuda.current_device())
     stream = torch.cuda.current_stream(plane.device).cuda_stream
@@ -204,7 +213,7 @@ def _launch(binding, plane, per_row, wn, x, m, coefs, write_x, write_m):
         fn, mean.data_ptr(),
         new_x.data_ptr() if write_x else None,
         new_m.data_ptr() if write_m else None,
-        plane.data_ptr(), *per_row, wn.data_ptr(),
+        plane.data_ptr(), *[t.data_ptr() for t in per_row], wn.data_ptr(),
         x.data_ptr() if write_x else None,
         m.data_ptr() if write_m else None,
         coefs.data_ptr(), C, P,
@@ -242,5 +251,5 @@ def dequant_update_flat(q: torch.Tensor, scale: torch.Tensor, wn: torch.Tensor,
         scale = scale.reshape(-1)
     _check_operands(q, Q_DTYPES, wn, x, m, coefs, m_dtype, write_x, write_m,
                     extra=(("scale", scale, (torch.float32,)),))
-    return _launch(DEQUANT_KERNEL, q, (scale.data_ptr(),), wn, x, m, coefs,
+    return _launch(DEQUANT_KERNEL, q, (scale,), wn, x, m, coefs,
                    write_x, write_m)

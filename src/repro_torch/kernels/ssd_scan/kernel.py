@@ -11,6 +11,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import is_fake
 from repro_torch.kernels.build import NativeKernel
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -63,20 +64,41 @@ def _check(x, dt, A, Bm, Cm, chunk):
     return Bsz, S, H, P, N
 
 
+def scan_flops(Bsz: int, S: int, H: int, P: int, N: int, chunk: int) -> int:
+    """The scan's operations: per chunk of l steps, C·Bᵀ on the causal
+    triangle once per (batch, chunk) (the heads share B and C), then per
+    (batch, head, chunk) y_diag on the triangle, y_off and the state update."""
+    flops = 0
+    for c0 in range(0, S, chunk):
+        n = min(chunk, S - c0)
+        tri = n * (n + 1) // 2
+        flops += Bsz * 2 * N * tri + Bsz * H * (2 * P * tri + 4 * n * P * N)
+    return flops
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
              Cm: torch.Tensor, *, chunk: int):
     """x ``(B, S, H, P)`` f32/bf16; dt ``(B, S, H)`` f32; A ``(H,)`` f32;
     Bm, Cm ``(B, S, N)`` in x's dtype — CUDA tensors.  Returns ``(y
-    (B, S, H, P) in x's dtype, final state (B, H, P, N) f32)``."""
+    (B, S, H, P) in x's dtype, final state (B, H, P, N) f32)``.
+    ``FakeTensor`` operands (a dry-run) get the outputs and the scratch
+    allocated and a recorded launch (``NativeKernel.fake_launch``), nothing
+    built or launched."""
     Bsz, S, H, P, N = _check(x, dt, A, Bm, Cm, chunk)
-    fn = KERNEL.load()
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan kernel needs CUDA tensors, got {x.device}")
+    fake = is_fake(x, dt, A, Bm, Cm)
+    if not fake:
+        fn = KERNEL.load()
+        if x.device.type != "cuda":
+            raise ValueError(f"ssd_scan kernel needs CUDA tensors, got {x.device}")
     y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
     state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
     is_bf16 = x.dtype == torch.bfloat16
     cb = torch.empty((Bsz, -(-S // chunk), CB_TILE, CB_TILE) if is_bf16 else (0,),
                      dtype=torch.float32, device=x.device)
+    if fake:  # a dry-run: the outputs and the C·Bᵀ scratch the launch allocates, no launch
+        KERNEL.fake_launch([x, dt, A, Bm, Cm, y, state],
+                           flops=scan_flops(Bsz, S, H, P, N, chunk))
+        return y, state
     device = x.device.index if x.device.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     KERNEL.launch(fn, y.data_ptr(), state.data_ptr(), cb.data_ptr(), x.data_ptr(), dt.data_ptr(),

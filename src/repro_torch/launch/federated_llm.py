@@ -79,8 +79,9 @@ class FedLMResult:
     each round's wall ms (synchronized with the device at both ends), and
     the peak device memory over the run in bytes (None on the CPU).
     ``by_rank`` has, for each rank of a model group (one entry unsharded),
-    its share's plane size, peak bytes, kernel launches over the rounds and
-    round metrics."""
+    its share's plane size, peak bytes, kernel launches over the rounds,
+    round metrics and its model group's collectives over the run
+    (``ParallelContext.counts``; none unsharded)."""
 
     arch: str
     n_params: int
@@ -148,7 +149,8 @@ def run(cfg, *, n_clients: int = 8, cohort: int = 3, local_steps: int = 4, batch
         per_round.append({k: float(host[k][0]) for k in METRICS})
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     mine = {"share_params": spec.size, "peak_bytes": peak, "launches": launches_since(before),
-            "rounds": per_round}
+            "rounds": per_round,
+            "collectives": {} if parallel is None else dict(parallel.counts)}
     return FedLMResult(cfg.name, spec.size if group is None else group.whole_size, per_round,
                        round_ms, peak, [mine])
 

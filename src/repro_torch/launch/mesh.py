@@ -30,17 +30,32 @@ rank that fails ends the world at once.
 ``device`` (a ``torch.device``); it must be importable by name (spawned
 ranks re-import its module) and return a picklable value, which
 ``spawn_cohort`` returns in rank order.
+
+The production layouts (counterpart of ``make_production_mesh``): the
+reference's single-pod ``(16, 16)`` mesh is a grid of data 16 × model 16,
+and its multi-pod ``(2, 16, 16)`` one data 32 × model 16, since its FSDP
+axes are ``(pod, data)``: the pod folds into the data axis.
+``make_production_grid`` / ``make_test_grid`` give ``(data, model)``, and
+``fake_world(data, model, rank)`` runs one rank of such a grid in this
+process alone: torch's fake process group (which sends nothing) with the
+grid's groups over it, for a dry-run (``launch.dryrun``).
+
+The card's constants, which the dry-run's roofline reads, are the NVIDIA
+H100 SXM's (80 GB, 700 W power limit; the figures ``PERF.md`` bounds every
+kernel with), in place of the reference's TPU v5e ones.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
+import math
 import os
 import queue
 import shutil
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -49,6 +64,16 @@ from repro_torch.launch.steps import make_parallel
 from repro_torch.sharding.rules import cohort_axis_size
 
 BACKENDS = ("nccl", "gloo")
+
+# NVIDIA H100 SXM (80 GB HBM3, 700 W power limit), per card
+PEAK_FLOPS_BF16 = 989e12  # FLOP/s, bf16 tensor cores, dense
+PEAK_FLOPS_F32 = 67e12  # FLOP/s, f32 outside the tensor cores
+HBM_BW = 3.35e12  # bytes/s
+NVLINK_BW = 450e9  # bytes/s each direction (NVLink 4, 18 links)
+HBM_BYTES = 85_017_493_504  # "80 GB": torch.cuda.get_device_properties(0).total_memory
+
+SINGLE_POD_SHAPE = (16, 16)  # the reference's (data, model) mesh: 256 cards
+MULTI_POD_SHAPE = (2, 16, 16)  # its (pod, data, model) mesh: 512 cards
 
 
 class RankFailure(RuntimeError):
@@ -162,6 +187,49 @@ def make_grid(data: int, model: int):
     model_group = groups([list(range(d * model, (d + 1) * model)) for d in range(data)])
     data_group = groups([list(range(m, world, model)) for m in range(model)])
     return model_group, data_group
+
+
+def make_production_grid(multi_pod: bool = False) -> Tuple[int, int]:
+    """``(data, model)`` of the reference's production mesh: single pod 16
+    × 16, multi-pod (2 × 16) × 16 (its FSDP axes are ``(pod, data)``)."""
+    shape = MULTI_POD_SHAPE if multi_pod else SINGLE_POD_SHAPE
+    return math.prod(shape[:-1]), shape[-1]
+
+
+def make_test_grid(data: int = 1, model: int = 1, ranks: Optional[int] = None
+                   ) -> Tuple[int, int]:
+    """``(data, model)`` clamped to the ``ranks`` there are (default: the
+    visible cards, at least 1), as the reference's ``make_test_mesh``
+    clamps to its devices: data first, then model to what is left."""
+    if ranks is None:
+        ranks = torch.cuda.device_count() if torch.cuda.is_available() else 1
+    n = max(1, ranks)
+    data = min(data, n)
+    return data, min(model, max(1, n // data))
+
+
+@contextlib.contextmanager
+def fake_world(data: int, model: int, rank: int = 0) -> Iterator[Tuple[Any, Any]]:
+    """Act as world rank ``rank`` of a ``data`` × ``model`` grid in this
+    process alone: a fake process group of ``data · model`` ranks (no other
+    process, no card; a collective returns at once with its output's shape
+    and moves nothing), the grid's groups over it (``make_grid``), and
+    everything torn down on exit.  Yields ``(model group, data group)``.
+    Refuses to start while a process group is up."""
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group is already initialized in this "
+                           "process; a fake world runs alone")
+    world = data * model
+    if data < 1 or model < 1 or not 0 <= rank < world:
+        raise ValueError(f"fake_world: rank {rank} of a {data} x {model} grid")
+    # registers torch's "fake" backend: every collective returns at once, moving nothing
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world)
+    try:
+        yield make_grid(data, model)
+    finally:
+        dist.destroy_process_group()
 
 
 def _rank_main(rank, n_shards, backend, device, init_method, timeout_s, fn, args, results):

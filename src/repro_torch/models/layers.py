@@ -224,17 +224,23 @@ def _data_gather(parallel: ParallelContext, shares, dims):
     return out
 
 
+# backends whose data group reduce-scatters in one collective; a dry-run's
+# fake group (``launch.mesh.fake_world``) stands for the card's NCCL
+REDUCE_SCATTER_BACKENDS = ("nccl", "fake")
+
+
 def _data_reduce_scatter(parallel: ParallelContext, grads, dims):
     """This rank's slice of the sum over the data group of each of
     ``grads`` (one dtype; the gathered leaves' gradients) along its dim, in
-    one collective: NCCL's ``reduce_scatter_tensor``, else (gloo has none)
-    an ``all_reduce`` of every rank's block and this rank's block of it.
+    one collective: NCCL's ``reduce_scatter_tensor`` (and a dry-run's fake
+    group's, which stands for the card's NCCL), else (gloo has none) an
+    ``all_reduce`` of every rank's block and this rank's block of it.
     Both sum in a fixed order."""
     parallel.counts["data_reduce_scatter"] += 1
     n_d, r = parallel.data_size, parallel.data_rank
     blocks = [_cat_flat([g.narrow(d, i * (g.shape[d] // n_d), g.shape[d] // n_d)
                          for g, d in zip(grads, dims)]) for i in range(n_d)]
-    if dist.get_backend(parallel.data_group) == "nccl":
+    if dist.get_backend(parallel.data_group) in REDUCE_SCATTER_BACKENDS:
         mine = torch.empty_like(blocks[0])
         dist.reduce_scatter_tensor(mine, torch.cat(blocks), group=parallel.data_group)
     else:
@@ -817,8 +823,12 @@ def _router(params, x: torch.Tensor, cfg):
     gates, experts = torch.topk(probs, cfg.top_k, dim=-1)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     me = probs.mean(dim=0)
-    # expert counts are integers, exact in f32 in any order
-    ce = torch.bincount(experts.reshape(-1), minlength=cfg.n_experts).to(torch.float32)
+    # expert counts are integers, exact in f32 in any order; a scatter of ones
+    # (not bincount, whose output length reads the data: a dry-run's fake
+    # tensors have none)
+    flat = experts.reshape(-1)
+    ce = torch.zeros(cfg.n_experts, dtype=torch.float32, device=x.device).scatter_add_(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32, device=x.device))
     ce = ce / (T * cfg.top_k)
     lb = cfg.n_experts * torch.sum(me * ce) * cfg.load_balance_loss
     z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2) * cfg.router_z_loss

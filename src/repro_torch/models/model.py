@@ -9,6 +9,7 @@
     # over a model group: parallel=ParallelContext on apply, loss_fn,
     # init_cache and decode_step, with each rank's share of the params
     batch              = model.dummy_batch(batch, seq_len)
+    specs              = model.input_specs(shape)   # meta tensors, for a dry-run
     loss_fn            = cohort_loss_fn(model)   # the federated engine's contract
 
 ``use_kernels``: serving's prefill (``apply``, and the encoder-decoder's
@@ -19,12 +20,13 @@ wrappers refuse inputs that require grad.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.models import encdec, transformer
+from repro_torch.models.layers import ParallelContext, cache_extent, kv_heads_of
 from repro_torch.utils.trees import tree_flatten_with_path, tree_unflatten
 
 
@@ -54,6 +56,10 @@ class Model(NamedTuple):
     init_cache: Callable[..., Any]
     decode_step: Callable[..., Any]
     dummy_batch: Callable[..., Dict[str, torch.Tensor]]
+    input_specs: Callable[..., Dict[str, Any]]
+
+
+TOKEN_DTYPE = torch.int64  # the reference's token ids are int32; torch indexes with int64
 
 
 def build_model(cfg) -> Model:
@@ -106,7 +112,22 @@ def _build_decoder_only(cfg) -> Model:
         return {"tokens": torch.as_tensor(toks, device=device),
                 "labels": torch.as_tensor(labels, device=device)}
 
-    return Model(cfg, init, apply, loss_fn, init_cache, decode_step, dummy_batch)
+    def input_specs(shape, parallel: Optional[ParallelContext] = None, device="meta"):
+        """The step's inputs for the workload ``shape`` (``configs.base.SHAPES``)
+        as empty tensors on ``device`` (``meta``: shapes and dtypes alone),
+        the reference's ``input_specs``: train and prefill ``tokens`` /
+        ``labels`` (B, S); decode one ``token`` (B, 1), the S-deep
+        ``init_cache`` and ``pos``.  Token ids are ``TOKEN_DTYPE``.
+        ``parallel``: the cache a rank of that group or grid holds."""
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind in ("train", "prefill"):
+            return {"tokens": torch.empty((B, S), dtype=TOKEN_DTYPE, device=device),
+                    "labels": torch.empty((B, S), dtype=TOKEN_DTYPE, device=device)}
+        return {"token": torch.empty((B, 1), dtype=TOKEN_DTYPE, device=device),
+                "cache": transformer.init_cache(cfg, B, S, device=device, parallel=parallel),
+                "pos": torch.empty((), dtype=TOKEN_DTYPE, device=device)}
+
+    return Model(cfg, init, apply, loss_fn, init_cache, decode_step, dummy_batch, input_specs)
 
 
 def cohort_loss_fn(model: Model, parallel=None) -> Callable[..., torch.Tensor]:
@@ -174,4 +195,25 @@ def _build_encdec(cfg) -> Model:
                 "tgt_tokens": torch.as_tensor(toks, device=device),
                 "labels": torch.as_tensor(labels, device=device)}
 
-    return Model(cfg, init, apply, loss_fn, init_cache, decode_step, dummy_batch)
+    def input_specs(shape, parallel: Optional[ParallelContext] = None, device="meta"):
+        """As the decoder-only ``input_specs``: train and prefill
+        ``src_embeds`` (B, S, D) in the activation dtype, ``tgt_tokens`` and
+        ``labels``; decode ``token``, ``pos`` and the cache of
+        ``init_cache``'s layout: self ``k`` / ``v`` and each layer's cross
+        K/V over an S-long source, ``(L, B, S, Hkv, hd)`` (on a rank of
+        ``parallel``, its rows, kv heads and slabs)."""
+        B, S = shape.global_batch, shape.seq_len
+        adt = getattr(torch, cfg.dtype)
+        if shape.kind in ("train", "prefill"):
+            return {"src_embeds": torch.empty((B, S, cfg.d_model), dtype=adt, device=device),
+                    "tgt_tokens": torch.empty((B, S), dtype=TOKEN_DTYPE, device=device),
+                    "labels": torch.empty((B, S), dtype=TOKEN_DTYPE, device=device)}
+        rows, positions = cache_extent(B, S, parallel)
+        kv = (cfg.n_layers, rows, positions, len(kv_heads_of(cfg, parallel)),
+              cfg.resolved_head_dim)
+        return {"token": torch.empty((B, 1), dtype=TOKEN_DTYPE, device=device),
+                "cache": {k: torch.empty(kv, dtype=adt, device=device)
+                          for k in ("k", "v", "cross_k", "cross_v")},
+                "pos": torch.empty((), dtype=TOKEN_DTYPE, device=device)}
+
+    return Model(cfg, init, apply, loss_fn, init_cache, decode_step, dummy_batch, input_specs)
