@@ -97,16 +97,18 @@ def federated_lm_corpora(vocab_size: int, n_clients: int, seq_len: int, n_seqs: 
 
 
 class LMFederatedData:
-    """Per-client LM corpora ``(N, n_seq, S + 1)`` on ``device`` in the
-    engine's data layout: ``client_x`` the tokens ``[..., :-1]`` and
-    ``client_y`` the labels ``[..., 1:]``, ``(N, n_seq, S)`` int64 each, so
+    """Per-client LM corpora ``(N, n_seq, S + 1)`` (an array or a tensor) on
+    ``device`` in the engine's data layout: ``client_x`` the tokens
+    ``[..., :-1]`` and ``client_y`` the labels ``[..., 1:]``, ``(N, n_seq,
+    S)`` int64 each, so
     ``gather_round_batches`` draws ``{"x": (C, K, B, S), "y": (C, K, B, S)}``
     and ``FederatedEngine.run_round`` / ``run_rounds`` step an LM as they
     step the MLP.  (The reference's example keeps only the tokens, which
     its engine's ``run_round`` cannot read: ROADMAP queue C.)"""
 
-    def __init__(self, tokens: np.ndarray, device="cuda") -> None:
-        toks = torch.as_tensor(np.asarray(tokens), dtype=torch.int64, device=device)
+    def __init__(self, tokens, device="cuda") -> None:
+        toks = torch.as_tensor(tokens if isinstance(tokens, torch.Tensor) else np.asarray(tokens),
+                               dtype=torch.int64, device=device)
         self.num_clients, self.n_per_client = toks.shape[:2]
         self.client_x = toks[..., :-1]
         self.client_y = toks[..., 1:]

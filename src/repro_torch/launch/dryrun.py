@@ -20,9 +20,11 @@ would and records the launch, and nothing is built, so the dry-run needs no
 
 What one rank reports (``run_one``; JSON under ``--out``, ``build/dryrun/``
 by default): its share's shapes and bytes; ``peak_bytes`` and MemTracker's
-categories (``memory``: the functional model registers no modules, so
-gradients count as activations, and the params, the optimizer state and the
-step's inputs are tagged by the dry-run); ``flops_per_device`` (matmul and
+categories (``memory``, the card's tensors: the functional model registers
+no modules, so gradients count as activations, and the params, the
+optimizer state and the step's inputs are tagged by the dry-run) plus the
+cuBLAS workspaces the step's GEMMs take on the card
+(``blas_workspace_bytes``); ``flops_per_device`` (matmul and
 attention FLOPs of the aten ops, from the flop counter) beside
 ``kernel_flops`` (the hand kernels'); ``op_bytes_per_device``, the inputs
 plus outputs of every aten op — what eager PyTorch moves with no fusion,
@@ -190,10 +192,14 @@ class _Tracker:
             if isinstance(t, torch.Tensor):  # MemTracker's own tagging (torch 2.11–2.13)
                 self.mt._update_and_maybe_create_winfos(t, ref)
 
-    def snapshot(self, kind: str = "peak") -> Dict[str, int]:
+    def snapshot(self, kind: str = "peak", device=None) -> Dict[str, int]:
+        """The categories' bytes, summed over the devices, or ``device``'s
+        alone (the card's memory, as ``max_memory_allocated`` counts it)."""
         snap = self.mt.get_tracker_snapshot(kind)
         total: Dict[str, int] = {}
-        for dev_snap in snap.values():
+        for dev, dev_snap in snap.items():
+            if device is not None and torch.device(dev).type != torch.device(device).type:
+                continue
             for k, v in dev_snap.items():
                 name = "total" if k == "Total" else CATEGORIES.get(str(getattr(k, "value", k)),
                                                                    str(k))
@@ -201,7 +207,8 @@ class _Tracker:
         return total
 
 
-def measure(groups: Dict[str, Any], inputs, step, exec_only: bool = False) -> Dict[str, Any]:
+def measure(groups: Dict[str, Any], inputs, step, exec_only: bool = False,
+            device=None) -> Dict[str, Any]:
     """Run ``step()`` once under the flop counter (unless ``exec_only``),
     the census and MemTracker: inside the caller's ``FakeTensorMode`` (a
     dry-run) or on real tensors (the same step on a real rank).
@@ -210,8 +217,10 @@ def measure(groups: Dict[str, Any], inputs, step, exec_only: bool = False) -> Di
     (``"Parameter"``, ``"Optstate"``, ``"Other"``); ``step`` takes that
     dict and pops what the run it stands for lets go of (the train step's
     old params and moments, the round's params tree once the engine holds
-    its plane), so that they are freed where the run frees them.  Returns
-    the census, FLOPs, memory and wall seconds."""
+    its plane), so that they are freed where the run frees them.  Memory
+    counts ``device``'s tensors alone where it is given (a dry-run's: not
+    the host's, which the card's peak does not hold).  Returns the census,
+    FLOPs, memory and wall seconds."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.launch.hlo_stats import CensusMode
@@ -223,14 +232,14 @@ def measure(groups: Dict[str, Any], inputs, step, exec_only: bool = False) -> Di
         made = inputs()
         for category, tree in made.items():
             tracker.tag(tree, category)
-        before = tracker.snapshot("current").get("total", 0)
+        before = tracker.snapshot("current", device).get("total", 0)
         with ExitStack() as stack:
             flops = None if exec_only else stack.enter_context(FlopCounterMode(display=False))
             stack.enter_context(census)
             out = step(made)
         del made, out
     return {"census": census, "flops": None if flops is None else int(flops.get_total_flops()),
-            "memory": tracker.snapshot("peak"), "inputs_bytes": before,
+            "memory": tracker.snapshot("peak", device), "inputs_bytes": before,
             "seconds": time.perf_counter() - t0}
 
 
@@ -241,34 +250,30 @@ def build_step(cfg, kind: str, knobs, parallel, layout, B: int, S: int, *, gen: 
     ``"prefill"``, ``"decode"`` or ``"serve"``, a session) for this rank of
     ``parallel`` (None: one rank), its params of ``layout``
     (``share_layout``) and its rows of a ``B`` × ``S`` batch, on ``device``:
-    ``inputs()`` makes the params, state and batch (zeros) as ``measure``
-    takes them, and ``step(inputs())`` runs the port's step.  A
-    dry-run calls them on fake tensors; a test calls them on a real rank,
-    for the same step."""
-    from repro_torch.launch.serve import merge_prefill
+    ``inputs()`` makes the params, state and batch (``Model.input_specs``,
+    zeroed) as ``measure`` takes them, and ``step(inputs())`` runs the
+    port's step (a serving session: ``launch.serve.SessionSteps``, as
+    ``serve.run`` serves it).  A dry-run calls them on fake tensors; a test
+    calls them on a real rank, for the same step."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.serve import SessionSteps
     from repro_torch.launch.steps import build_prefill_step, build_serve_step, build_train_step
     from repro_torch.models import encdec
-    from repro_torch.models.model import TOKEN_DTYPE, build_model
+    from repro_torch.models.model import build_model
     from repro_torch.utils.trees import tree_map
 
-    dev = device
-    rows = _batch_rows(B, parallel)
-    shape = dataclasses.replace(SHAPES["decode_32k"], global_batch=B, seq_len=S)
+    model_ = build_model(cfg)
+    shape = ShapeConfig(kind, "prefill" if kind == "serve" else kind, S, B)
+
+    def specs():
+        return tree_map(torch.Tensor.zero_, model_.input_specs(shape, parallel, device))
+
     if kind == "train":
         train = build_train_step(cfg, knobs, parallel)
 
         def inputs():
-            params = fake_share(layout, dev)
-            opt = train.opt.init(params)
-            if cfg.is_encoder_decoder:
-                b = {"src_embeds": torch.zeros((rows, S, cfg.d_model),
-                                               dtype=getattr(torch, cfg.dtype), device=dev),
-                     "tgt_tokens": torch.zeros((rows, S), dtype=TOKEN_DTYPE, device=dev),
-                     "labels": torch.zeros((rows, S), dtype=TOKEN_DTYPE, device=dev)}
-            else:
-                b = {"tokens": torch.zeros((rows, S), dtype=TOKEN_DTYPE, device=dev),
-                     "labels": torch.zeros((rows, S), dtype=TOKEN_DTYPE, device=dev)}
-            return {"Parameter": params, "Optstate": opt, "Other": b}
+            params = fake_share(layout, device)
+            return {"Parameter": params, "Optstate": train.opt.init(params), "Other": specs()}
 
         def step(made):
             # p, o, _ = fn(p, o, b): each step's inputs are freed as it returns
@@ -276,53 +281,35 @@ def build_step(cfg, kind: str, knobs, parallel, layout, B: int, S: int, *, gen: 
             for _ in range(steps):
                 params, opt, _ = train.fn(params, opt, b)
             return params, opt
-    else:
-        model_ = build_model(cfg)
-        prefill = build_prefill_step(model_, parallel)
-        decode = build_serve_step(model_, parallel)
+        return inputs, step
 
-        def inputs():
-            params = fake_share(layout, dev)
-            if kind == "decode":
-                cache = tree_map(torch.Tensor.zero_,
-                                 model_.input_specs(shape, parallel, dev)["cache"])
-                tok = torch.zeros((rows, 1), dtype=TOKEN_DTYPE, device=dev)
-                ins = {"token": tok, "cache": cache}
-            elif cfg.is_encoder_decoder:
-                ins = {"src": torch.zeros((rows, S, cfg.d_model),
-                                          dtype=getattr(torch, cfg.dtype), device=dev)}
-            else:
-                ins = {"tokens": torch.zeros((rows, S), dtype=TOKEN_DTYPE, device=dev)}
-            return {"Parameter": params, "Other": ins}
+    def inputs():
+        ins = specs()
+        ins.pop("labels", None)  # a prefill takes the prompt alone
+        ins.pop("pos", None)  # a decode step takes its position as an int
+        return {"Parameter": fake_share(layout, device), "Other": ins}
 
-        def step(made):
-            params, ins = made["Parameter"], made["Other"]
-            if kind == "decode":
-                return decode(params, ins["token"], ins["cache"], S - 1)
-            if cfg.is_encoder_decoder:  # the prefill is the encode, as serving's
-                return encdec.encode(params, ins["src"], cfg=cfg, use_kernels=True,
-                                     parallel=parallel)
-            if kind == "prefill":
-                return prefill(params, ins["tokens"])
-            for _ in range(sessions):  # serve.run's sessions
-                logits, pre = prefill(params, ins["tokens"])
-                cache = merge_prefill(model_.init_cache(params, B, S + gen, parallel), pre,
-                                      parallel)
-                del pre
-                tok = torch.argmax(logits.to(torch.float32), dim=-1)[:, None]
-                del logits  # a view of the prompt's logits: serving drops them once sampled
-                for i in range(gen - 1 if decode_steps is None else decode_steps):
-                    tok, cache = decode(params, tok, cache, S + i)
-                del cache
-            return tok
+    prefill = build_prefill_step(model_, parallel)
+    decode = build_serve_step(model_, parallel)
+
+    def step(made):
+        params, ins = made["Parameter"], made["Other"]
+        if kind == "decode":
+            return decode(params, ins["token"], ins["cache"], S - 1)
+        if cfg.is_encoder_decoder:  # the prefill is the encode, as serving's
+            return encdec.encode(params, ins["src_embeds"], cfg=cfg, use_kernels=True,
+                                 parallel=parallel)
+        if kind == "prefill":
+            return prefill(params, ins["tokens"])
+        session = SessionSteps(model_, parallel, ins["tokens"], B, S + gen)
+        for s in range(sessions):  # serve.run's sessions, greedy
+            st = session.begin(params, s, None)
+            for i in range(gen - 1 if decode_steps is None else decode_steps):
+                st = session.step(params, st, i)
+            tok = session.tokens(st)
+            del st  # the session's cache, freed before the next prefill
+        return tok
     return inputs, step
-
-
-def _batch_rows(batch: int, parallel) -> int:
-    """The rows this rank's step takes of a ``batch``-row batch."""
-    if parallel is None or parallel.data_size == 1 or parallel.seq_split:
-        return batch
-    return batch // parallel.data_size
 
 
 def run_one(arch: str, shape_name: str, data: int = 16, model: int = 16, rank: int = 0, *,
@@ -346,7 +333,7 @@ def run_one(arch: str, shape_name: str, data: int = 16, model: int = 16, rank: i
     ``sessions`` times."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    from repro_torch.launch.hlo_stats import op_census, parallel_counts
+    from repro_torch.launch.hlo_stats import blas_workspace_bytes, op_census, parallel_counts
     from repro_torch.launch.mesh import (
         HBM_BW, HBM_BYTES, NVLINK_BW, PEAK_FLOPS_BF16, PEAK_FLOPS_F32, fake_world,
     )
@@ -383,7 +370,7 @@ def run_one(arch: str, shape_name: str, data: int = 16, model: int = 16, rank: i
         inputs, step = build_step(cfg, kind, knobs, parallel, layout, B, S, gen=gen,
                                   sessions=sessions, decode_steps=decode_steps, steps=steps,
                                   device=dev)
-        res = measure(named, inputs, step, exec_only)
+        res = measure(named, inputs, step, exec_only, device=dev)
     census = res["census"]
     coll = census.collective_stats()
     flops = res["flops"] or 0
@@ -416,8 +403,8 @@ def run_one(arch: str, shape_name: str, data: int = 16, model: int = 16, rank: i
         "host_reads": census.host_reads,
         "op_census": op_census(census.ops),
         "memory": res["memory"],
-        "peak_bytes": res["memory"].get("total", 0),
-        "fits_hbm": res["memory"].get("total", 0) <= HBM_BYTES,
+        "blas_workspace_bytes": blas_workspace_bytes(census),
+        "peak_bytes": res["memory"].get("total", 0) + blas_workspace_bytes(census),
         "inputs_bytes": res["inputs_bytes"],
         "seconds": round(res["seconds"], 3),
         "roofline": {
@@ -426,6 +413,7 @@ def run_one(arch: str, shape_name: str, data: int = 16, model: int = 16, rank: i
             "collective_s": coll_bytes / NVLINK_BW,
         },
     }
+    result["fits_hbm"] = result["peak_bytes"] <= HBM_BYTES
     terms = result["roofline"]
     terms["bottleneck"] = max(("compute_s", "memory_s", "collective_s"), key=terms.get)
     result["bottleneck"] = terms["bottleneck"]

@@ -58,42 +58,39 @@ def run(variant: str = "baseline", *, algo: str = "fedcm", cohort: int = 16,
         local_steps: int = 2, momentum_dtype: str = "float32", param_dtype: str = "float32",
         aggregate_dtype: str = "float32", data: int = 16, model: int = 16, rank: int = 0,
         rounds: int = 1, n_clients: int = 4096, n_seqs: int = BATCH, batch: int = BATCH,
-        seq: int = SEQ, eta_l: float = 0.05, alpha: float = 0.1, weight_decay: float = 1e-4,
-        cfg=None, cfg_overrides: Optional[dict] = None, exec_only: bool = False,
-        out: Optional[Path] = OUT_DIR, quiet: bool = False, tag: str = "") -> dict:
+        seq: int = SEQ, eta_l: float = 0.05, cfg=None, cfg_overrides: Optional[dict] = None,
+        exec_only: bool = False, out: Optional[Path] = OUT_DIR, quiet: bool = False,
+        tag: str = "") -> dict:
     """One rank's dry-run of ``rounds`` FedCM rounds over ``ARCH`` (cut to
     ``N_LAYERS`` layers unless ``cfg_overrides`` says otherwise) with the
-    cohort over ``data`` ranks and each client over ``model`` ranks; returns
-    the result and, with ``out``, writes ``fedround_<variant>.json`` there
-    (``tag`` names the file in place of the variant).  ``cfg`` runs another
-    llama config (a reduced one) as it is, ``cfg_overrides`` cut it."""
+    cohort over ``data`` ranks and each client over ``model`` ranks, the
+    round ``launch.federated_llm`` builds (``fed_config``, ``build_engine``,
+    ``LMFederatedData``) over each client's corpus of ``n_seqs`` sequences;
+    returns the result and, with ``out``, writes ``fedround_<variant>.json``
+    there (``tag`` names the file in place of the variant).  ``cfg`` runs
+    another llama config (a reduced one) as it is, ``cfg_overrides`` cut
+    it."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    from repro_torch.configs.base import FedConfig, get_config
-    from repro_torch.core.engine import FederatedEngine
-    from repro_torch.core.flat import FlatSpec
+    from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import LMFederatedData
     from repro_torch.launch.dryrun import fake_share, grid_parallel, measure, share_layout
-    from repro_torch.launch.hlo_stats import op_census, parallel_counts
+    from repro_torch.launch.federated_llm import build_engine, fed_config
+    from repro_torch.launch.hlo_stats import blas_workspace_bytes, op_census, parallel_counts
     from repro_torch.launch.mesh import (
         HBM_BW, NVLINK_BW, PEAK_FLOPS_BF16, PEAK_FLOPS_F32, fake_world,
     )
-    from repro_torch.models.model import build_model, cohort_loss_fn
     from repro_torch.sharding.rules import check_model_parallel
-    from repro_torch.sharding.shard import group_plane
 
     if cfg is None:
         cfg = dataclasses.replace(get_config(ARCH), n_layers=N_LAYERS, name="llama3-fedround",
                                   param_dtype=param_dtype)
     cfg = dataclasses.replace(cfg, **(cfg_overrides or {}))
     check_model_parallel(cfg, model)
-    fed = FedConfig(algo=algo, num_clients=n_clients, cohort_size=cohort,
-                    local_steps=local_steps, alpha=alpha, eta_l=eta_l, eta_g=1.0,
-                    participation="fixed", weight_decay=weight_decay,
-                    momentum_dtype=momentum_dtype, aggregate_dtype=aggregate_dtype,
-                    rounds=rounds)
+    fed = fed_config(n_clients=n_clients, cohort=cohort, local_steps=local_steps, eta_l=eta_l,
+                     rounds=rounds, algo=algo, momentum_dtype=momentum_dtype,
+                     aggregate_dtype=aggregate_dtype)
     layout = share_layout(cfg, 1, model)  # a client's model share, no FSDP slice
-    lm = build_model(cfg)
 
     with fake_world(data, model, rank) as groups, FakeTensorMode(allow_non_fake_inputs=True):
         # federated_llm's ranks: the model group's context alone (the world's
@@ -102,27 +99,22 @@ def run(variant: str = "baseline", *, algo: str = "fedcm", cohort: int = 16,
         cohort_group = groups[1] if data > 1 else None
 
         def inputs():
-            params = fake_share(layout, DEVICE)
-            corpus = LMFederatedData.__new__(LMFederatedData)
             toks = torch.zeros((n_clients, n_seqs, seq + 1), dtype=torch.int64, device=DEVICE)
-            corpus.num_clients, corpus.n_per_client = n_clients, n_seqs
-            corpus.client_x, corpus.client_y = toks[..., :-1], toks[..., 1:]
-            return {"Parameter": params, "Other": toks, "corpus": corpus}
+            return {"Parameter": fake_share(layout, DEVICE), "Other": toks,
+                    "corpus": LMFederatedData(toks, device=DEVICE)}
 
         def step(made):
             params, corpus = made.pop("Parameter"), made["corpus"]
-            spec = FlatSpec.from_tree(params)
-            eng = FederatedEngine(fed, cohort_loss_fn(lm, parallel), spec, batch_size=batch,
-                                  device=DEVICE, cohort_group=cohort_group,
-                                  model_group=None if parallel is None else group_plane(
-                                      spec, cfg, parallel))
+            eng, _, _ = build_engine(cfg, fed, params, batch=batch, device=DEVICE,
+                                     parallel=parallel, cohort_group=cohort_group)
             state = eng.init(params, torch.Generator())
             del params  # as federated_llm: the engine holds the flat plane
             for _ in range(rounds):
                 state, _ = eng.run_round(state, corpus)
             return state
 
-        res = measure({"model": groups[0], "cohort": groups[1]}, inputs, step, exec_only)
+        res = measure({"model": groups[0], "cohort": groups[1]}, inputs, step, exec_only,
+                      device=DEVICE)
     census = res["census"]
     coll = census.collective_stats()
     flops = res["flops"] or 0
@@ -147,7 +139,8 @@ def run(variant: str = "baseline", *, algo: str = "fedcm", cohort: int = 16,
         "parallel_counts": parallel_counts(census),
         "launches": dict(sorted(census.launches.items())),
         "host_reads": census.host_reads, "op_census": op_census(census.ops),
-        "memory": res["memory"], "peak_bytes": res["memory"].get("total", 0),
+        "memory": res["memory"], "blas_workspace_bytes": blas_workspace_bytes(census),
+        "peak_bytes": res["memory"].get("total", 0) + blas_workspace_bytes(census),
         "roofline": {
             "compute_s": (flops + census.kernel_flops) / peak_flops,
             "memory_s": (census.op_bytes + census.kernel_bytes) / HBM_BW,
@@ -178,59 +171,49 @@ def run(variant: str = "baseline", *, algo: str = "fedcm", cohort: int = 16,
     return result
 
 
-def run_classifier(cfg, dirichlet: float = 0.6, *, dim: int = 32, n_classes: int = 10,
-                   n_train: int = 50_000, batch_size: int = 50, hidden: int = 128,
-                   seed: int = 0, exec_only: bool = False) -> dict:
-    """``cfg.rounds`` rounds of ``launch.fed_train.run_federated``'s engine
-    (the MLP classifier over the synthetic Dirichlet-split task, the port's
-    main path) on one rank, as ``run`` dry-runs the LM's: the data and the
-    weights are built on the host as ``run_federated`` builds them and enter
-    the fake mode as empty tensors of their shapes.  Returns the launches,
-    the census's counts, the peak and the FLOPs."""
+def run_classifier(cfg, dirichlet: float = 0.6, *, eval_every: int = 25, seed: int = 0,
+                   exec_only: bool = False) -> dict:
+    """``launch.fed_train.run_federated``'s synchronous run of ``cfg`` (the
+    MLP classifier over the synthetic Dirichlet-split task, the port's main
+    path) on one rank, as ``run`` dry-runs the LM's: ``build_federated``'s
+    data, model, engine and test set on fake tensors, then chunks of
+    ``eval_every`` rounds (``run_rounds``), each followed by the test
+    set's evaluation, whose host read the census answers.  Returns the
+    launches, the census's counts, the peak and the FLOPs."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    from repro_torch.core.engine import FederatedEngine
-    from repro_torch.core.flat import FlatSpec
-    from repro_torch.data import FederatedData, make_synthetic_classification
+    from repro_torch.core.engine import make_eval_fn
     from repro_torch.launch.dryrun import measure
+    from repro_torch.launch.hlo_stats import blas_workspace_bytes
+    from repro_torch.launch.fed_train import build_federated
     from repro_torch.launch.mesh import fake_world
-    from repro_torch.models.small import classification_loss, mlp_classifier
-    from repro_torch.utils.trees import tree_map
 
-    x_tr, y_tr, _, _ = make_synthetic_classification(n_classes=n_classes, dim=dim,
-                                                     n_train=n_train, n_test=1, seed=seed)
-    host = FederatedData(x_tr, y_tr, cfg.num_clients, dirichlet_alpha=dirichlet, seed=seed,
-                         device="cpu")
-    model = mlp_classifier((dim, hidden, hidden, n_classes))
-    weights = model.init(torch.Generator().manual_seed(seed))
     with fake_world(1, 1) as groups, FakeTensorMode(allow_non_fake_inputs=True):
         def inputs():
-            params = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device=DEVICE),
-                              weights)
-            data = FederatedData.__new__(FederatedData)
-            data.num_clients, data.n_per_client = host.num_clients, host.n_per_client
-            data.client_x = torch.empty(host.client_x.shape, dtype=host.client_x.dtype,
-                                        device=DEVICE)
-            data.client_y = torch.empty(host.client_y.shape, dtype=host.client_y.dtype,
-                                        device=DEVICE)
-            return {"Parameter": params, "Other": (data.client_x, data.client_y),
-                    "data": data}
+            data, model, params, eng, x_te, y_te = build_federated(cfg, dirichlet, seed=seed,
+                                                                   device=DEVICE)
+            return {"Parameter": params, "Other": (data.client_x, data.client_y, x_te, y_te),
+                    "run": (data, model, eng, x_te, y_te)}
 
         def step(made):
-            params, data = made["Parameter"], made["data"]
-            eng = FederatedEngine(cfg, classification_loss(model.apply),
-                                  FlatSpec.from_tree(params), batch_size=batch_size,
-                                  device=DEVICE)
+            params, (data, model, eng, x_te, y_te) = made.pop("Parameter"), made["run"]
+            evaluate = make_eval_fn(model.apply)
             state = eng.init(params, torch.Generator())
-            for _ in range(cfg.rounds):
-                state, _ = eng.run_round(state, data)
+            r = 0
+            while r < cfg.rounds:
+                chunk = min(eval_every, cfg.rounds - r)
+                state, _ = eng.run_rounds(state, data, chunk)
+                r += chunk
+                evaluate(eng.params_tree(state), x_te, y_te)
             return state
 
-        res = measure({"model": groups[0], "data": groups[1]}, inputs, step, exec_only)
+        res = measure({"model": groups[0], "data": groups[1]}, inputs, step, exec_only,
+                      device=DEVICE)
     census = res["census"]
     return {"launches": dict(sorted(census.launches.items())), "host_reads": census.host_reads,
             "flops_per_device": res["flops"], "op_bytes_per_device": census.op_bytes,
-            "memory": res["memory"], "peak_bytes": res["memory"].get("total", 0),
+            "memory": res["memory"], "blas_workspace_bytes": blas_workspace_bytes(census),
+            "peak_bytes": res["memory"].get("total", 0) + blas_workspace_bytes(census),
             "collectives": census.collective_stats(), "seconds": round(res["seconds"], 3)}
 
 

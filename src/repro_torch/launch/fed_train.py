@@ -79,6 +79,32 @@ SHARD_TIMEOUT_S = 600.0
 SHARD_DEADLINE_S = 7 * 24 * 3600.0
 
 
+def build_federated(cfg: FedConfig, dirichlet: float, *, dim: int = 32, n_classes: int = 10,
+                    n_train: int = 50_000, n_test: int = 10_000, batch_size: int = 50,
+                    hidden: int = 128, seed: int = 0, device="cuda"):
+    """What ``run_federated`` builds before its first round: ``(data, model,
+    params, engine, x_test, y_test)``, the clients' data on ``device`` (or
+    streamed from the host store), the MLP and its params drawn on the CPU
+    from ``seed``, the engine, and the test set on ``device``.  The
+    dry-run of the main path (``launch.fed_dryrun.run_classifier``) builds
+    the same on fake tensors."""
+    if cfg.population_store == "host":
+        data = StreamingClientData(cfg.num_clients, dim=dim, n_classes=n_classes, seed=seed)
+        x_te, y_te = data.test_set(min(n_test, 2_000))
+    else:
+        x_tr, y_tr, x_te, y_te = make_synthetic_classification(
+            n_classes=n_classes, dim=dim, n_train=n_train, n_test=n_test, seed=seed
+        )
+        data = FederatedData(x_tr, y_tr, cfg.num_clients, dirichlet_alpha=dirichlet,
+                             seed=seed, device=device)
+    model = mlp_classifier((dim, hidden, hidden, n_classes))
+    params = model.init(torch.Generator().manual_seed(seed))
+    eng = FederatedEngine(cfg, classification_loss(model.apply), FlatSpec.from_tree(params),
+                          batch_size=batch_size, device=device)
+    return (data, model, params, eng, torch.as_tensor(x_te, device=device),
+            torch.as_tensor(y_te, device=device).long())
+
+
 def run_federated(
     cfg: FedConfig,
     dirichlet: float,
@@ -137,26 +163,14 @@ def run_federated(
     also the fleet (the publisher, the serving thread, the telemetry and
     the health endpoint); the other ranks only step."""
     dev = resolve_device(device)
-    if cfg.population_store == "host":
-        data = StreamingClientData(cfg.num_clients, dim=dim, n_classes=n_classes, seed=seed)
-        x_te, y_te = data.test_set(min(n_test, 2_000))
-    else:
-        x_tr, y_tr, x_te, y_te = make_synthetic_classification(
-            n_classes=n_classes, dim=dim, n_train=n_train, n_test=n_test, seed=seed
-        )
-        data = FederatedData(x_tr, y_tr, cfg.num_clients, dirichlet_alpha=dirichlet,
-                             seed=seed, device=dev)
-    model = mlp_classifier((dim, hidden, hidden, n_classes))
-    params = model.init(torch.Generator().manual_seed(seed))
-    spec = FlatSpec.from_tree(params)
-    eng = FederatedEngine(cfg, classification_loss(model.apply), spec,
-                          batch_size=batch_size, device=dev)
+    data, model, params, eng, x_te_t, y_te_t = build_federated(
+        cfg, dirichlet, dim=dim, n_classes=n_classes, n_train=n_train, n_test=n_test,
+        batch_size=batch_size, hidden=hidden, seed=seed, device=dev)
+    spec = eng.spec
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 1)
     state = eng.init(params, gen)
     evaluate = make_eval_fn(model.apply)
-    x_te_t = torch.as_tensor(x_te, device=dev)
-    y_te_t = torch.as_tensor(y_te, device=dev).long()
 
     log = MetricLogger(
         ["round", "algo", "loss", "test_acc", "n_active", "mb_down", "mb_up",

@@ -112,27 +112,21 @@ def run(cfg, *, n_clients: int = 8, cohort: int = 3, local_steps: int = 4, batch
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    model = build_model(cfg)
-    fed = FedConfig(algo="fedcm", num_clients=n_clients, cohort_size=cohort,
-                    local_steps=local_steps, alpha=ALPHA, eta_l=eta_l, eta_g=ETA_G,
-                    weight_decay=WEIGHT_DECAY, rounds=rounds, participation="fixed")
+    fed = fed_config(n_clients=n_clients, cohort=cohort, local_steps=local_steps, eta_l=eta_l,
+                     rounds=rounds)
     data = LMFederatedData(federated_lm_corpora(cfg.vocab_size, n_clients, seq + 1, N_SEQS),
                            device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    group = None
     if parallel is None:
-        params = model.init(gen)
-        spec = FlatSpec.from_tree(params)
+        params = build_model(cfg).init(gen)
     else:
         check_model_parallel(cfg, parallel.size)
         # the kept slices wait on the host while whole leaves are drawn on the card
         params = init_params_sharded(gen, cfg, parallel.rank, parallel.size,
                                      stage="cpu" if dev.type == "cuda" else None)
-        spec = FlatSpec.from_tree(params)
-        group = group_plane(spec, cfg, parallel)
-    eng = FederatedEngine(fed, cohort_loss_fn(model, parallel), spec, batch_size=batch,
-                          device=dev, cohort_group=cohort_group, model_group=group)
+    eng, spec, group = build_engine(cfg, fed, params, batch=batch, device=dev,
+                                    parallel=parallel, cohort_group=cohort_group)
     rng = torch.Generator(device=dev)
     rng.manual_seed(seed + 1)  # alike on every rank: the same cohorts and minibatches
     state = eng.init(params, rng)
@@ -153,6 +147,32 @@ def run(cfg, *, n_clients: int = 8, cohort: int = 3, local_steps: int = 4, batch
             "collectives": {} if parallel is None else dict(parallel.counts)}
     return FedLMResult(cfg.name, spec.size if group is None else group.whole_size, per_round,
                        round_ms, peak, [mine])
+
+
+def fed_config(*, n_clients: int, cohort: int, local_steps: int, eta_l: float, rounds: int,
+               **variant) -> FedConfig:
+    """The example's FedCM round: a fixed cohort, ``ALPHA``, ``ETA_G`` and
+    ``WEIGHT_DECAY``; ``variant`` sets any other field (the dry-run's
+    ``algo``, ``momentum_dtype``, ``aggregate_dtype``)."""
+    return FedConfig(**{**dict(algo="fedcm", num_clients=n_clients, cohort_size=cohort,
+                               local_steps=local_steps, alpha=ALPHA, eta_l=eta_l, eta_g=ETA_G,
+                               weight_decay=WEIGHT_DECAY, rounds=rounds,
+                               participation="fixed"), **variant})
+
+
+def build_engine(cfg, fed: FedConfig, params, *, batch: int, device,
+                 parallel: Optional[ParallelContext] = None, cohort_group=None):
+    """``(engine, spec, group plane or None)`` of ``run``'s round over
+    ``params``, this rank's share under ``parallel`` (its plane: the
+    share's columns, ``sharding.shard.group_plane``), its rows of the
+    cohort under ``cohort_group``; the launcher and the dry-run
+    (``launch.fed_dryrun``) build the round alike."""
+    spec = FlatSpec.from_tree(params)
+    group = None if parallel is None else group_plane(spec, cfg, parallel)
+    eng = FederatedEngine(fed, cohort_loss_fn(build_model(cfg), parallel), spec,
+                          batch_size=batch, device=device, cohort_group=cohort_group,
+                          model_group=group)
+    return eng, spec, group
 
 
 def run_model_parallel(cfg, n: int, device, cohort_shard: int = 0, **kw) -> FedLMResult:

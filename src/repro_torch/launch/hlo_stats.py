@@ -21,7 +21,12 @@ sees every op a step dispatches, on real tensors or on a dry-run's
 * host reads (``aten._local_scalar_dense``: ``.item()``, ``bool()``): on a
   ``FakeTensor`` there is no value to read, so the census answers 1 (True)
   and counts the read; a step that makes none (the resident round, the
-  serving steps) is the same step on fake tensors as on real ones.
+  serving steps) is the same step on fake tensors as on real ones;
+* which threads run GEMMs that torch sends to cuBLAS on the card (the
+  caller's, and autograd's device thread for a backward) and which of them
+  run one with a bias epilogue (cuBLASLt): on the card each holds a
+  workspace of its own that the caching allocator counts
+  (``blas_workspace_bytes``).
 """
 from __future__ import annotations
 
@@ -73,6 +78,23 @@ def _group_of(args) -> Optional[Any]:
 
 
 _HOST_READ = object()
+# aten ops that run as cuBLAS GEMMs on the card
+_BLAS = {"mm", "addmm", "bmm", "baddbmm", "addbmm", "mv", "addmv", "dot", "vdot",
+         "_addmm_activation"}
+_LT_DTYPES = (torch.float32, torch.float64, torch.float16, torch.bfloat16)
+
+
+def _uses_lt(name: str, args, kwargs) -> bool:
+    """Whether torch runs this GEMM through cuBLASLt with a bias epilogue:
+    ``addmm`` of a contiguous 1-D bias at beta 1 over matrices of more than
+    one row and column (``_addmm_activation`` always)."""
+    if name == "_addmm_activation":
+        return True
+    if name != "addmm" or kwargs.get("beta", 1) != 1:
+        return False
+    bias, m1, m2 = args[:3]
+    return (bias.dim() == 1 and bias.is_contiguous() and bias.dtype in _LT_DTYPES
+            and min(m1.shape) > 1 and min(m2.shape) > 1)
 
 
 def _classify(func):
@@ -116,6 +138,7 @@ class CensusMode(TorchDispatchMode):
         self.kernel_bytes = 0
         self.kernel_flops = 0
         self.host_reads = 0
+        self.blas: set = set()  # ("forward" | "backward", "cublas" | "cublaslt")
         self._what: Dict[Any, Any] = {}
 
     def _kernel(self, name: str, nbytes: int, flops: int) -> None:
@@ -154,6 +177,11 @@ class CensusMode(TorchDispatchMode):
             stats["sent"] += tensor_bytes(sent)
         elif name is not None:
             self.ops[name] += 1
+            if name in _BLAS:
+                thread = ("forward" if torch._C._current_autograd_node() is None
+                          else "backward")
+                self.blas.add((thread, "cublaslt" if _uses_lt(name, args, kwargs)
+                               else "cublas"))
             if moves:
                 self.op_bytes += tensor_bytes(args) + tensor_bytes(kwargs) + tensor_bytes(out)
         return out
@@ -170,6 +198,18 @@ class CensusMode(TorchDispatchMode):
     def group_stats(self, name: str) -> Dict[str, Dict[str, int]]:
         """The collectives on the group ``name`` by kind, with ``"total"``."""
         return totals(self.by_group.get(name, _empty_stats()))
+
+
+def blas_workspace_bytes(census: CensusMode) -> int:
+    """The cuBLAS workspaces the census's step allocates on the card when
+    none is held yet (a fresh process, or after
+    ``torch._C._cuda_clearCublasWorkspaces``): one for each thread that
+    runs a cuBLAS GEMM, one for each that runs a cuBLASLt one
+    (``launch.mesh.CUBLAS_WORKSPACE_BYTES``, ``CUBLASLT_WORKSPACE_BYTES``)."""
+    from repro_torch.launch.mesh import CUBLAS_WORKSPACE_BYTES, CUBLASLT_WORKSPACE_BYTES
+
+    size = {"cublas": CUBLAS_WORKSPACE_BYTES, "cublaslt": CUBLASLT_WORKSPACE_BYTES}
+    return sum(size[kind] for _, kind in census.blas)
 
 
 def op_census(ops: Counter, top: int = 12) -> Dict[str, int]:

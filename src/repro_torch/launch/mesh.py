@@ -71,6 +71,12 @@ PEAK_FLOPS_F32 = 67e12  # FLOP/s, f32 outside the tensor cores
 HBM_BW = 3.35e12  # bytes/s
 NVLINK_BW = 450e9  # bytes/s each direction (NVLink 4, 18 links)
 HBM_BYTES = 85_017_493_504  # "80 GB": torch.cuda.get_device_properties(0).total_memory
+# torch's cuBLAS workspaces on sm_90 (CUBLAS_WORKSPACE_CONFIG and
+# CUBLASLT_WORKSPACE_SIZE unset), each taken from the caching allocator:
+# one a thread (and stream) that runs a cuBLAS GEMM, one a thread that runs
+# a cuBLASLt GEMM with a bias epilogue
+CUBLAS_WORKSPACE_BYTES = 4096 * 8 * 1024
+CUBLASLT_WORKSPACE_BYTES = 1024 * 1024
 
 SINGLE_POD_SHAPE = (16, 16)  # the reference's (data, model) mesh: 256 cards
 MULTI_POD_SHAPE = (2, 16, 16)  # its (pod, data, model) mesh: 512 cards

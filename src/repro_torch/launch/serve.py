@@ -325,6 +325,68 @@ def gather_rows(t: torch.Tensor, parallel: Optional[ParallelContext]) -> torch.T
     return torch.cat(parts)
 
 
+class SessionSteps:
+    """A decoder-only serving session's device work, with no host read, as
+    ``run`` serves it and the dry-run (``launch.dryrun``) runs it on fake
+    tensors: ``begin`` prefills ``prompts`` (this rank's rows), merges
+    their cache into ``init_cache``'s buffers of ``cache_len`` positions
+    and samples the first token; ``step`` decodes one token; ``tokens``
+    joins a session's tokens (every data row's on a grid that splits the
+    batch).  ``finite`` is a device flag, cleared by any non-finite logit
+    sampled from.  ``on_logits`` and ``feed`` are ``run``'s hooks."""
+
+    def __init__(self, model, parallel: Optional[ParallelContext], prompts: torch.Tensor,
+                 batch: int, cache_len: int, *, temperature: float = 0.0,
+                 on_logits: Optional[Callable[[int, int, torch.Tensor], None]] = None,
+                 feed: Optional[torch.Tensor] = None) -> None:
+        self.model, self.parallel, self.prompts = model, parallel, prompts
+        self.batch, self.cache_len, self.temperature = batch, cache_len, temperature
+        self.on_logits, self.feed = on_logits, feed
+        self.prefill = build_prefill_step(model, parallel)
+        self.finite = torch.ones((), dtype=torch.bool, device=prompts.device)
+
+    def sample(self, last, generator, s, i):
+        """The next token from the last position's logits ``(rows, V)``; over
+        a group one rank draws it and every rank of its rows takes it
+        (``share_token``)."""
+        last = last.to(torch.float32)
+        self.finite.logical_and_(torch.isfinite(last).all())
+        if self.on_logits is not None:
+            self.on_logits(s, i, last)
+        if self.temperature <= 0:
+            return torch.argmax(last, dim=-1)[:, None]
+        probs = torch.softmax(last / self.temperature, dim=-1)
+        return share_token(torch.multinomial(probs, 1, generator=generator), self.parallel)
+
+    def _fed_or(self, tok, i):
+        return tok if self.feed is None else self.feed[:, i:i + 1]
+
+    def begin(self, p, s: int, generator, after_prefill: Optional[Callable[[], None]] = None):
+        """Session ``s``'s state after its prefill; ``after_prefill()`` is
+        called once the prefill is queued (``run`` times it there)."""
+        logits, pre_cache = self.prefill(p, self.prompts)
+        if after_prefill is not None:
+            after_prefill()
+        cache = merge_prefill(self.model.init_cache(p, self.batch, self.cache_len, self.parallel),
+                              pre_cache, self.parallel)
+        del pre_cache
+        tok = self.sample(logits, generator, s, 0)
+        return {"tok": self._fed_or(tok, 0), "cache": cache, "gen": generator, "out": [tok],
+                "session": s}
+
+    def step(self, p, st, i: int):
+        """The state after decode step ``i`` of the session."""
+        logits, cache = self.model.decode_step(p, st["tok"], st["cache"],
+                                               self.prompts.shape[1] + i, self.parallel)
+        tok = self.sample(logits[:, -1], st["gen"], st["session"], i + 1)
+        st["out"].append(tok)
+        return {**st, "tok": self._fed_or(tok, i + 1), "cache": cache}
+
+    def tokens(self, st) -> torch.Tensor:
+        """The session's tokens so far, ``(B, steps + 1)``."""
+        return gather_rows(torch.cat(st["out"], dim=1), self.parallel)
+
+
 def _serve_encdec(model, params, args, device, version: int,
                   src: Optional[torch.Tensor],
                   parallel: Optional[ParallelContext] = None) -> ServeResult:
@@ -497,64 +559,39 @@ def run(args: argparse.Namespace, on_step: Optional[Callable[[ServeStats], None]
                           seed=args.seed)[rows], dtype=torch.long, device=device)
     fed = None if feed is None else torch.as_tensor(np.asarray(feed)[rows], dtype=torch.long,
                                                     device=device)
-    cache_len = args.cache_len or args.prompt_len + args.gen
-    finite = torch.ones((), dtype=torch.bool, device=device)  # read once, at the end
-    prefill = build_prefill_step(model, parallel)
-
-    def sample(last, generator, s, i):
-        """The next token from the last position's logits ``(rows, V)``; over
-        a group one rank draws it and every rank of its rows takes it
-        (``share_token``)."""
-        last = last.to(torch.float32)
-        finite.logical_and_(torch.isfinite(last).all())
-        if on_logits is not None:
-            on_logits(s, i, last)
-        if args.temperature <= 0:
-            return torch.argmax(last, dim=-1)[:, None]
-        probs = torch.softmax(last / args.temperature, dim=-1)
-        return share_token(torch.multinomial(probs, 1, generator=generator), parallel)
-
+    session = SessionSteps(model, parallel, prompts, args.batch,
+                           args.cache_len or args.prompt_len + args.gen,
+                           temperature=args.temperature, on_logits=on_logits, feed=fed)
     prefill_s: List[float] = []
     decode_s: List[float] = []
     last = {"gen": None}
 
-    def fed_or(tok, i):
-        return tok if fed is None else fed[:, i:i + 1]
-
     def begin_session(p, s):
         synchronize(device)
         t0 = time.perf_counter()
-        logits, pre_cache = prefill(p, prompts)
-        synchronize(device)
-        prefill_s.append(time.perf_counter() - t0)
-        cache = merge_prefill(model.init_cache(p, args.batch, cache_len, parallel), pre_cache,
-                              parallel)
-        del pre_cache
+
+        def timed():
+            synchronize(device)
+            prefill_s.append(time.perf_counter() - t0)
+
         generator = torch.Generator(device=device)
         generator.manual_seed(args.seed + 1 + s)
-        tok = sample(logits, generator, s, 0)
+        st = session.begin(p, s, generator, after_prefill=timed)
         synchronize(device)
-        return {"tok": fed_or(tok, 0), "cache": cache, "gen": generator, "out": [tok],
-                "t0": time.perf_counter(), "session": s}
-
-    def decode_step(p, st, i):
-        logits, cache = model.decode_step(p, st["tok"], st["cache"], args.prompt_len + i,
-                                          parallel)
-        tok = sample(logits[:, -1], st["gen"], st["session"], i + 1)
-        st["out"].append(tok)
-        return {**st, "tok": fed_or(tok, i + 1), "cache": cache}
+        return {**st, "t0": time.perf_counter()}
 
     def end_session(p, st):
         synchronize(device)
         decode_s.append(time.perf_counter() - st["t0"])
-        last["gen"] = gather_rows(torch.cat(st["out"], dim=1), parallel).cpu().numpy()
+        last["gen"] = session.tokens(st).cpu().numpy()
         del st["cache"]  # freed before the next session's prefill allocates its own
 
-    _, stats = serve_loop(params, decode_step, begin_session=begin_session,
+    _, stats = serve_loop(params, session.step, begin_session=begin_session,
                           end_session=end_session, params_provider=provider,
                           steps_per_session=args.gen - 1, max_sessions=args.sessions,
                           on_step=on_step, version=version)
-    return ServeResult(cfg.name, last["gen"], stats, prefill_s, decode_s, bool(finite))
+    return ServeResult(cfg.name, last["gen"], stats, prefill_s, decode_s,
+                       bool(session.finite))
 
 
 def run_model_parallel(args: argparse.Namespace, argv: List[str]) -> List[ServeResult]:

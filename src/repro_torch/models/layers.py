@@ -224,29 +224,23 @@ def _data_gather(parallel: ParallelContext, shares, dims):
     return out
 
 
-# backends whose data group reduce-scatters in one collective; a dry-run's
-# fake group (``launch.mesh.fake_world``) stands for the card's NCCL
-REDUCE_SCATTER_BACKENDS = ("nccl", "fake")
-
-
 def _data_reduce_scatter(parallel: ParallelContext, grads, dims):
     """This rank's slice of the sum over the data group of each of
     ``grads`` (one dtype; the gathered leaves' gradients) along its dim, in
-    one collective: NCCL's ``reduce_scatter_tensor`` (and a dry-run's fake
-    group's, which stands for the card's NCCL), else (gloo has none) an
-    ``all_reduce`` of every rank's block and this rank's block of it.
+    one collective: ``reduce_scatter_tensor``, but on gloo, which has none,
+    an ``all_reduce`` of every rank's block and this rank's block of it.
     Both sum in a fixed order."""
     parallel.counts["data_reduce_scatter"] += 1
     n_d, r = parallel.data_size, parallel.data_rank
     blocks = [_cat_flat([g.narrow(d, i * (g.shape[d] // n_d), g.shape[d] // n_d)
                          for g, d in zip(grads, dims)]) for i in range(n_d)]
-    if dist.get_backend(parallel.data_group) in REDUCE_SCATTER_BACKENDS:
-        mine = torch.empty_like(blocks[0])
-        dist.reduce_scatter_tensor(mine, torch.cat(blocks), group=parallel.data_group)
-    else:
+    if dist.get_backend(parallel.data_group) == "gloo":
         every = torch.cat(blocks)
         dist.all_reduce(every, group=parallel.data_group)
         mine = every.view(n_d, -1)[r]
+    else:
+        mine = torch.empty_like(blocks[0])
+        dist.reduce_scatter_tensor(mine, torch.cat(blocks), group=parallel.data_group)
     out, at = [], 0
     for g, d in zip(grads, dims):
         shape = list(g.shape)

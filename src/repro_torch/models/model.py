@@ -118,13 +118,16 @@ def _build_decoder_only(cfg) -> Model:
         the reference's ``input_specs``: train and prefill ``tokens`` /
         ``labels`` (B, S); decode one ``token`` (B, 1), the S-deep
         ``init_cache`` and ``pos``.  Token ids are ``TOKEN_DTYPE``.
-        ``parallel``: the cache a rank of that group or grid holds."""
-        B, S = shape.global_batch, shape.seq_len
+        ``parallel``: what a rank of that group or grid takes, its rows of
+        the batch (``cache_extent``) and its cache."""
+        S = shape.seq_len
+        B = cache_extent(shape.global_batch, S, parallel)[0]
         if shape.kind in ("train", "prefill"):
             return {"tokens": torch.empty((B, S), dtype=TOKEN_DTYPE, device=device),
                     "labels": torch.empty((B, S), dtype=TOKEN_DTYPE, device=device)}
         return {"token": torch.empty((B, 1), dtype=TOKEN_DTYPE, device=device),
-                "cache": transformer.init_cache(cfg, B, S, device=device, parallel=parallel),
+                "cache": transformer.init_cache(cfg, shape.global_batch, S, device=device,
+                                                parallel=parallel),
                 "pos": torch.empty((), dtype=TOKEN_DTYPE, device=device)}
 
     return Model(cfg, init, apply, loss_fn, init_cache, decode_step, dummy_batch, input_specs)
@@ -202,14 +205,14 @@ def _build_encdec(cfg) -> Model:
         ``init_cache``'s layout: self ``k`` / ``v`` and each layer's cross
         K/V over an S-long source, ``(L, B, S, Hkv, hd)`` (on a rank of
         ``parallel``, its rows, kv heads and slabs)."""
-        B, S = shape.global_batch, shape.seq_len
+        S = shape.seq_len
+        B, positions = cache_extent(shape.global_batch, S, parallel)
         adt = getattr(torch, cfg.dtype)
         if shape.kind in ("train", "prefill"):
             return {"src_embeds": torch.empty((B, S, cfg.d_model), dtype=adt, device=device),
                     "tgt_tokens": torch.empty((B, S), dtype=TOKEN_DTYPE, device=device),
                     "labels": torch.empty((B, S), dtype=TOKEN_DTYPE, device=device)}
-        rows, positions = cache_extent(B, S, parallel)
-        kv = (cfg.n_layers, rows, positions, len(kv_heads_of(cfg, parallel)),
+        kv = (cfg.n_layers, B, positions, len(kv_heads_of(cfg, parallel)),
               cfg.resolved_head_dim)
         return {"token": torch.empty((B, 1), dtype=TOKEN_DTYPE, device=device),
                 "cache": {k: torch.empty(kv, dtype=adt, device=device)

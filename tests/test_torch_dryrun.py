@@ -44,10 +44,9 @@ from repro_torch.configs.base import ARCH_IDS, SHAPES, get_config
 from repro_torch.kernels import build
 from repro_torch.launch import dryrun, fed_dryrun, federated_llm, hlo_stats
 from repro_torch.launch.mesh import (
-    MULTI_POD_SHAPE, SINGLE_POD_SHAPE, fake_world, make_production_grid, make_test_grid,
-    spawn_cohort,
+    CUBLAS_WORKSPACE_BYTES, MULTI_POD_SHAPE, SINGLE_POD_SHAPE, fake_world, make_production_grid,
+    make_test_grid, spawn_cohort,
 )
-from repro_torch.models import layers
 from repro_torch.models.model import TOKEN_DTYPE, build_model
 from repro_torch.sharding.rules import MAMBA_SPLIT_KEYS, Pieces, _keys, split_dim
 from repro_torch.sharding.shard import param_shapes
@@ -250,12 +249,13 @@ def _fake(arch, kind, rank):
 @pytest.mark.parametrize("arch,kind", CASES, ids=lambda v: str(v))
 def test_fake_rank_predicts_the_real_ranks(arch, kind, real_ranks, monkeypatch):
     """Each rank's census, FLOPs and MemTracker peak equal the real rank's,
-    exactly, on the real ranks' collective route: a fake group stands for
-    the card's NCCL, whose FSDP gradients take one ``reduce_scatter`` a
-    dtype, and gloo's take an ``all_reduce`` of every block
-    (``layers._data_reduce_scatter``), so here the fake group takes gloo's.
-    ``ParallelContext.counts`` tallies both as ``data_reduce_scatter``."""
-    monkeypatch.setattr(layers, "REDUCE_SCATTER_BACKENDS", ("nccl",))
+    exactly, on the real ranks' collective route: a fake group takes the
+    card's route, whose FSDP gradients take one ``reduce_scatter`` a dtype,
+    and gloo's take an ``all_reduce`` of every block
+    (``layers._data_reduce_scatter``), so here the fake group reports
+    gloo's backend and takes gloo's route.  ``ParallelContext.counts``
+    tallies both as ``data_reduce_scatter``."""
+    monkeypatch.setattr(torch.distributed, "get_backend", lambda group=None: "gloo")
     for rank in RANKS:
         real = real_ranks[rank][(arch, kind)]
         fake = _fake(arch, kind, rank)
@@ -267,7 +267,12 @@ def test_fake_rank_predicts_the_real_ranks(arch, kind, real_ranks, monkeypatch):
         assert counts == real["counts"], rank
         assert fake["collectives"] == {k: v for k, v in real["census"].items() if k != "total"}
         assert fake["flops_per_device"] == real["flops"] and real["flops"] > 0, rank
-        assert fake["peak_bytes"] == real["peak"], rank
+        assert fake["memory"]["total"] == real["peak"], rank
+        # on the card the step's GEMMs also take a cuBLAS workspace a thread:
+        # the caller's, and autograd's for the train step's backward
+        threads = 2 if kind == "train" else 1
+        assert fake["blas_workspace_bytes"] == threads * CUBLAS_WORKSPACE_BYTES, rank
+        assert fake["peak_bytes"] == real["peak"] + fake["blas_workspace_bytes"], rank
         assert fake["host_reads"] == 0
 
 
@@ -295,8 +300,7 @@ def test_fed_dryrun_predicts_federated_llms_round(real_ranks):
                              rank=rank, rounds=run["rounds"], cohort=run["cohort"],
                              local_steps=run["local_steps"], batch=run["batch"],
                              seq=run["seq"], n_clients=run["n_clients"],
-                             n_seqs=federated_llm.N_SEQS, alpha=federated_llm.ALPHA,
-                             weight_decay=federated_llm.WEIGHT_DECAY, out=None, quiet=True)
+                             n_seqs=federated_llm.N_SEQS, out=None, quiet=True)
         real = real_ranks[rank]["fed"]
         assert res["parallel_counts"] == real["counts"], rank
         assert not any(real["launches"].values())
@@ -304,6 +308,25 @@ def test_fed_dryrun_predicts_federated_llms_round(real_ranks):
         d = res["collectives_by_group"]["cohort"]
         assert d["all-to-all"]["count"] == 1 and d["all-gather"]["count"] >= 3
         assert res["use_flat_plane"] and res["host_reads"] == 1  # the first draw's check
+
+
+def test_census_names_the_threads_that_take_a_cublas_workspace():
+    """A forward GEMM takes the caller's workspace, a linear with a bias
+    cuBLASLt's as well, and the backward's GEMMs autograd's thread's: the
+    workspaces the card allocates for the step (``blas_workspace_bytes``)."""
+    x = torch.randn(4, 8)
+    w = torch.randn(8, 8, requires_grad=True)
+    with hlo_stats.CensusMode() as census:
+        torch.nn.functional.linear(x, w, torch.zeros(8)).sum()
+    assert census.blas == {("forward", "cublaslt")}
+    with hlo_stats.CensusMode() as census:
+        (x @ w).sum().backward()
+    assert census.blas == {("forward", "cublas"), ("backward", "cublas")}
+    assert hlo_stats.blas_workspace_bytes(census) == 2 * CUBLAS_WORKSPACE_BYTES
+    with hlo_stats.CensusMode() as census:
+        torch.nn.functional.linear(x[:1], w.detach(), torch.zeros(8))  # one row: no epilogue
+        x + 1
+    assert census.blas == {("forward", "cublas")}
 
 
 # ------------------------------------------------------------------ the fake branch
