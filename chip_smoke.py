@@ -279,7 +279,13 @@ D. dry-run — right after phase 1, a CPU subprocess (no card visible to it)
    engine's gradient route and with the whole-plane one
    (``fed_lm_step_profile``); (e)–(f) a model group of 2 gloo ranks
    sharing cuda:0 (``model_group_training_one_card``), its world run at
-   once with (i)–(j)'s (``both_group_worlds_one_card``); (i) training on a
+   once with (i)–(j)'s (``both_group_worlds_one_card``); (f) also runs each
+   of ``GROUP_FED_VARIANTS`` (the flat round, faults with noise and
+   quarantine, ``_test_escape``, ``_test_mixed``, the tree path with and
+   without faults) on the engine's own draws against the same rounds
+   unsharded on the card: counters equal, params within ``PARITY_RTOL`` /
+   ``PARITY_ATOL``, momentum and losses within ``F32_REL_L2``, each
+   variant's launches, ms of each round; (i) training on a
    grid: 4 gloo ranks sharing cuda:0 as a 2 x 2 and a 4 x 1 grid (FSDP
    over data, ``launch.mesh.make_grid``), llama3.2-1b and mamba2-1.3b at
    one period of their published widths, vocabulary ``TRAIN_VOCAB``, f32,
@@ -328,7 +334,9 @@ D. dry-run — right after phase 1, a CPU subprocess (no card visible to it)
    data) fed MP_FULL's tokens, its relative L2 reported; each with prefill
    and decode ms, peak and cache GB a rank (under ``CARD_BYTES``), flash /
    SSD launches and data-group collectives a rank; then (g) / (h) on 4-way
-   model groups, (k) starcoder2-7b trained whole on a 2 x 2 grid of cards
+   model groups ((h) also with faults and on the tree path,
+   ``GROUP_FED_FULL_VARIANTS``: ms a round, peak GB and launches a rank),
+   (k) starcoder2-7b trained whole on a 2 x 2 grid of cards
    (FSDP over data) and (l) llama3.2-1b federated at a cohort of 8 on a 2
    x 2 grid (``--groups-only``: (g)-(l) alone);
 9. summary — first the dry-run's witness (``dryrun_witness``): each
@@ -532,6 +540,25 @@ FED_LM_VS_CPU_BATCH, FED_LM_FULL_BATCH = (2, 32), (4, 64)  # (B, S) a client a s
 # part.  (f): FedCM on the same ranks, phase 8 (c)'s shape and draws.
 GROUP_RANKS = 2
 GROUP_SEED = 9
+# (f), after the injected rounds: GROUP_FED_VARIANT_ROUNDS rounds of each variant
+# of its FedCM config on the engine's own draws (the generator seeded GROUP_SEED
+# on every rank; the fault layer's hash draws, each rank drawing its own
+# columns), against the same rounds unsharded on the card, each round timed
+# (the first takes the variant's warm-up): the flat round itself, the fault layer
+# (noise + quarantine by norm; at a cohort of 2 the median is the two rows'
+# mean, so a multiple of 1.5 catches one row made ~10x its norm), the escape
+# hatches (phase 4g's specs, whole planes gathered over the group) and the
+# per-leaf tree path, with and without the faults; each with its
+# (fed_direction a local step, server_update a round) launches
+GROUP_FAULT = dict(drop_rate=0.1, corrupt_rate=0.5, corrupt_mode="noise", noise_scale=10.0,
+                   quarantine=True, quarantine_norm_mult=1.5)
+GROUP_FED_VARIANTS = {"flat": ({}, (1, 1)),
+                      "faults": ({"fault": GROUP_FAULT}, (1, 1)),
+                      "escape": ({"algo": "_test_escape"}, (0, 1)),
+                      "mixed": ({"algo": "_test_mixed"}, (1, 1)),
+                      "tree": ({"use_flat_plane": False}, (0, 0)),
+                      "tree_faults": ({"use_flat_plane": False, "fault": GROUP_FAULT}, (0, 0))}
+GROUP_FED_VARIANT_ROUNDS = 2
 GROUP_TRAIN = (("llama3.2-1b", {"n_layers": 1}), ("dbrx-132b", {"n_layers": 1, "n_experts": 4}),
                ("mamba2-1.3b", {"n_layers": 1}))
 REMAT_CASE = ("llama3.2-1b", {"n_layers": 4, "vocab_size": TRAIN_VOCAB, "dtype": "float32"})
@@ -545,6 +572,15 @@ GROUP_TRAIN_FULL = ("starcoder2-7b", ["--full", "--batch", "8", "--seq", "512", 
 GROUP_TRAIN_WARM = 2  # steps left out of ms/step and tok/s
 GROUP_FED_RUN = {"n_clients": 16, "cohort": 8, "local_steps": 2, "batch": 4, "seq": 64,
                  "rounds": 3}
+# (h) beside the flat round, the same run with the fault layer (noise +
+# quarantine by norm: the median of 8 rows stays a clean one's while at most
+# 3 are corrupted) and on the per-leaf tree path, each with its
+# (fed_direction a local step, server_update a round) launches
+GROUP_FED_FULL_VARIANTS = (
+    ("faults", {"fault": dict(drop_rate=0.1, corrupt_rate=0.25, corrupt_mode="noise",
+                              noise_scale=10.0, quarantine=True, quarantine_norm_mult=3.0)},
+     (1, 1)),
+    ("tree", {"use_flat_plane": False}, (0, 0)))
 # phase 8 (i): training on a grid on one card: GRID_RANKS gloo ranks sharing
 # cuda:0, as each grid of GRID_SHAPES (data, model), each arch of GRID_TRAIN
 # at one period of its published widths, the vocabulary cut to TRAIN_VOCAB,
@@ -1977,11 +2013,10 @@ def fed_lm_card_vs_cpu(torch, np, bindings, smi_line: str):
     indices: params within ``PARITY_RTOL`` / ``PARITY_ATOL``, momentum within
     ``F32_REL_L2``, each round's loss too; on the card K ``fed_direction``
     and one ``server_update`` a round, no other kernel."""
-    from repro_torch.configs.base import FedConfig, get_config
+    from repro_torch.configs.base import get_config
     from repro_torch.core.convert import params_to_numpy, state_from_numpy, state_to_numpy
     from repro_torch.core.engine import FederatedEngine, metrics_to_host
     from repro_torch.data import LMFederatedData, federated_lm_corpora, gather_round_batches
-    from repro_torch.launch import federated_llm
     from repro_torch.models.model import build_model, cohort_loss_fn
 
     arch, cut = FED_LM_VS_CPU
@@ -1989,9 +2024,7 @@ def fed_lm_card_vs_cpu(torch, np, bindings, smi_line: str):
     model = build_model(cfg)
     B, S = FED_LM_VS_CPU_BATCH
     n, C, K, R = (FED_LM_RUN[k] for k in ("n_clients", "cohort", "local_steps", "rounds"))
-    fed = FedConfig(algo="fedcm", num_clients=n, cohort_size=C, local_steps=K,
-                    alpha=federated_llm.ALPHA, eta_l=0.05,
-                    weight_decay=federated_llm.WEIGHT_DECAY, participation="fixed")
+    fed = fed_lm_config()
     params = params_to_numpy(model.init(torch.Generator().manual_seed(8)))
     toks = federated_lm_corpora(cfg.vocab_size, n, S + 1, 64)
     rng = np.random.default_rng(8)
@@ -2180,12 +2213,11 @@ def group_fed_case(torch, parallel, device, draws, cohort_group=None):
     launches."""
     import hashlib
 
-    from repro_torch.configs.base import FedConfig, get_config
+    from repro_torch.configs.base import get_config
     from repro_torch.core.engine import FederatedEngine, metrics_to_host
     from repro_torch.core.flat import FlatSpec
     from repro_torch.data import LMFederatedData, federated_lm_corpora, gather_round_batches
     from repro_torch.kernels import launch_counts, launches_since
-    from repro_torch.launch import federated_llm
     from repro_torch.models.model import build_model, cohort_loss_fn
     from repro_torch.sharding.rules import param_specs
     from repro_torch.sharding.shard import group_plane, shard_params
@@ -2196,9 +2228,7 @@ def group_fed_case(torch, parallel, device, draws, cohort_group=None):
     model = build_model(cfg)
     B, S = FED_LM_VS_CPU_BATCH
     n_cl, C, K = (FED_LM_RUN[k] for k in ("n_clients", "cohort", "local_steps"))
-    fed = FedConfig(algo="fedcm", num_clients=n_cl, cohort_size=C, local_steps=K,
-                    alpha=federated_llm.ALPHA, eta_l=0.05,
-                    weight_decay=federated_llm.WEIGHT_DECAY, participation="fixed")
+    fed = fed_lm_config()
     if device.type == "cuda":  # this phase's peak, not (e)'s
         torch.cuda.reset_peak_memory_stats(device)
     whole = model.init(torch.Generator().manual_seed(8))  # phase 8 (c)'s weights
@@ -2226,11 +2256,89 @@ def group_fed_case(torch, parallel, device, draws, cohort_group=None):
     rng = torch.Generator(device=device)
     rng.manual_seed(GROUP_SEED)
     drawn, dm = eng.run_round(eng.init(share, rng), data)
-    return {"params": state.params.cpu().numpy(), "momentum": state.server.momentum.cpu().numpy(),
-            "losses": losses, "draws_digest": seen.hexdigest(), "launches": launches,
-            "share_params": spec.size, "drawn_round_loss": float(metrics_to_host(dm)["loss"][0]),
-            "peak_bytes": (torch.cuda.max_memory_allocated(device) if device.type == "cuda"
-                           else None)}
+    out = {"params": state.params.cpu().numpy(), "momentum": state.server.momentum.cpu().numpy(),
+           "losses": losses, "draws_digest": seen.hexdigest(), "launches": launches,
+           "share_params": spec.size, "drawn_round_loss": float(metrics_to_host(dm)["loss"][0]),
+           "peak_bytes": (torch.cuda.max_memory_allocated(device) if device.type == "cuda"
+                          else None)}
+    if cohort_group is None:
+        del state, drawn, eng
+        out["variants"] = fed_variant_rounds(torch, cfg, share, data, device, parallel)
+    return out
+
+
+def fed_lm_config(**variant):
+    """Phase 8 (c)'s FedCM round over ``FED_LM_VS_CPU`` (``FED_LM_RUN``, a
+    fixed cohort, ``federated_llm``'s constants), ``variant`` setting any
+    other field."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.launch import federated_llm
+
+    n_cl, C, K = (FED_LM_RUN[k] for k in ("n_clients", "cohort", "local_steps"))
+    return FedConfig(**{**dict(algo="fedcm", num_clients=n_cl, cohort_size=C, local_steps=K,
+                               alpha=federated_llm.ALPHA, eta_l=0.05,
+                               weight_decay=federated_llm.WEIGHT_DECAY, participation="fixed"),
+                        **variant})
+
+
+def fed_variant_rounds(torch, cfg, params, data, device, parallel=None):
+    """Phase 8 (f)'s variants (``GROUP_FED_VARIANTS``): for each,
+    ``GROUP_FED_VARIANT_ROUNDS`` rounds of ``fed_lm_config`` with its fields
+    over ``cfg`` from ``params`` — this rank's share on the model group
+    ``parallel``, else the whole model — on the engine's own draws from a
+    generator seeded ``GROUP_SEED`` on ``device``, the kernels' launch
+    counts set just before and read just after.  Returns per variant the
+    params and momentum planes (a tree's leaves raveled in order), each
+    round's loss, ``n_active`` / ``n_dropped`` / ``n_quarantined`` and ms,
+    the launches and the variant's wall seconds (set-up and planes on the
+    host included)."""
+    from repro_torch.configs.base import FaultConfig
+    from repro_torch.core.engine import FederatedEngine, metrics_to_host, synchronize
+    from repro_torch.core.flat import FlatSpec
+    from repro_torch.kernels import launch_counts, launches_since
+    from repro_torch.models.model import build_model, cohort_loss_fn
+    from repro_torch.sharding.shard import group_plane
+    from repro_torch.utils.trees import tree_leaves
+
+    B, _ = FED_LM_VS_CPU_BATCH
+    model = build_model(cfg)
+    spec = FlatSpec.from_tree(params)
+    group = None if parallel is None else group_plane(spec, cfg, parallel)
+
+    def plane(x):
+        return torch.cat([t.reshape(-1) for t in tree_leaves(x)]).cpu().numpy()
+
+    out = {}
+    register_user_specs()
+    try:
+        for name, (kw, _) in GROUP_FED_VARIANTS.items():
+            if "fault" in kw:
+                kw = {**kw, "fault": FaultConfig(**kw["fault"])}
+            t_set = time.perf_counter()
+            eng = FederatedEngine(fed_lm_config(**kw), cohort_loss_fn(model, parallel), spec,
+                                  batch_size=B, device=device, model_group=group)
+            rng = torch.Generator(device=device)
+            rng.manual_seed(GROUP_SEED)
+            state = eng.init(params, rng)
+            before = launch_counts()
+            rows, round_ms = [], []
+            for _ in range(GROUP_FED_VARIANT_ROUNDS):
+                synchronize(torch.device(device))
+                t0 = time.perf_counter()
+                state, m = eng.run_round(state, data)
+                synchronize(torch.device(device))
+                round_ms.append((time.perf_counter() - t0) * 1e3)
+                rows.append(metrics_to_host(m))
+            out[name] = {"params": plane(state.params), "momentum": plane(state.server.momentum),
+                         "losses": [float(r["loss"][0]) for r in rows],
+                         "counters": {k: [float(r[k][0]) for r in rows]
+                                      for k in ("n_active", "n_dropped", "n_quarantined")},
+                         "launches": launches_since(before), "ms_per_round": round_ms,
+                         "wall_s": time.perf_counter() - t_set}
+            del state, eng
+    finally:
+        unregister_user_specs()
+    return out
 
 
 def group_rank(rank, device, draws):
@@ -2242,9 +2350,13 @@ def group_rank(rank, device, draws):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     parallel = make_model_group()
+    t0 = time.perf_counter()
     train = [group_train_case(torch, arch, cut, parallel, device) for arch, cut in GROUP_TRAIN]
     torch.cuda.empty_cache()
-    return {"train": train, "fed": group_fed_case(torch, parallel, device, draws)}
+    t1 = time.perf_counter()
+    fed = group_fed_case(torch, parallel, device, draws)
+    return {"train": train, "fed": fed,
+            "s": {"(e)": t1 - t0, "(f)": time.perf_counter() - t1}}
 
 
 def remat_dots_on_card(torch, np, device="cuda"):
@@ -2397,9 +2509,65 @@ def model_group_training_one_card(torch, np, smi_line: str, device="cuda", world
             and m_rel <= F32_REL_L2 and loss_rel <= F32_REL_L2
             and all(f["losses"] == fed_rows[0]["losses"] for f in fed_rows)):
         fail(f"FedCM on a model group: {json.dumps(row)}")
-    say(f"phases 8 (e)-(f): the world {wall:.1f} s, (e) with remat {lap_e:.1f} s, the whole "
+    by_path = {f"fed_lm_group_rank{r}": f["launches"] for r, f in enumerate(fed_rows)}
+    by_path.update(fed_variants_on_card(torch, np, cfg, toks, fed_rows, smi_line, device))
+    say(f"phases 8 (e)-(f): the world {wall:.1f} s (rank 0's (e) / (f) "
+        f"{ranks[0]['s']['(e)']:.1f} / {ranks[0]['s']['(f)']:.1f} s), (e) with remat "
+        f"{lap_e:.1f} s, the whole "
         f"{time.perf_counter() - t0:.1f} s; remat peaks {json.dumps(remat['peak_bytes'])}")
-    return {f"fed_lm_group_rank{r}": f["launches"] for r, f in enumerate(fed_rows)}
+    return by_path
+
+
+def fed_variants_on_card(torch, np, cfg, toks, fed_rows, smi_line: str, device):
+    """Phase 8 (f)'s variants (``GROUP_FED_VARIANTS``): the ranks' rounds
+    (``fed_rows[r]["variants"]``) against the same rounds unsharded on the
+    card (``fed_variant_rounds``): the counters (``n_active``,
+    ``n_dropped``, ``n_quarantined``) equal on every rank and to the
+    unsharded run's, the joined params within ``PARITY_RTOL`` /
+    ``PARITY_ATOL``, the momentum and each round's loss within
+    ``F32_REL_L2``, each rank's launches the variant's.  Returns each rank's
+    launches by path."""
+    from repro_torch.data import LMFederatedData
+    from repro_torch.models.model import build_model
+
+    n, K, R = GROUP_RANKS, FED_LM_RUN["local_steps"], GROUP_FED_VARIANT_ROUNDS
+    whole = build_model(cfg).init(torch.Generator().manual_seed(8))  # phase 8 (c)'s weights
+    want_all = fed_variant_rounds(torch, cfg, whole, LMFederatedData(toks, device=device), device)
+    del whole
+    torch.cuda.empty_cache()
+    by_path = {}
+    for name, (kw, (per_step, per_round)) in GROUP_FED_VARIANTS.items():
+        rows = [f["variants"][name] for f in fed_rows]
+        want = want_all[name]
+        got = {k: joined_fed_planes(torch, np, cfg, [r[k] for r in rows], n)
+               for k in ("params", "momentum")}
+        expected = {"fed_direction": R * K * per_step, "server_update": R * per_round,
+                    "dequant_update": 0, "flash_attention": 0, "ssd_scan": 0}
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(rows[0]["losses"], want["losses"]))
+        row = {"variant": name, "config": {k: v for k, v in kw.items()}, "ranks": n,
+               "rounds": R, "losses": rows[0]["losses"], "loss_max_rel": loss_rel,
+               "counters": rows[0]["counters"], "unsharded_counters": want["counters"],
+               "params_max_abs_diff": float(np.max(np.abs(got["params"] - want["params"]))),
+               "momentum_rel_l2": rel_l2_host(torch, got["momentum"], want["momentum"]),
+               "ms_per_round_per_rank": [r["ms_per_round"] for r in rows],
+               "unsharded_ms_per_round": want["ms_per_round"],
+               "wall_s_per_rank": [r["wall_s"] for r in rows],
+               "unsharded_wall_s": want["wall_s"],
+               "launches_per_rank": [r["launches"] for r in rows], "card": smi_line,
+               "limits": {"params": [PARITY_RTOL, PARITY_ATOL], "momentum": F32_REL_L2}}
+        say(f"FedCM on a model group ({n} gloo ranks sharing cuda:0), {name}, on the engine's "
+            f"own draws vs the unsharded card rounds: {json.dumps(row)}")
+        if any(r["launches"] != expected for r in rows):
+            fail(f"FedCM on a model group, {name}: launches {row['launches_per_rank']}, "
+                 f"expected {expected} on each rank")
+        if not (all(r["counters"] == want["counters"] and r["losses"] == rows[0]["losses"]
+                    for r in rows)
+                and np.isfinite(rows[0]["losses"]).all()
+                and np.allclose(got["params"], want["params"], rtol=PARITY_RTOL, atol=PARITY_ATOL)
+                and row["momentum_rel_l2"] <= F32_REL_L2 and loss_rel <= F32_REL_L2):
+            fail(f"FedCM on a model group, {name}: {json.dumps(row)}")
+        by_path.update({f"fed_lm_group_{name}_rank{r}": rows[r]["launches"] for r in range(n)})
+    return by_path
 
 
 def fed_lm_unsharded_on_card(torch, cfg, draws, toks, device):
@@ -2407,19 +2575,15 @@ def fed_lm_unsharded_on_card(torch, cfg, draws, toks, device):
     rounds over ``cfg`` from phase 8 (c)'s weights on the injected
     ``draws`` (ids, minibatch indices into ``toks``).  Returns the params
     and momentum planes after them (numpy) and each round's loss."""
-    from repro_torch.configs.base import FedConfig
     from repro_torch.core.engine import FederatedEngine, metrics_to_host
     from repro_torch.core.flat import FlatSpec
     from repro_torch.data import LMFederatedData, gather_round_batches
-    from repro_torch.launch import federated_llm
     from repro_torch.models.model import build_model, cohort_loss_fn
 
     B, _ = FED_LM_VS_CPU_BATCH
     n_cl, C, K = (FED_LM_RUN[k] for k in ("n_clients", "cohort", "local_steps"))
     model = build_model(cfg)
-    fed = FedConfig(algo="fedcm", num_clients=n_cl, cohort_size=C, local_steps=K,
-                    alpha=federated_llm.ALPHA, eta_l=0.05,
-                    weight_decay=federated_llm.WEIGHT_DECAY, participation="fixed")
+    fed = fed_lm_config()
     whole = model.init(torch.Generator().manual_seed(8))
     eng = FederatedEngine(fed, cohort_loss_fn(model), FlatSpec.from_tree(whole), batch_size=B,
                           device=device)
@@ -2546,7 +2710,48 @@ def group_fed_four_cards(torch, np, smi_line: str):
                                        "counts": mine["collectives"], "peak": mine["peak_bytes"]}
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         fail(f"FedCM on {n} cards: losses {losses} do not fall")
+    for name, variant, per in GROUP_FED_FULL_VARIANTS:
+        group_fed_variant_four_cards(torch, np, smi_line, name, variant, per, res.round_ms)
     return losses, [r["momentum_norm"] for r in res.rounds]
+
+
+def group_fed_variant_four_cards(torch, np, smi_line: str, name: str, variant: dict, per,
+                                 flat_ms):
+    """(h)'s run again as ``name``: ``launch/federated_llm.run`` with the
+    ``FedConfig`` fields ``variant`` (a fault config as a dict), beside the
+    flat round's ms a round ``flat_ms``.  On each rank ``per`` = (launches
+    of ``fed_direction`` a local step, of ``server_update`` a round),
+    finite losses, the same round metrics on every rank (``run`` raises
+    otherwise); ms a round, each rank's peak and the fault counters
+    printed."""
+    from repro_torch.configs.base import FaultConfig, get_config
+    from repro_torch.launch import federated_llm
+
+    cfg = get_config(FED_LM_FULL)
+    n = MP_FULL_RANKS
+    R, K = GROUP_FED_RUN["rounds"], GROUP_FED_RUN["local_steps"]
+    if "fault" in variant:
+        variant = {**variant, "fault": FaultConfig(**variant["fault"])}
+    t0 = time.perf_counter()
+    res = federated_llm.run(cfg, **GROUP_FED_RUN, device="cuda", model_parallel=n,
+                            variant=variant)
+    wall = time.perf_counter() - t0
+    expected = {"fed_direction": R * K * per[0], "server_update": R * per[1],
+                "dequant_update": 0, "flash_attention": 0, "ssd_scan": 0}
+    losses = [r["loss"] for r in res.rounds]
+    row = {"arch": FED_LM_FULL, "variant": name, "cards": n, **GROUP_FED_RUN, "losses": losses,
+           "n_dropped": [r["n_dropped"] for r in res.rounds],
+           "n_quarantined": [r["n_quarantined"] for r in res.rounds],
+           "ms_per_round": res.round_ms, "flat_ms_per_round": flat_ms,
+           "peak_gb_per_rank": [r["peak_bytes"] / 1e9 for r in res.by_rank],
+           "launches_per_rank": [r["launches"] for r in res.by_rank],
+           "wall_s_with_init": wall, "card": smi_line}
+    say(f"FedCM with each client a model group of {n} cards, {name}: {json.dumps(row)}")
+    if any(r["launches"] != expected for r in res.by_rank):
+        fail(f"FedCM on {n} cards, {name}: launches {row['launches_per_rank']}, expected "
+             f"{expected}")
+    if not np.isfinite(losses).all():
+        fail(f"FedCM on {n} cards, {name}: losses {losses}")
 
 
 # ------------------------------------------------------ phases 8 (i)-(l), 6c
@@ -5285,7 +5490,9 @@ def dryrun_entries(nccl: bool) -> list:
     (``launch.dryrun.run_one``), ``"fed"`` (``launch.fed_dryrun.run``) or
     ``"classifier"`` (``fed_dryrun.run_classifier``, the main path).  No
     flop counter (``exec_only``): phase 9 compares launches, census and
-    peaks."""
+    peaks.  Each ``"dryrun"`` holds its weights in the dtype the card's
+    phase runs them in (``card_weights``; the dry-run's default is the
+    reference's bf16), ``fed_dryrun`` in f32 by default, as the card."""
     serve = dict(data=1, model=1, shape_name="prefill_32k", batch=4, seq=1024, gen=32,
                  sessions=2, exec_only=True)
     cuts = {arch: cut for arch, cut, _ in SERVE_ARCHS}
@@ -5300,18 +5507,31 @@ def dryrun_entries(nccl: bool) -> list:
                    cfg_overrides={"n_layers": get_config(FED_LM_FULL).n_layers}, exec_only=True)
         return ([(f"6b {DRY_MP} rank {r}", "dryrun",
                   dict(serve, arch=DRY_MP, model=MP_FULL_RANKS, rank=r,
-                       cfg_overrides=dict(MP_FULL)[DRY_MP])) for r in range(MP_FULL_RANKS)]
+                       cfg_overrides=dict(MP_FULL)[DRY_MP],
+                       overrides=card_weights(DRY_MP, dict(MP_FULL)[DRY_MP])))
+                 for r in range(MP_FULL_RANKS)]
                 + [(f"8 (h) rank {r}", "fed", dict(fed, rank=r)) for r in range(MP_FULL_RANKS)])
+    train_cut = {"dtype": "float32", "vocab_size": TRAIN_VOCAB, **dict(TRAIN_VS_CPU)[DRY_TRAIN]}
     return ([(f"serve {arch}", "dryrun", dict(serve, arch=arch, cfg_overrides=cuts[arch],
-                                              sessions=1, decode_steps=1))
+                                              sessions=1, decode_steps=1,
+                                              overrides=card_weights(arch, cuts[arch])))
              for arch in DRY_SERVE]
             + [(f"train {DRY_TRAIN}", "dryrun",
                 dict(arch=DRY_TRAIN, shape_name="train_4k", data=1, model=1, batch=TRAIN_B,
                      seq=TRAIN_S, steps=2, exec_only=True,
-                     overrides={"remat": "none", "microbatches": 1, "learning_rate": TRAIN_LR},
-                     cfg_overrides={"dtype": "float32", "vocab_size": TRAIN_VOCAB,
-                                    **dict(TRAIN_VS_CPU)[DRY_TRAIN]})),
+                     overrides={"remat": "none", "microbatches": 1, "learning_rate": TRAIN_LR,
+                                **card_weights(DRY_TRAIN, train_cut)},
+                     cfg_overrides=train_cut)),
                ("main path", "classifier", {})])
+
+
+def card_weights(arch: str, cut: dict) -> dict:
+    """The dry-run's knobs override that holds its weights in the dtype the
+    card's phase holds them in: the init's, ``arch``'s config cut by ``cut``
+    (its ``param_dtype``)."""
+    from repro_torch.configs.base import get_config
+
+    return {"param_dtype": replace(get_config(arch), **cut).param_dtype}
 
 
 def dryrun_entry(entry) -> tuple:

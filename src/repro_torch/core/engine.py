@@ -84,9 +84,19 @@ launches the same kernels on its share.  The gradient comes through the
 model's differentiable collectives (``cohort_loss_fn(model, parallel)``)
 with its partial parts summed over the group, and ``delta_norm`` /
 ``momentum_norm`` are the whole plane's (``GroupPlane.norm``).  What reads
-a whole row or a client's whole plane raises ``NotImplementedError``
-naming ROADMAP A.16 (e): uplink compression, the fault layer, a
-``direction_fn`` / ``server_fn``, the async ring and the host store.
+a client's whole row reads it through the group: the fault layer's drop,
+deadline and corruption flags are ``(C,)`` draws, the same on every rank;
+the noise draw takes the whole plane's columns of the share
+(``GroupPlane.columns``, ``draws.normal_at``); the quarantine ANDs the
+rows' finite flags over the group and takes each row's whole norm
+(``GroupPlane.rows_sqnorm``), so every rank decides alike.  A
+``direction_fn`` sees a client's whole planes, gathered over the group a
+client row at a time (``GroupPlane.gather_plane``), and hands back the
+rank's share of its direction; a ``server_fn`` gets the whole cohort
+means, ``x_t`` and server planes and hands back their share.  Uplink
+compression, the async ring and the host store raise
+``NotImplementedError`` naming ROADMAP A.16 (e) 4: the reference's tree
+path, its route for this layout, refuses them too.
 
 Both together are the reference's ``fed_dryrun`` layout, a grid of data ×
 model ranks (``launch.mesh.make_grid``): ``cohort_group`` the rank's data
@@ -111,7 +121,14 @@ planes are zeros, as in the reference) and closes with
 ``tree_server_update``, the quorum's no-op fold and the client-state
 scatter.  It launches no kernel.  Uplink compression, the host store,
 cohort sharding and the async ring raise the reference's ``ValueError``
-there; a model group raises ``NotImplementedError`` (ROADMAP A.16 (e)).
+there.  Over a model group (the reference's route for that layout) the
+state is the rank's share tree and the loss runs on the group: each
+backward's partial parts are summed over the group
+(``rules.sum_partial`` on the ``(C, *share)`` leaves), the norms are the
+whole tree's, the faults run over the leaf shares as on the flat plane,
+and an escape hatch sees whole leaf trees (``tree_direction`` /
+``tree_server_update`` with ``group=``); with a cohort group beside it,
+it raises ``NotImplementedError`` naming ROADMAP A.16 (e) 5.
 As in the reference, a sub-f32 leaf comes back from the server step in
 f32 (the fold's f32 mean promotes it), and an integer leaf raises
 ``TypeError`` at its gradient.
@@ -178,6 +195,7 @@ from repro_torch.core.registry import (
     server_init,
     tree_client_state_init,
     tree_server_init,
+    zeros_view,
 )
 from repro_torch.data.pipeline import gather_full_client_batch, gather_round_batches
 from repro_torch.data.population import (
@@ -199,7 +217,7 @@ from repro_torch.kernels.server_update.ops import (
     scatter_means,
 )
 from repro_torch.launch.mesh import make_cohort_group
-from repro_torch.sharding.rules import cohort_axis_size, padded_cohort
+from repro_torch.sharding.rules import cohort_axis_size, padded_cohort, sum_partial
 from repro_torch.utils.draws import uniform as hash_uniform
 from repro_torch.utils.trees import (
     tree_bytes,
@@ -367,27 +385,24 @@ def check_supported(cfg: FedConfig) -> None:
 
 
 def check_model_group(cfg: FedConfig, algo) -> None:
-    """Refuse, naming ROADMAP A.16 (e), what a round over a model group does
-    not run yet: each reads a whole row or a client's whole plane, where a
-    rank holds its share's columns."""
+    """Refuse, naming ROADMAP A.16 (e) 4, what a round over a model group
+    does not run: routes past the reference's, whose tree path (its route
+    for this layout) refuses them too."""
     for on, what in (
             (effective_compression(cfg, algo) is not None,
              "uplink compression (int8's per-row scales and top-k's selection run over the "
              "whole row)"),
-            (cfg.fault is not None, "the fault layer (its quarantine norms and corruption draws "
-                                    "run over the whole row)"),
-            (algo.direction_fn is not None or algo.server_fn is not None,
-             f"{algo.name}'s direction_fn / server_fn (it would see one rank's share)"),
             (cfg.population_store == "host", "population_store='host'")):
         if on:
-            raise NotImplementedError(f"{what} under a model group is not ported yet "
-                                      f"(ROADMAP A.16 (e))")
+            raise NotImplementedError(f"{what} under a model group is not ported (ROADMAP "
+                                      f"A.16 (e) 4; the reference's tree path refuses it too)")
 
 
 def check_tree_path(cfg: FedConfig, algo, cohort_group, model_group) -> None:
     """Refuse, with the reference's messages, what the per-leaf tree path
-    does not run: each is a transform of flat ``(C, P)`` planes.  A model
-    group raises ``NotImplementedError`` naming ROADMAP A.16 (e)."""
+    does not run: each is a transform of flat ``(C, P)`` planes.  Over a
+    model group, a cohort group beside it raises ``NotImplementedError``
+    naming ROADMAP A.16 (e) 5."""
     if effective_compression(cfg, algo) is not None:
         raise ValueError("uplink compression is a flat-plane transform (it quantizes (C, P) "
                          "cohort planes) — set cfg.use_flat_plane=True (the tree path stays "
@@ -396,13 +411,14 @@ def check_tree_path(cfg: FedConfig, algo, cohort_group, model_group) -> None:
         raise ValueError("population_store='host' rides the flat parameter plane (the store "
                          "gathers/scatters contiguous (C, P) rows) — set "
                          "cfg.use_flat_plane=True")
+    if (cohort_group is not None or cfg.cohort_shard > 0) and model_group is not None:
+        raise NotImplementedError("the per-leaf tree path (use_flat_plane=False) on a grid, "
+                                  "the cohort over data beside a model group, is not ported "
+                                  "yet (ROADMAP A.16 (e) 5)")
     if cohort_group is not None or cfg.cohort_shard > 0:
         raise ValueError("cohort-parallel execution runs on the flat parameter plane — it "
                          "shards (C, P) uplink planes; set cfg.use_flat_plane=True (the tree "
                          "path stays the single-device oracle)")
-    if model_group is not None:
-        raise NotImplementedError("the per-leaf tree path (use_flat_plane=False) under a "
-                                  "model group is not ported yet (ROADMAP A.16 (e))")
 
 
 def cohort_capacity(cfg: FedConfig) -> int:
@@ -542,7 +558,7 @@ def _cohort_pass(algo, cfg, loss_fn, spec: FlatSpec, x_t, m_t, batches, eta_l, c
 
         def step(x, g):
             return fed_direction(x, g, auxes, coefs)
-    else:
+    elif model_group is None:
         # an escape hatch sees one client's (P,) planes: a direction such
         # as g / ‖g‖ means something else over the whole (C, P) plane
         def step(x, g):
@@ -550,6 +566,21 @@ def _cohort_pass(algo, cfg, loss_fn, spec: FlatSpec, x_t, m_t, batches, eta_l, c
                 flat_direction_step(algo, cfg, x[c], g[c], m_t,
                                     None if cst is None else cst[c], x_t, eta_l)
                 for c in range(C)])
+    else:
+        # over a model group, a client's whole planes: gathered a row at a
+        # time, the direction's share kept
+        def whole(v):
+            return None if v is None else model_group.gather_plane(spec, v)
+
+        m_w, x0_w = whole(m_t), whole(x_t)
+
+        def step(x, g):
+            rows = []
+            for c in range(C):
+                v = algo.direction(cfg, m_w, whole(None if cst is None else cst[c]),
+                                   whole(x[c]), x0_w, whole(g[c]))
+                rows.append((x[c] - eta_l * model_group.share_plane(spec, v)).to(x.dtype))
+            return torch.stack(rows)
     x0 = x_t.expand(C, -1).contiguous()
     x = x0
     losses = []
@@ -598,9 +629,11 @@ def flat_client_update(algo, cfg, loss_fn, spec: FlatSpec, x_t, x0_tree, m_t, m_
 # ----------------------------------------------------------------------
 
 
-def _tree_value_and_grad(loss_fn, leaves, paths, treedef, batch):
+def _tree_value_and_grad(loss_fn, leaves, paths, treedef, batch,
+                         group: Optional[GroupPlane] = None):
     """Per-client losses ``(C,)`` and the gradient leaves of a cohort's
-    ``(C, …)`` leaves, each in its leaf's dtype, in one backward.  A leaf
+    ``(C, …)`` leaves, each in its leaf's dtype, in one backward (over a
+    model ``group``, each leaf's partial parts summed over it).  A leaf
     that is not floating point raises ``TypeError``, as the reference's
     ``jax.grad`` does on the tree path."""
     for path, leaf in zip(paths, leaves):
@@ -611,8 +644,10 @@ def _tree_value_and_grad(loss_fn, leaves, paths, treedef, batch):
     with torch.enable_grad():
         losses = loss_fn(tree_unflatten(treedef, xs), batch)
         grads = torch.autograd.grad(losses.sum(), xs, allow_unused=True)
-    return losses.detach(), [torch.zeros_like(x) if g is None else g
-                             for x, g in zip(xs, grads)]
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(xs, grads)]
+    if group is not None:
+        sum_partial(grads, group.parts, group.parallel, lead=1)
+    return losses.detach(), grads
 
 
 def _leaf_step(x: torch.Tensor, v: torch.Tensor, eta_l: torch.Tensor) -> torch.Tensor:
@@ -623,14 +658,15 @@ def _leaf_step(x: torch.Tensor, v: torch.Tensor, eta_l: torch.Tensor) -> torch.T
 
 
 def _tree_cohort_update(algo, cfg, loss_fn, params, m, cst, batches, eta_l,
-                        full_batches=None):
+                        full_batches=None, group: Optional[GroupPlane] = None):
     """K local steps of a cohort on the tree path: ``params`` and ``m`` the
     broadcast trees, ``cst`` the cohort's client-state tree of ``(C, …)``
     leaves (zeros for a stateless spec), ``batches`` leaves ``(C, K, B,
     …)``.  Each step is one batched forward/backward over ``(C, *shape)``
     leaves, weight decay, the spec's direction (a ``direction_fn`` once
-    per client on its leaf trees) and the step cast back to each leaf's
-    dtype.  Returns ``(ClientOutputs of (C, …) leaves, losses (C,))``."""
+    per client on its leaf trees, whole ones over a model ``group``) and
+    the step cast back to each leaf's dtype.  Returns ``(ClientOutputs of
+    (C, …) leaves, losses (C,))``."""
     flat, treedef = tree_flatten_with_path(params)
     paths = [path for path, _ in flat]
     C = tree_leaves(batches)[0].shape[0]
@@ -642,7 +678,7 @@ def _tree_cohort_update(algo, cfg, loss_fn, params, m, cst, batches, eta_l,
     losses = []
     for k in range(cfg.local_steps):
         batch_k = tree_map(lambda b: b[:, k], batches)
-        loss, g = _tree_value_and_grad(loss_fn, x, paths, treedef, batch_k)
+        loss, g = _tree_value_and_grad(loss_fn, x, paths, treedef, batch_k, group)
         if cfg.weight_decay:
             g = [cfg.weight_decay * xi + gi for xi, gi in zip(x, g)]
         xt, gt = tree_unflatten(treedef, x), tree_unflatten(treedef, g)
@@ -651,14 +687,15 @@ def _tree_cohort_update(algo, cfg, loss_fn, params, m, cst, batches, eta_l,
         else:  # the escape hatch sees one client's leaf trees
             rows = [algo.tree_direction(cfg, m, tree_map(lambda a: a[c], cst),
                                         tree_map(lambda a: a[c], xt), params,
-                                        tree_map(lambda a: a[c], gt)) for c in range(C)]
+                                        tree_map(lambda a: a[c], gt), group=group)
+                    for c in range(C)]
             v = tree_map(lambda *vs: torch.stack(vs), *rows)
         x = [_leaf_step(xi, vi, eta_l) for xi, vi in zip(x, tree_leaves(v))]
         losses.append(loss)
     full_grad = None
     if algo.needs_full_grad:
         _, fg = _tree_value_and_grad(loss_fn, cohort([leaf for _, leaf in flat]), paths,
-                                     treedef, full_batches)
+                                     treedef, full_batches, group)
         full_grad = tree_unflatten(treedef, fg)
     outs = algo.client_finalize(cfg, params, tree_unflatten(treedef, x), cst, m, eta_l,
                                 full_grad)
@@ -685,8 +722,11 @@ def client_update(algo, cfg, loss_fn, params, bcast_momentum, client_state, batc
     return ClientOutputs(*(tree_map(lambda a: a[0], t) for t in outs)), losses[0]
 
 
-def _tree_norm(tree) -> torch.Tensor:
-    """‖tree‖ over every leaf, in f32."""
+def _tree_norm(tree, group: Optional[GroupPlane] = None) -> torch.Tensor:
+    """‖tree‖ over every leaf, in f32; over a model ``group``, of the whole
+    tree whose share ``tree`` is."""
+    if group is not None:
+        return group.tree_norm(tree_leaves(tree))
     return torch.sqrt(sum(torch.sum(torch.square(leaf.to(torch.float32)))
                           for leaf in tree_leaves(tree)))
 
@@ -728,9 +768,10 @@ class FederatedEngine:
     engine and calls the same methods with the same draws.
 
     ``cfg.use_flat_plane=False`` runs the per-leaf tree path: the state is
-    the params tree (``init`` copies it onto the device), ``spec`` may be
-    None, and the same ``loss_fn`` gets ``(C, *shape)`` leaves in each
-    leaf's dtype.
+    the params tree (``init`` copies it onto the device; over a model group
+    this rank's share tree), ``spec`` may be None (a model group's plane is
+    built from the share's ``FlatSpec`` all the same), and the same
+    ``loss_fn`` gets ``(C, *shape)`` leaves in each leaf's dtype.
     """
 
     def __init__(self, cfg: FedConfig, loss_fn: Callable, spec: FlatSpec,
@@ -926,22 +967,33 @@ class FederatedEngine:
         ``planes`` this rank's rows: the drop and deadline draws run for the
         whole cohort on every rank, corruption touches this rank's rows
         (never a pad row), and the quarantine decides from every rank's
-        row flags and norms, all-gathered, so every rank decides alike."""
+        row flags and norms, all-gathered, so every rank decides alike.
+        Over a model group ``planes`` are the share's columns (leaves):
+        the noise is each leaf's whole-plane columns of the one stream, the
+        finite flags are ANDed and the norms summed over the group before
+        that gather."""
         fault = self.cfg.fault
         zero = torch.zeros((), dtype=torch.float32, device=mask.device)
         if fault is None:
             return mask, planes, zero, zero
+        group = self.model_group
         delta = planes["delta"]
-        plan = fault_masks(fault, t, ids, row_size(delta), noise_ids=self._own(ids),
-                           u_drop=d.u_drop, z_deadline=d.z_deadline, u_corrupt=d.u_corrupt,
+        columns = None if group is None else (lambda i: group.columns(i, mask.device))
+        plan = fault_masks(fault, t, ids, row_size(delta) if group is None else 0,
+                           noise_ids=self._own(ids), columns=columns, u_drop=d.u_drop,
+                           z_deadline=d.z_deadline, u_corrupt=d.u_corrupt,
                            z_noise=self._own(d.z_noise))
         n_dropped = zero
         if fault.drop_rate > 0.0 or fault.deadline > 0.0:
             n_dropped = (mask & plan.drop).to(torch.float32).sum()
             mask = mask & ~plan.drop
         if fault.corrupt_rate > 0.0:
-            delta = corrupt_uplink(fault, self._own(plan.corrupt & mask, "zero"), plan.noise,
-                                   delta)
+            cmask = self._own(plan.corrupt & mask, "zero")
+            if group is not None and isinstance(delta, torch.Tensor):  # leaf by leaf
+                leaves = corrupt_uplink(fault, cmask, plan.noise, self.spec.views(delta))
+                delta = torch.cat([leaf.reshape(leaf.shape[0], -1) for leaf in leaves], dim=1)
+            else:
+                delta = corrupt_uplink(fault, cmask, plan.noise, delta)
         planes = {**planes, "delta": delta}
         n_quar = zero
         if fault.quarantine:
@@ -949,11 +1001,16 @@ class FederatedEngine:
             for name in ("state_delta", "extra"):
                 if planes.get(name) is not None:
                     fin = fin & rows_finite(planes[name])
+            if group is not None:
+                fin = group.rows_finite(fin)
             fin = self._all_rows(fin)
             mask_p = self._padded(mask, "zero")
             bad = ~fin
             if fault.quarantine_norm_mult > 0.0:
-                norm = self._all_rows(torch.sqrt(rows_sqnorm(delta)))
+                sq = rows_sqnorm(delta) if group is None else group.rows_sqnorm(
+                    self.spec.views(delta) if isinstance(delta, torch.Tensor)
+                    else tree_leaves(delta))
+                norm = self._all_rows(torch.sqrt(sq))
                 act = mask_p & fin
                 med = nanmedian_midpoint(torch.where(act, norm, float("nan")))
                 bad = bad | (act & (norm > fault.quarantine_norm_mult * med))
@@ -1096,9 +1153,8 @@ class FederatedEngine:
                                       fsrv.momentum, group=self.cohort_group,
                                       rank=self._rank, n_shards=self._shards)
             mean_delta = means["delta"]
-            new_x, new_server = algo.server_update(
-                cfg, x_t, fsrv, mean_delta, means.get("state_delta"), means.get("extra"),
-                n_active, entry.eta_l, discount)
+            new_x, new_server = self._server_fn(x_t, fsrv, means, n_active, entry.eta_l,
+                                                discount)
             new_server = new_server._replace(round=fsrv.round)  # the loops advance it
         else:
             if self._rows is None:
@@ -1139,6 +1195,30 @@ class FederatedEngine:
                 rows = None
         state = state._replace(params=new_x, server=new_server, client_states=new_cst)
         return state, self._plane_norm(mean_delta), 1.0 - ok.to(torch.float32), rows
+
+    def _server_fn(self, x_t, fsrv: ServerState, means, n_active, eta_l, discount: float):
+        """The spec's ``server_fn`` on the cohort means; over a model group
+        on the whole planes (the means, ``x_t`` and the server planes
+        gathered), handing back this rank's share of what it returns."""
+        sd, extra = means.get("state_delta"), means.get("extra")
+        group = self.model_group
+        if group is None:
+            return self.algo.server_update(self.cfg, x_t, fsrv, means["delta"], sd, extra,
+                                           n_active, eta_l, discount)
+
+        def whole(v):
+            return None if v is None else group.gather_plane(self.spec, v)
+
+        def share(v):
+            return None if v is None else group.share_plane(self.spec, v)
+
+        srv = fsrv._replace(momentum=whole(fsrv.momentum),
+                            second_moment=whole(fsrv.second_moment))
+        new_x, new_server = self.algo.server_update(
+            self.cfg, whole(x_t), srv, whole(means["delta"]), whole(sd), whole(extra),
+            n_active, eta_l, discount)
+        return share(new_x), new_server._replace(momentum=share(new_server.momentum),
+                                                 second_moment=share(new_server.second_moment))
 
     @staticmethod
     def _adopt_residuals(state: FedState, ids, new_rows, in_place: bool = False) -> FedState:
@@ -1218,10 +1298,10 @@ class FederatedEngine:
                                  f"is allocated before stepping")
             cst = tree_map(lambda a: a.index_select(0, ids.long()), state.client_states)
         else:
-            cst = tree_map(lambda p: torch.zeros((ids.shape[0], *p.shape), dtype=p.dtype,
-                                                 device=p.device), x_t)
+            cst = tree_map(lambda p: zeros_view(p, (ids.shape[0], *p.shape)), x_t)
+        group = self.model_group
         outs, losses = _tree_cohort_update(algo, cfg, self.loss_fn, x_t, srv.momentum, cst,
-                                           inp.batches, eta_l, inp.full_batches)
+                                           inp.batches, eta_l, inp.full_batches, group)
         mask, planes, n_dropped, n_quar = self._inject_faults(t, ids, inp.mask, outs._asdict(),
                                                               inp.draws or RoundDraws())
         w = mask.to(torch.float32)
@@ -1233,7 +1313,8 @@ class FederatedEngine:
                 torch.float32) / n_active.clamp(min=1.0), tree)
 
         means = [mmean(planes[k]) for k in ("delta", "state_delta", "extra")]
-        new_x, new_srv = algo.tree_server_update(cfg, x_t, srv, *means, n_active, eta_l)
+        new_x, new_srv = algo.tree_server_update(cfg, x_t, srv, *means, n_active, eta_l,
+                                                 group=group)
         # a below-quorum (or empty) cohort carries the server trees through
         ok = n_active >= float(max(1, cfg.min_quorum))
 
@@ -1258,8 +1339,8 @@ class FederatedEngine:
         metrics = RoundMetrics(
             loss=(losses * w).sum() / n_active.clamp(min=1.0),
             n_active=n_active,
-            delta_norm=_tree_norm(means[0]),
-            momentum_norm=_tree_norm(srv.momentum),
+            delta_norm=_tree_norm(means[0], group),
+            momentum_norm=_tree_norm(srv.momentum, group),
             eta_l=eta_l,
             bytes_down=n_active * pay["down_per_client"],
             bytes_up=n_active * pay["up_per_client"],
@@ -1334,8 +1415,8 @@ class FederatedEngine:
     # -------------------------------------------------- async ring
     def _async_args(self, n_rounds, pipeline_depth, staleness) -> Tuple[int, int]:
         if self.model_group is not None:
-            raise NotImplementedError("the async ring under a model group is not ported yet "
-                                      "(ROADMAP A.16 (e))")
+            raise NotImplementedError("the async ring under a model group is not ported (ROADMAP "
+                                      "A.16 (e) 4; the reference's tree path refuses it too)")
         D = self.cfg.pipeline_depth if pipeline_depth is None else pipeline_depth
         S = self.cfg.staleness if staleness is None else staleness
         if n_rounds < 1:

@@ -16,7 +16,7 @@ threefry draws.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Union
 
 import torch
 
@@ -32,22 +32,28 @@ class FaultPlan(NamedTuple):
 
     drop: (C,) bool — uplink lost (drop_rate) or past the deadline
     corrupt: (C,) bool — payload arrives corrupted
-    noise: (C, P) f32 standard normals under corrupt_mode "noise", else None
+    noise: (C, P) f32 standard normals under corrupt_mode "noise", or, for a
+        share of the plane, a callable giving leaf i's ``(C, n_i)``; else None
     """
 
     drop: torch.Tensor
     corrupt: torch.Tensor
-    noise: Optional[torch.Tensor]
+    noise: Optional[Union[torch.Tensor, Callable[[int], torch.Tensor]]]
 
 
-def fault_masks(fault, t, ids: torch.Tensor, size: int = 0, *, noise_ids=None,
+def fault_masks(fault, t, ids: torch.Tensor, size: int = 0, *, noise_ids=None, columns=None,
                 u_drop=None, z_deadline=None, u_corrupt=None, z_noise=None) -> FaultPlan:
     """Reproducible per-client fault draws for absolute round ``t`` (a
     device tensor).  ``size`` is the plane length P the "noise" mode draws
     over, for the rows of ``noise_ids`` (default ``ids``; a cohort shard
-    draws its own rows only).  An injected draw replaces the hash's:
-    ``u_drop`` / ``u_corrupt`` (C,) uniforms, ``z_deadline`` (C,) normals,
-    ``z_noise`` the noise rows' normals."""
+    draws its own rows only).  ``columns`` (a model group's share of the
+    plane, ``core.flat.GroupPlane.columns``: leaf i → its whole-plane
+    column indices) makes the noise a callable that draws leaf i's columns
+    of the whole rows when asked, a row at a time (``draws.normal_at``), so
+    no whole row and no ``(C, P_r)`` index exists.  An injected draw
+    replaces the hash's: ``u_drop`` / ``u_corrupt`` (C,) uniforms,
+    ``z_deadline`` (C,) normals, ``z_noise`` the noise rows' normals (the
+    whole rows under ``columns``, of which each leaf takes its columns)."""
     C, dev = ids.shape[0], ids.device
     drop = torch.zeros((C,), dtype=torch.bool, device=dev)
     if fault.drop_rate > 0.0:
@@ -64,9 +70,17 @@ def fault_masks(fault, t, ids: torch.Tensor, size: int = 0, *, noise_ids=None,
         u = u_corrupt if u_corrupt is not None else \
             draws.uniform(fault.seed, t, STREAM_CORRUPT, ids)
         corrupt = u < fault.corrupt_rate
-        if fault.corrupt_mode == "noise":
+        rows = ids if noise_ids is None else noise_ids
+        if fault.corrupt_mode == "noise" and columns is None:
             noise = z_noise if z_noise is not None else draws.normal(
-                fault.seed, t, STREAM_NOISE, ids if noise_ids is None else noise_ids, size)
+                fault.seed, t, STREAM_NOISE, rows, size)
+        elif fault.corrupt_mode == "noise":
+            def noise(i: int) -> torch.Tensor:
+                cols = columns(i)
+                if z_noise is not None:
+                    return z_noise.index_select(1, cols)
+                return torch.cat([draws.normal_at(fault.seed, t, STREAM_NOISE, rows[c:c + 1], cols)
+                                  for c in range(rows.shape[0])])
     return FaultPlan(drop=drop, corrupt=corrupt, noise=noise)
 
 
@@ -80,13 +94,14 @@ def corrupt_uplink(fault, cmask: torch.Tensor, noise: Optional[torch.Tensor], x)
     """Corrupt the rows of the payload ``x`` (a ``(C, P)`` plane or a tree
     of ``(C, …)`` leaves) where ``cmask`` is True; other rows pass through
     bitwise.  Under "noise" ``noise`` is ``(C, row_size(x))``: a tree's
-    leaves take its columns in leaf order."""
+    leaves take its columns in leaf order; or a callable giving leaf i's
+    ``(C, n_i)`` (``fault_masks(..., columns=)``)."""
     mode = fault.corrupt_mode
     if mode not in CORRUPT_MODES:
         raise ValueError(f"unknown corrupt_mode {mode!r}; known: nan | inf | noise")
     leaves, treedef = tree_flatten_with_path(x)
     out, off = [], 0
-    for _, leaf in leaves:
+    for i, (_, leaf) in enumerate(leaves):
         cm = cmask.reshape(-1, *([1] * (leaf.dim() - 1)))
         if mode in ("nan", "inf"):
             fill = torch.full((), float("nan") if mode == "nan" else float("inf"),
@@ -94,7 +109,7 @@ def corrupt_uplink(fault, cmask: torch.Tensor, noise: Optional[torch.Tensor], x)
             out.append(torch.where(cm, fill, leaf))
             continue
         n = leaf[0].numel()
-        z = noise[:, off:off + n].reshape(leaf.shape)
+        z = (noise(i) if callable(noise) else noise[:, off:off + n]).reshape(leaf.shape)
         off += n
         noisy = leaf + (fault.noise_scale * torch.abs(leaf.to(torch.float32)) * z).to(leaf.dtype)
         out.append(torch.where(cm, noisy, leaf))

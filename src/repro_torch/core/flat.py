@@ -121,13 +121,22 @@ class GroupPlane(NamedTuple):
     fold, the post-steps) runs on the share as it is.  What reduces over P
     reads ``parts`` (``sharding.rules.group_parts`` of each leaf, in the
     plane's order): a gradient's partial parts are summed over the group,
-    and a norm counts each replicated part once.  Built by
-    ``sharding.shard.group_plane``."""
+    and a norm counts each replicated part once.  What reads a client's
+    whole row reads ``dims`` (each leaf's ``rules.split_dim``) and
+    ``whole_shapes``: the noise draw takes the whole plane's columns of the
+    share (``columns``), and an escape hatch gets the whole planes
+    (``gather_plane`` / ``gather_leaves``) and hands back their share
+    (``share_plane`` / ``share_leaves``).  The whole plane's order is the
+    unsharded tree's leaf order, row-major within each leaf.  Built by
+    ``sharding.shard.group_plane``; the same methods serve the per-leaf
+    tree path's ``(C, *share)`` leaves."""
 
     parallel: Any  # models.layers.ParallelContext
     parts: Tuple  # rules.group_parts of each leaf of the FlatSpec
     whole_size: int  # P of the unsharded plane
     whole_nbytes: int  # bytes of the unsharded tree (per-leaf dtypes)
+    dims: Tuple = ()  # rules.split_dim of each leaf (None, an int or a Pieces)
+    whole_shapes: Tuple = ()  # each leaf's unsharded shape
 
     def sum_partial(self, spec: "FlatSpec", grads: torch.Tensor) -> None:
         """Sum, in place, the partial parts of the gradient plane ``grads``
@@ -136,7 +145,78 @@ class GroupPlane(NamedTuple):
 
     def norm(self, spec: "FlatSpec", plane: torch.Tensor) -> torch.Tensor:
         """The L2 norm of the whole ``(P,)`` plane whose share ``plane`` is."""
-        return torch.sqrt(group_sq_norm(spec.views(plane), self.parts, self.parallel))
+        return self.tree_norm(spec.views(plane))
+
+    def tree_norm(self, leaves: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The f32 L2 norm of the whole tree whose share ``leaves`` are."""
+        return torch.sqrt(group_sq_norm(list(leaves), self.parts, self.parallel))
+
+    def rows_sqnorm(self, leaves: Sequence[torch.Tensor]) -> torch.Tensor:
+        """``(C,)`` f32: the squared L2 norm of each client's whole row,
+        from this rank's ``(C, *share)`` leaves."""
+        return group_sq_norm(list(leaves), self.parts, self.parallel, lead=1)
+
+    def rows_finite(self, finite: torch.Tensor) -> torch.Tensor:
+        """``(C,)`` bool: every rank's ``finite`` (each its share's rows)
+        ANDed over the group."""
+        bad = self.parallel.all_reduce((~finite).to(torch.float32))
+        return bad == 0.0
+
+    def _offsets(self) -> List[int]:
+        out, at = [], 0
+        for shape in self.whole_shapes:
+            out.append(at)
+            at += math.prod(shape)
+        return out
+
+    def columns(self, i: int, device) -> torch.Tensor:
+        """This rank's columns of the whole plane in leaf ``i`` of its share,
+        as a ``(n_i,)`` index in the share leaf's row-major order: the
+        whole leaf's column indices, sliced as the share is (``shard.take``).
+        int32 where the whole plane has fewer than 2^31 elements."""
+        from repro_torch.sharding.shard import take
+
+        dtype = torch.int32 if self.whole_size < 2 ** 31 else torch.int64
+        off, shape = self._offsets()[i], self.whole_shapes[i]
+        index = torch.arange(off, off + math.prod(shape), dtype=dtype, device=device)
+        return take(index.view(shape), self.dims[i], self.parallel.rank,
+                    self.parallel.size).reshape(-1)
+
+    def _every(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` stacked ``(N, ...)`` in rank order, moved as
+        bytes (gloo refuses some dtypes)."""
+        got = self.parallel.all_gather(_bytes(t)[None], 0)
+        return got.view(t.dtype).reshape(self.parallel.size, *t.shape)
+
+    def gather_leaves(self, leaves: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The whole leaves whose shares ``leaves`` are (one client's, in
+        the share's order), joined from every rank's (``shard.join_shares``)."""
+        from repro_torch.sharding.shard import join_shares
+
+        return [join_shares(list(self._every(t)), d, self.parallel.size)
+                for t, d in zip(leaves, self.dims)]
+
+    def share_leaves(self, whole: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """This rank's share of each whole leaf (``shard.take``)."""
+        from repro_torch.sharding.shard import take
+
+        return [take(w, d, self.parallel.rank, self.parallel.size)
+                for w, d in zip(whole, self.dims)]
+
+    def gather_plane(self, spec: "FlatSpec", plane: torch.Tensor) -> torch.Tensor:
+        """The whole ``(P,)`` plane whose share is ``plane`` (``(P_r,)``,
+        laid out by ``spec``): one ``all_gather``, then each leaf joined."""
+        from repro_torch.sharding.shard import join_shares
+
+        views = [spec.views(row) for row in self._every(plane)]
+        return torch.cat([join_shares([v[i] for v in views], d, self.parallel.size).reshape(-1)
+                          for i, d in enumerate(self.dims)])
+
+    def share_plane(self, spec: "FlatSpec", whole: torch.Tensor) -> torch.Tensor:
+        """This rank's ``(P_r,)`` share of the whole ``(P,)`` plane ``whole``."""
+        leaves = [whole[o:o + math.prod(s)].view(s)
+                  for o, s in zip(self._offsets(), self.whole_shapes)]
+        return torch.cat([t.reshape(-1) for t in self.share_leaves(leaves)])
 
 
 class CohortUplink(NamedTuple):

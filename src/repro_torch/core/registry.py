@@ -75,7 +75,8 @@ generic interpreters over leaf trees instead of the kernels:
 materialize as zeros) and ``tree_server_update``, with the tree forms of
 the state allocation, ``tree_server_init`` and ``tree_client_state_init``.
 There a ``direction_fn`` sees one client's leaf trees and a ``server_fn``
-the cohort means as leaf trees, as in the reference; a ``state_update_fn``
+the cohort means as leaf trees, as in the reference (over a model group
+the whole trees, gathered from the ranks' shares); a ``state_update_fn``
 and a ``server_post_fn``, written on tensors, run leaf by leaf (every
 builtin one is elementwise).
 
@@ -87,6 +88,7 @@ structural: they drop a kernel operand or skip an output write.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -262,13 +264,19 @@ class AlgorithmSpec(NamedTuple):
                               n_active, eta_l)
 
     # -------------------------------------------- the per-leaf tree path
-    def tree_direction(self, cfg, m, cst, x, x0, g):
+    def tree_direction(self, cfg, m, cst, x, x0, g, group=None):
         """The local direction v over leaf trees (the reference's
         ``direction``): the affine row leaf by leaf in the reference's
         order, or the ``direction_fn`` on the trees.  ``x``, ``g`` and
         ``cst`` may lead with a cohort axis, against which ``m`` and ``x0``
-        broadcast."""
+        broadcast.  Over a model ``group`` (a ``core.flat.GroupPlane``) the
+        trees are one client's shares: the ``direction_fn`` sees the whole
+        leaf trees, gathered over the group, and this rank's share of its
+        direction comes back; the affine row runs on the shares."""
         if self.direction_fn is not None:
+            if group is not None:
+                whole = [_whole_tree(group, t) for t in (m, cst, x, x0, g)]
+                return _share_tree(group, self.direction_fn(cfg, *whole))
             return self.direction_fn(cfg, m, cst, x, x0, g)
         row = self.direction_row
         c_g, c_x = _dir_coef(row.c_g, cfg), _dir_coef(row.c_x, cfg)
@@ -290,30 +298,43 @@ class AlgorithmSpec(NamedTuple):
         return tree_map(leaf, *trees)
 
     def client_finalize(self, cfg, x0, xK, cst, m, eta_l, full_grad) -> ClientOutputs:
-        """The uplink on the tree path: unused planes materialize as zeros
-        (the tree path aggregates them, as the reference's does).  The
-        state update runs leaf by leaf."""
+        """The uplink on the tree path: unused planes are zeros (the tree
+        path aggregates them, as the reference's does), each leaf a
+        zero-stride view (``zeros_view``) that holds no cohort-sized buffer.
+        The state update runs leaf by leaf."""
         delta = tree_map(torch.sub, xK, x0)
         if self.state_update_fn is not None:
             sd = tree_map(lambda a, b, c, d, e: self.state_update_fn(cfg, a, b, c, d, e, eta_l),
                           x0, xK, cst, m, delta)
         else:
-            sd = tree_map(torch.zeros_like, xK)
-        extra = full_grad if self.needs_full_grad else tree_map(torch.zeros_like, xK)
+            sd = tree_map(zeros_view, xK)
+        extra = full_grad if self.needs_full_grad else tree_map(zeros_view, xK)
         return ClientOutputs(delta, sd, extra)
 
     def tree_server_update(self, cfg, params, st, mean_delta, mean_sd, mean_extra, n_active,
-                           eta_l, discount=1.0):
+                           eta_l, discount=1.0, group=None):
         """The round close over leaf trees (the reference's
         ``server_update``): the fold rows leaf by leaf, the momentum cast
         to its store dtype, the round counter advanced, then the post-step
         leaf by leaf; or the ``server_fn`` on the (γ-discounted) mean
-        trees."""
+        trees.  Over a model ``group`` the trees are a rank's shares: the
+        ``server_fn`` sees the whole trees, gathered, and this rank's share
+        of its params and server trees comes back; the fold rows and the
+        post-step (elementwise) run on the shares."""
         if self.server_fn is not None:
             if not _is_static_one(discount):
                 mean_delta, mean_sd, mean_extra = (
                     None if t is None else tree_map(lambda a: discount * a, t)
                     for t in (mean_delta, mean_sd, mean_extra))
+            if group is not None:
+                whole = functools.partial(_whole_tree, group)
+                x, new = self.server_fn(
+                    cfg, whole(params), st._replace(momentum=whole(st.momentum),
+                                                    second_moment=whole(st.second_moment)),
+                    whole(mean_delta), whole(mean_sd), whole(mean_extra), n_active, eta_l)
+                return _share_tree(group, x), new._replace(
+                    momentum=_share_tree(group, new.momentum),
+                    second_moment=_share_tree(group, new.second_moment))
             return self.server_fn(cfg, params, st, mean_delta, mean_sd, mean_extra,
                                   n_active, eta_l)
         planes = {"delta": mean_delta, "state_delta": mean_sd, "extra": mean_extra}
@@ -351,6 +372,30 @@ class AlgorithmSpec(NamedTuple):
         sm = (None if new_st.second_moment is None
               else tree_unflatten(treedef, [o[1].second_moment for o in outs]))
         return x, new_st._replace(momentum=m, second_moment=sm)
+
+
+def zeros_view(like: torch.Tensor, shape=None) -> torch.Tensor:
+    """Zeros of ``like``'s dtype and device in ``shape`` (default its own)
+    as a zero-stride view of one element: a read-only plane of zeros that
+    allocates nothing cohort-sized."""
+    zero = torch.zeros((), dtype=like.dtype, device=like.device)
+    return zero.expand(like.shape if shape is None else shape)
+
+
+def _whole_tree(group, tree):
+    """The whole tree whose share on this rank of ``group`` is ``tree``."""
+    if tree is None:
+        return None
+    leaves, treedef = tree_flatten_with_path(tree)
+    return tree_unflatten(treedef, group.gather_leaves([leaf for _, leaf in leaves]))
+
+
+def _share_tree(group, tree):
+    """This rank's share of the whole tree ``tree``."""
+    if tree is None:
+        return None
+    leaves, treedef = tree_flatten_with_path(tree)
+    return tree_unflatten(treedef, group.share_leaves([leaf for _, leaf in leaves]))
 
 
 #: the reference's other name for the spec

@@ -35,9 +35,15 @@ on this rank, ``sent`` its input); the aten ``op_census``; and an H100
 roofline (``launch.mesh`` constants: compute at the activation dtype's peak,
 memory at HBM, collectives at one NVLink direction) with its bottleneck.
 
+Each rank's share holds every floating leaf in ``Knobs.param_dtype`` (bf16
+by default; integer leaves keep theirs, maverick's f32 router is cast like
+the rest), as the reference's ``_params_sds`` casts them; the step's update
+stays f32.  ``seq_shard_acts`` is carried into the JSON's knobs, as the
+reference reports it.
+
 Route differences from the reference: token ids are int64 (the reference's
 int32); the port's knobs have no ``scan_unroll`` (eager code runs every
-layer) and no ``seq_shard_acts``; a fake group is no NCCL world, but the
+layer); a fake group is no NCCL world, but the
 FSDP gradients take NCCL's ``reduce_scatter`` route on it (the card's);
 prefill and decode use one param layout, ``Knobs.serve_params``'s (the
 reference prefills in the train layout); the decode cache holds the
@@ -53,6 +59,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import time
 import traceback
 from contextlib import ExitStack
@@ -117,11 +124,14 @@ def knobs_for(arch: str, shape_name: str, overrides: Optional[dict] = None):
     return Knobs(**kw)
 
 
-def share_layout(cfg, data: int, model: int, mode: str = "train"):
+def share_layout(cfg, data: int, model: int, mode: str = "train",
+                 param_dtype: Optional[str] = None):
     """``(treedef, [(path, shape, dtype)])``: each leaf of ``cfg``'s params
     tree with its shape on one rank of a ``data`` × ``model`` grid in the
     layout ``mode`` — the model group's share (``rules.split_dim``), then its
-    data slice (``rules.fsdp_dim``).  Every rank's is the same.  Built from
+    data slice (``rules.fsdp_dim``) — and its dtype: the init's, or every
+    floating leaf's ``param_dtype`` when given (``Knobs.param_dtype``, the
+    reference's ``_params_sds``).  Every rank's is the same.  Built from
     ``meta`` tensors; call it outside a ``FakeTensorMode``, under which the
     whole model's would be fake tensors that a ``MemTracker`` counts."""
     from repro_torch.sharding.rules import _keys, fsdp_dim, local_shape, split_dim
@@ -137,7 +147,10 @@ def share_layout(cfg, data: int, model: int, mode: str = "train"):
         f = fsdp_dim(keys, shape, data, model, cfg, mode)
         if f is not None:
             local[f] //= data
-        out.append((p, tuple(local), leaf.dtype))
+        dtype = leaf.dtype
+        if param_dtype is not None and dtype.is_floating_point:
+            dtype = getattr(torch, param_dtype)
+        out.append((p, tuple(local), dtype))
     return treedef, out
 
 
@@ -339,7 +352,6 @@ def run_one(arch: str, shape_name: str, data: int = 16, model: int = 16, rank: i
     )
     from repro_torch.launch.steps import param_mode
     from repro_torch.sharding.rules import check_model_parallel
-    from repro_torch.sharding.shard import share_bytes
 
     base = SHAPES[shape_name]
     shape = dataclasses.replace(base, global_batch=batch or base.global_batch,
@@ -359,7 +371,7 @@ def run_one(arch: str, shape_name: str, data: int = 16, model: int = 16, rank: i
             knobs = dataclasses.replace(knobs, microbatches=max_m)
     mode = "train" if kind == "train" else param_mode(knobs)
     dev = DEVICE
-    layout = share_layout(cfg, data, model, mode)
+    layout = share_layout(cfg, data, model, mode, knobs.param_dtype)
 
     with fake_world(data, model, rank) as groups, FakeTensorMode(allow_non_fake_inputs=True):
         parallel = grid_parallel(cfg, data, model, groups,
@@ -386,11 +398,13 @@ def run_one(arch: str, shape_name: str, data: int = 16, model: int = 16, rank: i
         "steps": steps if kind == "train" else None,
         "cfg_overrides": cfg_overrides or {}, "n_layers": cfg.n_layers,
         "knobs": dict(microbatches=knobs.microbatches, remat=knobs.remat,
-                      moment_dtype=knobs.moment_dtype, grad_accum_dtype=knobs.grad_accum_dtype,
+                      param_dtype=knobs.param_dtype, moment_dtype=knobs.moment_dtype,
+                      seq_shard_acts=knobs.seq_shard_acts,
+                      grad_accum_dtype=knobs.grad_accum_dtype,
                       serve_params=knobs.serve_params, layout=mode),
         "exec_only": exec_only,
         "share_shapes": {p: list(shape) for p, shape, _ in layout[1]},
-        "share_bytes": share_bytes(cfg, model, data, mode),
+        "share_bytes": sum(math.prod(shape) * dtype.itemsize for _, shape, dtype in layout[1]),
         "flops_per_device": res["flops"],
         "kernel_flops": census.kernel_flops,
         "op_bytes_per_device": op_bytes,

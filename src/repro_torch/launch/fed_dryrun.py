@@ -19,9 +19,12 @@ tensor-sharded over ``"model"`` (``_tensor_sharded_reason``: a flat
 concatenate would all-gather them).  The port keeps the flat plane
 (``flat_plane_reason``): a rank's plane is its own share's columns
 (``sharding.shard.group_plane``), so nothing is gathered into it — a route
-difference.  The round's data are each client's corpus of ``n_seqs``
-sequences on every rank, as ``federated_llm`` holds them; the round draws
-its cohort and minibatches from them.
+difference.  The port's tree path runs on a model group too (its fault
+layer and escape hatches as well), but not yet with the cohort over data
+beside it, this layout (ROADMAP A.16 (e) 5).  The round's data are each
+client's corpus of ``n_seqs`` sequences on every rank, as
+``federated_llm`` holds them; the round draws its cohort and minibatches
+from them.
 
     PYTHONPATH=src python -m repro_torch.launch.fed_dryrun [--algo fedavg]
         [--momentum-dtype bfloat16] [--cohort 16] [--k 2] [--variant tag]
@@ -60,7 +63,7 @@ def run(variant: str = "baseline", *, algo: str = "fedcm", cohort: int = 16,
         rounds: int = 1, n_clients: int = 4096, n_seqs: int = BATCH, batch: int = BATCH,
         seq: int = SEQ, eta_l: float = 0.05, cfg=None, cfg_overrides: Optional[dict] = None,
         exec_only: bool = False, out: Optional[Path] = OUT_DIR, quiet: bool = False,
-        tag: str = "") -> dict:
+        tag: str = "", use_flat_plane: bool = True) -> dict:
     """One rank's dry-run of ``rounds`` FedCM rounds over ``ARCH`` (cut to
     ``N_LAYERS`` layers unless ``cfg_overrides`` says otherwise) with the
     cohort over ``data`` ranks and each client over ``model`` ranks, the
@@ -69,7 +72,9 @@ def run(variant: str = "baseline", *, algo: str = "fedcm", cohort: int = 16,
     returns the result and, with ``out``, writes ``fedround_<variant>.json``
     there (``tag`` names the file in place of the variant).  ``cfg`` runs
     another llama config (a reduced one) as it is, ``cfg_overrides`` cut
-    it."""
+    it.  ``use_flat_plane=False`` runs the per-leaf tree path (on a model
+    group alone: with the cohort over data it raises, ROADMAP
+    A.16 (e) 5)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.configs.base import get_config
@@ -89,7 +94,7 @@ def run(variant: str = "baseline", *, algo: str = "fedcm", cohort: int = 16,
     check_model_parallel(cfg, model)
     fed = fed_config(n_clients=n_clients, cohort=cohort, local_steps=local_steps, eta_l=eta_l,
                      rounds=rounds, algo=algo, momentum_dtype=momentum_dtype,
-                     aggregate_dtype=aggregate_dtype)
+                     aggregate_dtype=aggregate_dtype, use_flat_plane=use_flat_plane)
     layout = share_layout(cfg, 1, model)  # a client's model share, no FSDP slice
 
     with fake_world(data, model, rank) as groups, FakeTensorMode(allow_non_fake_inputs=True):

@@ -66,7 +66,7 @@ from repro_torch.sharding.shard import group_plane, init_params_sharded
 N_SEQS = 256  # sequences in each client's corpus
 # the example's FedCM settings: momentum α, server step η_g, weight decay
 ALPHA, ETA_G, WEIGHT_DECAY = 0.1, 1.0, 1e-4
-METRICS = ("loss", "momentum_norm", "delta_norm", "n_active")
+METRICS = ("loss", "momentum_norm", "delta_norm", "n_active", "n_dropped", "n_quarantined")
 # a model group's collectives wait this long for a rank (its share may still
 # be drawing), and the whole world this long
 MP_TIMEOUT_S, MP_DEADLINE_S = 600.0, 3600.0
@@ -94,9 +94,11 @@ class FedLMResult:
 def run(cfg, *, n_clients: int = 8, cohort: int = 3, local_steps: int = 4, batch: int = 4,
         seq: int = 64, rounds: int = 20, eta_l: float = 0.05, seed: int = 0,
         device="cuda", model_parallel: int = 1, cohort_shard: int = 0,
-        parallel: Optional[ParallelContext] = None, cohort_group=None) -> FedLMResult:
+        parallel: Optional[ParallelContext] = None, cohort_group=None,
+        variant: Optional[Dict[str, Any]] = None) -> FedLMResult:
     """FedCM over the LM ``cfg`` for ``rounds`` rounds (a fixed cohort;
-    ``ALPHA``, ``ETA_G`` and ``WEIGHT_DECAY``).
+    ``ALPHA``, ``ETA_G`` and ``WEIGHT_DECAY``; ``variant`` sets any other
+    ``FedConfig`` field: a ``fault``, ``use_flat_plane=False``, ``algo``).
     The weights are drawn on ``device`` from ``seed``, the cohorts and
     minibatches from a generator on ``device`` seeded with ``seed + 1``.
     ``model_parallel`` > 1 or ``cohort_shard`` > 1 (and no ``parallel`` /
@@ -106,14 +108,14 @@ def run(cfg, *, n_clients: int = 8, cohort: int = 3, local_steps: int = 4, batch
     rank's share of a model group, ``cohort_group`` its rows of the
     cohort."""
     kw = dict(n_clients=n_clients, cohort=cohort, local_steps=local_steps, batch=batch,
-              seq=seq, rounds=rounds, eta_l=eta_l, seed=seed)
+              seq=seq, rounds=rounds, eta_l=eta_l, seed=seed, variant=variant)
     if parallel is None and cohort_group is None and max(model_parallel, cohort_shard) > 1:
         return run_model_parallel(cfg, model_parallel, device, cohort_shard=cohort_shard, **kw)
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     fed = fed_config(n_clients=n_clients, cohort=cohort, local_steps=local_steps, eta_l=eta_l,
-                     rounds=rounds)
+                     rounds=rounds, **(variant or {}))
     data = LMFederatedData(federated_lm_corpora(cfg.vocab_size, n_clients, seq + 1, N_SEQS),
                            device=dev)
     gen = torch.Generator(device=dev)

@@ -12,15 +12,19 @@ no backward, as the reference's Pallas kernels have none.
 
 The ``Knobs`` fields keep the reference's names and defaults: gradients
 accumulate over microbatches in ``grad_accum_dtype`` and the AdamW moments
-are stored in ``moment_dtype`` (both f32 by default); the weights keep the
-dtype ``model.init`` gives them (the config's ``param_dtype``).
+are stored in ``moment_dtype`` (both f32 by default).  ``param_dtype``
+(bf16 by default) is the dtype the dry-run holds every floating leaf of a
+rank's share in (``launch.dryrun.share_layout``, the reference's
+``_params_sds``); a step itself keeps the dtype of the weights it is
+handed (``model.init`` gives the config's ``param_dtype``) and updates
+them in f32.  ``seq_shard_acts`` is a lowering knob the reference only
+reports (its dry-run's JSON); the port's dry-run reports it too.
 ``serve_params`` is the serving layout's name, as the reference's:
 ``"fsdp"`` (the default) stores the params as training does, FSDP over the
 data group, and ``"replicated"`` in the reference's ``mode="serve"``
 layout, which keeps only the expert banks' data slices (``param_mode``);
 a serving grid's context reads it (``make_parallel(..., knobs=)``).
-Left out are ``param_dtype``, ``seq_shard_acts`` and ``scan_unroll``
-(lowering and mesh knobs, ROADMAP A.16 (d) 6).
+Left out is ``scan_unroll``: eager code runs every layer.
 
 ``build_train_step(cfg, knobs, parallel)`` trains on a model group: every
 rank calls the step with its share of the params and of the AdamW state
@@ -90,10 +94,12 @@ SERVE_PARAMS = {"fsdp": "train", "replicated": "serve"}
 class Knobs:
     microbatches: int = 1  # grad-accumulation chunks of the global batch
     remat: str = "full"  # "none" | "full" | "dots" (models.transformer.remat_call)
+    param_dtype: str = "bfloat16"  # the dry-run's share of the weights (launch.dryrun)
     learning_rate: Any = 3e-4  # a float or a schedule step -> lr
     grad_clip: float = 1.0
     use_kernels: bool = False  # only False: True raises, no kernel has a backward
     moment_dtype: str = "float32"  # AdamW's moments; bf16 halves their memory
+    seq_shard_acts: bool = False  # reported only, as the reference's dry-run does
     grad_accum_dtype: str = "float32"  # the microbatch gradient accumulator
     serve_params: str = "fsdp"  # "fsdp" | "replicated": the serving layout (param_mode)
 
@@ -135,7 +141,7 @@ def build_train_step(cfg, knobs: Knobs = Knobs(),
             "Knobs.use_kernels=True: the flash-attention and SSD kernels have no backward (nor "
             "have the JAX package's Pallas kernels); training takes the plain route")
     check_remat(knobs.remat)
-    for name in ("moment_dtype", "grad_accum_dtype"):
+    for name in ("param_dtype", "moment_dtype", "grad_accum_dtype"):
         if getattr(knobs, name) not in DTYPES:
             raise ValueError(f"Knobs.{name} must be one of {DTYPES}, got "
                              f"{getattr(knobs, name)!r}")

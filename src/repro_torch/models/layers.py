@@ -810,9 +810,11 @@ def init_moe(generator, cfg, dtype=torch.float32, lead: Sequence[int] = (),
 def _router(params, x: torch.Tensor, cfg):
     """x (T, D) → ``(gates (T, k) f32, experts (T, k), probs (T, E), aux)``:
     f32 logits and softmax, top-k, gates renormalised over the k; aux is
-    the load-balance (Switch) loss plus the router z-loss, f32."""
+    the load-balance (Switch) loss plus the router z-loss, f32.  A router
+    held in bf16 (the dry-run's ``Knobs.param_dtype``) is promoted to f32,
+    as the reference's einsum promotes it."""
     T = x.shape[0]
-    logits = torch.matmul(x.to(torch.float32), params["router"])
+    logits = torch.matmul(x.to(torch.float32), params["router"].to(torch.float32))
     probs = torch.softmax(logits, dim=-1)
     gates, experts = torch.topk(probs, cfg.top_k, dim=-1)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)

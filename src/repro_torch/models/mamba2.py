@@ -152,7 +152,9 @@ def mamba2_block(
     h = torch.matmul(x, params["w_in"].to(x.dtype))
     z, xBC, dt = _split_proj(h, d_inner, N, H)
     dt = _softplus(dt.to(torch.float32) + params["dt_bias"][heads][None, None])
-    A = -torch.exp(params["A_log"][heads])  # (H,)
+    # (H,) f32: a bf16 A_log (the dry-run's Knobs.param_dtype) takes its exp
+    # in bf16 and is promoted, as the reference's f32 products promote it
+    A = (-torch.exp(params["A_log"][heads])).to(torch.float32)
 
     if state is None:
         xBC_raw = xBC

@@ -379,22 +379,27 @@ def sum_over_data(tensors, fsdp, parallel) -> None:
                          parallel.data_all_reduce)
 
 
-def group_sq_norm(tensors, parts, parallel, fsdp: Optional[Sequence] = None) -> torch.Tensor:
+def group_sq_norm(tensors, parts, parallel, fsdp: Optional[Sequence] = None,
+                  lead: int = 0) -> torch.Tensor:
     """The f32 squared L2 norm of the whole tree whose shares ``tensors``
     are (each rank passes its own, in the order of ``parts``): the split
     parts summed over the group, every replicated part (whole or partial,
     the same on every rank) counted once, on rank 0, so that no part is
     counted N times and no 1/N enters.  On a grid (``fsdp``: each leaf's
     ``fsdp_dim``) the same over the data group: a leaf held in part there is
-    summed over it, a replicated one counted on data rank 0 alone."""
+    summed over it, a replicated one counted on data rank 0 alone.  With
+    ``lead`` leading batch dims before each leaf's own (a cohort's rows),
+    one norm for each index of them: shape ``tensors[0].shape[:lead]``."""
     uses = ("split",) if parallel.rank else GROUP_USES
     fsdp = fsdp or [None] * len(parts)
-    total = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
+    rows = tuple(tensors[0].shape[:lead])
+    total = torch.zeros(rows, dtype=torch.float32, device=tensors[0].device)
     for t, p, f in zip(tensors, parts, fsdp):
         if f is None and parallel.data_rank:
             continue
         for use in uses:
-            for seg in _segments(t, p, use, 0):
-                total = total + torch.sum(torch.square(seg.to(torch.float32)))
+            for seg in _segments(t, p, use, lead):
+                sq = torch.square(seg.to(torch.float32))
+                total = total + (torch.sum(sq) if not lead else sq.reshape(*rows, -1).sum(-1))
     total = parallel.all_reduce(total)
     return parallel.data_all_reduce(total) if parallel.data_size > 1 else total

@@ -190,13 +190,17 @@ def group_plane(spec, cfg, parallel):
     rank's share of ``cfg``'s params on the model group ``parallel``."""
     from repro_torch.core.flat import GroupPlane
 
-    shapes = tree_leaves(param_shapes(cfg))
-    if len(shapes) != len(spec.leaves):
+    flat = tree_flatten_with_path(param_shapes(cfg))[0]
+    if len(flat) != len(spec.leaves):
         raise ValueError(f"the plane has {len(spec.leaves)} leaves, {cfg.name}'s params "
-                         f"{len(shapes)}")
+                         f"{len(flat)}")
+    shapes = [t for _, t in flat]
     return GroupPlane(parallel, tuple(share_parts(cfg, parallel.size)),
                       sum(t.numel() for t in shapes),
-                      sum(t.numel() * t.element_size() for t in shapes))
+                      sum(t.numel() * t.element_size() for t in shapes),
+                      tuple(split_dim(_keys(p), tuple(t.shape), parallel.size, cfg)
+                            for p, t in flat),
+                      tuple(tuple(t.shape) for t in shapes))
 
 
 def join_shares(shares: Sequence[torch.Tensor], dim: Split, world: int,

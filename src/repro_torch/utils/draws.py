@@ -64,8 +64,15 @@ def row_keys(seed: int, t: Union[int, torch.Tensor], stream: int,
 def bits(seed: int, t, stream: int, ids: torch.Tensor, n: int) -> torch.Tensor:
     """(C, n) int64 hash values in [0, 2^32): element j of row c hashes
     ``(seed, t, stream, ids[c], j)``."""
+    return bits_at(seed, t, stream, ids, torch.arange(n, dtype=torch.int64, device=ids.device))
+
+
+def bits_at(seed: int, t, stream: int, ids: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """(C, n) int64 hash values of the element indices ``j`` (any integer
+    dtype, ``(n,)``, each in [0, 2^32)): column i of row c is ``bits``'
+    element ``j[i]`` of that row, bit for bit."""
     k = row_keys(seed, t, stream, ids)[:, None]
-    j = torch.arange(n, dtype=torch.int64, device=ids.device)[None, :]
+    j = j.to(torch.int64)[None, :]
     return _fmix(_fmix(j ^ k) ^ _fmix(k ^ 0x9E3779B9))
 
 
@@ -84,6 +91,20 @@ def normal(seed: int, t, stream: int, ids: torch.Tensor,
     ``(C, n)``."""
     u = (bits(seed, t, stream, ids, 2 * (1 if n is None else n)) >> 8).to(torch.float32) \
         * (2.0 ** -24)
-    u1, u2 = u[:, 0::2], u[:, 1::2]
-    z = torch.sqrt(-2.0 * torch.log1p(-u1)) * torch.cos((2.0 * math.pi) * u2)
+    z = _box_muller(u[:, 0::2], u[:, 1::2])
     return z[:, 0] if n is None else z
+
+
+def normal_at(seed: int, t, stream: int, ids: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """``(C, n)`` f32 normals of the columns ``cols`` (``(n,)`` integers) of
+    ``normal``'s ``(C, P)`` rows, bit for bit, drawing only those columns:
+    column j takes the uniforms of elements 2j and 2j+1.  A rank that holds
+    some columns of a plane draws its own of the one stream this way."""
+    j = 2 * cols.to(torch.int64)
+    u1 = (bits_at(seed, t, stream, ids, j) >> 8).to(torch.float32) * (2.0 ** -24)
+    u2 = (bits_at(seed, t, stream, ids, j + 1) >> 8).to(torch.float32) * (2.0 ** -24)
+    return _box_muller(u1, u2)
+
+
+def _box_muller(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(-2.0 * torch.log1p(-u1)) * torch.cos((2.0 * math.pi) * u2)

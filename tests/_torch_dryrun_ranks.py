@@ -8,7 +8,7 @@ tensors, and runs it under the same instruments (``dryrun.measure``: the
 flop counter, the census and MemTracker); ``ParallelContext.counts`` is what
 the model's collectives tallied.  Then one FedCM round of
 ``launch.federated_llm.run`` in its ``--cohort-shard 2 --model-parallel 2``
-layout.
+layout, and one on the per-leaf tree path over each model group.
 """
 from __future__ import annotations
 
@@ -52,7 +52,8 @@ def case_step(arch: str, kind: str, groups, device):
     train = kind == "train"
     parallel = dryrun.grid_parallel(cfg, *GRID, groups, None if train else knobs,
                                     None if train else B)
-    layout = dryrun.share_layout(cfg, *GRID, "train" if train else param_mode(knobs))
+    layout = dryrun.share_layout(cfg, *GRID, "train" if train else param_mode(knobs),
+                                 knobs.param_dtype)
     inputs, step = dryrun.build_step(cfg, kind, knobs, parallel, layout, B, S, device=device)
     return parallel, inputs, step
 
@@ -82,4 +83,10 @@ def world(rank, device, cases):
                             **FED_RUN)
     out["fed"] = {"counts": comparable_counts(fed.by_rank[0]["collectives"]),
                   "launches": fed.by_rank[0]["launches"]}
+    # the per-leaf tree path on the model group alone (each data row runs its own)
+    tree = federated_llm.run(case_config("llama3.2-1b"), device=str(device),
+                             parallel=make_parallel(groups[0]),
+                             variant={"use_flat_plane": False}, **FED_RUN)
+    out["fed_tree"] = {"counts": comparable_counts(tree.by_rank[0]["collectives"]),
+                       "launches": tree.by_rank[0]["launches"]}
     return out

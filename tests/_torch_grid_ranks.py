@@ -14,17 +14,15 @@ import hashlib
 
 import torch
 
+import _torch_train_ranks as train_ranks
 from repro_torch.checkpoint import ckpt
 from repro_torch.core.convert import params_from_numpy, to_numpy
-from repro_torch.core.engine import FederatedEngine, metrics_to_host
-from repro_torch.core.flat import FlatSpec
 from repro_torch.fleet import publisher
 from repro_torch.launch import serve
 from repro_torch.launch.mesh import make_grid, make_model_group
 from repro_torch.launch.steps import Knobs, build_train_step, make_parallel
-from repro_torch.models.model import build_model, cohort_loss_fn
 from repro_torch.sharding.rules import _keys
-from repro_torch.sharding.shard import group_plane, grid_take, share_fsdp, share_parts
+from repro_torch.sharding.shard import grid_take, share_fsdp, share_parts
 from repro_torch.utils.trees import tree_flatten_with_path, tree_leaves, tree_unflatten
 
 
@@ -106,28 +104,11 @@ def fed_case(job, parallel=None, cohort_group=None):
     """Rounds of ``job["fed"]`` over the LM ``job["cfg"]`` from
     ``job["params"]`` through ``round_step`` on the injected draws of
     ``job["rounds"]``, the cohort split over ``cohort_group`` (the grid's
-    data group) and each client over ``parallel``'s model group: this
-    rank's params, momentum and second-moment planes after the rounds and
-    each round's metrics."""
-    cfg, fed = job["cfg"], job["fed"]
-    model = build_model(cfg)
-    params = grid_share(cfg, job["params"], parallel)
-    spec = FlatSpec.from_tree(params)
-    group = None if parallel is None else group_plane(spec, cfg, parallel)
-    eng = FederatedEngine(fed, cohort_loss_fn(model, parallel), spec, batch_size=job["B"],
-                          device="cpu", cohort_group=cohort_group, model_group=group)
-    state = eng.init(params, torch.Generator().manual_seed(0))
-    rows = []
-    for d in job["rounds"]:
-        full = None if d.get("full") is None else {k: torch.as_tensor(v)
-                                                   for k, v in d["full"].items()}
-        state, m = eng.round_step(state, {k: torch.as_tensor(v) for k, v in d["batches"].items()},
-                                  torch.as_tensor(d["ids"]), torch.as_tensor(d["mask"]),
-                                  full_batches=full)
-        rows.append({k: float(v[0]) for k, v in metrics_to_host(m).items()})
-    sm = state.server.second_moment
-    return {"params": to_numpy(state.params), "momentum": to_numpy(state.server.momentum),
-            "second_moment": None if sm is None else to_numpy(sm), "metrics": rows}
+    data group) and each client over ``parallel``'s model group
+    (``_torch_train_ranks.fed_case``, the model group's body): this rank's
+    params, momentum and second-moment planes after the rounds and each
+    round's metrics."""
+    return train_ranks.fed_case(job, parallel, cohort_group)
 
 
 def serve_case(job, parallel=None):

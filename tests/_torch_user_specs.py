@@ -29,16 +29,21 @@ from repro_torch.core.registry import (
     register_algorithm,
     unregister_algorithm,
 )
+from repro_torch.utils.trees import tree_leaves, tree_map
 
 NAMES = ("_test_damped", "_test_escape", "_test_mixed", "_test_escape_state")
 
 
 def normalized_direction(cfg, m, cst, x, x0, g):
-    return g / (torch.sqrt(torch.sum(g * g)) + 1e-12)
+    """g / ‖g‖ over one client's plane, or over its leaf tree on the tree
+    path (the reference's tests sum over the tree's leaves too)."""
+    norm = torch.sqrt(sum(torch.sum(leaf * leaf) for leaf in tree_leaves(g))) + 1e-12
+    return tree_map(lambda leaf: leaf / norm, g)
 
 
 def averaging_server(cfg, params, server, mean_delta, mean_sd, mean_extra, n_active, eta_l):
-    return params + cfg.eta_g * mean_delta, server._replace(round=server.round + 1)
+    new = tree_map(lambda p, d: p + cfg.eta_g * d, params, mean_delta)
+    return new, server._replace(round=server.round + 1)
 
 
 def state_server(cfg, params, server, mean_delta, mean_sd, mean_extra, n_active, eta_l):

@@ -310,6 +310,24 @@ def test_fed_dryrun_predicts_federated_llms_round(real_ranks):
         assert res["use_flat_plane"] and res["host_reads"] == 1  # the first draw's check
 
 
+def test_fed_dryrun_predicts_federated_llms_tree_round(real_ranks):
+    """The per-leaf tree path's round on a model group of 2 (``fed_dryrun``
+    with ``use_flat_plane=False`` on 1 x 2): each rank's census equals the
+    real rank's ``ParallelContext.counts``, and no kernel launches."""
+    run = ranks_mod.FED_RUN
+    for rank in RANKS:
+        res = fed_dryrun.run(cfg=ranks_mod.case_config("llama3.2-1b"), data=1, model=2,
+                             rank=rank % 2, rounds=run["rounds"], cohort=run["cohort"],
+                             local_steps=run["local_steps"], batch=run["batch"],
+                             seq=run["seq"], n_clients=run["n_clients"],
+                             n_seqs=federated_llm.N_SEQS, out=None, quiet=True,
+                             use_flat_plane=False)
+        real = real_ranks[rank]["fed_tree"]
+        assert res["parallel_counts"] == real["counts"], rank
+        assert res["launches"] == {} and not any(real["launches"].values())
+        assert not res["use_flat_plane"]
+
+
 def test_census_names_the_threads_that_take_a_cublas_workspace():
     """A forward GEMM takes the caller's workspace, a linear with a bias
     cuBLASLt's as well, and the backward's GEMMs autograd's thread's: the

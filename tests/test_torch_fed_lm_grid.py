@@ -18,7 +18,8 @@ moment within ``GRAD_REL_L2`` relative L2): the model shares of data rank
 0, joined, against the unsharded round and the reference's; every data
 rank's planes bitwise equal to data rank 0's (``x`` and ``m`` stay
 replicated over data); every rank's round metrics the same.  The cases
-that ROADMAP A.16 (e) names still raise on a grid.
+that ROADMAP A.16 (e) 4 names still raise on a grid (the fault layer and
+the escape hatches on a grid: tests/test_torch_fed_lm_group_faults.py).
 """
 from dataclasses import replace
 from functools import lru_cache
@@ -118,11 +119,11 @@ def test_joined_planes_match_the_references_round_step(case):
 
 @pytest.mark.parametrize("what", [w for w in REFUSED if w != "cohort-shard"])
 def test_what_a_grid_does_not_run_raises(what):
-    """Each case ROADMAP A.16 (e) names raises under a model group with the
+    """Each case ROADMAP A.16 (e) 4 names raises under a model group with the
     cohort sharded beside it, before any process group is asked for."""
     fed = replace(port_cfg(_ref_cfg("fedcm")), cohort_shard=2, **REFUSED[what])
     with registered():
-        with pytest.raises(NotImplementedError, match=r"A\.16 \(e\)"):
+        with pytest.raises(NotImplementedError, match=r"A\.16 \(e\) 4"):
             _engine(fed)
 
 

@@ -20,8 +20,9 @@ FedAdam's second moment) within ``GRAD_REL_L2`` relative L2.  The round
 metrics (loss, ‖Δ‖ and ‖Δ_t‖ over the whole plane) are equal on every rank.
 Then two rounds on the engine's own draws (``run_rounds``, each rank's
 generator seeded alike, the engine checking the first round's draws across
-ranks) against the unsharded run, and each case that ROADMAP A.16 (e)
-names raises.
+ranks) against the unsharded run, and each case that ROADMAP A.16 (e) 4
+names raises.  The fault layer, the escape hatches and the tree path on a
+group: tests/test_torch_fed_lm_group_faults.py, test_torch_tree_path_group.py.
 """
 from dataclasses import replace
 from functools import lru_cache
@@ -42,7 +43,7 @@ from repro.configs.base import get_config as ref_get_config
 from repro.configs.base import reduced as ref_reduced
 from repro.core.engine import FederatedEngine as RefEngine
 from repro.models import build_model as ref_build_model
-from repro_torch.configs.base import CompressionConfig, FaultConfig
+from repro_torch.configs.base import CompressionConfig
 from repro_torch.core.engine import FederatedEngine
 from repro_torch.core.flat import FlatSpec
 from repro_torch.data import LMFederatedData, federated_lm_corpora
@@ -233,17 +234,14 @@ REFUSED = {
     "int8": {"compression": CompressionConfig(kind="int8")},
     "bf16": {"compression": CompressionConfig(kind="bf16")},
     "topk": {"compression": CompressionConfig(kind="topk")},
-    "faults": {"fault": FaultConfig(drop_rate=0.1, quarantine=True)},
     "host-store": {"population_store": "host"},
     "cohort-shard": {"cohort_shard": 2},
-    "direction_fn": {"algo": "_test_escape"},
-    "server_fn": {"algo": "_test_mixed"},
 }
 
 
 @pytest.mark.parametrize("what", REFUSED)
 def test_what_a_model_group_does_not_run_raises(what):
-    """Each A.16 (e) case raises.  Cohort sharding no longer does (the grid,
+    """Each A.16 (e) 4 case raises.  Cohort sharding no longer does (the grid,
     tests/test_torch_fed_lm_grid.py): the engine passes the model group's
     check and asks for the cohort's process group, which this process has
     not got."""
@@ -251,14 +249,14 @@ def test_what_a_model_group_does_not_run_raises(what):
     lifted = what == "cohort-shard"
     with registered():
         with pytest.raises(ValueError if lifted else NotImplementedError,
-                           match="spawn_cohort" if lifted else r"A\.16 \(e\)"):
+                           match="spawn_cohort" if lifted else r"A\.16 \(e\) 4"):
             _engine(fed)
 
 
 def test_the_async_ring_under_a_model_group_raises():
     eng = _engine(port_cfg(_ref_cfg("fedcm")))
     data = LMFederatedData(_setup("llama3.2-1b", "fedcm")[1]["tokens"], device="cpu")
-    with pytest.raises(NotImplementedError, match=r"A\.16 \(e\)"):
+    with pytest.raises(NotImplementedError, match=r"A\.16 \(e\) 4"):
         eng.run_rounds_async(None, data, 2, pipeline_depth=2, staleness=1)
 
 

@@ -487,12 +487,6 @@ def test_tree_path_refuses_what_the_reference_refuses(case):
     assert str(e.value) == want
 
 
-def test_tree_path_under_a_model_group_names_its_roadmap_item():
-    cfg = replace(small_cfg(), use_flat_plane=False)
-    with pytest.raises(NotImplementedError, match=r"A\.16 \(e\)"):
-        FederatedEngine(cfg, _loss(), None, device="cpu", model_group=object())
-
-
 def test_compression_declared_by_the_spec_is_refused_too():
     cfg = replace(small_cfg(), use_flat_plane=False,
                   compression=CompressionConfig(kind="bf16"))
